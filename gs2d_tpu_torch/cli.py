@@ -1,16 +1,21 @@
 """Command-line fitting app of the PyTorch port (the counterpart of
-``gs2d_tpu/cli.py`` for the default fitting path).
+``gs2d_tpu/cli.py`` for the resident and flat fitting paths).
 
 Usage:
   python -m gs2d_tpu_torch.fit assets/squirrel_cls_mini.npy --splats 1024 \
       --iters 200 --out runs/torch_fit
+  python -m gs2d_tpu_torch.fit assets/squirrel_cls.npy --splats 10240 \
+      --iters 200 --out runs/torch_fit_10k
 
-Fits through the resident layout's fused L2 kernel, then renders
-``render_final.png`` through the forward kernel with the fit's tuned
-config. ``--device`` defaults to ``cuda`` and exits 2 when no GPU is
-visible; ``--device cpu`` runs the kernels' plain PyTorch versions. Flags of
-``gs2d_tpu.cli`` for features this port does not have yet are not accepted
-(argparse exits 2), so nothing a user asks for is silently ignored.
+Fits through the layout gs2d_tpu would pick (``--binning auto``: resident
+for small populations, flat above 4096 splats), then renders ``render_final.png`` through
+that layout's forward kernel with the fit's tuned config. The tile height
+follows gs2d_tpu's policy unless ``--tile-h`` is given. ``--device``
+defaults to ``cuda`` and exits 2 when no GPU is visible; ``--device cpu``
+runs the kernels' plain PyTorch versions. Flags of ``gs2d_tpu.cli`` for
+features this port does not have yet are not accepted (argparse exits 2),
+and layouts it does not have exit 2, so nothing a user asks for is
+silently ignored.
 """
 
 from __future__ import annotations
@@ -44,9 +49,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-per-tile", type=int, default=0,
                    help="per-tile splat capacity (0 = tuned from the "
                         "initial population)")
-    p.add_argument("--tile-h", type=int, default=32,
-                   help="pixel-tile height (32: what gs2d_tpu's tile-height "
-                        "policy picks at the default workload)")
+    p.add_argument("--tile-h", type=int, default=0,
+                   help="pixel-tile height (0 = auto: gs2d_tpu's policy, 32, "
+                        "or 64 for deep, tall populations)")
+    p.add_argument("--binning",
+                   choices=["auto", "resident", "flat", "dense", "window"],
+                   default="auto",
+                   help="tile binning layout (auto picks by population size "
+                        "as gs2d_tpu does; dense and window are not ported "
+                        "yet and exit 2)")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda (default) requires a GPU, cpu "
                         "runs the kernels' plain PyTorch versions")
@@ -67,6 +78,7 @@ def main(argv=None) -> int:
     from gs2d_tpu_torch.config import SplatConfig
     from gs2d_tpu_torch.io.image import load_image, save_image
     from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.ops import render_flat as rf
     from gs2d_tpu_torch.ops import render_resident as rr
     from gs2d_tpu_torch.ops import tiles as tl
     from gs2d_tpu_torch.train.loop import fit, init_train_state
@@ -81,17 +93,24 @@ def main(argv=None) -> int:
         optimize_opacity=args.optimize_opacity,
         use_exp_approx=not args.exact_exp,
         max_splats_per_tile=args.max_per_tile or None,
-        tile_h=args.tile_h,
+        binning=args.binning,
     )
+    state = init_train_state(cfg, device)  # the init ignores the tiling
+    if args.tile_h:
+        cfg = cfg.replace(tile_h=args.tile_h)
+    else:
+        # The deterministic init lets the policy measure the pair depth.
+        cfg = tl.tune_tile_height(cfg, state.params)
     try:
-        rd.resolve_binning(cfg)
+        layout = rd.resolve_binning(cfg)  # "auto" depends on the tile grid
     except NotImplementedError as e:
         print(f"error: {e}")
         return 2
-    state = init_train_state(cfg, device)
-    if cfg.max_splats_per_tile is None:
-        # Tuned here rather than inside fit() so the final render below
-        # uses the same capacity as the fit.
+    # Binning statics are tuned here rather than inside fit() so the final
+    # render below uses the fit's config.
+    if layout == "flat":
+        cfg = rf.tune_flat_config(state.params, cfg)
+    elif cfg.max_splats_per_tile is None:
         cfg = tl.tune_tile_capacity(state.params, cfg)
 
     os.makedirs(args.out, exist_ok=True)
@@ -110,8 +129,11 @@ def main(argv=None) -> int:
           f"({rates['iters_per_s']:.1f} iters/s)")
     logger.log(event="done", seconds=total, **rates)
 
-    color, n_dropped = rr.render_resident(state.params, cfg,
-                                          rd._max_per_tile(cfg))
+    if layout == "flat":
+        color, n_dropped = rf.render_flat(state.params, cfg)
+    else:
+        color, n_dropped = rr.render_resident(state.params, cfg,
+                                              rd._max_per_tile(cfg))
     if int(n_dropped) > 0:
         print(f"WARNING: final render dropped {int(n_dropped)} splat-tile "
               "pairs to binning capacity")

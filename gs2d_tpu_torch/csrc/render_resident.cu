@@ -33,7 +33,6 @@ namespace gs2d {
 
 constexpr int kRows = 8;        // pixel rows per thread (one column each)
 constexpr int kChunk = 32;      // slots per shared-memory reduction round
-constexpr int kMoments = 9;
 constexpr int kMaxThreads = 512;
 
 struct PixelCoords {
@@ -217,22 +216,8 @@ __global__ void segment_sum_kernel(const int* __restrict__ ids,
 #pragma unroll
   for (int f = 0; f < kMoments; ++f) acc[f] = 0.0f;
   for (int t = 0; t < n_tiles; ++t) {
-    const int* row = ids + (size_t)t * k_cap;
-    const int n = count[t];
-    int lo = 0, hi = n;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (row[mid] < i) {
-        lo = mid + 1;
-      } else {
-        hi = mid;
-      }
-    }
-    if (lo < n && row[lo] == i) {
-      const float* src = partial + ((size_t)t * k_cap + lo) * kMoments;
-#pragma unroll
-      for (int f = 0; f < kMoments; ++f) acc[f] += src[f];
-    }
+    add_run_moments(ids + (size_t)t * k_cap, count[t],
+                    partial + (size_t)t * k_cap * kMoments, i, acc);
   }
 #pragma unroll
   for (int f = 0; f < kMoments; ++f) grads16[(size_t)f * n_pad + i] = acc[f];

@@ -1,10 +1,13 @@
-// Shared device code of the resident rasterizer kernels (render_resident.cu).
+// Shared device code of the rasterizer kernels (render_resident.cu,
+// render_flat.cu).
 //
 // CUDA counterparts of gs2d_tpu/ops/render_pallas.py's shared kernel math:
 //   splat_terms   <- _splat_terms    (coverage, G, alpha, early-out mask)
 //   fwd_one       <- _fwd_one        (one front-to-back composite step)
 //   bwd_one       <- _bwd_splat_step (cotangent-weighted replay, z-moments)
 //   Moments       <- _moment_reduce  (separable reduction of 9 tile sums)
+//   add_run_moments: one tile's share of the splat-axis segment sum (the
+//   JAX package scatters with XLA here; this is its deterministic form)
 // Their plain PyTorch twin is gs2d_tpu_torch/ops/render.py.
 //
 // Numerics: the float32 operation order follows the Pallas code line by
@@ -23,6 +26,7 @@ namespace gs2d {
 
 // Packed table row layout (gs2d_tpu_torch/ops/tiles.py FIELD_*).
 constexpr int kFields = 16;
+constexpr int kMoments = 9;  // moment rows G_PX..G_OP (ops/render.py)
 constexpr int kPx = 0, kPy = 1, kA = 2, kB = 3, kD = 4, kH = 5;
 constexpr int kCr = 6, kCg = 7, kCb = 8, kOp = 9;
 
@@ -182,6 +186,30 @@ __device__ __forceinline__ void bwd_one(const Splat& s, int xx, int yy,
   m.cg = m.cg + gc_g * w_c;
   m.cb = m.cb + gc_b * w_c;
   T = live ? T * (1.0f - alpha) : T;
+}
+
+// Adds to acc the moment row of splat i in one tile's run: run_ids holds
+// the run's n splat ids in ascending order (index order; padding never lies
+// inside a run) and run_mom their n x kMoments moment rows. A binary search
+// finds the one match, if any. Called for tiles in ascending order, it sums
+// each splat's rows in a fixed order without atomics.
+__device__ __forceinline__ void add_run_moments(const int* run_ids, int n,
+                                                const float* run_mom, int i,
+                                                float acc[kMoments]) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (run_ids[mid] < i) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  if (lo < n && run_ids[lo] == i) {
+    const float* src = run_mom + (size_t)lo * kMoments;
+#pragma unroll
+    for (int f = 0; f < kMoments; ++f) acc[f] += src[f];
+  }
 }
 
 }  // namespace gs2d

@@ -34,12 +34,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# C entry points and their argument types (csrc/render_resident.cu).
+# C entry points and their argument types (csrc/render_resident.cu,
+# csrc/render_flat.cu).
 SIGNATURES = {
     "gs2d_l2_resident": [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P],
     "gs2d_fwd_resident": [_P] * 5 + [_I] * 7 + [_F, _F, _I, _P],
     "gs2d_rows_per_thread": [],
     "gs2d_max_threads": [],
+    "gs2d_fwd_flat": [_P] * 5 + [_I] * 9 + [_F, _F, _I, _P],
+    "gs2d_bwd_flat": [_P] * 10 + [_I] * 10 + [_F, _F, _I, _P],
 }
 
 
@@ -101,6 +104,23 @@ def library() -> ctypes.CDLL:
     lib.gs2d_error_string.argtypes = [ctypes.c_int]
     lib.gs2d_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def on_card(t) -> bool:
+    """Whether a kernel wrapper launches its kernel for tensor ``t`` (CUDA)
+    or runs its plain PyTorch version (CPU); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")
+
+
+def stream(t) -> int:
+    """The handle of PyTorch's current CUDA stream on ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check(err: int, what: str) -> None:

@@ -25,6 +25,7 @@ from gs2d_tpu_torch.ops.numerics import exp_ref, trunc_to_int
 from gs2d_tpu_torch.params import GaussianParams
 
 G_PX, G_PY, G_SX, G_SY, G_ROT, G_CR, G_CG, G_CB, G_OP = range(9)
+N_MOMENTS = 9       # moment rows G_PX..G_OP
 N_GRAD_FIELDS = 16  # 9 used; padded to 16 rows like the JAX kernels
 
 # The JAX package's "auto" layout policy (render_pallas_flat.py:57-99),
@@ -38,8 +39,8 @@ _JAX_RESIDENT_BUDGET = 800 * 1024
 
 def resolve_binning(cfg: SplatConfig) -> str:
     """The layout gs2d_tpu.ops.render_pallas_flat.resolve_binning picks for
-    ``cfg``, where that is "resident"; the other layouts are later slices
-    and raise ``NotImplementedError``."""
+    ``cfg``, where that is "resident" or "flat"; the dense and window
+    layouts are later slices and raise ``NotImplementedError``."""
     if cfg.binning not in ("auto", "dense", "flat", "resident", "window"):
         raise ValueError(f"unknown binning {cfg.binning!r}")
     layout = cfg.binning
@@ -54,11 +55,10 @@ def resolve_binning(cfg: SplatConfig) -> str:
             layout = "flat"
         else:
             layout = "dense"
-    if layout != "resident":
+    if layout not in ("resident", "flat"):
         raise NotImplementedError(
-            f"binning layout {layout!r} is not ported yet (ROADMAP.md: "
-            "queue 1 item 8 for flat, queue 2 for the dense and window "
-            "kernels)")
+            f"binning layout {layout!r} is not ported yet (ROADMAP.md "
+            "queue 2: the dense and window kernels)")
     return layout
 
 
@@ -98,6 +98,55 @@ def moments_to_grads(m: GaussianParams,
             pos_ok, m0 / torch.where(pos_ok, op, torch.ones_like(op)),
             torch.zeros_like(op)),
     )
+
+
+def unpack_moments(rows: torch.Tensor, n_splats: int) -> GaussianParams:
+    """Moment rows G_PX..G_OP ((16, n_pad) or (9, n)) -> GaussianParams-
+    shaped carrier of raw z-moments (see moments_to_grads)."""
+    g = rows[:, :n_splats]
+    return GaussianParams(
+        pos=torch.stack([g[G_PX], g[G_PY]], dim=-1),
+        sx=g[G_SX], sy=g[G_SY], rot=g[G_ROT],
+        color=torch.stack([g[G_CR], g[G_CG], g[G_CB]], dim=-1),
+        opacity=g[G_OP],
+    )
+
+
+def identity_trans(cfg: SplatConfig, hp: int, wp: int,
+                   device=None) -> torch.Tensor:
+    """Identity transmittance plane (hp, wp): 1 inside the image, 0 on
+    padding. Out-of-image pixels never composite, so zero is exact there,
+    and it lets the saturation exits below ignore padding."""
+    yy = torch.arange(hp, device=device)[:, None]
+    xx = torch.arange(wp, device=device)[None, :]
+    return ((yy < cfg.height) & (xx < cfg.width)).to(torch.float32)
+
+
+# Splat-steps between saturation checks, and the population size from which
+# the flat kernels check inside a chunk as well as at chunk starts
+# (gs2d_tpu/ops/render_pallas.py:145-160; the threshold was measured on a
+# TPU and is kept so both packages walk alike).
+SAT_CHECK_EVERY = 32
+SAT_WALK_THRESHOLD = 8192
+
+
+def _sat_walk(cfg: SplatConfig) -> bool:
+    return cfg.n_splats >= SAT_WALK_THRESHOLD
+
+
+def saturating_loop(n_steps: int, step, carry, get_t, mt: float,
+                    check_every: int):
+    """``carry = step(k, carry)`` for k < n_steps, stopping at a check point
+    (every ``check_every`` steps) where no element of ``get_t(carry)`` is
+    >= ``mt``: every pixel then fails the per-pixel early-out, so every
+    later step contributes exactly zero and stopping is bitwise-exact (the
+    semantics of gs2d_tpu's ``_saturating_loop``). Each check reads one
+    flag back from the device."""
+    for k in range(n_steps):
+        if k % check_every == 0 and not bool((get_t(carry) >= mt).any()):
+            break
+        carry = step(k, carry)
+    return carry
 
 
 def pad_ref_chw(ref, cfg: SplatConfig, device=None) -> torch.Tensor:

@@ -1,0 +1,318 @@
+"""Flat-layout rasterizer (the counterpart of
+``gs2d_tpu/ops/render_pallas_flat.py``): the layout gs2d_tpu picks above
+4096 splats.
+
+Each tile's pregathered (tile, splat) pair rows form a run of whole kc-row
+blocks in one flat (M, N_FIELDS) array (``ops/tiles_flat.py``); the kernels
+walk a tile's run chunk by chunk, and the backward writes one 9-moment row
+per flat row, which a tile-order segment sum adds onto the splat axis.
+
+Two kernels, each behind a wrapper that dispatches on the tensors' device:
+
+- ``forward_flat`` (kernel 10, the forward composite) and
+- ``backward_flat`` (kernel 11, the backward replay from a carry-in prefix
+  for any upstream cotangent, plus the segment sum)
+
+launch the CUDA kernels of ``csrc/render_flat.cu`` for CUDA tensors
+(raising if the launch fails) and run the plain PyTorch twins beside them
+(``_fwd_flat_plain`` / ``_bwd_flat_plain``) for CPU tensors. Each wrapper
+adds one to ``launches[<name>]`` where it launches its kernel, and nowhere
+else. ``l2_step_flat`` is the fused train step's flat branch and
+``render_flat`` the final render.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from gs2d_tpu_torch.config import SplatConfig
+from gs2d_tpu_torch.ops import render as rd
+from gs2d_tpu_torch.ops import tiles as tl
+from gs2d_tpu_torch.ops import tiles_flat as tlf
+from gs2d_tpu_torch.ops._build import check, library, on_card, stream
+from gs2d_tpu_torch.params import GaussianParams
+
+# Kernel launch counts since the last reset_launch_counts().
+launches = {"fwd_flat": 0, "bwd_flat": 0}
+
+# Tile shapes the CUDA kernels take: what tiles.tune_tile_height returns.
+CUDA_TILE_W = 128
+CUDA_TILE_HS = (32, 64)
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def use_flat(cfg: SplatConfig) -> bool:
+    """True iff ``cfg`` resolves to the flat layout."""
+    return rd.resolve_binning(cfg) == "flat"
+
+
+def tune_flat_config(p: GaussianParams, cfg: SplatConfig,
+                     margin: float = 1.5, n_bands: int = 1) -> SplatConfig:
+    """Fill cfg.flat_capacity / flat_max_chunks from the measured tile
+    counts of ``p`` (gs2d_tpu.ops.render_pallas_flat.tune_flat_config)."""
+    if cfg.rebin_margin > 0:
+        raise NotImplementedError(
+            "lazy rebinning (rebin_margin) is not ported yet (ROADMAP.md)")
+    m, mc = tlf.tune_flat_capacity(p, cfg, kc=cfg.flat_chunk, margin=margin,
+                                   n_bands=n_bands)
+    return cfg.replace(flat_capacity=m, flat_max_chunks=mc)
+
+
+def _statics(cfg: SplatConfig):
+    if cfg.flat_capacity is None or cfg.flat_max_chunks is None:
+        raise ValueError("flat binning statics unset; call "
+                         "tune_flat_config(params, cfg)")
+    return cfg.flat_capacity, cfg.flat_chunk, cfg.flat_max_chunks
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (CPU path; the card-side reference in chip_smoke).
+# ---------------------------------------------------------------------------
+
+def _flat_walk(rows, start, count, cfg: SplatConfig, kc: int,
+               max_chunks: int, step, carry, get_t):
+    """Walk every tile's run in lockstep: step k hands ``step`` the flat
+    row index (n_tiles,) of each tile's k-th pair (the trash index M past a
+    tile's count) and those rows, gathered. Saturation checks at every
+    chunk start, and every SAT_CHECK_EVERY steps at N >= SAT_WALK_THRESHOLD,
+    stop the walk once every tile is saturated (render.saturating_loop)."""
+    m = rows.shape[0]
+    count = count.clamp(max=max_chunks * kc)
+    rows_ext = torch.cat([rows, tlf.pad_row(rows.device)[None]])
+    check_every = min(kc, rd.SAT_CHECK_EVERY) if rd._sat_walk(cfg) else kc
+
+    def one(k, c):
+        idx = torch.where(k < count, start + k, m).long()
+        return step(idx, rows_ext[idx], c)
+
+    n_steps = int(count.max()) if count.numel() else 0
+    return rd.saturating_loop(n_steps, one, carry, get_t,
+                              cfg.min_throughput, check_every)
+
+
+def _fwd_flat_plain(rows, start, count, cfg: SplatConfig, kc: int,
+                    max_chunks: int):
+    """Plain twin of kernel 10: (color (3, Hp, Wp), T (Hp, Wp))."""
+    yy, xx, fy, fx, inside = rd.tile_coords(cfg, rows.device)
+    zero = torch.zeros_like(fx)
+
+    def step(idx, r, carry):
+        return rd._fwd_one(r, fx, fy, xx, yy, inside, cfg, carry)
+
+    cr, cg, cb, T = _flat_walk(rows, start, count, cfg, kc, max_chunks, step,
+                               (zero, zero, zero, inside.to(torch.float32)),
+                               lambda c: c[3])
+    return (rd.from_tiles(torch.stack([cr, cg, cb]), cfg),
+            rd.from_tiles(T[None], cfg)[0])
+
+
+def _segment_flat_plain(ids, start, count, moments, n_splats: int):
+    """(9, n) splat-axis sums of the (M, 9) per-pair moment rows, each
+    splat's rows added in ascending flat-row (= tile) order, as the CUDA
+    segment sum adds them. Ids within a run are unique, so each tile's add
+    is a plain indexed update; -1 ids would land on the dropped row n."""
+    acc = torch.zeros((n_splats + 1, rd.N_MOMENTS),
+                      dtype=torch.float32, device=moments.device)
+    for s, c in zip(start.tolist(), count.tolist()):
+        if c:
+            run = ids[s: s + c].long()
+            run = torch.where(run >= 0, run, n_splats)
+            acc[run] = acc[run] + moments[s: s + c]
+    return acc[:n_splats].T.contiguous()
+
+
+def _bwd_flat_plain(rows, ids, start, count, fin, gc, cin, tin,
+                    n_splats: int, cfg: SplatConfig, kc: int,
+                    max_chunks: int):
+    """Plain twin of kernel 11 and the segment sum: (per-pair moments
+    (M, 9), splat moments (9, n)). ``fin``, ``gc`` and ``cin`` are
+    (3, Hp, Wp), ``tin`` (Hp, Wp)."""
+    yy, xx, fy, fx, inside = rd.tile_coords(cfg, rows.device)
+    fin_t, gc_t, cin_t = (rd.to_tiles(x, cfg) for x in (fin, gc, cin))
+    gc_rgb = (gc_t[0], gc_t[1], gc_t[2])
+    gf = gc_t[0] * fin_t[0] + gc_t[1] * fin_t[1] + gc_t[2] * fin_t[2]
+    ga = gc_t[0] * cin_t[0] + gc_t[1] * cin_t[1] + gc_t[2] * cin_t[2]
+    m = rows.shape[0]
+    moments = torch.zeros((m + 1, rd.N_MOMENTS), dtype=torch.float32,
+                          device=rows.device)
+
+    def step(idx, r, carry):
+        carry, col = rd._bwd_splat_step(r, fx, fy, xx, yy, inside, cfg, carry,
+                                        gf, gc_rgb)
+        moments[idx] = col  # unique rows, but the trash row M
+        return carry
+
+    _flat_walk(rows, start, count, cfg, kc, max_chunks, step,
+               (ga, rd.to_tiles(tin[None], cfg)[0]), lambda c: c[1])
+    moments = moments[:m]
+    return moments, _segment_flat_plain(ids, start, count, moments, n_splats)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches.
+# ---------------------------------------------------------------------------
+
+def _check_inputs(cfg: SplatConfig, rows, start, count, kc: int, *planes):
+    if cfg.tile_w != CUDA_TILE_W or cfg.tile_h not in CUDA_TILE_HS:
+        raise ValueError(
+            f"tile {cfg.tile_h}x{cfg.tile_w} unsupported by the flat CUDA "
+            f"kernels (tile_w {CUDA_TILE_W}, tile_h in {CUDA_TILE_HS})")
+    n_tiles = cfg.n_tiles_x * cfg.n_tiles_y
+    if rows.ndim != 2 or rows.shape[1] != tl.N_FIELDS \
+            or rows.shape[0] % kc:
+        raise ValueError(f"rows: need (M, {tl.N_FIELDS}) with M a multiple "
+                         f"of kc {kc}, got {tuple(rows.shape)}")
+    want = [("rows", rows, torch.float32, None),
+            ("start", start, torch.int32, (n_tiles,)),
+            ("count", count, torch.int32, (n_tiles,))]
+    want += [(name, t, torch.float32, shape) for name, t, shape in planes]
+    for name, t, dtype, shape in want:
+        if t.dtype != dtype or not t.is_contiguous() \
+                or t.device != rows.device:
+            raise ValueError(f"{name}: need contiguous {dtype} on "
+                             f"{rows.device}, got {t.dtype} on {t.device}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
+    return library()
+
+
+def _fwd_flat_cuda(rows, start, count, cfg: SplatConfig, kc: int,
+                   max_chunks: int):
+    lib = _check_inputs(cfg, rows, start, count, kc)
+    hp, wp = cfg.padded_height, cfg.padded_width
+    color = torch.empty((3, hp, wp), dtype=torch.float32, device=rows.device)
+    trans = torch.empty((hp, wp), dtype=torch.float32, device=rows.device)
+    err = lib.gs2d_fwd_flat(
+        rows.data_ptr(), start.data_ptr(), count.data_ptr(),
+        color.data_ptr(), trans.data_ptr(), cfg.height, cfg.width,
+        cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, cfg.n_tiles_y, kc,
+        max_chunks, int(rd._sat_walk(cfg)), cfg.cutoff_sq,
+        cfg.min_throughput, int(cfg.use_exp_approx), stream(rows))
+    check(err, "fwd_flat kernel launch")
+    launches["fwd_flat"] += 1
+    return color, trans
+
+
+def _bwd_flat_cuda(rows, ids, start, count, fin, gc, cin, tin,
+                   n_splats: int, cfg: SplatConfig, kc: int,
+                   max_chunks: int):
+    hp, wp = cfg.padded_height, cfg.padded_width
+    lib = _check_inputs(cfg, rows, start, count, kc,
+                        ("fin", fin, (3, hp, wp)),
+                        ("gc", gc, (3, hp, wp)), ("cin", cin, (3, hp, wp)),
+                        ("tin", tin, (hp, wp)))
+    if ids.dtype != torch.int32 or tuple(ids.shape) != (rows.shape[0],) \
+            or not ids.is_contiguous() or ids.device != rows.device:
+        raise ValueError("ids: need contiguous int32 (M,) beside rows")
+    dev = rows.device
+    moments = torch.zeros((rows.shape[0], rd.N_MOMENTS), dtype=torch.float32,
+                          device=dev)
+    grads9 = torch.empty((rd.N_MOMENTS, n_splats), dtype=torch.float32,
+                         device=dev)
+    err = lib.gs2d_bwd_flat(
+        rows.data_ptr(), ids.data_ptr(), start.data_ptr(), count.data_ptr(),
+        fin.data_ptr(), gc.data_ptr(), cin.data_ptr(), tin.data_ptr(),
+        moments.data_ptr(), grads9.data_ptr(), n_splats, cfg.height,
+        cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, cfg.n_tiles_y, kc,
+        max_chunks, int(rd._sat_walk(cfg)), cfg.cutoff_sq,
+        cfg.min_throughput, int(cfg.use_exp_approx), stream(rows))
+    check(err, "bwd_flat kernel launch")
+    launches["bwd_flat"] += 1
+    return moments, grads9
+
+
+# ---------------------------------------------------------------------------
+# Wrappers (same contracts as the JAX package's).
+# ---------------------------------------------------------------------------
+
+def _forward_chw(binning: tlf.FlatBinning, cfg: SplatConfig, kc: int,
+                 max_chunks: int):
+    fn = _fwd_flat_cuda if on_card(binning.rows) else _fwd_flat_plain
+    return fn(binning.rows, binning.start, binning.count, cfg, kc, max_chunks)
+
+
+def _backward_chw(binning: tlf.FlatBinning, fin, gc, cin, tin,
+                  n_splats: int, cfg: SplatConfig, kc: int, max_chunks: int,
+                  params: GaussianParams) -> GaussianParams:
+    fn = _bwd_flat_cuda if on_card(binning.rows) else _bwd_flat_plain
+    _, grads9 = fn(binning.rows, binning.ids, binning.start, binning.count,
+                   fin, gc, cin, tin, n_splats, cfg, kc, max_chunks)
+    return rd.moments_to_grads(rd.unpack_moments(grads9, n_splats),
+                               tl.packed_fields(params, cfg.splat_bounds))
+
+
+def _identity_carry(cfg: SplatConfig, device):
+    hp, wp = cfg.padded_height, cfg.padded_width
+    return (torch.zeros((3, hp, wp), dtype=torch.float32, device=device),
+            rd.identity_trans(cfg, hp, wp, device))
+
+
+def forward_flat(binning: tlf.FlatBinning, cfg: SplatConfig, kc: int,
+                 max_chunks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 10: the raw padded (color (Hp, Wp, 3), T (Hp, Wp)) of a flat
+    binning built with chunk ``kc`` and chunk cap ``max_chunks``."""
+    color, trans = _forward_chw(binning, cfg, kc, max_chunks)
+    return color.permute(1, 2, 0), trans
+
+
+def backward_flat(binning: tlf.FlatBinning, final_color: torch.Tensor,
+                  g_color: torch.Tensor, n_splats: int, cfg: SplatConfig,
+                  kc: int, max_chunks: int, params: GaussianParams,
+                  carry_in=None) -> GaussianParams:
+    """Kernel 11: analytic gradients from a flat binning and an upstream
+    cotangent. ``final_color`` and ``g_color`` are padded (Hp, Wp, 3);
+    ``carry_in`` is the (C (Hp, Wp, 3), T (Hp, Wp)) prefix entering this
+    population (identity when None)."""
+    chw = lambda img: img.permute(2, 0, 1).contiguous()
+    if carry_in is None:
+        cin, tin = _identity_carry(cfg, final_color.device)
+    else:
+        cin, tin = chw(carry_in[0]), carry_in[1].contiguous()
+    return _backward_chw(binning, chw(final_color), chw(g_color), cin, tin,
+                         n_splats, cfg, kc, max_chunks, params)
+
+
+def l2_render_and_grads_flat(binning: tlf.FlatBinning, ref_chw: torch.Tensor,
+                             n_splats: int, cfg: SplatConfig, kc: int,
+                             max_chunks: int, params: GaussianParams):
+    """Flat-layout L2 train path: forward, cotangent gC = C - ref (zero on
+    padding), backward, segment sum. ``ref_chw`` is the padded
+    (1, 3, Hp, Wp) target; returns (color (H, W, 3), parameter grads)."""
+    color, _ = _forward_chw(binning, cfg, kc, max_chunks)
+    gc = color - ref_chw[0]
+    cin, tin = _identity_carry(cfg, color.device)
+    grads = _backward_chw(binning, color, gc, cin, tin, n_splats, cfg, kc,
+                          max_chunks, params)
+    return color.permute(1, 2, 0)[: cfg.height, : cfg.width], grads
+
+
+def l2_step_flat(params: GaussianParams, ref_chw: torch.Tensor,
+                 cfg: SplatConfig):
+    """One flat-layout L2 evaluation with cfg's statics: binning, kernel
+    10, the cotangent, kernel 11. Returns (color (H, W, 3), grads,
+    n_dropped)."""
+    m_cap, kc, max_chunks = _statics(cfg)
+    binning = tlf.bin_splats_flat(params, cfg, m_cap, kc=kc,
+                                  max_chunks=max_chunks)
+    color, grads = l2_render_and_grads_flat(binning, ref_chw, params.n, cfg,
+                                            kc, max_chunks, params)
+    return color, grads, binning.n_dropped
+
+
+def render_flat(params: GaussianParams, cfg: SplatConfig):
+    """Forward render of a population through kernel 10 (the flat branch of
+    gs2d_tpu's production_render): (color (H, W, 3), n_dropped)."""
+    if params.n != cfg.n_splats:
+        raise ValueError(f"params hold {params.n} splats, cfg says "
+                         f"{cfg.n_splats}")
+    m_cap, kc, max_chunks = _statics(cfg)
+    binning = tlf.bin_splats_flat(params, cfg, m_cap, kc=kc,
+                                  max_chunks=max_chunks)
+    color, _ = forward_flat(binning, cfg, kc, max_chunks)
+    return color[: cfg.height, : cfg.width], binning.n_dropped

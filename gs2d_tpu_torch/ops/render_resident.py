@@ -27,6 +27,7 @@ import torch
 from gs2d_tpu_torch.config import SplatConfig
 from gs2d_tpu_torch.ops import render as rd
 from gs2d_tpu_torch.ops import tiles as tl
+from gs2d_tpu_torch.ops._build import check, library, on_card, stream
 from gs2d_tpu_torch.params import GaussianParams
 
 # Kernel launch counts since the last reset_launch_counts().
@@ -49,18 +50,6 @@ def resident_table(params: GaussianParams, cfg: SplatConfig) -> torch.Tensor:
     return torch.cat([rows, pad], dim=0).reshape(-1)
 
 
-def _unpack_grads(grads16: torch.Tensor, n_splats: int) -> GaussianParams:
-    """(16, n_pad) moment rows -> GaussianParams-shaped carrier of raw
-    z-moments (see render.moments_to_grads)."""
-    g = grads16[:, :n_splats]
-    return GaussianParams(
-        pos=torch.stack([g[rd.G_PX], g[rd.G_PY]], dim=-1),
-        sx=g[rd.G_SX], sy=g[rd.G_SY], rot=g[rd.G_ROT],
-        color=torch.stack([g[rd.G_CR], g[rd.G_CG], g[rd.G_CB]], dim=-1),
-        opacity=g[rd.G_OP],
-    )
-
-
 def _table_fields(table: torch.Tensor, n_splats: int) -> torch.Tensor:
     """(N_FIELDS, n) combination coefficients for moments_to_grads,
     recovered from the packed table (bitwise the kernel's values)."""
@@ -75,14 +64,6 @@ def _remap_ids(binning: tl.TileBinning, n_splats: int) -> torch.Tensor:
 
 def _n_pad(n_splats: int) -> int:
     return -(-n_splats // 128) * 128
-
-
-def _on_card(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"no resident kernel for device {t.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -151,8 +132,6 @@ def _l2_resident_plain(table, ids_s, count, ref_chw, n_splats: int,
 # ---------------------------------------------------------------------------
 
 def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int):
-    from gs2d_tpu_torch.ops._build import library
-
     lib = library()
     rows, max_threads = lib.gs2d_rows_per_thread(), lib.gs2d_max_threads()
     threads = cfg.tile_w * cfg.tile_h // rows
@@ -176,14 +155,8 @@ def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int):
     return lib
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _l2_resident_cuda(table, ids_s, count, ref_chw, n_splats: int,
                       cfg: SplatConfig):
-    from gs2d_tpu_torch.ops._build import check
-
     k = ids_s.shape[1]
     lib = _check_inputs(cfg, table, ids_s, count, k)
     hp, wp = cfg.padded_height, cfg.padded_width
@@ -206,15 +179,13 @@ def _l2_resident_cuda(table, ids_s, count, ref_chw, n_splats: int,
         grads16.data_ptr(), n_splats, n_pad, cfg.height, cfg.width,
         cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, cfg.n_tiles_y, k,
         cfg.cutoff_sq, cfg.min_throughput, int(cfg.use_exp_approx),
-        _stream(table))
+        stream(table))
     check(err, "l2_resident kernel launch")
     launches["l2_resident"] += 1
     return color, grads16
 
 
 def _fwd_resident_cuda(table, ids_s, count, cfg: SplatConfig):
-    from gs2d_tpu_torch.ops._build import check
-
     k = ids_s.shape[1]
     lib = _check_inputs(cfg, table, ids_s, count, k)
     dev = table.device
@@ -226,7 +197,7 @@ def _fwd_resident_cuda(table, ids_s, count, cfg: SplatConfig):
         color.data_ptr(), trans.data_ptr(), cfg.height, cfg.width,
         cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, cfg.n_tiles_y, k,
         cfg.cutoff_sq, cfg.min_throughput, int(cfg.use_exp_approx),
-        _stream(table))
+        stream(table))
     check(err, "fwd_resident kernel launch")
     launches["fwd_resident"] += 1
     return color, trans
@@ -248,13 +219,13 @@ def l2_render_and_grads_resident(
     (1, 3, Hp, Wp) target (render.pad_ref_chw); ``table`` is
     resident_table(params, cfg)."""
     ids_s = _remap_ids(binning, n_splats)
-    if _on_card(table):
+    if on_card(table):
         color, grads16 = _l2_resident_cuda(table, ids_s, binning.count,
                                            ref_chw, n_splats, cfg)
     else:
         color, grads16 = _l2_resident_plain(table, ids_s, binning.count,
                                             ref_chw, n_splats, cfg)
-    grads = rd.moments_to_grads(_unpack_grads(grads16, n_splats),
+    grads = rd.moments_to_grads(rd.unpack_moments(grads16, n_splats),
                                 _table_fields(table, n_splats))
     color = color[0].permute(1, 2, 0)[: cfg.height, : cfg.width]
     return color, grads
@@ -270,7 +241,7 @@ def forward_resident(
     """Resident forward pass (kernel 2): (color (H, W, 3), T (H, W)),
     or the padded (Hp, Wp) planes with ``crop=False``."""
     ids_s = _remap_ids(binning, n_splats)
-    if _on_card(table):
+    if on_card(table):
         color, trans = _fwd_resident_cuda(table, ids_s, binning.count, cfg)
     else:
         color, trans = _fwd_resident_plain(table, ids_s, binning.count, cfg)

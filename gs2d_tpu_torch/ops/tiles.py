@@ -91,6 +91,12 @@ def packed_fields(p: GaussianParams, bounds: float = 3.0) -> torch.Tensor:
     return f
 
 
+def splat_tile_bbox(p: GaussianParams, cfg: SplatConfig):
+    """Per-splat tile-index bbox (tx0, tx1, ty0, ty1, offscreen), clamped to
+    the grid (gs2d_tpu.ops.tiles.splat_tile_bbox)."""
+    return _bbox_and_quad(p, cfg)[0]
+
+
 def _bbox_and_quad(p: GaussianParams, cfg: SplatConfig, margin: float = 0.0):
     """Per-splat clamped tile bbox (tx0, tx1, ty0, ty1, offscreen) plus the
     inverse-covariance quadratic (px, py, a, b, d) it was derived from.
@@ -248,6 +254,41 @@ def bin_splats(
         count=tile_count,
         n_dropped=(dropped_bbox + dropped_tile).to(torch.int32),
     )
+
+
+# gs2d_tpu's tile-height policy (gs2d_tpu/ops/tiles.py:462-531), copied so
+# both packages pick the same tiles; its breakpoints were measured on a TPU
+# and say nothing about the card. A Hopper tile shape is a later, measured
+# change (ROADMAP.md queue 1b).
+PRODUCTION_TILE_H = 32
+DEEP_TILE_H = 64
+DEEP_TILE_THRESHOLD = 2500.0  # mean (splat, tile) pairs per 32-row tile
+TALL_TILE_MIN_SPAN = 1.5      # mean bbox span in 32-row tiles
+
+
+def tune_tile_height(cfg: SplatConfig,
+                     p: GaussianParams | None = None) -> SplatConfig:
+    """32-row tiles, or 64 when the population ``p`` is deep (mean pairs per
+    32-row tile above DEEP_TILE_THRESHOLD) and tall (mean vertical span
+    above TALL_TILE_MIN_SPAN tiles); the float32 arithmetic of
+    gs2d_tpu.ops.tiles.tune_tile_height. Callers honouring an explicit
+    tile height skip it."""
+    cfg32 = cfg.replace(tile_h=PRODUCTION_TILE_H)
+    if p is None:
+        return cfg32
+    tx0, tx1, ty0, ty1, off = splat_tile_bbox(p, cfg32)
+    h_t = ty1 - ty0 + 1
+    live = ~off
+    zero = torch.zeros_like(h_t)
+    pairs = torch.where(live, (tx1 - tx0 + 1) * h_t, zero).sum()
+    n_live = live.to(torch.int32).sum().clamp(min=1)
+    depth = float(pairs.to(torch.float32)
+                  / _f32(cfg32.n_tiles_x * cfg32.n_tiles_y))
+    span = float(torch.where(live, h_t, zero).sum().to(torch.float32)
+                 / n_live.to(torch.float32))
+    if span > TALL_TILE_MIN_SPAN and depth > DEEP_TILE_THRESHOLD:
+        return cfg.replace(tile_h=DEEP_TILE_H)
+    return cfg32
 
 
 def tune_max_tiles_per_splat(p: GaussianParams, cfg: SplatConfig,

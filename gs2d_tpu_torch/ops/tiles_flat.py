@@ -1,0 +1,191 @@
+"""Flat segmented tile binning for large splat populations (the counterpart
+of ``gs2d_tpu/ops/tiles_flat.py``).
+
+Instead of padding every tile's list to a static capacity K, the (tile,
+splat) pairs live in one flat array sorted by (tile id, splat index):
+
+    ids   (M,)    flat splat ids; tile t owns rows [start[t], start[t]+count[t])
+    rows  (M, F)  pregathered per-splat scalars (tiles.packed_fields)
+    start (n_tiles,) block-aligned run starts (multiples of the chunk kc)
+
+Each run start is aligned up to kc, so a tile's chunks are whole kc-row
+blocks and no block is shared by two tiles; the flat kernels
+(``ops/render_flat.py``) stage one block at a time and write one moment row
+per flat row. Runs are in ascending splat index (the compositing order).
+
+Construction is an exact-count expansion (each splat owns exactly w*h rows:
+one cumsum of run starts, one row gather of the per-splat values) followed
+by one stable sort on the tile id alone, so stability gives the
+(tile, splat) order. Every overflow (expansion, chunk cap, capacity cap) is
+counted in ``n_dropped``. Banded binning and footprint margins (lazy
+rebinning) are later slices and raise.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from gs2d_tpu_torch.config import SplatConfig
+from gs2d_tpu_torch.ops import tiles as tl
+from gs2d_tpu_torch.params import GaussianParams
+
+
+class FlatBinning(NamedTuple):
+    """Flat (tile, splat) pair layout; see the module docstring."""
+
+    ids: torch.Tensor        # (M,) int32, -1 on padding rows
+    rows: torch.Tensor       # (M, N_FIELDS) f32 pregathered, benign padding
+    start: torch.Tensor      # (n_tiles,) int32, multiples of kc
+    count: torch.Tensor      # (n_tiles,) int32 live entries per tile
+    n_dropped: torch.Tensor  # 0-d int32: pairs lost to capacity caps
+
+
+def _not_in_slice(what: str):
+    raise NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md queue 1: banded binning for "
+        "tile sharding, lazy rebinning)")
+
+
+def pad_row(device) -> torch.Tensor:
+    """The benign (N_FIELDS,) padding row: opacity 0, unit scales and
+    inverse covariance (no 0/0 in any formula), h = -1 (covers no row)."""
+    pad = torch.zeros((tl.N_FIELDS,), dtype=torch.float32, device=device)
+    pad[[tl.FIELD_A, tl.FIELD_D, tl.FIELD_SX, tl.FIELD_SY,
+         tl.FIELD_COS]] = 1.0
+    pad[tl.FIELD_H] = -1.0
+    return pad
+
+
+def flat_capacity(counts, kc: int) -> int:
+    """Rows needed for the block-aligned flat layout of measured counts."""
+    c = np.asarray(counts)
+    return int((-(-c // kc) * kc).sum())
+
+
+def tune_flat_capacity(p: GaussianParams, cfg: SplatConfig, kc: int = 256,
+                       margin: float = 1.5, n_bands: int = 1,
+                       bin_margin: float = 0.0) -> tuple[int, int]:
+    """Measure tile counts and pick (M rows, max chunks per tile) with
+    ``margin`` headroom, as gs2d_tpu.ops.tiles_flat.tune_flat_capacity.
+    Counts drift during fitting; overflow surfaces in n_dropped."""
+    if n_bands != 1:
+        _not_in_slice("banded binning (n_bands > 1)")
+    counts = tl.bin_splats(p, cfg, 1, counts_only=True,
+                           margin=bin_margin).cpu().numpy()
+    m = max(kc, int(flat_capacity(counts, kc) * margin))
+    m = -(-m // kc) * kc
+    max_chunks = max(1, -(-int(int(counts.max()) * margin) // kc))
+    return m, max_chunks
+
+
+def pregather_rows(ids: torch.Tensor, p: GaussianParams,
+                   cfg: SplatConfig) -> torch.Tensor:
+    """Packed per-splat scalars gathered onto the flat rows; padding rows
+    (id -1) get the benign pad_row values."""
+    fields_rows = tl.packed_fields(p, cfg.splat_bounds).T
+    valid = ids >= 0
+    rows = fields_rows[torch.where(valid, ids, 0).long()]
+    return torch.where(valid[:, None], rows, pad_row(rows.device)[None, :])
+
+
+def bin_splats_flat(
+    p: GaussianParams,
+    cfg: SplatConfig,
+    m_cap: int,
+    kc: int = 256,
+    max_chunks: int | None = None,
+    band_row0=0,
+    band_rows: int | None = None,
+    ids_only: bool = False,
+    margin: float = 0.0,
+) -> FlatBinning:
+    """Build the flat block-aligned (tile, splat) pair layout.
+
+    ``m_cap`` (a multiple of kc) caps the flat rows and the expansion;
+    ``max_chunks`` caps one tile's run at max_chunks*kc entries. Overflow
+    of either is counted in n_dropped; the expansion is exact, with no
+    per-splat tile cap. ``ids_only`` returns a (1, N_FIELDS) placeholder
+    for ``rows``."""
+    if band_rows is not None or band_row0 != 0:
+        _not_in_slice("banded binning")
+    if m_cap % kc:
+        raise ValueError(f"m_cap {m_cap} must be a multiple of kc {kc}")
+    if max_chunks is None:
+        max_chunks = m_cap // kc
+    dev = p.device
+    i32 = torch.int32
+    n_tiles = cfg.n_tiles_y * cfg.n_tiles_x
+
+    # --- exact-count pair expansion -----------------------------------------
+    (tx0, tx1, ty0, ty1, offscreen), (qpx, qpy, qa, qb, qd) = \
+        tl._bbox_and_quad(p, cfg, margin)
+    w_t = (tx1 - tx0 + 1).to(i32)
+    cnt = torch.where(offscreen, 0, w_t * (ty1 - ty0 + 1)).to(i32)
+    starts = (torch.cumsum(cnt, 0, dtype=i32) - cnt)  # exclusive, (n,)
+    total = starts[-1] + cnt[-1]
+    dropped_exp = (total - m_cap).clamp(min=0)
+
+    e = torch.arange(m_cap, dtype=i32, device=dev)
+    live_e = e < total
+    # Owner of expansion row e: the number of later run starts at or before
+    # e (the cumsum of the run-start indicator; coincident starts of empty
+    # splats telescope, so empty runs are skipped).
+    owner = torch.searchsorted(starts[1:].contiguous(), e, right=True)
+    bits = lambda v: v.to(torch.float32).view(i32)
+    chans = [starts, w_t, ty0.to(i32), tx0.to(i32)]
+    if cfg.exact_cull:
+        chans += [bits(qpx), bits(qpy), bits(qa), bits(qb), bits(qd)]
+    ch = torch.stack(chans, dim=1)[owner]             # one (E, C) row gather
+
+    rank = e - ch[:, 0]
+    wb = ch[:, 1].clamp(min=1)
+    ly = torch.div(rank, wb, rounding_mode="floor")
+    ty_e = ch[:, 2] + ly
+    tx_e = ch[:, 3] + (rank - ly * wb)
+    tile_e = ty_e * cfg.n_tiles_x + tx_e
+    if cfg.exact_cull:
+        fc = lambda i: ch[:, i].view(torch.float32)
+        live_e = live_e & tl.tile_may_touch(fc(4), fc(5), fc(6), fc(7),
+                                            fc(8), tx_e, ty_e, cfg)
+    tile_e = torch.where(live_e, tile_e, n_tiles)     # dead rows sort last
+    splat_e = torch.where(live_e, owner.to(i32), -1)
+
+    # --- one stable sort by tile id -----------------------------------------
+    sorted_tile, perm = torch.sort(tile_e, stable=True)
+    sorted_id = splat_e[perm]
+    tiles_iota = torch.arange(n_tiles, dtype=i32, device=dev)
+    run_start = torch.searchsorted(sorted_tile, tiles_iota,
+                                   side="left").to(i32)
+    count_all = torch.searchsorted(sorted_tile, tiles_iota,
+                                   side="right").to(i32) - run_start
+
+    # --- block-aligned flat run layout --------------------------------------
+    count = count_all.clamp(max=max_chunks * kc)
+    dropped_chunks = (count_all - count).sum()
+    blocks = torch.div(count + (kc - 1), kc, rounding_mode="floor")
+    start_raw = (torch.cumsum(blocks, 0, dtype=i32) - blocks) * kc
+    # Tiles whose run would spill past the capacity are dropped whole
+    # (counted); their start is clamped to m_cap.
+    fits = start_raw + blocks * kc <= m_cap
+    dropped_cap = torch.where(fits, 0, count).sum()
+    count = torch.where(fits, count, 0).to(i32)
+    start = start_raw.clamp(max=m_cap).to(i32)
+
+    # --- scatter sorted rows to their block-aligned flat positions ----------
+    tch = torch.stack([run_start, count, start], dim=1)[
+        sorted_tile.clamp(max=n_tiles - 1)]
+    rank_t = e - tch[:, 0]
+    valid = (sorted_tile < n_tiles) & (rank_t < tch[:, 1])
+    dest = torch.where(valid, tch[:, 2] + rank_t, m_cap).long()
+    ids = torch.full((m_cap + 1,), -1, dtype=i32, device=dev)
+    ids[dest] = sorted_id          # unique destinations but the trash row
+    ids = ids[:m_cap]
+
+    rows = (torch.zeros((1, tl.N_FIELDS), dtype=torch.float32, device=dev)
+            if ids_only else pregather_rows(ids, p, cfg))
+    return FlatBinning(
+        ids=ids, rows=rows, start=start, count=count,
+        n_dropped=(dropped_exp + dropped_chunks + dropped_cap).to(i32))

@@ -1,5 +1,5 @@
 """The fitting loop (the counterpart of ``gs2d_tpu/train/loop.py``, resident
-layout): one train step = ids-only binning + the fused L2 kernel +
+and flat layouts): one train step = binning + the layout's L2 kernels +
 moments_to_grads + Adam + metrics, driven by a host loop.
 
 PyTorch runs eagerly, so the JAX package's ``jit``/``lax.scan`` have no
@@ -19,6 +19,7 @@ import torch
 
 from gs2d_tpu_torch.config import SplatConfig
 from gs2d_tpu_torch.ops import render as rd
+from gs2d_tpu_torch.ops import render_flat as rf
 from gs2d_tpu_torch.ops import render_resident as rr
 from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.params import FIELDS, GaussianParams, init_params
@@ -46,21 +47,36 @@ class StepAux(NamedTuple):
     n_dropped: torch.Tensor   # splat-tile pairs lost to capacity caps
 
 
+# Flat capacity above which gs2d_tpu splits the train step into separately
+# compiled programs (gs2d_tpu/train/loop.py:519): the 1080p/1M workloads.
+SPLIT_STEP_ROWS = 6 * 1024 * 1024
+
+
 def make_train_step_fused(cfg: SplatConfig):
-    """Single-device train step through the fused L2 kernel: the resident
-    branch of gs2d_tpu's ``_fused_step_body``, binning every step. Returns
-    ``step(state, ref_chw) -> (state, StepAux)``; the target must be
-    pre-padded with ``render.pad_ref_chw``. Raises for a cfg that gs2d_tpu
-    would run on another layout."""
+    """Single-device train step through the layout's L2 kernels: the
+    resident and flat branches of gs2d_tpu's ``_fused_step_body``, binning
+    every step. Returns ``step(state, ref_chw) -> (state, StepAux)``; the
+    target must be pre-padded with ``render.pad_ref_chw``. Raises for a cfg
+    that gs2d_tpu would run on another layout, and for flat capacities of
+    the split step."""
     if cfg.rebin_margin != 0:
         raise NotImplementedError(
             "lazy rebinning (rebin_margin) is not ported yet (ROADMAP.md)")
-    rd.resolve_binning(cfg)
-    k = rd._max_per_tile(cfg)
+    flat = rd.resolve_binning(cfg) == "flat"
+    if flat and (cfg.flat_capacity or 0) > SPLIT_STEP_ROWS:
+        raise NotImplementedError(
+            f"flat capacity {cfg.flat_capacity} > SPLIT_STEP_ROWS "
+            f"({SPLIT_STEP_ROWS}): the split step of the 1080p/1M workloads "
+            "is not ported yet (ROADMAP.md queue 1 item 8)")
+    k = None if flat else rd._max_per_tile(cfg)
 
     def one_step(state: TrainState, ref_chw: torch.Tensor):
-        color, grads, n_dropped = rr.l2_step_resident(
-            state.params, ref_chw, cfg, k)
+        if flat:
+            color, grads, n_dropped = rf.l2_step_flat(state.params, ref_chw,
+                                                      cfg)
+        else:
+            color, grads, n_dropped = rr.l2_step_resident(
+                state.params, ref_chw, cfg, k)
         params, opt = adam_update(state.params, grads, state.opt, cfg)
         finite = torch.stack([torch.isfinite(getattr(params, f)).all()
                               for f in FIELDS]).all()
@@ -86,10 +102,12 @@ def fit(
 ):
     """The host loop of a fit (main.cpp:334-851 minus the GUI).
 
-    ``ref`` is the (H, W, 3) target. With cfg.max_splats_per_tile unset the
-    per-tile capacity is tuned from the population first
-    (tiles.tune_tile_capacity), as gs2d_tpu's fit does. ``scan_chunk`` > 1
-    and ``ssim_lambda`` are later slices and raise. Returns
+    ``ref`` is the (H, W, 3) target. Unset binning statics are tuned from
+    the population first, as gs2d_tpu's fit does: the flat capacity
+    (render_flat.tune_flat_config) for the flat layout, the per-tile
+    capacity (tiles.tune_tile_capacity) for the resident one.
+    ``scan_chunk`` > 1 and ``ssim_lambda`` are later slices and raise.
+    Returns
     (state, history), history being the logged steps' dicts."""
     if scan_chunk and scan_chunk > 1:
         raise NotImplementedError(
@@ -101,7 +119,10 @@ def fit(
     device = torch.device(device)
     if state is None:
         state = init_train_state(cfg, device)
-    if cfg.max_splats_per_tile is None:
+    if rf.use_flat(cfg):
+        if cfg.flat_capacity is None or cfg.flat_max_chunks is None:
+            cfg = rf.tune_flat_config(state.params, cfg)
+    elif cfg.max_splats_per_tile is None:
         cfg = tl.tune_tile_capacity(state.params, cfg)
     step_fn = make_train_step_fused(cfg)
     ref_chw = rd.pad_ref_chw(ref, cfg, device)

@@ -13,8 +13,10 @@ import torch
 
 from gs2d_tpu_torch.config import SplatConfig
 from gs2d_tpu_torch.ops import render as rd
+from gs2d_tpu_torch.ops import render_flat as rf
 from gs2d_tpu_torch.ops import render_resident as rr
 from gs2d_tpu_torch.ops import tiles as tl
+from gs2d_tpu_torch.ops import tiles_flat as tlf
 from gs2d_tpu_torch.params import params_from_numpy
 
 pytestmark = pytest.mark.cuda
@@ -101,3 +103,69 @@ def test_unsupported_tile_shape_raises(dev):
     cfg, table, ids, count, ref = inputs(dev, 3, 16, 8)
     with pytest.raises(ValueError):
         rr._fwd_resident_cuda(table, ids, count, cfg.replace(tile_h=4))
+
+
+def flat_inputs(dev, seed, n, tile_h, kc):
+    """A flat binning and the L2 backward's planes for a seeded population."""
+    cfg = SplatConfig(width=W, height=H, n_splats=n, tile_h=tile_h,
+                      flat_chunk=kc, binning="flat")
+    d, ref = population(seed, n, W, H)
+    p = params_from_numpy({f: v.astype(np.float32) for f, v in d.items()},
+                          dev)
+    cfg = rf.tune_flat_config(p, cfg)
+    b = tlf.bin_splats_flat(p, cfg, cfg.flat_capacity, kc=kc,
+                            max_chunks=cfg.flat_max_chunks)
+    assert int(b.n_dropped) == 0
+    return cfg, b, rd.pad_ref_chw(ref, cfg, dev)[0]
+
+
+@pytest.mark.parametrize("n,tile_h,kc,sat", [
+    (200, 32, 16, False), (200, 64, 32, False), (300, 32, 32, True),
+    (300, 64, 16, True)])
+def test_flat_kernels_match_plain(dev, monkeypatch, n, tile_h, kc, sat):
+    if sat:
+        monkeypatch.setattr(rd, "SAT_WALK_THRESHOLD", 1)
+    cfg, b, ref = flat_inputs(dev, n + tile_h + kc, n, tile_h, kc)
+    mc = cfg.flat_max_chunks
+    before = dict(rf.launches)
+    c_k, t_k = rf._fwd_flat_cuda(b.rows, b.start, b.count, cfg, kc, mc)
+    c_p, t_p = rf._fwd_flat_plain(b.rows, b.start, b.count, cfg, kc, mc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(c_k, c_p, rtol=0, atol=1e-6)
+    torch.testing.assert_close(t_k, t_p, rtol=0, atol=1e-6)
+    cin, tin = rf._identity_carry(cfg, dev)
+    args = (b.rows, b.ids, b.start, b.count, c_p, (c_p - ref).contiguous(),
+            cin, tin, n, cfg, kc, mc)
+    m_k, g_k = rf._bwd_flat_cuda(*args)
+    m_p, g_p = rf._bwd_flat_plain(*args)
+    torch.cuda.synchronize()
+    for got, want in ((m_k, m_p), (g_k, g_p)):
+        atol = 1e-4 * max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    assert rf.launches["fwd_flat"] == before["fwd_flat"] + 1
+    assert rf.launches["bwd_flat"] == before["bwd_flat"] + 1
+
+
+def test_flat_backward_repeats_bit_for_bit_with_carry(dev):
+    cfg, b, ref = flat_inputs(dev, 5, 250, 32, 32)
+    kc, mc = cfg.flat_chunk, cfg.flat_max_chunks
+    c_in, t_in = rf._fwd_flat_plain(b.rows, b.start, b.count, cfg, kc, mc)
+    gen = torch.Generator(dev).manual_seed(0)
+    g = torch.randn(c_in.shape, generator=gen, device=dev)
+    args = (b.rows, b.ids, b.start, b.count, c_in, g, c_in * 0.5,
+            t_in * 0.5, 250, cfg, kc, mc)
+    first = rf._bwd_flat_cuda(*args)
+    again = rf._bwd_flat_cuda(*args)
+    plain = rf._bwd_flat_plain(*args)
+    torch.cuda.synchronize()
+    for x, y, z in zip(first, again, plain):
+        assert torch.equal(x, y)
+        atol = 1e-4 * max(1.0, float(z.abs().max()))
+        torch.testing.assert_close(x, z, rtol=0, atol=atol)
+
+
+def test_flat_unsupported_tile_shape_raises(dev):
+    cfg, b, _ = flat_inputs(dev, 3, 64, 32, 16)
+    with pytest.raises(ValueError):
+        rf._fwd_flat_cuda(b.rows, b.start, b.count, cfg.replace(tile_h=16),
+                          16, cfg.flat_max_chunks)

@@ -1,0 +1,296 @@
+"""PyTorch port flat layout vs the JAX package on the CPU: the flat binning
+(integer-equal ids, starts, counts and n_dropped through all three
+overflows), the row pregather, capacity and tile-height tuning, the plain
+versions of kernels 10 and 11 against the JAX flat Pallas kernels in
+interpret mode, the L2 step, five fit steps, and the CLI.
+
+Kernel inputs (the flat binning) are built by the JAX package and handed to
+both sides where a test isolates a kernel. Tolerances follow
+tests/test_torch_render.py: colour and T atol 1e-6, gradients atol
+1e-4 * max(1, |g|max) (float32 sums in another order).
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gs2d_tpu.config import SplatConfig as JaxConfig
+from gs2d_tpu.ops import render_pallas as jrp
+from gs2d_tpu.ops import render_pallas_flat as jrpf
+from gs2d_tpu.ops import tiles as jtl
+from gs2d_tpu.ops import tiles_flat as jtlf
+from gs2d_tpu.train import loop as jloop
+from gs2d_tpu_torch import cli
+from gs2d_tpu_torch.config import SplatConfig
+from gs2d_tpu_torch.io.image import synthetic_target
+from gs2d_tpu_torch.ops import render as trd
+from gs2d_tpu_torch.ops import render_flat as trf
+from gs2d_tpu_torch.ops import tiles as ttl
+from gs2d_tpu_torch.ops import tiles_flat as ttlf
+from gs2d_tpu_torch.params import FIELDS, params_from_numpy
+from gs2d_tpu_torch.train import loop as tloop
+from tests.helpers import random_splats, to_params
+
+torch.set_num_threads(1)
+
+H, W = 48, 64
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MINI = os.path.join(REPO, "assets", "squirrel_cls_mini.npy")
+
+
+def case(rng, n, tile_h, kc, **kw):
+    kw = dict(width=W, height=H, n_splats=n, tile_h=tile_h, flat_chunk=kc,
+              binning="flat", **kw)
+    jp = to_params(random_splats(rng, n, W, H))
+    tp = params_from_numpy({f: np.asarray(getattr(jp, f)) for f in FIELDS},
+                           "cpu")
+    return JaxConfig(**kw), SplatConfig(**kw), jp, tp
+
+
+# One compiled program per shape instead of op-by-op eager dispatch (the
+# test file's time is mostly JAX compiling).
+jax_bin_flat = jax.jit(jtlf.bin_splats_flat, static_argnums=(1, 2),
+                       static_argnames=("kc", "max_chunks"))
+
+
+def to_torch(jb) -> ttlf.FlatBinning:
+    return ttlf.FlatBinning(*(torch.tensor(np.asarray(x)) for x in jb))
+
+
+def jax_binning(jp, cfg_j):
+    cfg_j = jrpf.tune_flat_config(jp, cfg_j)
+    jb = jax_bin_flat(jp, cfg_j, cfg_j.flat_capacity, kc=cfg_j.flat_chunk,
+                      max_chunks=cfg_j.flat_max_chunks)
+    assert int(jb.n_dropped) == 0
+    return cfg_j, jb
+
+
+def assert_grads_close(g_port, g_ref):
+    for f in FIELDS:
+        want = np.asarray(getattr(g_ref, f))
+        atol = 1e-4 * max(1.0, np.abs(want).max())
+        np.testing.assert_allclose(getattr(g_port, f).numpy(), want,
+                                   atol=atol, err_msg=f)
+
+
+# (n, tile_h, kc, caps): "tuned" capacities, a chunk cap of one chunk, and a
+# capacity of four chunks (the expansion and the capacity overflow).
+FLAT_BIN_CASES = [(200, 8, 8, "tuned"), (300, 32, 16, "tuned"),
+                  (200, 8, 8, "chunk"), (300, 32, 16, "chunk"),
+                  (200, 8, 8, "capacity"), (300, 32, 16, "capacity")]
+
+
+@pytest.mark.parametrize("n,tile_h,kc,caps", FLAT_BIN_CASES)
+def test_bin_splats_flat_equal(rng, n, tile_h, kc, caps):
+    cfg_j, cfg_t, jp, tp = case(rng, n, tile_h, kc)
+    m, mc = jtlf.tune_flat_capacity(jp, cfg_j, kc=kc)
+    m, mc = {"tuned": (m, mc), "chunk": (m, 1), "capacity": (4 * kc, mc)}[
+        caps]
+    jb = jax_bin_flat(jp, cfg_j, m, kc=kc, max_chunks=mc)
+    tb = ttlf.bin_splats_flat(tp, cfg_t, m, kc=kc, max_chunks=mc,
+                              ids_only=True)
+    for f in ("ids", "start", "count"):
+        np.testing.assert_array_equal(getattr(tb, f).numpy(),
+                                      np.asarray(getattr(jb, f)), err_msg=f)
+        assert getattr(tb, f).dtype == torch.int32
+    assert int(tb.n_dropped) == int(jb.n_dropped)
+    assert tuple(tb.rows.shape) == (1, ttl.N_FIELDS)
+    if caps == "tuned":
+        assert int(tb.n_dropped) == 0
+    else:
+        assert int(tb.n_dropped) > 0  # the overflow cases really overflow
+    if caps == "capacity":  # the expansion alone overflows the capacity
+        tx0, tx1, ty0, ty1, off = ttl.splat_tile_bbox(tp, cfg_t)
+        total = int(torch.where(off, 0, (tx1 - tx0 + 1) * (ty1 - ty0 + 1))
+                    .sum())
+        assert total > m
+
+
+def test_pregather_rows_bitwise(rng, monkeypatch):
+    """Same ids, same packed fields: the gathered rows and the benign
+    padding rows are bitwise equal. Both sides gather from one packed-field
+    array (the fields themselves differ by an ulp between XLA and libm, see
+    test_torch_tiles.test_packed_fields)."""
+    cfg_j, cfg_t, jp, tp = case(rng, 150, 32, 16)
+    fields = np.asarray(jtl.packed_fields(jp, 3.0))
+    monkeypatch.setattr(jtl, "packed_fields",
+                        lambda p, bounds=3.0: jnp.asarray(fields))
+    monkeypatch.setattr(ttl, "packed_fields",
+                        lambda p, bounds=3.0: torch.tensor(fields))
+    cfg_j = jrpf.tune_flat_config(jp, cfg_j)
+    # Eager, not jax_bin_flat: a cached trace would hold the real fields.
+    jb = jtlf.bin_splats_flat(jp, cfg_j, cfg_j.flat_capacity, kc=16,
+                              max_chunks=cfg_j.flat_max_chunks)
+    assert int((np.asarray(jb.ids) < 0).sum()) > 0  # padding rows exist
+    rows = ttlf.pregather_rows(torch.tensor(np.asarray(jb.ids)), tp, cfg_t)
+    np.testing.assert_array_equal(rows.numpy(), np.asarray(jb.rows))
+    tb = ttlf.bin_splats_flat(tp, cfg_t, cfg_j.flat_capacity, kc=16,
+                              max_chunks=cfg_j.flat_max_chunks)
+    np.testing.assert_array_equal(tb.rows.numpy(), np.asarray(jb.rows))
+
+
+@pytest.mark.parametrize("kc,margin", [(8, 1.5), (16, 1.5), (256, 2.0)])
+def test_tune_flat_capacity_equal(rng, kc, margin):
+    cfg_j, cfg_t, jp, tp = case(rng, 250, 32, kc)
+    assert ttlf.tune_flat_capacity(tp, cfg_t, kc=kc, margin=margin) == \
+        jtlf.tune_flat_capacity(jp, cfg_j, kc=kc, margin=margin)
+    tc = trf.tune_flat_config(tp, cfg_t)
+    jc = jrpf.tune_flat_config(jp, cfg_j)
+    assert (tc.flat_capacity, tc.flat_max_chunks) == \
+        (jc.flat_capacity, jc.flat_max_chunks)
+
+
+@pytest.mark.parametrize("deep", [False, True])
+def test_tune_tile_height_equal(rng, deep):
+    """Default population: 32. A deep, tall one (3000 splats spanning both
+    32-row tile rows of a 48-row image, > 2500 pairs per tile): 64."""
+    n = 3000 if deep else 200
+    cfg_j, cfg_t, jp, tp = case(rng, n, 8, 16)
+    if deep:
+        big = np.full(n, 30.0, np.float32)
+        jp = jp.replace(sy=big, sx=big)
+        tp = tp.replace(sy=torch.tensor(big), sx=torch.tensor(big))
+    want = jtl.tune_tile_height(cfg_j, jp).tile_h
+    assert ttl.tune_tile_height(cfg_t, tp).tile_h == want == (
+        64 if deep else 32)
+    assert ttl.tune_tile_height(cfg_t).tile_h == 32
+
+
+@pytest.mark.parametrize("tile_h,kc,sat", [(32, 16, False), (8, 8, True)])
+def test_forward_flat_matches_jax(rng, monkeypatch, tile_h, kc, sat):
+    """Plain kernel 10 vs the JAX flat forward in interpret mode; ``sat``
+    forces the saturating walk on both sides."""
+    if sat:
+        monkeypatch.setattr(jrp, "SAT_WALK_THRESHOLD", 1)
+        monkeypatch.setattr(trd, "SAT_WALK_THRESHOLD", 1)
+    cfg_j, cfg_t, jp, _ = case(rng, 300, tile_h, kc)
+    cfg_j, jb = jax_binning(jp, cfg_j)
+    mc = cfg_j.flat_max_chunks
+    Cj, Tj = jrpf.forward_flat(jb, cfg_j, kc, mc)
+    before = dict(trf.launches)
+    Ct, Tt = trf.forward_flat(to_torch(jb), cfg_t, kc, mc)
+    assert trf.launches == before  # the CPU path launches no kernel
+    assert Ct.shape == (cfg_t.padded_height, cfg_t.padded_width, 3)
+    np.testing.assert_allclose(Ct.numpy(), np.asarray(Cj), atol=1e-6)
+    np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), atol=1e-6)
+    assert float(Tt[:, W:].abs().max()) == 0.0  # identity T on padding
+
+
+def port_forward(tp, cfg_t):
+    """The port's own flat binning and (color (Hp, Wp, 3), T) of ``tp``."""
+    cfg_t = trf.tune_flat_config(tp, cfg_t)
+    b = ttlf.bin_splats_flat(tp, cfg_t, cfg_t.flat_capacity,
+                             kc=cfg_t.flat_chunk,
+                             max_chunks=cfg_t.flat_max_chunks)
+    return cfg_t, b, trf.forward_flat(b, cfg_t, cfg_t.flat_chunk,
+                                      cfg_t.flat_max_chunks)
+
+
+def test_backward_flat_carry_and_cotangent_match_jax(rng):
+    """Plain kernel 11 from a non-identity carry-in (another population's
+    composite) under an arbitrary upstream cotangent; both sides get the
+    same final colour, carry and cotangent."""
+    cfg_j, cfg_t, jp, tp = case(rng, 200, 32, 16)
+    cfg_j, jb = jax_binning(jp, cfg_j)
+    kc, mc = 16, cfg_j.flat_max_chunks
+    _, _, (fin, _) = port_forward(tp, cfg_t)
+    pre = random_splats(rng, 100, W, H)
+    _, _, (c_in, t_in) = port_forward(params_from_numpy(
+        {f: getattr(pre, f) for f in FIELDS}, "cpu"),
+        cfg_t.replace(n_splats=100))
+    g = rng.normal(size=tuple(fin.shape)).astype(np.float32)
+    gj = jrpf.backward_flat(jb, jnp.asarray(fin.numpy()), jnp.asarray(g),
+                            200, cfg_j, kc, mc, params=jp,
+                            carry_in=(jnp.asarray(c_in.numpy()),
+                                      jnp.asarray(t_in.numpy())))
+    gt = trf.backward_flat(to_torch(jb), fin, torch.tensor(g), 200, cfg_t,
+                           kc, mc, tp, carry_in=(c_in, t_in))
+    assert_grads_close(gt, gj)
+
+
+def test_l2_step_flat_matches_jax(rng):
+    cfg_j, cfg_t, jp, tp = case(rng, 250, 32, 16)
+    cfg_j = jrpf.tune_flat_config(jp, cfg_j)
+    cfg_t = trf.tune_flat_config(tp, cfg_t)
+    ref = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
+    Cj, gj, dj = jrpf.l2_step_flat(
+        jp, jrp.pad_ref_chw(jnp.asarray(ref), cfg_j), cfg_j)
+    Ct, gt, dt = trf.l2_step_flat(tp, trd.pad_ref_chw(ref, cfg_t), cfg_t)
+    assert int(dt) == int(dj) == 0
+    assert Ct.shape == (H, W, 3)
+    np.testing.assert_allclose(Ct.numpy(), np.asarray(Cj), atol=1e-6)
+    assert_grads_close(gt, gj)
+    color, dropped = trf.render_flat(tp, cfg_t)
+    np.testing.assert_array_equal(color.numpy(), Ct.numpy())
+    assert int(dropped) == 0
+
+
+def test_five_step_flat_fit_matches_jax():
+    """Five steps of the port's flat fit against gs2d_tpu's fit with the
+    fused flat step on the same pcg3d init and target: per-step MSE within
+    rtol 1e-5."""
+    kw = dict(width=W, height=H, n_splats=64, tile_h=32, flat_chunk=16,
+              binning="flat")
+    ref = synthetic_target(H, W)
+    _, hist_j = jloop.fit(jnp.asarray(ref), JaxConfig(**kw), 5, log_every=1,
+                          log_fn=None, use_fused=True)
+    _, hist_t = tloop.fit(ref, SplatConfig(**kw), 5, "cpu", log_every=1,
+                          log_fn=None)
+    got = [rec["mse"] for rec in hist_t]
+    np.testing.assert_allclose(got, [rec["mse"] for rec in hist_j],
+                               rtol=1e-5)
+    assert got[-1] < got[0]
+
+
+def test_split_step_capacity_refused():
+    cfg = SplatConfig(width=W, height=H, n_splats=64, binning="flat",
+                      flat_capacity=tloop.SPLIT_STEP_ROWS + 256,
+                      flat_max_chunks=4)
+    with pytest.raises(NotImplementedError):
+        tloop.make_train_step_fused(cfg)
+
+
+def test_flat_later_slices_raise(rng):
+    _, cfg_t, _, tp = case(rng, 16, 8, 8)
+    with pytest.raises(NotImplementedError):
+        ttlf.bin_splats_flat(tp, cfg_t, 64, kc=8, band_rows=1)
+    with pytest.raises(NotImplementedError):
+        ttlf.bin_splats_flat(tp, cfg_t, 64, kc=8, margin=2.0)
+    with pytest.raises(NotImplementedError):
+        ttlf.tune_flat_capacity(tp, cfg_t, kc=8, n_bands=2)
+    with pytest.raises(NotImplementedError):
+        trf.tune_flat_config(tp, cfg_t.replace(rebin_margin=2.0))
+    with pytest.raises(ValueError):
+        trf.l2_step_flat(tp, trd.pad_ref_chw(np.zeros((H, W, 3)), cfg_t),
+                         cfg_t)  # statics unset
+
+
+def test_flat_wrapper_rejects_other_devices(rng):
+    _, cfg_t, _, tp = case(rng, 32, 32, 16)
+    cfg_t, b, _ = port_forward(tp, cfg_t)
+    with pytest.raises(ValueError):
+        trf.forward_flat(b._replace(rows=b.rows.to("meta")), cfg_t, 16,
+                         cfg_t.flat_max_chunks)
+
+
+def test_cli_flat_fit_on_cpu(tmp_path, capsys):
+    rc = cli.main([MINI, "--splats", "40", "--iters", "2", "--log-every",
+                   "1", "--device", "cpu", "--binning", "flat", "--out",
+                   str(tmp_path)])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "0 itr, mse" in out and "1 itr, mse" in out
+    assert (tmp_path / "render_final.png").read_bytes()[:8] \
+        == b"\x89PNG\r\n\x1a\n"
+
+
+@pytest.mark.parametrize("layout", ["dense", "window"])
+def test_cli_unported_layouts_exit_2(tmp_path, capsys, layout):
+    rc = cli.main([MINI, "--splats", "40", "--iters", "1", "--device", "cpu",
+                   "--binning", layout, "--out", str(tmp_path)])
+    assert rc == 2
+    assert "not ported" in capsys.readouterr().out

@@ -169,11 +169,19 @@ def test_resolve_binning_resident_where_jax_is(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(n_splats=5000), dict(n_splats=4097), dict(binning="dense"),
-    dict(binning="window"),
+    dict(n_splats=5000), dict(n_splats=4097), dict(binning="flat"),
+])
+def test_resolve_binning_flat_where_jax_is(kw):
+    assert jrpf.resolve_binning(JaxConfig(tile_h=32, **kw)) == "flat"
+    assert trd.resolve_binning(SplatConfig(tile_h=32, **kw)) == "flat"
+
+
+@pytest.mark.parametrize("kw", [
+    dict(binning="dense"), dict(binning="window"),
 ])
 def test_resolve_binning_other_layouts_raise(kw):
-    assert jrpf.resolve_binning(JaxConfig(tile_h=32, **kw)) != "resident"
+    assert jrpf.resolve_binning(JaxConfig(tile_h=32, **kw)) not in (
+        "resident", "flat")
     with pytest.raises(NotImplementedError):
         trd.resolve_binning(SplatConfig(tile_h=32, **kw))
 

@@ -113,7 +113,7 @@ def test_fit_nan_tripwire():
 
 @pytest.mark.parametrize("kw,cfg_kw", [
     (dict(scan_chunk=4), {}), (dict(ssim_lambda=0.2), {}),
-    ({}, dict(rebin_margin=2.0)), ({}, dict(n_splats=8192)),
+    ({}, dict(rebin_margin=2.0)), ({}, dict(binning="dense")),
 ])
 def test_fit_refuses_later_slices(kw, cfg_kw):
     cfg = SplatConfig(width=W, height=H, **{"n_splats": 16, "tile_h": 8,
@@ -144,7 +144,8 @@ def test_cli_cuda_without_gpu_exits_2(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [["--mesh", "1,2,2"], ["--scan-chunk", "4"],
-                                  ["--ssim", "0.2"], ["--binning", "flat"]])
+                                  ["--ssim", "0.2"],
+                                  ["--rebin-margin", "2"]])
 def test_cli_rejects_flags_of_later_slices(tmp_path, argv):
     with pytest.raises(SystemExit) as e:
         cli.main([MINI, "--device", "cpu", "--out", str(tmp_path), *argv])
@@ -152,7 +153,7 @@ def test_cli_rejects_flags_of_later_slices(tmp_path, argv):
 
 
 def test_cli_rejects_unported_layout(tmp_path, capsys):
-    rc = cli.main([MINI, "--splats", "8192", "--device", "cpu", "--out",
-                   str(tmp_path)])
+    rc = cli.main([MINI, "--splats", "8192", "--binning", "dense",
+                   "--device", "cpu", "--out", str(tmp_path)])
     assert rc == 2
     assert "not ported" in capsys.readouterr().out
