@@ -1,16 +1,24 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build the CUDA kernels,
-hold each against its plain PyTorch version, then drive the two fitting
-paths through them with the CLI and check their MSE trajectories:
+hold each against its plain PyTorch version, then drive the fitting paths
+through them with the CLI and check their MSE trajectories:
 
 - the default fit, resident layout (squirrel_cls_mini 268x213, 1024 splats,
   L2, 200 iterations; kernels 1 and 2);
 - the 10 240-splat fit, flat layout (squirrel_cls 535x426, 200 iterations;
-  kernels 10 and 11).
+  kernels 10 and 11);
+- the default fit with ``--ssim 0.2``, resident layout (kernels 2 and 3),
+  run twice: the second run must repeat the first bit for bit;
+- the default fit with ``--binning dense`` (kernels 4/5, 6/7);
+- the default fit with ``--binning dense --ssim 0.2`` (kernels 6/7, 8/9);
+- the 10 240-splat fit with ``--ssim 0.2``, flat layout (kernels 10, 11).
 
     python3 chip_smoke.py
 
 Prints one line per phase; the line before the last is the kernels' JSON
-report and the last is {"ok": true, "device": {...}}. Any failure raises
+report and the last is {"ok": true, "device": {...}}. A kernel's
+``launches`` there is its launch count summed over the paths' logged fits,
+each path counted from zero; ``bound_ms`` is the least time the card could
+take for the work of its timed call (see ``bound``). Any failure raises
 and the script exits non-zero without printing a result; without a CUDA
 GPU it exits 1 at once.
 """
@@ -48,9 +56,52 @@ TRAJECTORY_RTOL = 1e-3
 # hundreds of steps (PERF.md section 7).
 TRAJECTORY_10K = {0: (6072.7041, 1e-4), 1: (4645.9102, 1e-4),
                   9: (775.3411, 1e-3)}
+# The same for the SSIM objective at lambda 0.2: the default fit, from
+#   JAX_PLATFORMS=cpu python -m gs2d_tpu.fit assets/squirrel_cls_mini.jpg \
+#       --splats 1024 --iters 200 --log-every 1 --renderer scan \
+#       --ssim 0.2 --tile-h 32 --out <dir>
+# (iterations 49 and 199 are reported, not gated), and the 10 240-splat fit
+# from the same command on squirrel_cls.jpg with --splats 10240 --iters 3.
+TRAJECTORY_SSIM = {0: (5934.9033, 1e-4), 1: (4691.2476, 1e-4),
+                   9: (1115.1853, 1e-3)}
+REPORT_SSIM = {49: 402.6315, 199: 105.2173}
+TRAJECTORY_SSIM_10K = {0: (6072.7041, 1e-4), 1: (4687.6025, 1e-4),
+                       2: (3544.8555, 1e-3)}
+SSIM = "0.2"
 N_10K = 10240
 COLOR_ATOL = 1e-6   # same per-pixel float32 program; sums in one order
 GRAD_RTOL = 1e-4    # of max(1, |moment row| max): the moments' sum order
+
+# The least time the card could take for a kernel's work: the larger of its
+# float32 operations over the H100's 67 TFLOP/s (outside the tensor cores)
+# and its bytes (each input read once, each output written once) over
+# 3.35 TB/s (NVIDIA's data sheet, SXM, 700 W). Operations are counted from
+# csrc/splat_terms.cuh with each float add, subtract, multiply, divide,
+# sqrt, compare, min/max, select and float-to-int conversion as one, and
+# each term where it first varies:
+# - ROW_OPS per (row, pair) with a live pixel: splat_terms' vy and the ellipse quadratic's
+#   row interval (qb 2, qc 3 with d*vy*vy, disc 4, the root 5, kq 4, r0/r1
+#   2, the bounds 6); integer bound tests not counted;
+# - PIXEL_OPS per live (pixel, pair), live being covered with T above the
+#   threshold (the others need no work): splat_terms' vx 1, the rest of d2
+#   6, the fast exp 8, alpha 1, the T test 1;
+# - FWD_OPS and BWD_OPS per live (pixel, pair) on top: fwd_one's weight,
+#   colour sums and T update; bwd_one's gcdot, ga, the 1/(1 - alpha) guard,
+#   dL/dalpha, the six moment sums and T update (the selects that only
+#   mask dead pixels are not counted). The fused L2 kernels count
+#   splat_terms once for both passes;
+# - COLUMN_OPS per (column, pair) with a live pixel: Moments::finish's 3
+#   products and 9 adds of the sum over the tile's columns;
+# - per image pixel, the cotangent terms: 10 in the backward (gf, ga's
+#   start) and 8 in the L2 kernels (gC = C - ref, gf).
+# The live counts come from the plain composite of this run's inputs.
+F32_PEAK = 67e12
+HBM_RATE = 3.35e12
+ROW_OPS = 27
+PIXEL_OPS = 17
+FWD_OPS = 9
+BWD_OPS = 30
+COLUMN_OPS = 12
 
 
 def log(msg: str) -> None:
@@ -90,6 +141,107 @@ def population(seed: int, n: int, width: int, height: int,
          "color": rng.uniform(0.0, 1.0, (n, 3)),
          "opacity": rng.uniform(*opacity, n)}
     return {k: v.astype(np.float32) for k, v in d.items()}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def live_work(rows, count, cfg) -> dict:
+    """What a front-to-back composite from T = 1 must evaluate: the live
+    (pixel, pair) evaluations ("pixels"), and the (row, pair) and (column,
+    pair) counts with at least one live pixel ("rows", "columns"), summed
+    over the tiles. ``rows`` (n_tiles, K, 16) holds each tile's listed
+    packed rows (pad rows past its count)."""
+    from gs2d_tpu_torch.ops import render as rd
+
+    yy, xx, fy, fx, inside = rd.tile_coords(cfg, rows.device)
+    T = inside.to(torch.float32)
+    n = torch.zeros(3, dtype=torch.int64, device=rows.device)
+    for k in range(int(count.max())):
+        live, alpha, *_ = rd._splat_terms(rows[:, k], fx, fy, xx, yy, inside,
+                                          T, cfg)
+        live &= (k < count)[:, None, None]
+        n += torch.stack([live.sum(), live.any(2).sum(), live.any(1).sum()])
+        T = torch.where(live, T * (1.0 - alpha), T)
+    return dict(zip(("pixels", "rows", "columns"), n.tolist()))
+
+
+def bound(kind: str, work: dict, cfg, n_bytes: int):
+    """(bound_ms, bound_by) of a forward ("fwd"), backward ("bwd") or fused
+    L2 ("l2") kernel that does ``work`` (live_work's counts) and moves
+    ``n_bytes``."""
+    img = cfg.height * cfg.width
+    rows = work["rows"] * ROW_OPS
+    px = work["pixels"]
+    cols = work["columns"] * COLUMN_OPS
+    ops = {"fwd": rows + px * (PIXEL_OPS + FWD_OPS),
+           "bwd": rows + px * (PIXEL_OPS + BWD_OPS) + cols + 10 * img,
+           "l2": rows + px * (PIXEL_OPS + FWD_OPS + BWD_OPS) + cols
+           + 8 * img}[kind]
+    t_ops, t_bytes = ops / F32_PEAK, n_bytes / HBM_RATE
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def timed_entry(kernel, plain, kind, work, cfg, n_bytes, plain_reps=3):
+    """{ms, plain_ms, bound_ms, bound_by} of one kernel at one input."""
+    bound_ms, bound_by = bound(kind, work, cfg, n_bytes)
+    return {"ms": cuda_ms(kernel, 50), "plain_ms": cuda_ms(plain, plain_reps),
+            "bound_ms": bound_ms, "bound_by": bound_by, "work": work}
+
+
+def log_times(times: dict, where: str, smi: str) -> None:
+    for kk, t in times.items():
+        w = t["work"]
+        log(f"  {kk} {where}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}; live (pixel, pair) {w['pixels']}, (row, "
+            f"pair) {w['rows']}, (column, pair) {w['columns']}), "
+            f"{t['bound_ms'] / t['ms']:.5f} of the bound [{smi}]")
+
+
+def moment_ratio(got, want) -> float:
+    """Max over moment fields of |got - want| / (GRAD_RTOL * max(1, |field|
+    max)); fields are the last axis of (rows, 9) or the first of (9+, n)."""
+    if got.shape[-1] != 9:
+        got, want = got[:9].T, want[:9].T
+    got, want = got.reshape(-1, 9), want.reshape(-1, 9)
+    tol = GRAD_RTOL * torch.clamp(want.abs().max(dim=0).values, min=1.0)
+    return float(((got - want).abs().max(dim=0).values / tol).max())
+
+
+def grad_error(m_k, m_p, n, fields):
+    """(max |grad err|, max |grad|) of the parameter gradients that
+    moments_to_grads makes of two moment arrays ((16, n_pad) or (9, n))."""
+    from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.params import FIELDS
+
+    g_k = rd.moments_to_grads(rd.unpack_moments(m_k, n), fields)
+    g_p = rd.moments_to_grads(rd.unpack_moments(m_p, n), fields)
+    return (max(float((getattr(g_k, f) - getattr(g_p, f)).abs().max())
+                for f in FIELDS),
+            max(float(getattr(g_p, f).abs().max()) for f in FIELDS))
+
+
+def require_finite(name, **tensors):
+    for what, x in tensors.items():
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"{name}: non-finite kernel {what}")
+
+
+def ssim_cotangent(color_chw, ref, cfg):
+    """The SSIM objective's cotangent dL/dC at a padded (3, Hp, Wp) render:
+    what autograd hands the backward kernels on the SSIM path."""
+    from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.train.ssim import conv_flags, mixed_loss
+
+    c = color_chw[:, : cfg.height, : cfg.width].permute(1, 2, 0)
+    c = c.detach().requires_grad_()
+    ref_t = torch.as_tensor(ref, dtype=torch.float32, device=c.device)
+    with conv_flags():
+        (g,) = torch.autograd.grad(mixed_loss(c, ref_t, float(SSIM)), c)
+    return rd.pad_ref_chw(g, cfg)[0]
 
 
 def compare_case(name, params, ref, cfg, dev, timed: bool):
@@ -142,17 +294,20 @@ def compare_case(name, params, ref, cfg, dev, timed: bool):
     errs = {"l2_resident": max(col_err, grad_err), "fwd_resident": fwd_err}
     if not timed:
         return errs, None
+    work = live_work(table.reshape(-1, tl.N_FIELDS)[ids.long()], b.count,
+                       cfg)
+    base = nbytes(table, ids, b.count)
     times = {
-        "l2_resident": (
-            cuda_ms(lambda: rr._l2_resident_cuda(table, ids, b.count,
-                                                 ref_chw, n, cfg), 50),
-            cuda_ms(lambda: rr._l2_resident_plain(table, ids, b.count,
-                                                  ref_chw, n, cfg), 3)),
-        "fwd_resident": (
-            cuda_ms(lambda: rr._fwd_resident_cuda(table, ids, b.count,
-                                                  cfg), 50),
-            cuda_ms(lambda: rr._fwd_resident_plain(table, ids, b.count,
-                                                   cfg), 3)),
+        "l2_resident": timed_entry(
+            lambda: rr._l2_resident_cuda(table, ids, b.count, ref_chw, n,
+                                         cfg),
+            lambda: rr._l2_resident_plain(table, ids, b.count, ref_chw, n,
+                                          cfg),
+            "l2", work, cfg, base + nbytes(ref_chw, c_k, g_k)),
+        "fwd_resident": timed_entry(
+            lambda: rr._fwd_resident_cuda(table, ids, b.count, cfg),
+            lambda: rr._fwd_resident_plain(table, ids, b.count, cfg),
+            "fwd", work, cfg, base + nbytes(f_k, t_k)),
     }
     return errs, times
 
@@ -182,7 +337,7 @@ def compare_flat_case(name, params, ref, cfg, dev, carry=None,
     c_p, t_p = rf._fwd_flat_plain(*fwd_in)
     if g_color is None:
         g_color = c_p - rd.pad_ref_chw(ref, cfg, dev)[0]
-    cin, tin = carry if carry is not None else rf._identity_carry(cfg, dev)
+    cin, tin = carry if carry is not None else rd.identity_carry(cfg, dev)
     bwd_in = (b.rows, b.ids, b.start, b.count, c_p, g_color.contiguous(),
               cin, tin, n, cfg, kc, mc)
     m_k, g_k = rf._bwd_flat_cuda(*bwd_in)
@@ -221,11 +376,22 @@ def compare_flat_case(name, params, ref, cfg, dev, carry=None,
     errs = {"fwd_flat": fwd_err, "bwd_flat": grad_err}
     if not timed:
         return errs, None
+    k = torch.arange(int(b.count.max()), device=dev)
+    idx = torch.where(k[None] < b.count[:, None], b.start[:, None] + k[None],
+                      b.rows.shape[0])
+    rows_ext = torch.cat([b.rows, tl.pad_row(dev)[None]])
+    work = live_work(rows_ext[idx.long()], b.count, cfg)
+    base = nbytes(b.rows, b.start, b.count)
     times = {
-        "fwd_flat": (cuda_ms(lambda: rf._fwd_flat_cuda(*fwd_in), 50),
-                     cuda_ms(lambda: rf._fwd_flat_plain(*fwd_in), 2)),
-        "bwd_flat": (cuda_ms(lambda: rf._bwd_flat_cuda(*bwd_in), 50),
-                     cuda_ms(lambda: rf._bwd_flat_plain(*bwd_in), 2)),
+        "fwd_flat": timed_entry(
+            lambda: rf._fwd_flat_cuda(*fwd_in),
+            lambda: rf._fwd_flat_plain(*fwd_in), "fwd", work, cfg,
+            base + nbytes(c_k, t_k), plain_reps=2),
+        "bwd_flat": timed_entry(
+            lambda: rf._bwd_flat_cuda(*bwd_in),
+            lambda: rf._bwd_flat_plain(*bwd_in), "bwd", work, cfg,
+            base + nbytes(b.ids, c_p, g_color, cin, tin, g_k),
+            plain_reps=2),
     }
     return errs, times
 
@@ -242,7 +408,7 @@ def opaque_stack(seed: int, n: int, width: int, height: int) -> dict:
     return {k: v.astype(np.float32) for k, v in d.items()}
 
 
-def compare_flat(dev, name: str, smi: str):
+def compare_flat(dev, smi: str):
     """All flat compare cases; returns (max errors, the 10k case's times)."""
     from gs2d_tpu_torch.config import SplatConfig
     from gs2d_tpu_torch.io.image import load_image
@@ -305,9 +471,225 @@ def compare_flat(dev, name: str, smi: str):
     e, times = compare_flat_case("pcg3d init 10240 on 535x426 (main path)",
                                  p_init, full, cfg_main, dev, timed=True)
     add(e)
-    for kk, (ms, pms) in times.items():
-        log(f"  {kk} at the main path's shapes: kernel {ms:.4f} ms, plain "
-            f"{pms:.2f} ms [{name}, {smi}]")
+    log_times(times, "at the 10k init", smi)
+    return errs, times
+
+
+def compare_bwd_resident_case(name, params, ref, cfg, dev, carry=None,
+                              g_color=None, timed=False):
+    """Kernel 3 vs its plain version on one population under ``g_color``
+    (3, Hp, Wp; the SSIM cotangent of the render when None) from ``carry``
+    (C_in (3, Hp, Wp), T_in (Hp, Wp); identity when None). It runs twice
+    and must repeat bit for bit. Returns (max_abs_err, times or None)."""
+    from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.ops import render_resident as rr
+    from gs2d_tpu_torch.ops import tiles as tl
+
+    n, k = params.n, cfg.max_splats_per_tile
+    b = tl.bin_splats(params, cfg, k, ids_only=True)
+    if int(b.n_dropped):
+        raise AssertionError(f"{name}: binning dropped {int(b.n_dropped)}")
+    table = rr.resident_table(params, cfg)
+    ids = rr._remap_ids(b, n)
+    fin = rr._fwd_resident_plain(table, ids, b.count, cfg)[0][0].contiguous()
+    if g_color is None:
+        g_color = ssim_cotangent(fin, ref, cfg)
+    cin, tin = carry if carry is not None else rd.identity_carry(cfg, dev)
+    args = (table, ids, b.count, fin, g_color.contiguous(), cin, tin, n, cfg)
+    m_k = rr._bwd_resident_cuda(*args)
+    m_k2 = rr._bwd_resident_cuda(*args)
+    m_p = rr._bwd_resident_plain(*args)
+    torch.cuda.synchronize()
+    require_finite(name, moments=m_k)
+    if not torch.equal(m_k, m_k2):
+        raise AssertionError(f"{name}: bwd_resident does not repeat bit for "
+                             "bit")
+    ratio = moment_ratio(m_k, m_p)
+    err, scale = grad_error(m_k, m_p, n, rr._table_fields(table, n))
+    log(f"  {name}: N={n} K={k} max_count={int(b.count.max())} | "
+        f"bwd_resident: moment err/tol {ratio:.3g}, grad err {err:.3g} of "
+        f"|grad| max {scale:.3g}, repeats bit for bit")
+    if ratio > 1.0:
+        raise AssertionError(f"{name}: kernel disagrees with plain version")
+    if not timed:
+        return err, None
+    work = live_work(table.reshape(-1, tl.N_FIELDS)[ids.long()], b.count,
+                       cfg)
+    return err, {"bwd_resident": timed_entry(
+        lambda: rr._bwd_resident_cuda(*args),
+        lambda: rr._bwd_resident_plain(*args), "bwd", work, cfg,
+        nbytes(table, ids, b.count, fin, g_color, cin, tin, m_k))}
+
+
+def compare_dense_case(name, params, ref, cfg, dev, carry=None,
+                       g_color=None, timed=()):
+    """The three dense kernels vs their plain versions on one population at
+    cfg's K: the forward, the backward under ``g_color`` (3, Hp, Wp; the
+    SSIM cotangent of the render when None) from ``carry`` (identity when
+    None), run twice and bit for bit, and the fused L2 step. Returns
+    ({kernel: max_abs_err}, {kernel: times} for the kernels in
+    ``timed``)."""
+    from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.ops import render_dense as rdn
+    from gs2d_tpu_torch.ops import tiles as tl
+
+    n, k = params.n, cfg.max_splats_per_tile
+    b = tl.bin_splats(params, cfg, k)
+    if int(b.n_dropped):
+        raise AssertionError(f"{name}: binning dropped {int(b.n_dropped)}")
+    tp, ids, count = b.tile_params, b.ids, b.count
+    ref_chw = rd.pad_ref_chw(ref, cfg, dev)
+    c_k, t_k = rdn._fwd_dense_cuda(tp, count, cfg)
+    c_p, t_p = rdn._fwd_dense_plain(tp, count, cfg)
+    if g_color is None:
+        g_color = ssim_cotangent(c_p, ref, cfg)
+    cin, tin = carry if carry is not None else rd.identity_carry(cfg, dev)
+    bwd_in = (tp, ids, count, c_p, g_color.contiguous(), cin, tin, n, cfg)
+    m_k, g_k = rdn._bwd_dense_cuda(*bwd_in)
+    m_k2, g_k2 = rdn._bwd_dense_cuda(*bwd_in)
+    m_p, g_p = rdn._bwd_dense_plain(*bwd_in)
+    l2_in = (tp, ids, count, ref_chw, n, cfg)
+    l2_k = rdn._l2_dense_cuda(*l2_in)
+    l2_p = rdn._l2_dense_plain(*l2_in)
+    torch.cuda.synchronize()
+    require_finite(name, color=c_k, T=t_k, moments=m_k, l2_color=l2_k[0],
+                   l2_moments=l2_k[2])
+    if not (torch.equal(m_k, m_k2) and torch.equal(g_k, g_k2)):
+        raise AssertionError(f"{name}: bwd_dense does not repeat bit for "
+                             "bit")
+    fwd_err = max(float((c_k - c_p).abs().max()),
+                  float((t_k - t_p).abs().max()))
+    l2_col = float((l2_k[0] - l2_p[0]).abs().max())
+    ratios = {"bwd": max(moment_ratio(m_k, m_p), moment_ratio(g_k, g_p)),
+              "l2": max(moment_ratio(l2_k[1], l2_p[1]),
+                        moment_ratio(l2_k[2], l2_p[2]))}
+    fields = tl.packed_fields(params, cfg.splat_bounds)
+    bwd_err, bwd_scale = grad_error(g_k, g_p, n, fields)
+    l2_err, l2_scale = grad_error(l2_k[2], l2_p[2], n, fields)
+    log(f"  {name}: N={n} K={k} tile {cfg.tile_h}x{cfg.tile_w} "
+        f"max_count={int(count.max())} sat_walk={rd._sat_walk(cfg)} | fwd "
+        f"err {fwd_err:.3g} | bwd: moment err/tol {ratios['bwd']:.3g}, grad "
+        f"err {bwd_err:.3g} of {bwd_scale:.3g}, repeats bit for bit | l2: "
+        f"color err {l2_col:.3g}, moment err/tol {ratios['l2']:.3g}, grad "
+        f"err {l2_err:.3g} of {l2_scale:.3g}")
+    if max(fwd_err, l2_col) > COLOR_ATOL or max(ratios.values()) > 1.0:
+        raise AssertionError(f"{name}: kernel disagrees with plain version")
+    errs = {"fwd_dense": fwd_err, "bwd_dense": bwd_err,
+            "l2_dense": max(l2_col, l2_err)}
+    if not timed:
+        return errs, {}
+    work = live_work(tp, count, cfg)
+    base = nbytes(tp, ids, count)
+    entries = {
+        "fwd_dense": lambda: timed_entry(
+            lambda: rdn._fwd_dense_cuda(tp, count, cfg),
+            lambda: rdn._fwd_dense_plain(tp, count, cfg), "fwd", work, cfg,
+            nbytes(tp, count, c_k, t_k)),
+        "bwd_dense": lambda: timed_entry(
+            lambda: rdn._bwd_dense_cuda(*bwd_in),
+            lambda: rdn._bwd_dense_plain(*bwd_in), "bwd", work, cfg,
+            base + nbytes(c_p, g_color, cin, tin, g_k)),
+        "l2_dense": lambda: timed_entry(
+            lambda: rdn._l2_dense_cuda(*l2_in),
+            lambda: rdn._l2_dense_plain(*l2_in), "l2", work, cfg,
+            base + nbytes(ref_chw, l2_k[0], l2_k[2])),
+    }
+    return errs, {kk: entries[kk]() for kk in timed}
+
+
+def compare_new(dev, smi: str):
+    """The compare cases of kernel 3 and the dense kernels: a random
+    population under a random cotangent from a non-identity carry-in (K =
+    256 and K = 512, so both members of each dense pair run), the opacity-1
+    population centred on pixel centres, saturated 64-row tiles with the
+    walk forced (dense), and the pcg3d init of the default fit (timed: kernel
+    3 and the dense forward and backward at the SSIM path's K = 256, the
+    dense L2 step at the L2 fit's tuned K = 512). Returns (max errors,
+    times)."""
+    from gs2d_tpu_torch.config import SplatConfig
+    from gs2d_tpu_torch.io.image import load_image
+    from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.ops import render_resident as rr
+    from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.params import init_params, params_from_numpy
+
+    log("[compare] bwd_resident and the dense kernels vs plain PyTorch")
+    errs = {"bwd_resident": 0.0, "fwd_dense": 0.0, "bwd_dense": 0.0,
+            "l2_dense": 0.0}
+    times = {}
+
+    def add(e):
+        for kk, v in e.items():
+            errs[kk] = max(errs[kk], v)
+
+    ref = load_image(MINI)
+    h, w = ref.shape[:2]
+    base = SplatConfig(width=w, height=h, n_splats=600, tile_h=32,
+                       max_splats_per_tile=256)
+    # A prefix from another population as the carry-in, and a random
+    # upstream cotangent.
+    p_pre = params_from_numpy(population(21, 300, w, h), dev)
+    pre = base.replace(n_splats=300)
+    b_pre = tl.bin_splats(p_pre, pre, 256, ids_only=True)
+    c_pre, t_pre = rr._fwd_resident_plain(rr.resident_table(p_pre, pre),
+                                          rr._remap_ids(b_pre, 300),
+                                          b_pre.count, pre)
+    carry = (c_pre[0].contiguous(), t_pre[0].contiguous())
+    g_rand = torch.randn((3, base.padded_height, base.padded_width),
+                         generator=torch.Generator(dev).manual_seed(22),
+                         device=dev)
+    p_rand = params_from_numpy(population(20, 600, w, h), dev)
+    add({"bwd_resident": compare_bwd_resident_case(
+        "random + carry-in + random cotangent", p_rand, ref, base, dev,
+        carry=carry, g_color=g_rand)[0]})
+    add(compare_dense_case("random + carry-in + random cotangent, K=256",
+                           p_rand, ref, base.replace(binning="dense"), dev,
+                           carry=carry, g_color=g_rand)[0])
+    cfg512 = base.replace(n_splats=1500, max_splats_per_tile=512,
+                          binning="dense")
+    add(compare_dense_case("random + carry-in + random cotangent, K=512",
+                           params_from_numpy(population(20, 1500, w, h),
+                                             dev), ref, cfg512, dev,
+                           carry=carry, g_color=g_rand)[0])
+    p1 = population(23, 300, w, h, opacity=(1.0, 1.0))
+    p1["pos"][:64] = np.floor(p1["pos"][:64]) + 0.5
+    p1 = params_from_numpy(p1, dev)
+    cfg1 = base.replace(n_splats=300)
+    add({"bwd_resident": compare_bwd_resident_case(
+        "opacity-1 centred", p1, ref, cfg1, dev)[0]})
+    add(compare_dense_case("opacity-1 centred", p1, ref,
+                           cfg1.replace(binning="dense"), dev)[0])
+    threshold = rd.SAT_WALK_THRESHOLD
+    rd.SAT_WALK_THRESHOLD = 1
+    try:
+        cfg64 = SplatConfig(width=w, height=h, n_splats=256, tile_h=64,
+                            max_splats_per_tile=512, binning="dense")
+        add(compare_dense_case("saturated, 64-row tiles, walk forced",
+                               params_from_numpy(opaque_stack(24, 256, w, h),
+                                                 dev), ref, cfg64, dev)[0])
+    finally:
+        rd.SAT_WALK_THRESHOLD = threshold
+    cfg_main = SplatConfig(width=w, height=h, n_splats=1024)
+    p_init = init_params(cfg_main, dev)
+    cfg_ssim = tl.tune_tile_height(cfg_main, p_init).replace(
+        max_splats_per_tile=rd._max_per_tile(cfg_main))
+    e, t = compare_bwd_resident_case("pcg3d init (SSIM path), K=256", p_init,
+                                     ref, cfg_ssim, dev, timed=True)
+    add({"bwd_resident": e})
+    times.update(t)
+    e, t = compare_dense_case("pcg3d init (SSIM path), K=256", p_init, ref,
+                              cfg_ssim.replace(binning="dense"), dev,
+                              timed=("fwd_dense", "bwd_dense"))
+    add(e)
+    times.update(t)
+    cfg_l2 = tl.tune_tile_capacity(p_init, tl.tune_tile_height(
+        cfg_main, p_init)).replace(binning="dense")
+    e, t = compare_dense_case(
+        f"pcg3d init (L2 path), K={cfg_l2.max_splats_per_tile}", p_init, ref,
+        cfg_l2, dev, timed=("l2_dense",))
+    add(e)
+    times.update(t)
+    log_times(times, "at the default fit's init", smi)
     return errs, times
 
 
@@ -330,83 +712,118 @@ def check_mse(mse: dict, it: int, want: float, rtol: float) -> None:
         raise AssertionError(f"MSE @ {it + 1} off the reference")
 
 
-def fit_phase(image: str, splats: int, name: str, smi: str):
-    """The CLI's 200-iteration fit of ``image``: once logged at every step
-    (launch counts and the MSE trajectory), then 5 timed runs without a
-    per-step sync. Returns (launches, {iter: mse}, it/s of the timed
-    runs)."""
+def reset_counts() -> None:
+    from gs2d_tpu_torch.ops import render_dense as rdn
     from gs2d_tpu_torch.ops import render_flat as rf
     from gs2d_tpu_torch.ops import render_resident as rr
 
-    argv = [image, "--splats", str(splats), "--iters", "200", "--device",
-            "cuda"]
-    log(f"[fit] python -m gs2d_tpu_torch.fit {os.path.basename(image)} "
-        f"{' '.join(argv[1:])}")
+    for mod in (rr, rf, rdn):
+        mod.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    from gs2d_tpu_torch.ops import render_dense as rdn
+    from gs2d_tpu_torch.ops import render_flat as rf
+    from gs2d_tpu_torch.ops import render_resident as rr
+
+    return {**rr.launches, **rf.launches, **rdn.launches}
+
+
+def logged_fit(argv) -> tuple:
+    """One CLI fit logged at every step, the launch counts set to 0 just
+    before it and read just after. Returns (launches, {iter: mse})."""
     with tempfile.TemporaryDirectory() as out:
-        rr.reset_launch_counts()
-        rf.reset_launch_counts()
-        run_cli(argv + ["--log-every", "1", "--out", out])
-        launches = {**rr.launches, **rf.launches}
+        reset_counts()
+        printed = run_cli(argv + ["--log-every", "1", "--out", out])
+        launches = read_counts()
         recs = [json.loads(x) for x in
                 open(os.path.join(out, "metrics.jsonl")).read().splitlines()]
         mse = {r["iter"]: r["mse"] for r in recs if "iter" in r}
         done = [r for r in recs if r.get("event") == "done"][0]
         png = os.path.getsize(os.path.join(out, "render_final.png"))
-    log(f"  launches: {launches}; render_final.png {png} bytes")
+    log(f"  launches: { {k: v for k, v in launches.items() if v} }; "
+        f"render_final.png {png} bytes; logged run (sync every step): "
+        f"{done['iters_per_s']:.1f} it/s")
+    warnings = [x for x in printed.splitlines() if x.startswith("WARNING")]
+    log(f"  overflow warnings: {warnings if warnings else 'none'}")
     if len(mse) != 200 or not all(np.isfinite(list(mse.values()))):
         raise AssertionError("trajectory incomplete or non-finite")
-    log(f"  logged run (sync every step): {done['iters_per_s']:.1f} it/s")
+    return launches, mse
+
+
+def fit_phase(image: str, splats: int, smi: str, extra=(),
+              runs: int = 5):
+    """The CLI's 200-iteration fit of ``image`` (with ``extra`` flags): once
+    logged at every step (launch counts and the MSE trajectory), then
+    ``runs`` timed runs without a per-step sync. Returns (launches,
+    {iter: mse}, it/s of the timed runs)."""
+    argv = [image, "--splats", str(splats), "--iters", "200", "--device",
+            "cuda", *extra]
+    log(f"[fit] python -m gs2d_tpu_torch.fit {os.path.basename(image)} "
+        f"{' '.join(argv[1:])}")
+    launches, mse = logged_fit(argv)
     rates = []
-    for _ in range(5):
+    for _ in range(runs):
         with tempfile.TemporaryDirectory() as out:
             run_cli(argv + ["--log-every", "0", "--out", out])
             rates.append([json.loads(x) for x in open(os.path.join(
                 out, "metrics.jsonl")).read().splitlines()][-1]
                 ["iters_per_s"])
     q1, med, q3 = np.percentile(rates, [25, 50, 75])
-    log(f"  timed runs (5 x 200 iters, no per-step sync): it/s "
+    log(f"  timed runs ({runs} x 200 iters, no per-step sync): it/s "
         f"{', '.join(f'{r:.2f}' for r in rates)}; median {med:.2f} "
         f"(quartiles {q1:.2f}-{q3:.2f}) = {1e3 / med:.3f} ms/step "
-        f"[{name}, {smi}]")
+        f"[{smi}]")
     return launches, mse, rates
 
 
-def step_profile(cfg, image: str, dev, step_ms: float,
-                 steps: int = 20) -> str:
-    """Device time per step by kernel over a steady window of the train
-    step on ``image``, from torch.profiler; the idle share is taken against
+def expect_launches(path: str, launches: dict, want: dict) -> None:
+    """Every kernel of ``want`` launched exactly that often, every other
+    kernel never."""
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        raise AssertionError(f"{path}: launches {got}, expected {want}")
+
+
+def check_trajectory(mse: dict, gates: dict) -> None:
+    for it, (want, rtol) in gates.items():
+        check_mse(mse, it, want, rtol)
+
+
+def same_trajectory(a: dict, b: dict) -> bool:
+    return all(a[i] == b[i] for i in range(200))
+
+
+def step_profile(step, state, ref_in, step_ms: float, steps: int = 20) -> str:
+    """Device time per step by kernel over a steady window of ``step`` from
+    ``state``, from torch.profiler; the idle share is taken against
     ``step_ms``, the step time of an unprofiled run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from gs2d_tpu_torch.io.image import load_image
-    from gs2d_tpu_torch.ops import render as rd
-    from gs2d_tpu_torch.train.loop import (init_train_state,
-                                           make_train_step_fused)
-
-    state = init_train_state(cfg, dev)
-    step = make_train_step_fused(cfg)
-    ref_chw = rd.pad_ref_chw(load_image(image), cfg, dev)
     for _ in range(5):
-        state, _ = step(state, ref_chw)
+        state, _ = step(state, ref_in)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            state, _ = step(state, ref_chw)
+            state, _ = step(state, ref_in)
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     rows = []
     total = 0.0
+    launches = 0
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue  # host-side ops; their kernels are listed themselves
         dt = ev.self_device_time_total / steps / 1e3
         rows.append((dt, ev.count // steps, ev.key))
         total += dt
+        launches += ev.count
     rows.sort(reverse=True)
-    lines = [f"  device busy {total:.4f} ms/step over {steps} steps; "
+    lines = [f"  device busy {total:.4f} ms/step over {steps} steps, "
+             f"{launches / steps:.0f} device kernels and copies a step; "
              f"unprofiled step {step_ms:.4f} ms, idle share "
              f"{max(0.0, 1 - total / step_ms):.3f} (profiled step wall "
              f"{wall_ms:.3f} ms)"]
@@ -415,6 +832,41 @@ def step_profile(cfg, image: str, dev, step_ms: float,
     if not rows:
         lines.append("    profiler saw no device time")
     return "\n".join(lines)
+
+
+def profile_fused(cfg, image: str, dev, step_ms: float) -> str:
+    from gs2d_tpu_torch.io.image import load_image
+    from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.train.loop import (init_train_state,
+                                           make_train_step_fused)
+
+    return step_profile(make_train_step_fused(cfg),
+                        init_train_state(cfg, dev),
+                        rd.pad_ref_chw(load_image(image), cfg, dev), step_ms)
+
+
+def median_ms(rates) -> float:
+    return 1e3 / float(np.median(rates))
+
+
+KERNELS = (
+    ("l2_resident", "gs2d_tpu_torch/csrc/render_resident.cu",
+     "gs2d_tpu/ops/render_pallas_resident.py:88"),
+    ("fwd_resident", "gs2d_tpu_torch/csrc/render_resident.cu",
+     "gs2d_tpu/ops/render_pallas_resident.py:267"),
+    ("bwd_resident", "gs2d_tpu_torch/csrc/render_resident.cu",
+     "gs2d_tpu/ops/render_pallas_resident.py:294"),
+    ("l2_dense", "gs2d_tpu_torch/csrc/render_dense.cu",
+     "gs2d_tpu/ops/render_pallas.py:792, gs2d_tpu/ops/render_pallas.py:1003"),
+    ("fwd_dense", "gs2d_tpu_torch/csrc/render_dense.cu",
+     "gs2d_tpu/ops/render_pallas.py:231, gs2d_tpu/ops/render_pallas.py:458"),
+    ("bwd_dense", "gs2d_tpu_torch/csrc/render_dense.cu",
+     "gs2d_tpu/ops/render_pallas.py:253, gs2d_tpu/ops/render_pallas.py:496"),
+    ("fwd_flat", "gs2d_tpu_torch/csrc/render_flat.cu",
+     "gs2d_tpu/ops/render_pallas_flat.py:227"),
+    ("bwd_flat", "gs2d_tpu_torch/csrc/render_flat.cu",
+     "gs2d_tpu/ops/render_pallas_flat.py:265"),
+)
 
 
 def main() -> int:
@@ -427,6 +879,7 @@ def main() -> int:
     from gs2d_tpu_torch.ops import render_flat as rf
     from gs2d_tpu_torch.ops import tiles as tl
     from gs2d_tpu_torch.params import init_params, params_from_numpy
+    from gs2d_tpu_torch.train.loop import init_train_state, make_train_step
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -443,7 +896,7 @@ def main() -> int:
     ptxas = lib_path.with_suffix(".log").read_text() \
         if lib_path.with_suffix(".log").exists() else ""
     for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
     # ---- kernels vs plain versions ------------------------------------------
@@ -454,8 +907,7 @@ def main() -> int:
     log("[compare] kernels vs plain PyTorch on the card")
     errs = {"l2_resident": 0.0, "fwd_resident": 0.0}
     p_rand = params_from_numpy(population(0, 1024, w, h), dev)
-    e, times = compare_case("random 268x213", p_rand, ref, cfg, dev,
-                            timed=True)
+    e, _ = compare_case("random 268x213", p_rand, ref, cfg, dev, timed=False)
     errs = {kk: max(errs[kk], e[kk]) for kk in errs}
     cfg130 = cfg.replace(n_splats=130, max_splats_per_tile=128)
     e, _ = compare_case("random N=130", params_from_numpy(
@@ -471,77 +923,109 @@ def main() -> int:
     p_init = init_params(cfg.replace(max_splats_per_tile=None), dev)
     cfg_main = tl.tune_tile_capacity(p_init, cfg.replace(
         max_splats_per_tile=None))
-    e, main_times = compare_case("pcg3d init (main path)", p_init, ref,
-                                 cfg_main, dev, timed=True)
+    e, times = compare_case("pcg3d init (main path)", p_init, ref, cfg_main,
+                            dev, timed=True)
     errs = {kk: max(errs[kk], e[kk]) for kk in errs}
-    for kk, (ms, pms) in main_times.items():
-        log(f"  {kk} at the main path's shapes "
-            f"(K={cfg_main.max_splats_per_tile}): kernel {ms:.4f} ms, "
-            f"plain {pms:.2f} ms [{name}, {smi}]")
-    for kk, (ms, pms) in times.items():
-        log(f"  {kk} on the random 1024 population: kernel {ms:.4f} ms, "
-            f"plain {pms:.2f} ms")
+    log_times(times, f"at the default fit's init (K="
+              f"{cfg_main.max_splats_per_tile})", smi)
 
-    flat_errs, flat_times = compare_flat(dev, name, smi)
+    new_errs, new_times = compare_new(dev, smi)
+    flat_errs, flat_times = compare_flat(dev, smi)
+    errs.update(new_errs)
+    errs.update(flat_errs)
+    times.update(new_times)
+    times.update(flat_times)
 
     # ---- main paths: the CLI's fits -----------------------------------------
-    launches, mse, rates = fit_phase(MINI, 1024, name, smi)
-    if launches["l2_resident"] != 200 or launches["fwd_resident"] < 1 \
-            or launches["fwd_flat"] or launches["bwd_flat"]:
-        raise AssertionError(f"resident path bypassed a kernel: {launches}")
-    for it, want in TRAJECTORY.items():
-        check_mse(mse, it, want, TRAJECTORY_RTOL)
-    log("[profile] resident train step, 20 steps")
-    log(step_profile(cfg_main, MINI, dev,
-                     1e3 / float(np.median(rates))))
-    resident_launches = launches
+    total = {}
 
-    flat_launches, mse, rates = fit_phase(FULL, N_10K, name, smi)
-    if flat_launches["fwd_flat"] != 201 or flat_launches["bwd_flat"] != 200 \
-            or flat_launches["l2_resident"] \
-            or flat_launches["fwd_resident"]:
-        raise AssertionError(f"flat path bypassed a kernel: {flat_launches}")
-    for it, (want, rtol) in TRAJECTORY_10K.items():
-        check_mse(mse, it, want, rtol)
+    def count(launches):
+        for kk, v in launches.items():
+            total[kk] = total.get(kk, 0) + v
+
+    launches, mse_l2, rates = fit_phase(MINI, 1024, smi)
+    expect_launches("resident L2 fit", launches,
+                    {"l2_resident": 200, "fwd_resident": 1})
+    count(launches)
+    check_trajectory(mse_l2, {it: (want, TRAJECTORY_RTOL)
+                              for it, want in TRAJECTORY.items()})
+    log("[profile] resident L2 train step, 20 steps")
+    log(profile_fused(cfg_main, MINI, dev, median_ms(rates)))
+
+    launches, mse, rates = fit_phase(FULL, N_10K, smi)
+    expect_launches("flat L2 fit", launches,
+                    {"fwd_flat": 201, "bwd_flat": 200})
+    count(launches)
+    check_trajectory(mse, TRAJECTORY_10K)
     log(f"  MSE-255 @ 200: {mse[199]:.4f} (no gate)")
     full = load_image(FULL)
     cfg_10k = SplatConfig(width=full.shape[1], height=full.shape[0],
                           n_splats=N_10K)
     p0 = init_params(cfg_10k, dev)
     cfg_10k = rf.tune_flat_config(p0, tl.tune_tile_height(cfg_10k, p0))
-    log("[profile] flat train step, 20 steps")
-    log(step_profile(cfg_10k, FULL, dev, 1e3 / float(np.median(rates))))
+    log("[profile] flat L2 train step, 20 steps")
+    log(profile_fused(cfg_10k, FULL, dev, median_ms(rates)))
 
+    ssim = ["--ssim", SSIM]
+    launches, mse_ssim, rates = fit_phase(MINI, 1024, smi, ssim, runs=3)
+    expect_launches("resident SSIM fit", launches,
+                    {"fwd_resident": 201, "bwd_resident": 200})
+    count(launches)
+    check_trajectory(mse_ssim, TRAJECTORY_SSIM)
+    for it, want in REPORT_SSIM.items():
+        log(f"  MSE-255 @ {it + 1}: {mse_ssim[it]:.4f} (JAX scan path "
+            f"{want}, rel {abs(mse_ssim[it] - want) / want:.2e}; no gate)")
+    log("[fit] the resident SSIM fit again, logged")
+    _, again = logged_fit([MINI, "--splats", "1024", "--iters", "200",
+                           "--device", "cuda", *ssim])
+    if not same_trajectory(mse_ssim, again):
+        raise AssertionError("the resident SSIM fit does not repeat bit for "
+                             "bit")
+    log("  repeats bit for bit (200 of 200 MSEs equal)")
+    cfg_ssim = tl.tune_tile_height(SplatConfig(width=w, height=h,
+                                               n_splats=1024), p_init)
+    log("[profile] modular SSIM train step (resident), 20 steps")
+    log(step_profile(make_train_step(cfg_ssim, float(SSIM)),
+                     init_train_state(cfg_ssim, dev),
+                     torch.as_tensor(ref, dtype=torch.float32, device=dev),
+                     median_ms(rates)))
+
+    dense = ["--binning", "dense"]
+    launches, mse, _ = fit_phase(MINI, 1024, smi, dense, runs=3)
+    expect_launches("dense L2 fit", launches,
+                    {"l2_dense": 200, "fwd_dense": 1})
+    count(launches)
+    check_trajectory(mse, {it: (want, TRAJECTORY_RTOL)
+                           for it, want in TRAJECTORY.items()})
+    log(f"  equals the resident L2 trajectory bit for bit: "
+        f"{same_trajectory(mse, mse_l2)}")
+
+    launches, mse, _ = fit_phase(MINI, 1024, smi, dense + ssim,
+                                 runs=3)
+    expect_launches("dense SSIM fit", launches,
+                    {"fwd_dense": 201, "bwd_dense": 200})
+    count(launches)
+    check_trajectory(mse, TRAJECTORY_SSIM)
+    log(f"  equals the resident SSIM trajectory bit for bit: "
+        f"{same_trajectory(mse, mse_ssim)}")
+
+    launches, mse, _ = fit_phase(FULL, N_10K, smi, ssim, runs=3)
+    expect_launches("flat SSIM fit", launches,
+                    {"fwd_flat": 201, "bwd_flat": 200})
+    count(launches)
+    check_trajectory(mse, TRAJECTORY_SSIM_10K)
+    log(f"  MSE-255 @ 200: {mse[199]:.4f} (no gate)")
+
+    for kk, _, _ in KERNELS:
+        if not total.get(kk):
+            raise AssertionError(f"{kk}: no launch on any path")
     report = {"kernels": [
-        {"name": "l2_resident", "route": "cuda",
-         "source": "gs2d_tpu_torch/csrc/render_resident.cu",
-         "replaces": "gs2d_tpu/ops/render_pallas_resident.py:88",
-         "launches": resident_launches["l2_resident"],
-         "max_abs_err": errs["l2_resident"],
-         "ms": main_times["l2_resident"][0],
-         "plain_ms": main_times["l2_resident"][1]},
-        {"name": "fwd_resident", "route": "cuda",
-         "source": "gs2d_tpu_torch/csrc/render_resident.cu",
-         "replaces": "gs2d_tpu/ops/render_pallas_resident.py:267",
-         "launches": resident_launches["fwd_resident"],
-         "max_abs_err": errs["fwd_resident"],
-         "ms": main_times["fwd_resident"][0],
-         "plain_ms": main_times["fwd_resident"][1]},
-        {"name": "fwd_flat", "route": "cuda",
-         "source": "gs2d_tpu_torch/csrc/render_flat.cu",
-         "replaces": "gs2d_tpu/ops/render_pallas_flat.py:227",
-         "launches": flat_launches["fwd_flat"],
-         "max_abs_err": flat_errs["fwd_flat"],
-         "ms": flat_times["fwd_flat"][0],
-         "plain_ms": flat_times["fwd_flat"][1]},
-        {"name": "bwd_flat", "route": "cuda",
-         "source": "gs2d_tpu_torch/csrc/render_flat.cu",
-         "replaces": "gs2d_tpu/ops/render_pallas_flat.py:265",
-         "launches": flat_launches["bwd_flat"],
-         "max_abs_err": flat_errs["bwd_flat"],
-         "ms": flat_times["bwd_flat"][0],
-         "plain_ms": flat_times["bwd_flat"][1]},
-    ]}
+        {"name": kk, "route": "cuda", "source": src, "replaces": rep,
+         "launches": total[kk], "max_abs_err": errs[kk],
+         "ms": times[kk]["ms"], "plain_ms": times[kk]["plain_ms"],
+         "bound_ms": times[kk]["bound_ms"],
+         "bound_by": times[kk]["bound_by"], "library_ms": None}
+        for kk, src, rep in KERNELS]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,21 +1,28 @@
 """Command-line fitting app of the PyTorch port (the counterpart of
-``gs2d_tpu/cli.py`` for the resident and flat fitting paths).
+``gs2d_tpu/cli.py`` for the resident, flat and dense fitting paths, L2 or
+the SSIM mix).
 
 Usage:
   python -m gs2d_tpu_torch.fit assets/squirrel_cls_mini.npy --splats 1024 \
       --iters 200 --out runs/torch_fit
   python -m gs2d_tpu_torch.fit assets/squirrel_cls.npy --splats 10240 \
       --iters 200 --out runs/torch_fit_10k
+  python -m gs2d_tpu_torch.fit assets/squirrel_cls_mini.npy --splats 1024 \
+      --iters 200 --ssim 0.2 --binning dense --out runs/torch_fit_ssim
 
 Fits through the layout gs2d_tpu would pick (``--binning auto``: resident
-for small populations, flat above 4096 splats), then renders ``render_final.png`` through
-that layout's forward kernel with the fit's tuned config. The tile height
-follows gs2d_tpu's policy unless ``--tile-h`` is given. ``--device``
-defaults to ``cuda`` and exits 2 when no GPU is visible; ``--device cpu``
-runs the kernels' plain PyTorch versions. Flags of ``gs2d_tpu.cli`` for
-features this port does not have yet are not accepted (argparse exits 2),
-and layouts it does not have exit 2, so nothing a user asks for is
-silently ignored.
+for small populations, flat above 4096 splats, dense for small populations
+whose resident table does not fit), then renders ``render_final.png``
+through that layout's forward kernel with the fit's config. ``--ssim``
+mixes lambda * (1 - SSIM) into the objective and trains on the modular
+path (the layout's forward and backward kernels under autograd), with the
+default per-tile capacity as gs2d_tpu's CLI does. The tile height follows
+gs2d_tpu's policy unless ``--tile-h`` is given. ``--device`` defaults to
+``cuda`` and exits 2 when no GPU is visible; ``--device cpu`` runs the
+kernels' plain PyTorch versions. Flags of ``gs2d_tpu.cli`` for features
+this port does not have yet are not accepted (argparse exits 2), and
+layouts it does not have exit 2, so nothing a user asks for is silently
+ignored.
 """
 
 from __future__ import annotations
@@ -56,8 +63,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "resident", "flat", "dense", "window"],
                    default="auto",
                    help="tile binning layout (auto picks by population size "
-                        "as gs2d_tpu does; dense and window are not ported "
-                        "yet and exit 2)")
+                        "as gs2d_tpu does; window is not ported yet and "
+                        "exits 2)")
+    p.add_argument("--ssim", type=float, default=0.0, metavar="LAMBDA",
+                   help="mix lambda*(1-SSIM) into the objective (0 = pure "
+                        "L2, the reference objective); runs on the modular "
+                        "path")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda (default) requires a GPU, cpu "
                         "runs the kernels' plain PyTorch versions")
@@ -78,6 +89,7 @@ def main(argv=None) -> int:
     from gs2d_tpu_torch.config import SplatConfig
     from gs2d_tpu_torch.io.image import load_image, save_image
     from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.ops import render_dense as rdn
     from gs2d_tpu_torch.ops import render_flat as rf
     from gs2d_tpu_torch.ops import render_resident as rr
     from gs2d_tpu_torch.ops import tiles as tl
@@ -107,10 +119,11 @@ def main(argv=None) -> int:
         print(f"error: {e}")
         return 2
     # Binning statics are tuned here rather than inside fit() so the final
-    # render below uses the fit's config.
+    # render below uses the fit's config. The SSIM path keeps the default
+    # per-tile capacity, as gs2d_tpu's does.
     if layout == "flat":
         cfg = rf.tune_flat_config(state.params, cfg)
-    elif cfg.max_splats_per_tile is None:
+    elif cfg.max_splats_per_tile is None and not args.ssim:
         cfg = tl.tune_tile_capacity(state.params, cfg)
 
     os.makedirs(args.out, exist_ok=True)
@@ -118,7 +131,8 @@ def main(argv=None) -> int:
     tc = ThroughputCounter(h, w, args.splats)
     t_start = time.perf_counter()
     state, hist = fit(ref, cfg, args.iters, device, state=state,
-                      log_every=args.log_every, log_fn=print)
+                      log_every=args.log_every, log_fn=print,
+                      ssim_lambda=args.ssim)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     total = time.perf_counter() - t_start
@@ -131,6 +145,9 @@ def main(argv=None) -> int:
 
     if layout == "flat":
         color, n_dropped = rf.render_flat(state.params, cfg)
+    elif layout == "dense":
+        color, n_dropped = rdn.render_dense(state.params, cfg,
+                                            rd._max_per_tile(cfg))
     else:
         color, n_dropped = rr.render_resident(state.params, cfg,
                                               rd._max_per_tile(cfg))

@@ -1,0 +1,244 @@
+// Dense-layout rasterizer kernels for Hopper (sm_90a), bound with ctypes
+// through a plain C interface (gs2d_tpu_torch/ops/_build.py).
+//
+// The dense binning (gs2d_tpu_torch/ops/tiles.py::bin_splats) pregathers
+// each tile's index-ordered list into (n_tiles, K, 16) tile_params: tile t
+// owns rows [t * K, t * K + count[t]), padded slots hold benign rows. Each
+// TPU kernel pair below differs only in how the TPU fits a long list into
+// SMEM (the chunked member takes K > 256 in 256-row chunks over a grid
+// axis, with saturation exits); here one kernel serves both members with
+// the chunk walk of tile_walk.cuh (chunks of kc <= 256 rows in shared
+// memory, register carries, the exits bitwise-neutral), so it takes any K.
+//
+// Kernels 4/5, gs2d_l2_dense: the fused L2 train step. Composite, form the
+//   cotangent gC = C - ref in registers, replay backward, one 9-moment
+//   partial per (tile, slot), then the tile-order segment sum shared with
+//   kernel 1. Replaces gs2d_tpu/ops/render_pallas.py::_l2_fused_kernel
+//   (pallas_call at :958) and ::_l2_chunked_kernel (:1140).
+// Kernels 6/7, gs2d_fwd_dense: the forward composite (C, T). Replaces
+//   render_pallas.py::_forward_kernel (:597) and ::_fwd_chunked_kernel
+//   (:576).
+// Kernels 8/9, gs2d_bwd_dense: the backward replay from a carry-in prefix
+//   (C_in, T_in) under any upstream cotangent, then the segment sum.
+//   Replaces render_pallas.py::_backward_kernel (:728) and
+//   ::_bwd_chunked_kernel (:681).
+//
+// No G-cache: the TPU's (K, 32, 128) cache of the masked Gaussian term does
+// not fit a block, so the backward re-derives coverage (the alpha_cache=False
+// form). The per-(pixel, pair) arithmetic and the moment sums' order are the
+// resident kernels' (splat_terms.cuh, the same warp tree and warp order), so
+// a dense fit repeats the resident fit's numbers. What bounds them on the
+// card: about 58 f32 operations per (pixel, pair) forward and 81 backward
+// (counted in chip_smoke.py) against 64 bytes of row per pair, so they are
+// compute and latency bound; one block per tile leaves most SMs idle at the
+// default 21-tile image (ROADMAP.md queue 1b).
+
+#include <cuda_runtime.h>
+
+#include "tile_walk.cuh"
+
+namespace gs2d {
+namespace dense {
+
+using walk::kRows;
+using walk::WalkArgs;
+
+__global__ void __launch_bounds__(walk::kMaxThreads)
+fwd_dense_kernel(const float* __restrict__ rows, const int* __restrict__ count,
+                 float* __restrict__ color, float* __restrict__ trans,
+                 WalkArgs a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);  // kc x kFields
+  const RenderArgs& p = a.p;
+  const walk::TileWalk w = walk::tile_walk(nullptr, count, a);
+  const size_t wp = (size_t)p.n_tiles_x * p.tile_w;
+  const size_t plane = (size_t)p.n_tiles_y * p.tile_h * wp;
+
+  for (int pass = 0; pass < p.tile_h; pass += a.sub_h) {
+    const int y0 = w.y0 + pass;
+    float cr[kRows], cg[kRows], cb[kRows], T[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      cr[r] = cg[r] = cb[r] = 0.0f;
+      T[r] = (y0 + r < p.height && w.col_in) ? 1.0f : 0.0f;
+    }
+    walk::fwd_pass(rows, w, y0, a, smem, cr, cg, cb, T);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const size_t i = (size_t)(y0 + r) * wp + w.xx;
+      color[i] = cr[r];
+      color[plane + i] = cg[r];
+      color[2 * plane + i] = cb[r];
+      trans[i] = T[r];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(walk::kMaxThreads)
+bwd_dense_kernel(const float* __restrict__ rows, const int* __restrict__ count,
+                 const float* __restrict__ fin, const float* __restrict__ gc,
+                 const float* __restrict__ cin, const float* __restrict__ tin,
+                 float* __restrict__ partial, WalkArgs a) {
+  extern __shared__ float4 smem4[];
+  float* srows = reinterpret_cast<float*>(smem4);     // kc x kFields
+  float* red = srows + (size_t)a.kc * kFields;        // warps x kGroup x 9
+  const walk::TileWalk w = walk::tile_walk(nullptr, count, a);
+  for (int pass = 0; pass < a.p.tile_h; pass += a.sub_h) {
+    const int y0 = w.y0 + pass;
+    float gc_r[kRows], gc_g[kRows], gc_b[kRows], gf[kRows], ga[kRows],
+        T[kRows];
+    walk::load_cotangent(fin, gc, cin, tin, a.p, w.xx, y0, gc_r, gc_g, gc_b,
+                         gf, ga, T);
+    walk::bwd_pass(rows, w, y0, a, srows, red, gc_r, gc_g, gc_b, gf, ga, T,
+                   partial);
+  }
+}
+
+__global__ void __launch_bounds__(walk::kMaxThreads)
+l2_dense_kernel(const float* __restrict__ rows, const int* __restrict__ count,
+                const float* __restrict__ ref, float* __restrict__ color,
+                float* __restrict__ partial, WalkArgs a) {
+  extern __shared__ float4 smem4[];
+  float* srows = reinterpret_cast<float*>(smem4);     // kc x kFields
+  float* red = srows + (size_t)a.kc * kFields;        // warps x kGroup x 9
+  const RenderArgs& p = a.p;
+  const walk::TileWalk w = walk::tile_walk(nullptr, count, a);
+  const size_t wp = (size_t)p.n_tiles_x * p.tile_w;
+  const size_t plane = (size_t)p.n_tiles_y * p.tile_h * wp;
+
+  for (int pass = 0; pass < p.tile_h; pass += a.sub_h) {
+    const int y0 = w.y0 + pass;
+    // ---- forward composite; gc_* hold the colour until gC is formed ------
+    float gc_r[kRows], gc_g[kRows], gc_b[kRows], gf[kRows], ga[kRows],
+        T[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      gc_r[r] = gc_g[r] = gc_b[r] = 0.0f;
+      T[r] = (y0 + r < p.height && w.col_in) ? 1.0f : 0.0f;
+    }
+    walk::fwd_pass(rows, w, y0, a, srows, gc_r, gc_g, gc_b, T);
+
+    // ---- cotangent gC = C - ref, gf = sum_ch gC * C ----------------------
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const size_t i = (size_t)(y0 + r) * wp + w.xx;
+      const float fr = gc_r[r], fg = gc_g[r], fb = gc_b[r];
+      color[i] = fr;
+      color[plane + i] = fg;
+      color[2 * plane + i] = fb;
+      gc_r[r] = fr - ref[i];
+      gc_g[r] = fg - ref[plane + i];
+      gc_b[r] = fb - ref[2 * plane + i];
+      gf[r] = gc_r[r] * fr + gc_g[r] * fg + gc_b[r] * fb;
+      ga[r] = 0.0f;
+      T[r] = (y0 + r < p.height && w.col_in) ? 1.0f : 0.0f;
+    }
+
+    // ---- backward replay, per-slot moments -------------------------------
+    walk::bwd_pass(rows, w, y0, a, srows, red, gc_r, gc_g, gc_b, gf, ga, T,
+                   partial);
+  }
+}
+
+// Launch constants of a dense walk over (n_tiles, k_cap, 16) rows in
+// chunks of kc; returns the threads per block, or 0 for a shape the kernels
+// do not take.
+int dense_args(int height, int width, int tile_h, int tile_w, int n_tiles_x,
+               int n_tiles_y, int k_cap, int kc, int sat_walk,
+               float cutoff_sq, float min_throughput, int use_exp_approx,
+               WalkArgs* a) {
+  if (k_cap <= 0 || kc <= 0) return 0;
+  return walk::walk_args(height, width, tile_h, tile_w, n_tiles_x, n_tiles_y,
+                         kc, (k_cap + kc - 1) / kc, sat_walk, k_cap,
+                         cutoff_sq, min_throughput, use_exp_approx, a);
+}
+
+}  // namespace dense
+}  // namespace gs2d
+
+using gs2d::walk::WalkArgs;
+
+extern "C" {
+
+// Kernels 6/7. rows is (n_tiles, K, 16), count (n_tiles,); color is
+// (3, Hp, Wp), trans (Hp, Wp). Returns cudaGetLastError().
+int gs2d_fwd_dense(const float* rows, const int* count, float* color,
+                   float* trans, int height, int width, int tile_h,
+                   int tile_w, int n_tiles_x, int n_tiles_y, int k_cap,
+                   int kc, int sat_walk, float cutoff_sq,
+                   float min_throughput, int use_exp_approx, void* stream) {
+  WalkArgs a;
+  const int threads = gs2d::dense::dense_args(
+      height, width, tile_h, tile_w, n_tiles_x, n_tiles_y, k_cap, kc,
+      sat_walk, cutoff_sq, min_throughput, use_exp_approx, &a);
+  if (threads == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)kc * gs2d::kFields;
+  cudaError_t err = cudaFuncSetAttribute(
+      gs2d::dense::fwd_dense_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  gs2d::dense::fwd_dense_kernel<<<n_tiles_x * n_tiles_y, threads, smem,
+                                  (cudaStream_t)stream>>>(rows, count, color,
+                                                          trans, a);
+  return (int)cudaGetLastError();
+}
+
+// Kernels 8/9 and the segment sum. ids is (n_tiles, K); fin, gc and cin
+// are (3, Hp, Wp), tin (Hp, Wp); partial is (n_tiles, K, 9), zeroed by the
+// caller; grads9 is (9, n_splats). Returns cudaGetLastError().
+int gs2d_bwd_dense(const float* rows, const int* ids, const int* count,
+                   const float* fin, const float* gc, const float* cin,
+                   const float* tin, float* partial, float* grads9,
+                   int n_splats, int height, int width, int tile_h,
+                   int tile_w, int n_tiles_x, int n_tiles_y, int k_cap,
+                   int kc, int sat_walk, float cutoff_sq,
+                   float min_throughput, int use_exp_approx, void* stream) {
+  WalkArgs a;
+  const int threads = gs2d::dense::dense_args(
+      height, width, tile_h, tile_w, n_tiles_x, n_tiles_y, k_cap, kc,
+      sat_walk, cutoff_sq, min_throughput, use_exp_approx, &a);
+  if (threads == 0) return (int)cudaErrorInvalidValue;
+  const int n_tiles = n_tiles_x * n_tiles_y;
+  const size_t smem = gs2d::walk::bwd_smem_bytes(kc, threads);
+  cudaError_t err = cudaFuncSetAttribute(
+      gs2d::dense::bwd_dense_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  gs2d::dense::bwd_dense_kernel<<<n_tiles, threads, smem, s>>>(
+      rows, count, fin, gc, cin, tin, partial, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return gs2d::launch_segment_sum(ids, count, partial, grads9, n_tiles, k_cap,
+                                  n_splats, n_splats, s);
+}
+
+// Kernels 4/5 and the segment sum. ref and color are (3, Hp, Wp); the rest
+// as gs2d_bwd_dense. Returns cudaGetLastError().
+int gs2d_l2_dense(const float* rows, const int* ids, const int* count,
+                  const float* ref, float* color, float* partial,
+                  float* grads9, int n_splats, int height, int width,
+                  int tile_h, int tile_w, int n_tiles_x, int n_tiles_y,
+                  int k_cap, int kc, int sat_walk, float cutoff_sq,
+                  float min_throughput, int use_exp_approx, void* stream) {
+  WalkArgs a;
+  const int threads = gs2d::dense::dense_args(
+      height, width, tile_h, tile_w, n_tiles_x, n_tiles_y, k_cap, kc,
+      sat_walk, cutoff_sq, min_throughput, use_exp_approx, &a);
+  if (threads == 0) return (int)cudaErrorInvalidValue;
+  const int n_tiles = n_tiles_x * n_tiles_y;
+  const size_t smem = gs2d::walk::bwd_smem_bytes(kc, threads);
+  cudaError_t err = cudaFuncSetAttribute(
+      gs2d::dense::l2_dense_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  gs2d::dense::l2_dense_kernel<<<n_tiles, threads, smem, s>>>(
+      rows, count, ref, color, partial, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return gs2d::launch_segment_sum(ids, count, partial, grads9, n_tiles, k_cap,
+                                  n_splats, n_splats, s);
+}
+
+}  // extern "C"

@@ -1,5 +1,5 @@
 // Shared device code of the rasterizer kernels (render_resident.cu,
-// render_flat.cu).
+// render_flat.cu, render_dense.cu).
 //
 // CUDA counterparts of gs2d_tpu/ops/render_pallas.py's shared kernel math:
 //   splat_terms   <- _splat_terms    (coverage, G, alpha, early-out mask)
@@ -211,5 +211,15 @@ __device__ __forceinline__ void add_run_moments(const int* run_ids, int n,
     for (int f = 0; f < kMoments; ++f) acc[f] += src[f];
   }
 }
+
+// Launches the tile-order segment sum of (n_tiles, k_cap, 9) per-(tile,
+// slot) moment partials (ids (n_tiles, k_cap), the first count[t] of each
+// row ascending) into rows 0..8 of grads (row stride n_pad); defined in
+// render_resident.cu, shared by the resident and dense backward kernels.
+// Returns cudaGetLastError().
+int launch_segment_sum(const int* ids, const int* count,
+                       const float* partial, float* grads, int n_tiles,
+                       int k_cap, int n_splats, int n_pad,
+                       cudaStream_t stream);
 
 }  // namespace gs2d

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``gs2d_tpu_torch/csrc``).
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
-with a plain C interface, which ``ctypes`` loads (no PyTorch headers, so a
-build takes seconds). The library lands in ``gs2d_tpu_torch/_build/`` under
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per source,
+all started together) and links the objects into one shared library with a
+plain C interface, which ``ctypes`` loads (no PyTorch headers, so a build
+takes seconds). The library lands in ``gs2d_tpu_torch/_build/`` under
 a name that carries a hash of the sources and flags, so any edit rebuilds
 and an unchanged tree reuses the library. Nothing here runs at import time;
 the kernel wrappers call ``library()`` on first launch. A failed build
@@ -26,23 +27,27 @@ BUILD_DIR = PKG_DIR / "_build"
 # -fmad=false: no FMA contraction, so the float32 operation order is the
 # Pallas kernels' (and the plain twin's); no --use_fast_math, so division,
 # sqrt and expf stay IEEE.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+                     "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
 # C entry points and their argument types (csrc/render_resident.cu,
-# csrc/render_flat.cu).
+# csrc/render_flat.cu, csrc/render_dense.cu).
 SIGNATURES = {
     "gs2d_l2_resident": [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P],
     "gs2d_fwd_resident": [_P] * 5 + [_I] * 7 + [_F, _F, _I, _P],
+    "gs2d_bwd_resident": [_P] * 9 + [_I] * 9 + [_F, _F, _I, _P],
     "gs2d_rows_per_thread": [],
     "gs2d_max_threads": [],
     "gs2d_fwd_flat": [_P] * 5 + [_I] * 9 + [_F, _F, _I, _P],
     "gs2d_bwd_flat": [_P] * 10 + [_I] * 10 + [_F, _F, _I, _P],
+    "gs2d_fwd_dense": [_P] * 4 + [_I] * 9 + [_F, _F, _I, _P],
+    "gs2d_bwd_dense": [_P] * 9 + [_I] * 10 + [_F, _F, _I, _P],
+    "gs2d_l2_dense": [_P] * 7 + [_I] * 10 + [_F, _F, _I, _P],
 }
 
 
@@ -81,14 +86,31 @@ def build() -> Path:
     BUILD_DIR.mkdir(exist_ok=True)
     cu, _ = _sources()
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in cu]
+    steps = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+             for src, obj in zip(cu, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in steps]
+    logs = [proc.communicate()[0] for proc in procs]
+    try:
+        for cmd, proc, log in zip(steps, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{log}")
+        link = [_nvcc(), *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(link)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, out)  # atomic: a concurrent build never loads half
     return out
 

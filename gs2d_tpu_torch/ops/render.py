@@ -39,8 +39,8 @@ _JAX_RESIDENT_BUDGET = 800 * 1024
 
 def resolve_binning(cfg: SplatConfig) -> str:
     """The layout gs2d_tpu.ops.render_pallas_flat.resolve_binning picks for
-    ``cfg``, where that is "resident" or "flat"; the dense and window
-    layouts are later slices and raise ``NotImplementedError``."""
+    ``cfg``, where that is "resident", "flat" or "dense"; the window layout
+    is a later slice and raises ``NotImplementedError``."""
     if cfg.binning not in ("auto", "dense", "flat", "resident", "window"):
         raise ValueError(f"unknown binning {cfg.binning!r}")
     layout = cfg.binning
@@ -55,10 +55,10 @@ def resolve_binning(cfg: SplatConfig) -> str:
             layout = "flat"
         else:
             layout = "dense"
-    if layout not in ("resident", "flat"):
+    if layout == "window":
         raise NotImplementedError(
-            f"binning layout {layout!r} is not ported yet (ROADMAP.md "
-            "queue 2: the dense and window kernels)")
+            "binning layout 'window' is not ported yet (ROADMAP.md queue 2: "
+            "the window kernel)")
     return layout
 
 
@@ -156,6 +156,55 @@ def pad_ref_chw(ref, cfg: SplatConfig, device=None) -> torch.Tensor:
                       dtype=torch.float32, device=ref.device)
     out[0, :, : cfg.height, : cfg.width] = ref.permute(2, 0, 1)
     return out
+
+
+def identity_carry(cfg: SplatConfig, device):
+    """The empty prefix entering a population: C_in (3, Hp, Wp) zeros and
+    the identity T_in (Hp, Wp)."""
+    hp, wp = cfg.padded_height, cfg.padded_width
+    return (torch.zeros((3, hp, wp), dtype=torch.float32, device=device),
+            identity_trans(cfg, hp, wp, device))
+
+
+def carry_planes(final_color, g_color, carry_in, cfg: SplatConfig):
+    """The backward kernels' input planes from (H, W, 3) images, zero-padded
+    as gs2d_tpu's backward_tiled / backward_resident pad them: (fin, gc,
+    cin) (3, Hp, Wp) and tin (Hp, Wp). ``carry_in`` is the (C (H, W, 3),
+    T (H, W)) prefix entering the population; identity when None."""
+    fin = pad_ref_chw(final_color, cfg)[0]
+    gc = pad_ref_chw(g_color, cfg)[0]
+    if carry_in is None:
+        return (fin, gc, *identity_carry(cfg, fin.device))
+    tin = torch.zeros((cfg.padded_height, cfg.padded_width),
+                      dtype=torch.float32, device=fin.device)
+    tin[: cfg.height, : cfg.width] = carry_in[1]
+    return fin, gc, pad_ref_chw(carry_in[0], cfg)[0], tin
+
+
+def cotangent_tiles(fin, gc, cin, cfg: SplatConfig):
+    """The backward replay's per-pixel inputs from (3, Hp, Wp) planes, in
+    tiles: (gc_rgb, gf = sum_ch gC * C_final, ga = sum_ch gC * C_in), in
+    the float32 order of the CUDA kernels' load_cotangent."""
+    fin_t, gc_t, cin_t = (to_tiles(x, cfg) for x in (fin, gc, cin))
+    gf = gc_t[0] * fin_t[0] + gc_t[1] * fin_t[1] + gc_t[2] * fin_t[2]
+    ga = gc_t[0] * cin_t[0] + gc_t[1] * cin_t[1] + gc_t[2] * cin_t[2]
+    return (gc_t[0], gc_t[1], gc_t[2]), gf, ga
+
+
+def segment_sum_plain(ids, start, count, moments, n_splats: int):
+    """(9, n) splat-axis sums of (M, 9) per-pair moment rows, tile t's run
+    being rows [start[t], start[t] + count[t]) with splat ids ``ids``: each
+    splat's rows added in tile order, as the CUDA segment sums add them.
+    Ids within a run are unique, so each tile's add is a plain indexed
+    update; -1 ids would land on the dropped row n."""
+    acc = torch.zeros((n_splats + 1, N_MOMENTS),
+                      dtype=torch.float32, device=moments.device)
+    for s, c in zip(start.tolist(), count.tolist()):
+        if c:
+            run = ids[s: s + c].long()
+            run = torch.where(run >= 0, run, n_splats)
+            acc[run] = acc[run] + moments[s: s + c]
+    return acc[:n_splats].T.contiguous()
 
 
 # ---------------------------------------------------------------------------

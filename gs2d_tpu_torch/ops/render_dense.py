@@ -1,0 +1,340 @@
+"""Dense-layout rasterizer (the counterpart of the kernel half of
+``gs2d_tpu/ops/render_pallas.py``): the layout of gs2d_tpu's sharded paths,
+of ``--binning dense``, and of ``--binning auto`` for small populations
+whose resident table does not fit.
+
+The dense binning (``tiles.bin_splats`` without ``ids_only``) pregathers
+each tile's index-ordered list into (n_tiles, K, N_FIELDS) ``tile_params``,
+padded slots holding the benign pad row. The backward writes one 9-moment
+partial per (tile, slot), the layout of the resident kernel 1's partials,
+and a tile-order segment sum adds them onto the splat axis without
+atomics, so runs repeat bit for bit.
+
+Three kernels, each behind a wrapper that dispatches on the tensors'
+device:
+
+- ``l2_render_and_grads`` / ``l2_render_and_grads_chunked`` (Pallas kernels
+  4 and 5, the fused L2 train step),
+- ``forward_tiled`` (kernels 6 and 7, the forward composite) and
+- ``backward_tiled`` (kernels 8 and 9, the backward replay from a carry-in
+  prefix under any upstream cotangent)
+
+launch the CUDA kernels of ``csrc/render_dense.cu`` for CUDA tensors
+(raising if the launch fails) and run the plain PyTorch twins beside them
+(``_l2_dense_plain`` / ``_fwd_dense_plain`` / ``_bwd_dense_plain``) for CPU
+tensors. Each Pallas pair differs only in how a TPU fits a list longer
+than 256 into SMEM; one CUDA kernel serves both members. Each wrapper adds
+one to ``launches[<name>]`` where it launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from gs2d_tpu_torch.config import SplatConfig
+from gs2d_tpu_torch.ops import render as rd
+from gs2d_tpu_torch.ops import tiles as tl
+from gs2d_tpu_torch.ops._build import check, library, on_card, stream
+from gs2d_tpu_torch.params import GaussianParams
+
+# Kernel launch counts since the last reset_launch_counts().
+launches = {"l2_dense": 0, "fwd_dense": 0, "bwd_dense": 0}
+
+# Tile shapes the CUDA kernels take: what tiles.tune_tile_height returns.
+CUDA_TILE_W = 128
+CUDA_TILE_HS = (32, 64)
+# Rows a kernel stages into shared memory per round (the TPU chunk).
+CHUNK = 256
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _fields_of(params: GaussianParams, cfg: SplatConfig) -> torch.Tensor:
+    """The (N_FIELDS, n) packed per-splat scalars for moments_to_grads: the
+    expression that built the binning's tile_params."""
+    return tl.packed_fields(params, cfg.splat_bounds)
+
+
+def _segment9(ids, count, partial, n_splats: int) -> torch.Tensor:
+    """(9, n) splat-axis sums of (n_tiles, K, 9) per-(tile, slot) partials,
+    each splat's partials added in tile order (padded ids -1 dropped)."""
+    n_tiles, k, _ = partial.shape
+    start = torch.arange(n_tiles, device=count.device) * k
+    return rd.segment_sum_plain(ids.reshape(-1), start, count,
+                                partial.reshape(n_tiles * k, rd.N_MOMENTS),
+                                n_splats)
+
+
+def _segment_grads(binning: tl.TileBinning, partial: torch.Tensor,
+                   n_splats: int) -> GaussianParams:
+    """Moments on the splat axis from (n_tiles, K, 9) partials: the
+    deterministic tile-order form of gs2d_tpu's scatter-add."""
+    return rd.unpack_moments(
+        _segment9(binning.ids, binning.count, partial, n_splats), n_splats)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (CPU path; the card-side reference in chip_smoke).
+# ---------------------------------------------------------------------------
+
+def _dense_walk(tile_params, count, cfg: SplatConfig, step, carry, get_t):
+    """Walk every tile's list in lockstep (slot k of all tiles at once; the
+    pad rows past a tile's count cover no pixel), stopping where the CUDA
+    kernels' exact saturation exits may: at chunk starts, and every
+    SAT_CHECK_EVERY slots at N >= SAT_WALK_THRESHOLD."""
+    kc = min(CHUNK, tile_params.shape[1])
+    check_every = min(kc, rd.SAT_CHECK_EVERY) if rd._sat_walk(cfg) else kc
+    n_steps = int(count.max()) if count.numel() else 0
+    return rd.saturating_loop(
+        n_steps, lambda k, c: step(k, tile_params[:, k], c), carry, get_t,
+        cfg.min_throughput, check_every)
+
+
+def _fwd_dense_plain(tile_params, count, cfg: SplatConfig):
+    """Plain twin of kernels 6/7: (color (3, Hp, Wp), T (Hp, Wp))."""
+    yy, xx, fy, fx, inside = rd.tile_coords(cfg, tile_params.device)
+    zero = torch.zeros_like(fx)
+
+    def step(k, r, carry):
+        return rd._fwd_one(r, fx, fy, xx, yy, inside, cfg, carry)
+
+    cr, cg, cb, T = _dense_walk(tile_params, count, cfg, step,
+                                (zero, zero, zero, inside.to(torch.float32)),
+                                lambda c: c[3])
+    return (rd.from_tiles(torch.stack([cr, cg, cb]), cfg),
+            rd.from_tiles(T[None], cfg)[0])
+
+
+def _bwd_dense_plain(tile_params, ids, count, fin, gc, cin, tin,
+                     n_splats: int, cfg: SplatConfig):
+    """Plain twin of kernels 8/9 and the segment sum: (per-(tile, slot)
+    partials (n_tiles, K, 9), splat moments (9, n)). ``fin``, ``gc`` and
+    ``cin`` are (3, Hp, Wp), ``tin`` (Hp, Wp)."""
+    yy, xx, fy, fx, inside = rd.tile_coords(cfg, tile_params.device)
+    gc_rgb, gf, ga = rd.cotangent_tiles(fin, gc, cin, cfg)
+    n_tiles, k = ids.shape
+    partial = torch.zeros((n_tiles, k, rd.N_MOMENTS), dtype=torch.float32,
+                          device=tile_params.device)
+
+    def step(slot, r, carry):
+        carry, col = rd._bwd_splat_step(r, fx, fy, xx, yy, inside, cfg, carry,
+                                        gf, gc_rgb)
+        partial[:, slot] = col
+        return carry
+
+    _dense_walk(tile_params, count, cfg, step,
+                (ga, rd.to_tiles(tin[None], cfg)[0]), lambda c: c[1])
+    return partial, _segment9(ids, count, partial, n_splats)
+
+
+def _l2_dense_plain(tile_params, ids, count, ref_chw, n_splats: int,
+                    cfg: SplatConfig):
+    """Plain twin of kernels 4/5: (color (3, Hp, Wp), partials
+    (n_tiles, K, 9), splat moments (9, n)). ``ref_chw`` is the padded
+    (1, 3, Hp, Wp) target."""
+    color, _ = _fwd_dense_plain(tile_params, count, cfg)
+    cin, tin = rd.identity_carry(cfg, color.device)
+    partial, grads9 = _bwd_dense_plain(tile_params, ids, count, color,
+                                       color - ref_chw[0], cin, tin,
+                                       n_splats, cfg)
+    return color, partial, grads9
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches.
+# ---------------------------------------------------------------------------
+
+def _check_inputs(cfg: SplatConfig, tile_params, count, ids=None,
+                  planes=()):
+    """Raise on what the kernels do not take; returns (library, K, kc).
+    ``planes`` are (name, tensor) float32 images, (3, Hp, Wp) or (Hp, Wp)
+    by their rank."""
+    if cfg.tile_w != CUDA_TILE_W or cfg.tile_h not in CUDA_TILE_HS:
+        raise ValueError(
+            f"tile {cfg.tile_h}x{cfg.tile_w} unsupported by the dense CUDA "
+            f"kernels (tile_w {CUDA_TILE_W}, tile_h in {CUDA_TILE_HS})")
+    n_tiles = cfg.n_tiles_x * cfg.n_tiles_y
+    hp, wp = cfg.padded_height, cfg.padded_width
+    k = tile_params.shape[1]
+    want = [("tile_params", tile_params, torch.float32,
+             (n_tiles, k, tl.N_FIELDS)),
+            ("count", count, torch.int32, (n_tiles,))]
+    if ids is not None:
+        want.append(("ids", ids, torch.int32, (n_tiles, k)))
+    want += [(name, t, torch.float32, (3, hp, wp)[3 - t.ndim:])
+             for name, t in planes]
+    for name, t, dtype, shape in want:
+        if t.dtype != dtype or not t.is_contiguous() \
+                or t.device != tile_params.device:
+            raise ValueError(f"{name}: need contiguous {dtype} on "
+                             f"{tile_params.device}, got {t.dtype} on "
+                             f"{t.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
+    return library(), k, min(CHUNK, k)
+
+
+def _statics(cfg: SplatConfig, k: int, kc: int):
+    """The launch constants after the pointers and n_splats."""
+    return (cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
+            cfg.n_tiles_y, k, kc, int(rd._sat_walk(cfg)), cfg.cutoff_sq,
+            cfg.min_throughput, int(cfg.use_exp_approx))
+
+
+def _fwd_dense_cuda(tile_params, count, cfg: SplatConfig):
+    lib, k, kc = _check_inputs(cfg, tile_params, count)
+    hp, wp = cfg.padded_height, cfg.padded_width
+    dev = tile_params.device
+    color = torch.empty((3, hp, wp), dtype=torch.float32, device=dev)
+    trans = torch.empty((hp, wp), dtype=torch.float32, device=dev)
+    err = lib.gs2d_fwd_dense(
+        tile_params.data_ptr(), count.data_ptr(), color.data_ptr(),
+        trans.data_ptr(), *_statics(cfg, k, kc), stream(tile_params))
+    check(err, "fwd_dense kernel launch")
+    launches["fwd_dense"] += 1
+    return color, trans
+
+
+def _bwd_dense_cuda(tile_params, ids, count, fin, gc, cin, tin,
+                    n_splats: int, cfg: SplatConfig):
+    lib, k, kc = _check_inputs(
+        cfg, tile_params, count, ids,
+        (("fin", fin), ("gc", gc), ("cin", cin), ("tin", tin)))
+    dev = tile_params.device
+    partial = torch.zeros((ids.shape[0], k, rd.N_MOMENTS),
+                          dtype=torch.float32, device=dev)
+    grads9 = torch.empty((rd.N_MOMENTS, n_splats), dtype=torch.float32,
+                         device=dev)
+    err = lib.gs2d_bwd_dense(
+        tile_params.data_ptr(), ids.data_ptr(), count.data_ptr(),
+        fin.data_ptr(), gc.data_ptr(), cin.data_ptr(), tin.data_ptr(),
+        partial.data_ptr(), grads9.data_ptr(), n_splats,
+        *_statics(cfg, k, kc), stream(tile_params))
+    check(err, "bwd_dense kernel launch")
+    launches["bwd_dense"] += 1
+    return partial, grads9
+
+
+def _l2_dense_cuda(tile_params, ids, count, ref_chw, n_splats: int,
+                   cfg: SplatConfig):
+    ref = ref_chw[0]
+    lib, k, kc = _check_inputs(cfg, tile_params, count, ids,
+                               (("ref_chw", ref),))
+    dev = tile_params.device
+    color = torch.empty_like(ref)
+    partial = torch.zeros((ids.shape[0], k, rd.N_MOMENTS),
+                          dtype=torch.float32, device=dev)
+    grads9 = torch.empty((rd.N_MOMENTS, n_splats), dtype=torch.float32,
+                         device=dev)
+    err = lib.gs2d_l2_dense(
+        tile_params.data_ptr(), ids.data_ptr(), count.data_ptr(),
+        ref.data_ptr(), color.data_ptr(), partial.data_ptr(),
+        grads9.data_ptr(), n_splats, *_statics(cfg, k, kc),
+        stream(tile_params))
+    check(err, "l2_dense kernel launch")
+    launches["l2_dense"] += 1
+    return color, partial, grads9
+
+
+# ---------------------------------------------------------------------------
+# Wrappers (same contracts as the JAX package's).
+# ---------------------------------------------------------------------------
+
+def _tile_params(binning: tl.TileBinning) -> torch.Tensor:
+    if binning.tile_params is None:
+        raise ValueError("the dense kernels need the pregathered "
+                         "tile_params: bin_splats without ids_only")
+    return binning.tile_params
+
+
+def forward_tiled(binning: tl.TileBinning, cfg: SplatConfig,
+                  crop: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernels 6/7: (color (H, W, 3), T (H, W)) of a dense binning, or the
+    padded (Hp, Wp) planes with ``crop=False``."""
+    tp = _tile_params(binning)
+    fn = _fwd_dense_cuda if on_card(tp) else _fwd_dense_plain
+    color, trans = fn(tp, binning.count, cfg)
+    color = color.permute(1, 2, 0)
+    if crop:
+        return (color[: cfg.height, : cfg.width],
+                trans[: cfg.height, : cfg.width])
+    return color, trans
+
+
+def backward_tiled(binning: tl.TileBinning, final_color: torch.Tensor,
+                   g_color: torch.Tensor, n_splats: int, cfg: SplatConfig,
+                   params: GaussianParams, carry_in=None) -> GaussianParams:
+    """Kernels 8/9: analytic parameter gradients from a dense binning and
+    an upstream cotangent. ``final_color`` and ``g_color`` are (H, W, 3);
+    ``carry_in`` is the (C (H, W, 3), T (H, W)) prefix entering this
+    population (identity when None); ``params`` supplies the packed fields
+    moments_to_grads combines the moments with."""
+    tp = _tile_params(binning)
+    planes = rd.carry_planes(final_color, g_color, carry_in, cfg)
+    fn = _bwd_dense_cuda if on_card(tp) else _bwd_dense_plain
+    _, grads9 = fn(tp, binning.ids, binning.count, *planes, n_splats, cfg)
+    return rd.moments_to_grads(rd.unpack_moments(grads9, n_splats),
+                               _fields_of(params, cfg))
+
+
+def _l2_chw(binning: tl.TileBinning, ref_chw, n_splats: int,
+            cfg: SplatConfig, params: GaussianParams):
+    tp = _tile_params(binning)
+    fn = _l2_dense_cuda if on_card(tp) else _l2_dense_plain
+    color, _, grads9 = fn(tp, binning.ids, binning.count, ref_chw, n_splats,
+                          cfg)
+    grads = rd.moments_to_grads(rd.unpack_moments(grads9, n_splats),
+                                _fields_of(params, cfg))
+    return color.permute(1, 2, 0)[: cfg.height, : cfg.width], grads
+
+
+def l2_render_and_grads(binning: tl.TileBinning, ref_chw: torch.Tensor,
+                        n_splats: int, cfg: SplatConfig,
+                        params: GaussianParams):
+    """Fused L2 train path on a dense binning (kernel 4; K > 256 with K a
+    multiple of 256 dispatches to the chunked function, as in gs2d_tpu).
+    ``ref_chw`` is the padded (1, 3, Hp, Wp) target; returns (color
+    (H, W, 3), parameter gradients)."""
+    k = binning.ids.shape[1]
+    if k > CHUNK and k % CHUNK == 0:
+        return l2_render_and_grads_chunked(binning, ref_chw, n_splats, cfg,
+                                           params, chunk=CHUNK)
+    return _l2_chw(binning, ref_chw, n_splats, cfg, params)
+
+
+def l2_render_and_grads_chunked(binning: tl.TileBinning,
+                                ref_chw: torch.Tensor, n_splats: int,
+                                cfg: SplatConfig, params: GaussianParams,
+                                chunk: int = CHUNK):
+    """The same for lists in chunks of ``chunk`` (kernel 5): the CUDA
+    kernel walks any list in chunks, so only the capacity check differs."""
+    k = binning.ids.shape[1]
+    kc = min(chunk, k)
+    if k % kc:
+        raise ValueError(f"per-tile capacity {k} must divide by chunk {kc}")
+    return _l2_chw(binning, ref_chw, n_splats, cfg, params)
+
+
+def l2_step_dense(params: GaussianParams, ref_chw: torch.Tensor,
+                  cfg: SplatConfig, max_per_tile: int):
+    """One dense-layout L2 evaluation: binning with the pregather + the
+    fused kernel. Returns (color (H, W, 3), grads, n_dropped)."""
+    binning = tl.bin_splats(params, cfg, max_per_tile)
+    color, grads = l2_render_and_grads(binning, ref_chw, params.n, cfg,
+                                       params)
+    return color, grads, binning.n_dropped
+
+
+def render_dense(params: GaussianParams, cfg: SplatConfig,
+                 max_per_tile: int):
+    """Forward render of a population through kernels 6/7 (the dense
+    branch of gs2d_tpu's production_render): (color (H, W, 3),
+    n_dropped)."""
+    binning = tl.bin_splats(params, cfg, max_per_tile)
+    color, _ = forward_tiled(binning, cfg)
+    return color, binning.n_dropped

@@ -19,6 +19,11 @@ launch the CUDA kernels of ``csrc/render_flat.cu`` for CUDA tensors
 adds one to ``launches[<name>]`` where it launches its kernel, and nowhere
 else. ``l2_step_flat`` is the fused train step's flat branch and
 ``render_flat`` the final render.
+
+``production_render`` is gs2d_tpu's differentiable render over the three
+production layouts (resident, flat, dense): a ``torch.autograd.Function``
+whose forward and backward are the layout's kernels, for objectives that
+autograd differentiates on top of the image (train/ssim.py).
 """
 
 from __future__ import annotations
@@ -29,10 +34,12 @@ import torch
 
 from gs2d_tpu_torch.config import SplatConfig
 from gs2d_tpu_torch.ops import render as rd
+from gs2d_tpu_torch.ops import render_dense as rdn
+from gs2d_tpu_torch.ops import render_resident as rr
 from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.ops import tiles_flat as tlf
 from gs2d_tpu_torch.ops._build import check, library, on_card, stream
-from gs2d_tpu_torch.params import GaussianParams
+from gs2d_tpu_torch.params import FIELDS, GaussianParams
 
 # Kernel launch counts since the last reset_launch_counts().
 launches = {"fwd_flat": 0, "bwd_flat": 0}
@@ -84,7 +91,7 @@ def _flat_walk(rows, start, count, cfg: SplatConfig, kc: int,
     stop the walk once every tile is saturated (render.saturating_loop)."""
     m = rows.shape[0]
     count = count.clamp(max=max_chunks * kc)
-    rows_ext = torch.cat([rows, tlf.pad_row(rows.device)[None]])
+    rows_ext = torch.cat([rows, tl.pad_row(rows.device)[None]])
     check_every = min(kc, rd.SAT_CHECK_EVERY) if rd._sat_walk(cfg) else kc
 
     def one(k, c):
@@ -112,21 +119,6 @@ def _fwd_flat_plain(rows, start, count, cfg: SplatConfig, kc: int,
             rd.from_tiles(T[None], cfg)[0])
 
 
-def _segment_flat_plain(ids, start, count, moments, n_splats: int):
-    """(9, n) splat-axis sums of the (M, 9) per-pair moment rows, each
-    splat's rows added in ascending flat-row (= tile) order, as the CUDA
-    segment sum adds them. Ids within a run are unique, so each tile's add
-    is a plain indexed update; -1 ids would land on the dropped row n."""
-    acc = torch.zeros((n_splats + 1, rd.N_MOMENTS),
-                      dtype=torch.float32, device=moments.device)
-    for s, c in zip(start.tolist(), count.tolist()):
-        if c:
-            run = ids[s: s + c].long()
-            run = torch.where(run >= 0, run, n_splats)
-            acc[run] = acc[run] + moments[s: s + c]
-    return acc[:n_splats].T.contiguous()
-
-
 def _bwd_flat_plain(rows, ids, start, count, fin, gc, cin, tin,
                     n_splats: int, cfg: SplatConfig, kc: int,
                     max_chunks: int):
@@ -134,10 +126,7 @@ def _bwd_flat_plain(rows, ids, start, count, fin, gc, cin, tin,
     (M, 9), splat moments (9, n)). ``fin``, ``gc`` and ``cin`` are
     (3, Hp, Wp), ``tin`` (Hp, Wp)."""
     yy, xx, fy, fx, inside = rd.tile_coords(cfg, rows.device)
-    fin_t, gc_t, cin_t = (rd.to_tiles(x, cfg) for x in (fin, gc, cin))
-    gc_rgb = (gc_t[0], gc_t[1], gc_t[2])
-    gf = gc_t[0] * fin_t[0] + gc_t[1] * fin_t[1] + gc_t[2] * fin_t[2]
-    ga = gc_t[0] * cin_t[0] + gc_t[1] * cin_t[1] + gc_t[2] * cin_t[2]
+    gc_rgb, gf, ga = rd.cotangent_tiles(fin, gc, cin, cfg)
     m = rows.shape[0]
     moments = torch.zeros((m + 1, rd.N_MOMENTS), dtype=torch.float32,
                           device=rows.device)
@@ -151,7 +140,8 @@ def _bwd_flat_plain(rows, ids, start, count, fin, gc, cin, tin,
     _flat_walk(rows, start, count, cfg, kc, max_chunks, step,
                (ga, rd.to_tiles(tin[None], cfg)[0]), lambda c: c[1])
     moments = moments[:m]
-    return moments, _segment_flat_plain(ids, start, count, moments, n_splats)
+    return moments, rd.segment_sum_plain(ids, start, count, moments,
+                                         n_splats)
 
 
 # ---------------------------------------------------------------------------
@@ -247,12 +237,6 @@ def _backward_chw(binning: tlf.FlatBinning, fin, gc, cin, tin,
                                tl.packed_fields(params, cfg.splat_bounds))
 
 
-def _identity_carry(cfg: SplatConfig, device):
-    hp, wp = cfg.padded_height, cfg.padded_width
-    return (torch.zeros((3, hp, wp), dtype=torch.float32, device=device),
-            rd.identity_trans(cfg, hp, wp, device))
-
-
 def forward_flat(binning: tlf.FlatBinning, cfg: SplatConfig, kc: int,
                  max_chunks: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 10: the raw padded (color (Hp, Wp, 3), T (Hp, Wp)) of a flat
@@ -271,7 +255,7 @@ def backward_flat(binning: tlf.FlatBinning, final_color: torch.Tensor,
     population (identity when None)."""
     chw = lambda img: img.permute(2, 0, 1).contiguous()
     if carry_in is None:
-        cin, tin = _identity_carry(cfg, final_color.device)
+        cin, tin = rd.identity_carry(cfg, final_color.device)
     else:
         cin, tin = chw(carry_in[0]), carry_in[1].contiguous()
     return _backward_chw(binning, chw(final_color), chw(g_color), cin, tin,
@@ -286,7 +270,7 @@ def l2_render_and_grads_flat(binning: tlf.FlatBinning, ref_chw: torch.Tensor,
     (1, 3, Hp, Wp) target; returns (color (H, W, 3), parameter grads)."""
     color, _ = _forward_chw(binning, cfg, kc, max_chunks)
     gc = color - ref_chw[0]
-    cin, tin = _identity_carry(cfg, color.device)
+    cin, tin = rd.identity_carry(cfg, color.device)
     grads = _backward_chw(binning, color, gc, cin, tin, n_splats, cfg, kc,
                           max_chunks, params)
     return color.permute(1, 2, 0)[: cfg.height, : cfg.width], grads
@@ -316,3 +300,75 @@ def render_flat(params: GaussianParams, cfg: SplatConfig):
                                   max_chunks=max_chunks)
     color, _ = forward_flat(binning, cfg, kc, max_chunks)
     return color[: cfg.height, : cfg.width], binning.n_dropped
+
+
+# ---------------------------------------------------------------------------
+# The differentiable render over the production layouts.
+# ---------------------------------------------------------------------------
+
+class _ProductionRender(torch.autograd.Function):
+    """gs2d_tpu.ops.render_pallas_flat.production_render's custom VJP:
+    the forward bins and renders through the layout's forward kernel and
+    keeps the binning; the backward runs the layout's backward kernel under
+    the upstream cotangent. The six parameter tensors are separate inputs
+    (autograd tracks tensors); ``cfg`` is not differentiated."""
+
+    @staticmethod
+    def forward(ctx, pos, sx, sy, rot, color, opacity, cfg: SplatConfig):
+        params = GaussianParams(pos=pos, sx=sx, sy=sy, rot=rot, color=color,
+                                opacity=opacity)
+        if params.n != cfg.n_splats:
+            raise ValueError(f"params hold {params.n} splats, cfg says "
+                             f"{cfg.n_splats}")
+        layout = rd.resolve_binning(cfg)
+        if layout == "flat":
+            m_cap, kc, max_chunks = _statics(cfg)
+            binning = tlf.bin_splats_flat(params, cfg, m_cap, kc=kc,
+                                          max_chunks=max_chunks)
+            fin, _ = _forward_chw(binning, cfg, kc, max_chunks)
+            ctx.keep = (binning, fin)
+            out = fin.permute(1, 2, 0)[: cfg.height, : cfg.width]
+        elif layout == "resident":
+            binning = tl.bin_splats(params, cfg, rd._max_per_tile(cfg),
+                                    ids_only=True)
+            table = rr.resident_table(params, cfg)
+            out, _ = rr.forward_resident(binning, table, params.n, cfg)
+            ctx.keep = (binning, table)
+        else:
+            binning = tl.bin_splats(params, cfg, rd._max_per_tile(cfg))
+            out, _ = rdn.forward_tiled(binning, cfg)
+            ctx.keep = (binning,)
+        ctx.layout, ctx.cfg = layout, cfg
+        ctx.save_for_backward(pos, sx, sy, rot, color, opacity, out)
+        ctx.mark_non_differentiable(binning.n_dropped)
+        return out, binning.n_dropped
+
+    @staticmethod
+    def backward(ctx, g_color, _):
+        *leaves, out = ctx.saved_tensors
+        params = GaussianParams(**dict(zip(FIELDS, leaves)))
+        cfg, n = ctx.cfg, params.n
+        g_color = g_color.contiguous()
+        if ctx.layout == "flat":
+            binning, fin = ctx.keep
+            gc = rd.pad_ref_chw(g_color, cfg)[0]
+            cin, tin = rd.identity_carry(cfg, fin.device)
+            grads = _backward_chw(binning, fin, gc, cin, tin, n, cfg,
+                                  cfg.flat_chunk, cfg.flat_max_chunks, params)
+        elif ctx.layout == "resident":
+            binning, table = ctx.keep
+            grads = rr.backward_resident(binning, table, out, g_color, n, cfg)
+        else:
+            (binning,) = ctx.keep
+            grads = rdn.backward_tiled(binning, out, g_color, n, cfg, params)
+        return (*(getattr(grads, f) for f in FIELDS), None)
+
+
+def production_render(params: GaussianParams, cfg: SplatConfig):
+    """Differentiable render on the layout ``cfg`` resolves to, with the
+    kernels' analytic backward under any upstream cotangent (the flat
+    layout needs cfg.flat_capacity / flat_max_chunks set:
+    tune_flat_config). Returns (color (H, W, 3), n_dropped), n_dropped the
+    binning's overflow count (not differentiable)."""
+    return _ProductionRender.apply(*(getattr(params, f) for f in FIELDS),
+                                   cfg)

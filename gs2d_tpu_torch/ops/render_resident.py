@@ -6,16 +6,20 @@ scalars from one packed (N+1, N_FIELDS) table whose last row is a benign pad
 row (opacity 0, h = -1: it covers no pixel), so padded slots (id -1,
 remapped to N) are numerical no-ops.
 
-Two kernels, each behind a wrapper that dispatches on the tensors' device:
+Three kernels, each behind a wrapper that dispatches on the tensors'
+device:
 
-- ``l2_render_and_grads_resident`` (kernel 1, the fused L2 train step) and
-- ``forward_resident`` (kernel 2, the forward composite)
+- ``l2_render_and_grads_resident`` (kernel 1, the fused L2 train step),
+- ``forward_resident`` (kernel 2, the forward composite) and
+- ``backward_resident`` (kernel 3, the backward replay from a carry-in
+  prefix under any upstream cotangent: the VJP of the differentiable
+  render)
 
 launch the CUDA kernels of ``csrc/render_resident.cu`` for CUDA tensors
 (raising if the launch fails) and run the plain PyTorch twin beside them
-(``_l2_resident_plain`` / ``_fwd_resident_plain``) for CPU tensors. Each
-wrapper adds one to ``launches[<name>]`` where it launches its kernel, and
-nowhere else.
+(``_l2_resident_plain`` / ``_fwd_resident_plain`` / ``_bwd_resident_plain``)
+for CPU tensors. Each wrapper adds one to ``launches[<name>]`` where it
+launches its kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from gs2d_tpu_torch.ops._build import check, library, on_card, stream
 from gs2d_tpu_torch.params import GaussianParams
 
 # Kernel launch counts since the last reset_launch_counts().
-launches = {"l2_resident": 0, "fwd_resident": 0}
+launches = {"l2_resident": 0, "fwd_resident": 0, "bwd_resident": 0}
 
 
 def reset_launch_counts() -> None:
@@ -42,12 +46,7 @@ def reset_launch_counts() -> None:
 def resident_table(params: GaussianParams, cfg: SplatConfig) -> torch.Tensor:
     """((N+1) * N_FIELDS,) packed parameter rows plus the benign pad row."""
     rows = tl.packed_fields(params, cfg.splat_bounds).T
-    pad = torch.zeros((1, tl.N_FIELDS), dtype=torch.float32,
-                      device=rows.device)
-    pad[0, [tl.FIELD_A, tl.FIELD_D, tl.FIELD_SX, tl.FIELD_SY,
-            tl.FIELD_COS]] = 1.0
-    pad[0, tl.FIELD_H] = -1.0
-    return torch.cat([rows, pad], dim=0).reshape(-1)
+    return torch.cat([rows, tl.pad_row(rows.device)[None]]).reshape(-1)
 
 
 def _table_fields(table: torch.Tensor, n_splats: int) -> torch.Tensor:
@@ -93,26 +92,19 @@ def _fwd_resident_plain(table, ids_s, count, cfg: SplatConfig):
     return color, rd.from_tiles(T[None], cfg)
 
 
-def _l2_resident_plain(table, ids_s, count, ref_chw, n_splats: int,
-                       cfg: SplatConfig):
-    """Plain twin of kernel 1: (color (1, 3, Hp, Wp), moments (16, n_pad)).
-
-    Per-(tile, slot) moment partials are added onto the splat axis in tile
-    order; padded slots carry exactly zero and land on the dropped row N."""
-    coords = rd.tile_coords(cfg, table.device)
+def _replay_plain(table, ids_s, count, n_splats: int, cfg: SplatConfig,
+                  coords, gc_rgb, gf, comp):
+    """The backward replay of every tile's list from the carry ``comp`` =
+    (ga, T) under the cotangent planes: moments (16, n_pad). Per-(tile,
+    slot) partials are added onto the splat axis in tile order; padded
+    slots carry exactly zero and land on the dropped row N."""
     yy, xx, fy, fx, inside = coords
-    fin_r, fin_g, fin_b, _ = _composite(table, ids_s, count, cfg, coords)
-    ref_t = rd.to_tiles(ref_chw[0], cfg)
-    gc = (fin_r - ref_t[0], fin_g - ref_t[1], fin_b - ref_t[2])
-    gf = gc[0] * fin_r + gc[1] * fin_g + gc[2] * fin_b
-
     rows = table.reshape(-1, tl.N_FIELDS)
-    comp = (torch.zeros_like(fx), inside.to(torch.float32))
     n_k = int(count.max()) if count.numel() else 0
     cols = []
     for k in range(n_k):
         comp, col = rd._bwd_splat_step(rows[ids_s[:, k].long()], fx, fy, xx,
-                                       yy, inside, cfg, comp, gf, gc)
+                                       yy, inside, cfg, comp, gf, gc_rgb)
         cols.append(col)
     n_pad = _n_pad(n_splats)
     acc = torch.zeros((n_pad + 1, 9), dtype=torch.float32,
@@ -123,8 +115,33 @@ def _l2_resident_plain(table, ids_s, count, ref_chw, n_splats: int,
     grads16 = torch.zeros((rd.N_GRAD_FIELDS, n_pad), dtype=torch.float32,
                           device=table.device)
     grads16[:9] = acc[:n_pad].T
+    return grads16
+
+
+def _l2_resident_plain(table, ids_s, count, ref_chw, n_splats: int,
+                       cfg: SplatConfig):
+    """Plain twin of kernel 1: (color (1, 3, Hp, Wp), moments (16, n_pad))."""
+    coords = rd.tile_coords(cfg, table.device)
+    fin_r, fin_g, fin_b, _ = _composite(table, ids_s, count, cfg, coords)
+    ref_t = rd.to_tiles(ref_chw[0], cfg)
+    gc = (fin_r - ref_t[0], fin_g - ref_t[1], fin_b - ref_t[2])
+    gf = gc[0] * fin_r + gc[1] * fin_g + gc[2] * fin_b
+    comp = (torch.zeros_like(gf), coords[4].to(torch.float32))
+    grads16 = _replay_plain(table, ids_s, count, n_splats, cfg, coords, gc,
+                            gf, comp)
     color = rd.from_tiles(torch.stack([fin_r, fin_g, fin_b]), cfg)[None]
     return color, grads16
+
+
+def _bwd_resident_plain(table, ids_s, count, fin, gc, cin, tin,
+                        n_splats: int, cfg: SplatConfig):
+    """Plain twin of kernel 3: moments (16, n_pad). ``fin``, ``gc`` and
+    ``cin`` are (3, Hp, Wp), ``tin`` (Hp, Wp)."""
+    coords = rd.tile_coords(cfg, table.device)
+    gc_rgb, gf, ga = rd.cotangent_tiles(fin, gc, cin, cfg)
+    comp = (ga, rd.to_tiles(tin[None], cfg)[0])
+    return _replay_plain(table, ids_s, count, n_splats, cfg, coords, gc_rgb,
+                         gf, comp)
 
 
 # ---------------------------------------------------------------------------
@@ -203,6 +220,37 @@ def _fwd_resident_cuda(table, ids_s, count, cfg: SplatConfig):
     return color, trans
 
 
+def _bwd_resident_cuda(table, ids_s, count, fin, gc, cin, tin,
+                       n_splats: int, cfg: SplatConfig):
+    k = ids_s.shape[1]
+    lib = _check_inputs(cfg, table, ids_s, count, k)
+    hp, wp = cfg.padded_height, cfg.padded_width
+    for name, t, shape in (("fin", fin, (3, hp, wp)), ("gc", gc, (3, hp, wp)),
+                           ("cin", cin, (3, hp, wp)), ("tin", tin, (hp, wp))):
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != table.device):
+            raise ValueError(f"{name}: need contiguous float32 {shape} on "
+                             f"{table.device}")
+    if table.numel() != (n_splats + 1) * tl.N_FIELDS:
+        raise ValueError("table does not hold n_splats + 1 rows")
+    dev = table.device
+    n_pad = _n_pad(n_splats)
+    partial = torch.empty((cfg.n_tiles_x * cfg.n_tiles_y, k, 9),
+                          dtype=torch.float32, device=dev)
+    grads16 = torch.zeros((rd.N_GRAD_FIELDS, n_pad), dtype=torch.float32,
+                          device=dev)
+    err = lib.gs2d_bwd_resident(
+        table.data_ptr(), ids_s.data_ptr(), count.data_ptr(), fin.data_ptr(),
+        gc.data_ptr(), cin.data_ptr(), tin.data_ptr(), partial.data_ptr(),
+        grads16.data_ptr(), n_splats, n_pad, cfg.height, cfg.width,
+        cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, cfg.n_tiles_y, k,
+        cfg.cutoff_sq, cfg.min_throughput, int(cfg.use_exp_approx),
+        stream(table))
+    check(err, "bwd_resident kernel launch")
+    launches["bwd_resident"] += 1
+    return grads16
+
+
 # ---------------------------------------------------------------------------
 # Wrappers (same contracts as the JAX package's).
 # ---------------------------------------------------------------------------
@@ -251,6 +299,27 @@ def forward_resident(
         return (color[: cfg.height, : cfg.width],
                 trans[: cfg.height, : cfg.width])
     return color, trans
+
+
+def backward_resident(
+    binning: tl.TileBinning,
+    table: torch.Tensor,
+    final_color: torch.Tensor,
+    g_color: torch.Tensor,
+    n_splats: int,
+    cfg: SplatConfig,
+    carry_in=None,
+) -> GaussianParams:
+    """Resident backward pass (kernel 3): parameter gradients of a render
+    under the upstream cotangent ``g_color``. ``final_color`` and
+    ``g_color`` are (H, W, 3); ``carry_in`` is the (C (H, W, 3), T (H, W))
+    prefix entering this population (identity when None)."""
+    ids_s = _remap_ids(binning, n_splats)
+    planes = rd.carry_planes(final_color, g_color, carry_in, cfg)
+    fn = _bwd_resident_cuda if on_card(table) else _bwd_resident_plain
+    grads16 = fn(table, ids_s, binning.count, *planes, n_splats, cfg)
+    return rd.moments_to_grads(rd.unpack_moments(grads16, n_splats),
+                               _table_fields(table, n_splats))
 
 
 def render_resident(params: GaussianParams, cfg: SplatConfig,

@@ -20,7 +20,7 @@ Lazy rebinning (``margin > 0``) and opacity-adaptive culling
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -51,12 +51,16 @@ N_FIELDS = 16
 
 
 class TileBinning(NamedTuple):
-    """Per-tile splat lists (ids-only: the resident kernels fetch each
-    listed splat's scalars from the packed table by id)."""
+    """Per-tile splat lists. The resident kernels fetch each listed splat's
+    scalars from the packed table by id (ids-only binning, ``tile_params``
+    None); the dense kernels read them pregathered."""
 
     ids: torch.Tensor        # (n_tiles, K) int32 splat ids, -1 padding
     count: torch.Tensor      # (n_tiles,) int32 live entries per tile
     n_dropped: torch.Tensor  # 0-d int32: entries lost to capacity caps
+    # (n_tiles, K, N_FIELDS) float32 packed rows of the listed splats;
+    # padded slots hold pad_row().
+    tile_params: Optional[torch.Tensor] = None
 
 
 def _not_in_slice(what: str):
@@ -89,6 +93,25 @@ def packed_fields(p: GaussianParams, bounds: float = 3.0) -> torch.Tensor:
     f[FIELD_SIN] = torch.sin(p.rot)
     f[FIELD_VALID] = 1.0
     return f
+
+
+def pad_row(device) -> torch.Tensor:
+    """The benign (N_FIELDS,) padding row: opacity 0, unit scales and
+    inverse covariance (no 0/0 in any formula), h = -1 (covers no row)."""
+    pad = torch.zeros((N_FIELDS,), dtype=torch.float32, device=device)
+    pad[[FIELD_A, FIELD_D, FIELD_SX, FIELD_SY, FIELD_COS]] = 1.0
+    pad[FIELD_H] = -1.0
+    return pad
+
+
+def pregather_rows(ids: torch.Tensor, p: GaussianParams,
+                   cfg: SplatConfig) -> torch.Tensor:
+    """Packed per-splat scalars gathered onto ``ids`` (any shape), one
+    N_FIELDS row per id; padding ids (-1) get the benign pad_row values."""
+    fields_rows = packed_fields(p, cfg.splat_bounds).T
+    valid = ids >= 0
+    rows = fields_rows[torch.where(valid, ids, 0).long()]
+    return torch.where(valid[..., None], rows, pad_row(rows.device))
 
 
 def splat_tile_bbox(p: GaussianParams, cfg: SplatConfig):
@@ -194,13 +217,9 @@ def bin_splats(
     ``max_tiles_per_splat`` caps the expansion per splat (a splat covering
     more tiles gets its bbox truncated row-major; counted in n_dropped).
     ``counts_only`` returns just the *untruncated* per-tile counts
-    (n_tiles,) int32, for tuning the capacity. ``ids_only`` must be set
-    otherwise: the pregathered per-tile parameter block of the dense layout
-    is a later slice."""
-    if not (counts_only or ids_only):
-        raise NotImplementedError(
-            "pregathered tile_params (dense layout) is not ported yet; "
-            "pass ids_only=True (ROADMAP.md queue 2)")
+    (n_tiles,) int32, for tuning the capacity. ``ids_only`` skips the
+    pregathered (n_tiles, K, N_FIELDS) ``tile_params`` of the dense layout
+    (``pregather_rows`` of the ids)."""
     n = p.n
     dev = p.device
     n_tiles = cfg.n_tiles_y * cfg.n_tiles_x
@@ -253,6 +272,7 @@ def bin_splats(
         ids=ids,
         count=tile_count,
         n_dropped=(dropped_bbox + dropped_tile).to(torch.int32),
+        tile_params=None if ids_only else pregather_rows(ids, p, cfg),
     )
 
 

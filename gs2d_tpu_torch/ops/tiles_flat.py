@@ -49,16 +49,6 @@ def _not_in_slice(what: str):
         "tile sharding, lazy rebinning)")
 
 
-def pad_row(device) -> torch.Tensor:
-    """The benign (N_FIELDS,) padding row: opacity 0, unit scales and
-    inverse covariance (no 0/0 in any formula), h = -1 (covers no row)."""
-    pad = torch.zeros((tl.N_FIELDS,), dtype=torch.float32, device=device)
-    pad[[tl.FIELD_A, tl.FIELD_D, tl.FIELD_SX, tl.FIELD_SY,
-         tl.FIELD_COS]] = 1.0
-    pad[tl.FIELD_H] = -1.0
-    return pad
-
-
 def flat_capacity(counts, kc: int) -> int:
     """Rows needed for the block-aligned flat layout of measured counts."""
     c = np.asarray(counts)
@@ -81,14 +71,8 @@ def tune_flat_capacity(p: GaussianParams, cfg: SplatConfig, kc: int = 256,
     return m, max_chunks
 
 
-def pregather_rows(ids: torch.Tensor, p: GaussianParams,
-                   cfg: SplatConfig) -> torch.Tensor:
-    """Packed per-splat scalars gathered onto the flat rows; padding rows
-    (id -1) get the benign pad_row values."""
-    fields_rows = tl.packed_fields(p, cfg.splat_bounds).T
-    valid = ids >= 0
-    rows = fields_rows[torch.where(valid, ids, 0).long()]
-    return torch.where(valid[:, None], rows, pad_row(rows.device)[None, :])
+# The flat rows are the dense layout's pregather applied to the flat ids.
+pregather_rows = tl.pregather_rows
 
 
 def bin_splats_flat(

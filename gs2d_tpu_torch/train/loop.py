@@ -1,6 +1,9 @@
-"""The fitting loop (the counterpart of ``gs2d_tpu/train/loop.py``, resident
-and flat layouts): one train step = binning + the layout's L2 kernels +
-moments_to_grads + Adam + metrics, driven by a host loop.
+"""The fitting loop (the counterpart of ``gs2d_tpu/train/loop.py``, resident,
+flat and dense layouts): one train step = binning + the layout's L2 kernels
++ moments_to_grads + Adam + metrics, driven by a host loop. The SSIM
+objective takes the modular step instead: the differentiable render
+(forward kernel, backward kernel under autograd's cotangent), the loss
+head, ``torch.autograd.grad``, then the same Adam and metrics.
 
 PyTorch runs eagerly, so the JAX package's ``jit``/``lax.scan`` have no
 counterpart here: steps run in a Python loop and stay queued on the device
@@ -19,12 +22,14 @@ import torch
 
 from gs2d_tpu_torch.config import SplatConfig
 from gs2d_tpu_torch.ops import render as rd
+from gs2d_tpu_torch.ops import render_dense as rdn
 from gs2d_tpu_torch.ops import render_flat as rf
 from gs2d_tpu_torch.ops import render_resident as rr
 from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.params import FIELDS, GaussianParams, init_params
 from gs2d_tpu_torch.train.adam import AdamState, adam_update, init_adam_state
 from gs2d_tpu_torch.train.metrics import mse_255, psnr_from_mse
+from gs2d_tpu_torch.train.ssim import conv_flags, mixed_loss
 
 
 @dataclasses.dataclass
@@ -52,39 +57,74 @@ class StepAux(NamedTuple):
 SPLIT_STEP_ROWS = 6 * 1024 * 1024
 
 
+def _tail(state: TrainState, grads: GaussianParams, color, ref,
+          n_dropped, cfg: SplatConfig):
+    """Adam, the NaN tripwire flag and the metrics of the pre-update render
+    ``color`` against the (H, W, 3) target ``ref``."""
+    params, opt = adam_update(state.params, grads, state.opt, cfg)
+    finite = torch.stack([torch.isfinite(getattr(params, f)).all()
+                          for f in FIELDS]).all()
+    mse = mse_255(color, ref)
+    return TrainState(params=params, opt=opt), StepAux(
+        mse=mse, psnr=psnr_from_mse(mse), all_finite=finite,
+        n_dropped=n_dropped)
+
+
 def make_train_step_fused(cfg: SplatConfig):
     """Single-device train step through the layout's L2 kernels: the
-    resident and flat branches of gs2d_tpu's ``_fused_step_body``, binning
-    every step. Returns ``step(state, ref_chw) -> (state, StepAux)``; the
-    target must be pre-padded with ``render.pad_ref_chw``. Raises for a cfg
-    that gs2d_tpu would run on another layout, and for flat capacities of
-    the split step."""
+    resident, flat and dense branches of gs2d_tpu's ``_fused_step_body``,
+    binning every step. Returns ``step(state, ref_chw) -> (state,
+    StepAux)``; the target must be pre-padded with ``render.pad_ref_chw``.
+    Raises for a layout not ported yet and for flat capacities of the split
+    step."""
     if cfg.rebin_margin != 0:
         raise NotImplementedError(
             "lazy rebinning (rebin_margin) is not ported yet (ROADMAP.md)")
-    flat = rd.resolve_binning(cfg) == "flat"
-    if flat and (cfg.flat_capacity or 0) > SPLIT_STEP_ROWS:
+    layout = rd.resolve_binning(cfg)
+    if layout == "flat" and (cfg.flat_capacity or 0) > SPLIT_STEP_ROWS:
         raise NotImplementedError(
             f"flat capacity {cfg.flat_capacity} > SPLIT_STEP_ROWS "
             f"({SPLIT_STEP_ROWS}): the split step of the 1080p/1M workloads "
             "is not ported yet (ROADMAP.md queue 1 item 8)")
-    k = None if flat else rd._max_per_tile(cfg)
+    k = rd._max_per_tile(cfg)
 
     def one_step(state: TrainState, ref_chw: torch.Tensor):
-        if flat:
+        if layout == "flat":
             color, grads, n_dropped = rf.l2_step_flat(state.params, ref_chw,
                                                       cfg)
-        else:
+        elif layout == "resident":
             color, grads, n_dropped = rr.l2_step_resident(
                 state.params, ref_chw, cfg, k)
-        params, opt = adam_update(state.params, grads, state.opt, cfg)
-        finite = torch.stack([torch.isfinite(getattr(params, f)).all()
-                              for f in FIELDS]).all()
+        else:
+            color, grads, n_dropped = rdn.l2_step_dense(
+                state.params, ref_chw, cfg, k)
         ref_crop = ref_chw[0].permute(1, 2, 0)[: cfg.height, : cfg.width]
-        mse = mse_255(color, ref_crop)
-        return TrainState(params=params, opt=opt), StepAux(
-            mse=mse, psnr=psnr_from_mse(mse), all_finite=finite,
-            n_dropped=n_dropped)
+        return _tail(state, grads, color, ref_crop, n_dropped, cfg)
+
+    return one_step
+
+
+def make_train_step(cfg: SplatConfig, ssim_lambda: float):
+    """The modular train step of the SSIM objective (gs2d_tpu's
+    ``make_train_step`` over ``production_render``): leaf copies of the
+    parameters, the (1-lam)*L2 + lam*(1-SSIM) mix through the
+    differentiable render, ``torch.autograd.grad`` (the backward kernel runs
+    there), then Adam and the metrics. The L2 objective trains through
+    ``make_train_step_fused``. The loss and its gradient run under
+    ``ssim.conv_flags()``. Returns ``step(state, ref) -> (state, StepAux)``
+    for the unpadded (H, W, 3) target ``ref``; unlike gs2d_tpu's modular
+    step it reports the binning's n_dropped."""
+
+    def one_step(state: TrainState, ref: torch.Tensor):
+        leaves = [getattr(state.params, f).detach().requires_grad_()
+                  for f in FIELDS]
+        with conv_flags():
+            color, n_dropped = rf.production_render(
+                GaussianParams(**dict(zip(FIELDS, leaves))), cfg)
+            loss = mixed_loss(color, ref, ssim_lambda)
+            g = torch.autograd.grad(loss, leaves)
+        grads = GaussianParams(**dict(zip(FIELDS, g)))
+        return _tail(state, grads, color.detach(), ref, n_dropped, cfg)
 
     return one_step
 
@@ -105,27 +145,32 @@ def fit(
     ``ref`` is the (H, W, 3) target. Unset binning statics are tuned from
     the population first, as gs2d_tpu's fit does: the flat capacity
     (render_flat.tune_flat_config) for the flat layout, the per-tile
-    capacity (tiles.tune_tile_capacity) for the resident one.
-    ``scan_chunk`` > 1 and ``ssim_lambda`` are later slices and raise.
-    Returns
-    (state, history), history being the logged steps' dicts."""
+    capacity (tiles.tune_tile_capacity) for the others. ``ssim_lambda`` > 0
+    takes the modular step (make_train_step) and, as gs2d_tpu does, tunes
+    no per-tile capacity and zeroes ``rebin_margin``; the flat statics are
+    still tuned, since its render needs them. ``scan_chunk`` > 1 is a later
+    slice and raises. Returns (state, history), history being the logged
+    steps' dicts."""
     if scan_chunk and scan_chunk > 1:
         raise NotImplementedError(
             "scan_chunk > 1 has no counterpart yet (CUDA graphs over the "
             "step loop, ROADMAP.md)")
-    if ssim_lambda:
-        raise NotImplementedError("the SSIM objective is not ported yet "
-                                  "(ROADMAP.md queue 1 item 7)")
     device = torch.device(device)
     if state is None:
         state = init_train_state(cfg, device)
+    if ssim_lambda and cfg.rebin_margin != 0:
+        cfg = cfg.replace(rebin_margin=0.0)  # the modular path rebins eagerly
     if rf.use_flat(cfg):
         if cfg.flat_capacity is None or cfg.flat_max_chunks is None:
             cfg = rf.tune_flat_config(state.params, cfg)
-    elif cfg.max_splats_per_tile is None:
+    elif cfg.max_splats_per_tile is None and not ssim_lambda:
         cfg = tl.tune_tile_capacity(state.params, cfg)
-    step_fn = make_train_step_fused(cfg)
-    ref_chw = rd.pad_ref_chw(ref, cfg, device)
+    if ssim_lambda:
+        step_fn = make_train_step(cfg, ssim_lambda)
+        ref_in = torch.as_tensor(ref, dtype=torch.float32, device=device)
+    else:
+        step_fn = make_train_step_fused(cfg)
+        ref_in = rd.pad_ref_chw(ref, cfg, device)
 
     history = []
     t0 = time.perf_counter()
@@ -147,7 +192,7 @@ def fit(
 
     aux = None
     for it in range(iterations):
-        state, aux = step_fn(state, ref_chw)
+        state, aux = step_fn(state, ref_in)
         if log_every and (it % log_every == 0 or it == iterations - 1):
             check(aux, it)
             mse = float(aux.mse)

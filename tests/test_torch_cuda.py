@@ -13,6 +13,7 @@ import torch
 
 from gs2d_tpu_torch.config import SplatConfig
 from gs2d_tpu_torch.ops import render as rd
+from gs2d_tpu_torch.ops import render_dense as rdn
 from gs2d_tpu_torch.ops import render_flat as rf
 from gs2d_tpu_torch.ops import render_resident as rr
 from gs2d_tpu_torch.ops import tiles as tl
@@ -133,7 +134,7 @@ def test_flat_kernels_match_plain(dev, monkeypatch, n, tile_h, kc, sat):
     torch.cuda.synchronize()
     torch.testing.assert_close(c_k, c_p, rtol=0, atol=1e-6)
     torch.testing.assert_close(t_k, t_p, rtol=0, atol=1e-6)
-    cin, tin = rf._identity_carry(cfg, dev)
+    cin, tin = rd.identity_carry(cfg, dev)
     args = (b.rows, b.ids, b.start, b.count, c_p, (c_p - ref).contiguous(),
             cin, tin, n, cfg, kc, mc)
     m_k, g_k = rf._bwd_flat_cuda(*args)
@@ -169,3 +170,94 @@ def test_flat_unsupported_tile_shape_raises(dev):
     with pytest.raises(ValueError):
         rf._fwd_flat_cuda(b.rows, b.start, b.count, cfg.replace(tile_h=16),
                           16, cfg.flat_max_chunks)
+
+
+def random_cotangent(dev, cfg, seed):
+    gen = torch.Generator(dev).manual_seed(seed)
+    return torch.randn((3, cfg.padded_height, cfg.padded_width),
+                       generator=gen, device=dev)
+
+
+@pytest.mark.parametrize("n,tile_h", [(130, 8), (130, 32)])
+def test_bwd_resident_matches_plain_and_repeats(dev, n, tile_h):
+    """Kernel 3 under a random cotangent from a non-identity carry-in."""
+    cfg, table, ids, count, _ = inputs(dev, n + tile_h, n, tile_h)
+    fin, trans = rr._fwd_resident_plain(table, ids, count, cfg)
+    args = (table, ids, count, fin[0].contiguous(),
+            random_cotangent(dev, cfg, n), 0.5 * fin[0],
+            (0.5 * trans[0]).contiguous(), n, cfg)
+    before = rr.launches["bwd_resident"]
+    first = rr._bwd_resident_cuda(*args)
+    again = rr._bwd_resident_cuda(*args)
+    plain = rr._bwd_resident_plain(*args)
+    torch.cuda.synchronize()
+    assert rr.launches["bwd_resident"] == before + 2
+    assert torch.equal(first, again)
+    atol = 1e-4 * max(1.0, float(plain.abs().max()))
+    torch.testing.assert_close(first, plain, rtol=0, atol=atol)
+
+
+def dense_inputs(dev, seed, n, tile_h, k):
+    cfg = SplatConfig(width=W, height=H, n_splats=n, tile_h=tile_h,
+                      max_splats_per_tile=k, binning="dense")
+    d, ref = population(seed, n, W, H)
+    p = params_from_numpy({f: v.astype(np.float32) for f, v in d.items()},
+                          dev)
+    b = tl.bin_splats(p, cfg, k)
+    assert int(b.n_dropped) == 0
+    return cfg, b, rd.pad_ref_chw(ref, cfg, dev)
+
+
+@pytest.mark.parametrize("n,tile_h,k,sat", [
+    (200, 32, 256, False), (300, 32, 512, False), (200, 64, 256, False),
+    (300, 64, 512, True)])
+def test_dense_kernels_match_plain(dev, monkeypatch, n, tile_h, k, sat):
+    if sat:
+        monkeypatch.setattr(rd, "SAT_WALK_THRESHOLD", 1)
+    cfg, b, ref = dense_inputs(dev, n + tile_h + k, n, tile_h, k)
+    tp, ids, count = b.tile_params, b.ids, b.count
+    before = dict(rdn.launches)
+    c_k, t_k = rdn._fwd_dense_cuda(tp, count, cfg)
+    c_p, t_p = rdn._fwd_dense_plain(tp, count, cfg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(c_k, c_p, rtol=0, atol=1e-6)
+    torch.testing.assert_close(t_k, t_p, rtol=0, atol=1e-6)
+    args = (tp, ids, count, c_p, random_cotangent(dev, cfg, n), 0.5 * c_p,
+            (0.5 * t_p).contiguous(), n, cfg)
+    first = rdn._bwd_dense_cuda(*args)
+    again = rdn._bwd_dense_cuda(*args)
+    plain = rdn._bwd_dense_plain(*args)
+    l2_k = rdn._l2_dense_cuda(tp, ids, count, ref, n, cfg)
+    l2_p = rdn._l2_dense_plain(tp, ids, count, ref, n, cfg)
+    torch.cuda.synchronize()
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
+    torch.testing.assert_close(l2_k[0], l2_p[0], rtol=0, atol=1e-6)
+    for got, want in (*zip(first, plain), *zip(l2_k[1:], l2_p[1:])):
+        atol = 1e-4 * max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    assert rdn.launches == {"fwd_dense": before["fwd_dense"] + 1,
+                            "bwd_dense": before["bwd_dense"] + 2,
+                            "l2_dense": before["l2_dense"] + 1}
+
+
+def test_dense_l2_equals_resident_l2_bit_for_bit(dev):
+    """The dense and resident L2 kernels share the per-pixel arithmetic and
+    the moments' sum order, so on one population they agree exactly."""
+    cfg, table, ids, count, ref = inputs(dev, 9, 130, 32, k=256)
+    c_r, g_r = rr._l2_resident_cuda(table, ids, count, ref, 130, cfg)
+    d, _ = population(9, 130, W, H)
+    p = params_from_numpy({f: v.astype(np.float32) for f, v in d.items()},
+                          dev)
+    b = tl.bin_splats(p, cfg.replace(binning="dense"), 256)
+    c_d, _, g_d = rdn._l2_dense_cuda(b.tile_params, b.ids, b.count, ref, 130,
+                                     cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(c_r, c_d[None])
+    assert torch.equal(g_r[:9, :130], g_d)
+
+
+def test_dense_unsupported_tile_shape_raises(dev):
+    cfg, b, _ = dense_inputs(dev, 3, 64, 32, 64)
+    with pytest.raises(ValueError):
+        rdn._fwd_dense_cuda(b.tile_params, b.count, cfg.replace(tile_h=16))

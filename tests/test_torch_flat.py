@@ -288,7 +288,7 @@ def test_cli_flat_fit_on_cpu(tmp_path, capsys):
         == b"\x89PNG\r\n\x1a\n"
 
 
-@pytest.mark.parametrize("layout", ["dense", "window"])
+@pytest.mark.parametrize("layout", ["window"])
 def test_cli_unported_layouts_exit_2(tmp_path, capsys, layout):
     rc = cli.main([MINI, "--splats", "40", "--iters", "1", "--device", "cpu",
                    "--binning", layout, "--out", str(tmp_path)])

@@ -1,6 +1,7 @@
 """PyTorch port binning vs the JAX package: packed fields, ids-only and
 counts-only binning (integer-equal ids, counts and n_dropped, including
-capacity overflow and per-splat tile truncation), and capacity tuning."""
+capacity overflow and per-splat tile truncation), the dense pregather, and
+capacity tuning."""
 
 import numpy as np
 import pytest
@@ -125,5 +126,18 @@ def test_later_slices_raise(rng):
     with pytest.raises(NotImplementedError):
         ttl.bin_splats(tp, cfg_t.replace(opacity_cull_alpha=1 / 256), 16,
                        ids_only=True)
-    with pytest.raises(NotImplementedError):
-        ttl.bin_splats(tp, cfg_t, 16)  # the dense pregather
+
+
+def test_dense_pregather(rng):
+    """Without ids_only the binning pregathers each listed splat's packed
+    row into tile_params; padded slots hold the benign pad row."""
+    _, cfg_t, _, tp = case(rng, 16, 8)
+    b = ttl.bin_splats(tp, cfg_t, 16)
+    assert b.tile_params.shape == (*b.ids.shape, ttl.N_FIELDS)
+    rows = ttl.packed_fields(tp, 3.0).T
+    live = b.ids >= 0
+    assert bool((~live).any())
+    assert torch.equal(b.tile_params[live], rows[b.ids[live].long()])
+    assert torch.equal(b.tile_params[~live],
+                       ttl.pad_row("cpu").expand(int((~live).sum()), -1))
+    assert ttl.bin_splats(tp, cfg_t, 16, ids_only=True).tile_params is None

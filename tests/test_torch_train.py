@@ -112,8 +112,8 @@ def test_fit_nan_tripwire():
 
 
 @pytest.mark.parametrize("kw,cfg_kw", [
-    (dict(scan_chunk=4), {}), (dict(ssim_lambda=0.2), {}),
-    ({}, dict(rebin_margin=2.0)), ({}, dict(binning="dense")),
+    (dict(scan_chunk=4), {}), ({}, dict(binning="window")),
+    ({}, dict(rebin_margin=2.0)), ({}, dict(opacity_cull_alpha=1 / 256)),
 ])
 def test_fit_refuses_later_slices(kw, cfg_kw):
     cfg = SplatConfig(width=W, height=H, **{"n_splats": 16, "tile_h": 8,
@@ -144,7 +144,7 @@ def test_cli_cuda_without_gpu_exits_2(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [["--mesh", "1,2,2"], ["--scan-chunk", "4"],
-                                  ["--ssim", "0.2"],
+                                  ["--densify-every", "4"],
                                   ["--rebin-margin", "2"]])
 def test_cli_rejects_flags_of_later_slices(tmp_path, argv):
     with pytest.raises(SystemExit) as e:
@@ -153,7 +153,7 @@ def test_cli_rejects_flags_of_later_slices(tmp_path, argv):
 
 
 def test_cli_rejects_unported_layout(tmp_path, capsys):
-    rc = cli.main([MINI, "--splats", "8192", "--binning", "dense",
+    rc = cli.main([MINI, "--splats", "8192", "--binning", "window",
                    "--device", "cpu", "--out", str(tmp_path)])
     assert rc == 2
     assert "not ported" in capsys.readouterr().out
