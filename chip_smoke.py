@@ -10,14 +10,21 @@ through them with the CLI and check their MSE trajectories:
   run twice: the second run must repeat the first bit for bit;
 - the default fit with ``--binning dense`` (kernels 4/5, 6/7);
 - the default fit with ``--binning dense --ssim 0.2`` (kernels 6/7, 8/9);
-- the 10 240-splat fit with ``--ssim 0.2``, flat layout (kernels 10, 11).
+- the 10 240-splat fit with ``--ssim 0.2``, flat layout (kernels 10, 11);
+- the window layout through ``train.loop.fit`` (squirrel_cls 535x426, 8192
+  Morton-reordered splats, L2, 200 iterations; kernel 12) beside the
+  resident fit of the same population (kernel 1);
+- the default fit with ``--tile-h 64`` (kernels 1 and 2 on 64-row tiles);
+- the MXU-form entry point ``l2_render_and_grads_mxu`` at the default
+  fit's init (kernel 13).
 
     python3 chip_smoke.py
 
 Prints one line per phase; the line before the last is the kernels' JSON
 report and the last is {"ok": true, "device": {...}}. A kernel's
-``launches`` there is its launch count summed over the paths' logged fits,
-each path counted from zero; ``bound_ms`` is the least time the card could
+``launches`` there is its launch count summed over the paths' logged runs
+(the fits and the MXU entry point's call), each path counted from zero;
+``bound_ms`` is the least time the card could
 take for the work of its timed call (see ``bound``). Any failure raises
 and the script exits non-zero without printing a result; without a CUDA
 GPU it exits 1 at once.
@@ -67,10 +74,36 @@ TRAJECTORY_SSIM = {0: (5934.9033, 1e-4), 1: (4691.2476, 1e-4),
 REPORT_SSIM = {49: 402.6315, 199: 105.2173}
 TRAJECTORY_SSIM_10K = {0: (6072.7041, 1e-4), 1: (4687.6025, 1e-4),
                        2: (3544.8555, 1e-3)}
+# The window fit's population: the pcg3d init of 8192 splats on the 535x426
+# target, Morton-reordered. MSE-255 at iterations 0, 1 and 9 of gs2d_tpu's
+# scan path on that population, on a CPU (JAX_PLATFORMS=cpu), from these
+# calls of gs2d_tpu's modules:
+#   cfg = config.SplatConfig(width=535, height=426, n_splats=8192, tile_h=32)
+#   state = train.reorder.reorder_state(train.loop.init_train_state(cfg), cfg)
+#   train.loop.fit(jnp.asarray(io.image.load_image("assets/squirrel_cls.jpg")),
+#                  cfg, 10, render_fn=ops.render_jax.render, state=state,
+#                  log_every=1)
+TRAJECTORY_WINDOW = {0: (6074.0503, 1e-4), 1: (4605.4385, 1e-4),
+                     9: (583.9524, 1e-3)}
+N_WINDOW = 8192
+# The --tile-h 64 default fit against the 32-row one at iterations 0 and 1:
+# the same splats and pixels, the moments summed in another grouping.
+TILE64_RTOL = 1e-5
 SSIM = "0.2"
 N_10K = 10240
 COLOR_ATOL = 1e-6   # same per-pixel float32 program; sums in one order
 GRAD_RTOL = 1e-4    # of max(1, |moment row| max): the moments' sum order
+# Kernel 13 against its plain version: the colour is the same per-pixel
+# float32 program (COLOR_ATOL); the gradient rows come from pixel sums taken
+# in another order, whose rounding the combine's cancellation (s_xx = m_xx -
+# 2 ex m_x + ex^2 m_1, |ex| up to the tile's half-width) lifts by up to
+# (64 / |vx|)^2, so 1e-3 of max(1, |field| max). Against kernel 4, whose
+# D2 is the direct form: gs2d_tpu's tolerances for the MXU form
+# (tests/test_fused.py:222-226), colour 5e-5 and gradients
+# 2e-3 * max(1, |g| max) per field.
+MXU_PLAIN_RTOL = 1e-3
+MXU_COLOR_ATOL = 5e-5
+MXU_GRAD_RTOL = 2e-3
 
 # The least time the card could take for a kernel's work: the larger of its
 # float32 operations over the H100's 67 TFLOP/s (outside the tensor cores)
@@ -102,15 +135,27 @@ PIXEL_OPS = 17
 FWD_OPS = 9
 BWD_OPS = 30
 COLUMN_OPS = 12
+# Kernel 13 (csrc/render_mxu.cu), counted the same way: per live (pixel,
+# pair) D2 from the coefficients and its basis terms x'y', y'^2 12, the
+# fast exp 8, alpha 1 and the T test 1 (MXU_PIXEL_OPS, once for both
+# phases), phase 0's FWD_OPS, and phase 1's weights 3, colour sums 6, the
+# guard 2, dL/dalpha 18, q 1, T 2 and the seven column sums 14
+# (MXU_BWD_OPS); per (column, pair) the x' products 4 and the ten sums over
+# columns 10; per image pixel gC 3.
+MXU_PIXEL_OPS = 22
+MXU_BWD_OPS = 46
+MXU_COLUMN_OPS = 14
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
-    fn()
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls, after
+    one warm-up call unless ``warm`` is False."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -168,9 +213,9 @@ def live_work(rows, count, cfg) -> dict:
 
 
 def bound(kind: str, work: dict, cfg, n_bytes: int):
-    """(bound_ms, bound_by) of a forward ("fwd"), backward ("bwd") or fused
-    L2 ("l2") kernel that does ``work`` (live_work's counts) and moves
-    ``n_bytes``."""
+    """(bound_ms, bound_by) of a forward ("fwd"), backward ("bwd"), fused
+    L2 ("l2") or MXU-form L2 ("mxu") kernel that does ``work`` (live_work's
+    counts) and moves ``n_bytes``."""
     img = cfg.height * cfg.width
     rows = work["rows"] * ROW_OPS
     px = work["pixels"]
@@ -178,16 +223,21 @@ def bound(kind: str, work: dict, cfg, n_bytes: int):
     ops = {"fwd": rows + px * (PIXEL_OPS + FWD_OPS),
            "bwd": rows + px * (PIXEL_OPS + BWD_OPS) + cols + 10 * img,
            "l2": rows + px * (PIXEL_OPS + FWD_OPS + BWD_OPS) + cols
-           + 8 * img}[kind]
+           + 8 * img,
+           "mxu": rows + px * (MXU_PIXEL_OPS + FWD_OPS + MXU_BWD_OPS)
+           + work["columns"] * MXU_COLUMN_OPS + 3 * img}[kind]
     t_ops, t_bytes = ops / F32_PEAK, n_bytes / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
 def timed_entry(kernel, plain, kind, work, cfg, n_bytes, plain_reps=3):
-    """{ms, plain_ms, bound_ms, bound_by} of one kernel at one input."""
+    """{ms, plain_ms, bound_ms, bound_by} of one kernel at one input. A
+    single timed plain call (plain_reps=1, for the slow deep lists) skips
+    the warm-up: the compare before it has run the plain version once."""
     bound_ms, bound_by = bound(kind, work, cfg, n_bytes)
-    return {"ms": cuda_ms(kernel, 50), "plain_ms": cuda_ms(plain, plain_reps),
+    return {"ms": cuda_ms(kernel, 50),
+            "plain_ms": cuda_ms(plain, plain_reps, warm=plain_reps > 1),
             "bound_ms": bound_ms, "bound_by": bound_by, "work": work}
 
 
@@ -244,7 +294,7 @@ def ssim_cotangent(color_chw, ref, cfg):
     return rd.pad_ref_chw(g, cfg)[0]
 
 
-def compare_case(name, params, ref, cfg, dev, timed: bool):
+def compare_case(name, params, ref, cfg, dev, timed: bool, plain_reps=3):
     """Kernels 1 and 2 vs their plain versions on one population. Returns
     ({kernel: max_abs_err}, {kernel: (ms, plain_ms)} or None)."""
     from gs2d_tpu_torch.ops import render as rd
@@ -303,11 +353,11 @@ def compare_case(name, params, ref, cfg, dev, timed: bool):
                                          cfg),
             lambda: rr._l2_resident_plain(table, ids, b.count, ref_chw, n,
                                           cfg),
-            "l2", work, cfg, base + nbytes(ref_chw, c_k, g_k)),
+            "l2", work, cfg, base + nbytes(ref_chw, c_k, g_k), plain_reps),
         "fwd_resident": timed_entry(
             lambda: rr._fwd_resident_cuda(table, ids, b.count, cfg),
             lambda: rr._fwd_resident_plain(table, ids, b.count, cfg),
-            "fwd", work, cfg, base + nbytes(f_k, t_k)),
+            "fwd", work, cfg, base + nbytes(f_k, t_k), plain_reps),
     }
     return errs, times
 
@@ -476,7 +526,7 @@ def compare_flat(dev, smi: str):
 
 
 def compare_bwd_resident_case(name, params, ref, cfg, dev, carry=None,
-                              g_color=None, timed=False):
+                              g_color=None, timed=False, plain_reps=3):
     """Kernel 3 vs its plain version on one population under ``g_color``
     (3, Hp, Wp; the SSIM cotangent of the render when None) from ``carry``
     (C_in (3, Hp, Wp), T_in (Hp, Wp); identity when None). It runs twice
@@ -518,7 +568,8 @@ def compare_bwd_resident_case(name, params, ref, cfg, dev, carry=None,
     return err, {"bwd_resident": timed_entry(
         lambda: rr._bwd_resident_cuda(*args),
         lambda: rr._bwd_resident_plain(*args), "bwd", work, cfg,
-        nbytes(table, ids, b.count, fin, g_color, cin, tin, m_k))}
+        nbytes(table, ids, b.count, fin, g_color, cin, tin, m_k),
+        plain_reps)}
 
 
 def compare_dense_case(name, params, ref, cfg, dev, carry=None,
@@ -693,6 +744,309 @@ def compare_new(dev, smi: str):
     return errs, times
 
 
+def deep_tall(seed: int, n: int, width: int, height: int) -> dict:
+    """n wide, faint splats over the whole image: every 32-row tile lists
+    nearly all of them (deep) and each spans many tile rows (tall), so
+    tiles.tune_tile_height picks 64-row tiles for a resident population."""
+    rng = np.random.default_rng(seed)
+    d = {"pos": np.stack([rng.uniform(0.0, width, n),
+                          rng.uniform(0.0, height, n)], -1),
+         "sx": rng.uniform(60.0, 100.0, n), "sy": rng.uniform(60.0, 100.0, n),
+         "rot": rng.uniform(0.0, np.pi, n),
+         "color": rng.uniform(0.0, 1.0, (n, 3)),
+         "opacity": rng.uniform(0.01, 0.05, n)}
+    return {k: v.astype(np.float32) for k, v in d.items()}
+
+
+def compare_resident64(dev, smi: str):
+    """Kernels 1-3 on 64x128 tiles, walked in two 32-row passes: a deep,
+    tall population of 2600 splats on the default target, for which
+    tune_tile_height picks 64 rows, at K = its fullest tile rounded up to
+    256. Returns (max errors, times)."""
+    from gs2d_tpu_torch.config import SplatConfig
+    from gs2d_tpu_torch.io.image import load_image
+    from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.params import params_from_numpy
+
+    log("[compare] resident kernels 1-3 on 64x128 tiles vs plain PyTorch")
+    ref = load_image(MINI)
+    h, w = ref.shape[:2]
+    n = 2600
+    p = params_from_numpy(deep_tall(40, n, w, h), dev)
+    cfg = tl.tune_tile_height(SplatConfig(width=w, height=h, n_splats=n), p)
+    if cfg.tile_h != 64:
+        raise AssertionError(f"tune_tile_height picked {cfg.tile_h} rows")
+    b = tl.bin_splats(p, cfg, 4096, ids_only=True)
+    cfg = cfg.replace(max_splats_per_tile=-(-int(b.count.max()) // 256)
+                      * 256)
+    name = f"deep, tall, N={n}, 64-row tiles"
+    errs, times = compare_case(name, p, ref, cfg, dev, timed=True,
+                               plain_reps=1)
+    e3, t3 = compare_bwd_resident_case(name, p, ref, cfg, dev, timed=True,
+                                       plain_reps=1)
+    errs["bwd_resident"] = e3
+    times.update(t3)
+    log_times(times, f"on 64-row tiles (K={cfg.max_splats_per_tile})", smi)
+    return errs, times
+
+
+def window_population(dev):
+    """The window fit's population and target: the pcg3d init of 8192
+    splats on squirrel_cls (535x426), Morton-reordered, at 32-row tiles.
+    Returns (state, cfg with binning "window", target)."""
+    from gs2d_tpu_torch.config import SplatConfig
+    from gs2d_tpu_torch.io.image import load_image
+    from gs2d_tpu_torch.train.loop import init_train_state
+    from gs2d_tpu_torch.train.reorder import reorder_state
+
+    full = load_image(FULL)
+    h, w = full.shape[:2]
+    cfg = SplatConfig(width=w, height=h, n_splats=N_WINDOW, tile_h=32,
+                      binning="window")
+    return reorder_state(init_train_state(cfg, dev), cfg), cfg, full
+
+
+def escaped_numpy(ids, n: int, width: int) -> int:
+    """Live ids past their tile's window, counted in numpy."""
+    ids = ids.cpu().numpy()
+    live = ids >= 0
+    min_id = np.where(live, ids, n).min(axis=1)
+    n_pad = -(-n // 128) * 128
+    base = np.clip((min_id // 128) * 128, 0, max(n_pad - width, 0))
+    return int((live & (ids >= base[:, None] + width)).sum())
+
+
+def compare_window(dev, smi: str):
+    """Kernel 12 on the window fit's population at K and W tuned as fit
+    tunes them, at three widths: W = n_pad and the tuned W (no escape:
+    colour and moments equal kernel 1's bit for bit; the tuned W timed) and
+    W = 128 (escapes: their count equals a numpy count, the colour kernel
+    1's). Each against its plain version. Returns (max error, times, cfg)."""
+    from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.ops import render_resident as rr
+    from gs2d_tpu_torch.ops import render_window as rw
+    from gs2d_tpu_torch.ops import tiles as tl
+
+    log("[compare] window kernel 12 vs kernel 1 and plain PyTorch")
+    state, cfg, full = window_population(dev)
+    p, n = state.params, N_WINDOW
+    cfg = rw.tune_window(p, tl.tune_tile_capacity(p, cfg))
+    k, tuned = cfg.max_splats_per_tile, cfg.window_width
+    b = tl.bin_splats(p, cfg, k, ids_only=True)
+    if int(b.n_dropped):
+        raise AssertionError(f"window population: binning dropped "
+                             f"{int(b.n_dropped)}")
+    table = rr.resident_table(p, cfg)
+    ids = rr._remap_ids(b, n)
+    ref_chw = rd.pad_ref_chw(full, cfg, dev)
+    c_r, g_r = rr._l2_resident_cuda(table, ids, b.count, ref_chw, n, cfg)
+    err, times = 0.0, {}
+    fields = rr._table_fields(table, n)
+    for label, width in (("n_pad", rw._n_pad(n)), ("tuned", tuned),
+                         ("escapes", 128)):
+        bases, escaped = rw.window_bases(b, n, width)
+        args = (table, ids, b.count, bases, ref_chw, n, cfg, width)
+        c_w, g_w = rw._l2_window_cuda(*args)
+        c_p, g_p = rw._l2_window_plain(*args)
+        torch.cuda.synchronize()
+        require_finite(label, color=c_w, moments=g_w)
+        want = escaped_numpy(b.ids, n, width)
+        col_err = float((c_w - c_p).abs().max())
+        ratio = moment_ratio(g_w, g_p)
+        g_err, g_scale = grad_error(g_w, g_p, n, fields)
+        same = torch.equal(g_w, g_r)
+        log(f"  W = {width} ({label}): N={n} K={k} tiles={cfg.n_tiles_y}x"
+            f"{cfg.n_tiles_x} max_count={int(b.count.max())} escaped "
+            f"{int(escaped)} (numpy {want}) | colour equals kernel 1's: "
+            f"{torch.equal(c_w, c_r)}, moments equal kernel 1's: {same} | "
+            f"vs plain: colour err {col_err:.3g}, moment err/tol "
+            f"{ratio:.3g}, grad err {g_err:.3g} of |grad| max "
+            f"{g_scale:.3g}")
+        if int(escaped) != want or not torch.equal(c_w, c_r):
+            raise AssertionError(f"{label}: escapes or colour wrong")
+        if want == 0 and not same:
+            raise AssertionError(f"{label}: no escape, but the moments "
+                                 "differ from kernel 1's")
+        if col_err > COLOR_ATOL or ratio > 1.0:
+            raise AssertionError(f"{label}: kernel disagrees with plain "
+                                 "version")
+        err = max(err, col_err, g_err)
+        if label == "tuned":
+            work = live_work(table.reshape(-1, tl.N_FIELDS)[ids.long()],
+                             b.count, cfg)
+            times["l2_window"] = timed_entry(
+                lambda: rw._l2_window_cuda(*args),
+                lambda: rw._l2_window_plain(*args), "l2", work, cfg,
+                nbytes(table, ids, b.count, bases, ref_chw, c_w, g_w))
+            times["l2_resident, same inputs"] = timed_entry(
+                lambda: rr._l2_resident_cuda(table, ids, b.count, ref_chw, n,
+                                             cfg),
+                lambda: rr._l2_resident_plain(table, ids, b.count, ref_chw, n,
+                                              cfg), "l2", work, cfg,
+                nbytes(table, ids, b.count, ref_chw, c_r, g_r))
+    log_times(times, f"at the window fit's init (K={k}, W={tuned})", smi)
+    return err, times, cfg
+
+
+def compare_mxu(dev, smi: str):
+    """Kernel 13 at the default fit's init (268x213, 1024 splats, K = 512,
+    chunk 256) against its plain version and against kernel 4 (the dense
+    L2 kernel) on the same binning; timed. Returns (max error, times, the
+    binning's inputs for the entry-point run)."""
+    from gs2d_tpu_torch.config import SplatConfig
+    from gs2d_tpu_torch.io.image import load_image
+    from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.ops import render_dense as rdn
+    from gs2d_tpu_torch.ops import render_mxu as rm
+    from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.params import FIELDS, init_params
+
+    log("[compare] MXU-form kernel 13 vs plain PyTorch and kernel 4")
+    ref = load_image(MINI)
+    h, w = ref.shape[:2]
+    cfg = SplatConfig(width=w, height=h, n_splats=1024)
+    p = init_params(cfg, dev)
+    cfg = tl.tune_tile_capacity(p, tl.tune_tile_height(cfg, p)).replace(
+        binning="dense")
+    n, k, kc = p.n, cfg.max_splats_per_tile, 256
+    b = tl.bin_splats(p, cfg, k)
+    if int(b.n_dropped):
+        raise AssertionError(f"mxu: binning dropped {int(b.n_dropped)}")
+    ref_chw = rd.pad_ref_chw(ref, cfg, dev)
+    args = (b.tile_params, b.ids, b.count, ref_chw, n, cfg, kc)
+    c_k, rows_k, g_k = rm._l2_mxu_cuda(*args)
+    c_k2, rows_k2, g_k2 = rm._l2_mxu_cuda(*args)
+    c_p, rows_p, g_p = rm._l2_mxu_plain(*args)
+    c_d, _, m_d = rdn._l2_dense_cuda(b.tile_params, b.ids, b.count, ref_chw,
+                                     n, cfg)
+    torch.cuda.synchronize()
+    require_finite("mxu", color=c_k, rows=rows_k, grads=g_k)
+    if not (torch.equal(c_k, c_k2) and torch.equal(g_k, g_k2)):
+        raise AssertionError("l2_mxu does not repeat bit for bit")
+    col_err = float((c_k - c_p).abs().max())
+    ratio = max(moment_ratio(rows_k, rows_p), moment_ratio(g_k, g_p)) \
+        * GRAD_RTOL / MXU_PLAIN_RTOL
+    g_err = float((g_k - g_p).abs().max())
+    g_mxu = rd.unpack_moments(g_k, n)
+    g_dense = rd.moments_to_grads(rd.unpack_moments(m_d, n),
+                                  tl.packed_fields(p, cfg.splat_bounds))
+    d_col = float((c_k - c_d).abs().max())
+    d_ratio = max(float((getattr(g_mxu, f) - getattr(g_dense, f)).abs().max())
+                  / (MXU_GRAD_RTOL * max(1.0, float(getattr(
+                      g_dense, f).abs().max()))) for f in FIELDS)
+    log(f"  pcg3d init: N={n} K={k} kc={kc} tiles={cfg.n_tiles_y}x"
+        f"{cfg.n_tiles_x} max_count={int(b.count.max())} | vs plain: colour "
+        f"err {col_err:.3g} (tol {COLOR_ATOL}), gradient err/tol {ratio:.3g} "
+        f"(tol {MXU_PLAIN_RTOL} of each field's scale), max |grad err| "
+        f"{g_err:.3g}, repeats bit for bit | vs kernel 4: colour err "
+        f"{d_col:.3g} (tol {MXU_COLOR_ATOL}), gradient err/tol {d_ratio:.3g} "
+        f"(tol {MXU_GRAD_RTOL} * max(1, |g|))")
+    if col_err > COLOR_ATOL or ratio > 1.0:
+        raise AssertionError("l2_mxu disagrees with its plain version")
+    if d_col > MXU_COLOR_ATOL or d_ratio > 1.0:
+        raise AssertionError("l2_mxu disagrees with kernel 4")
+    work = live_work(b.tile_params, b.count, cfg)
+    times = {"l2_mxu": timed_entry(
+        lambda: rm._l2_mxu_cuda(*args), lambda: rm._l2_mxu_plain(*args),
+        "mxu", work, cfg, nbytes(b.tile_params, b.ids, b.count, ref_chw, c_k,
+                                 g_k))}
+    log_times(times, f"at the default fit's init (K={k}, kc={kc})", smi)
+    return max(col_err, g_err), times, (b, ref_chw, n, cfg)
+
+
+def mxu_entry_phase(inputs) -> dict:
+    """The MXU-form step through its entry point, l2_render_and_grads_mxu,
+    as a user calls it, the launch counts set to 0 just before and read
+    just after. Returns the counts."""
+    from gs2d_tpu_torch.ops import render_mxu as rm
+    from gs2d_tpu_torch.params import FIELDS
+
+    b, ref_chw, n, cfg = inputs
+    log("[entry] render_mxu.l2_render_and_grads_mxu at the default init")
+    reset_counts()
+    color, grads = rm.l2_render_and_grads_mxu(b, ref_chw, n, cfg)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    require_finite("l2_render_and_grads_mxu", render=color,
+                   **{f"d/d{f}": getattr(grads, f) for f in FIELDS})
+    if color.shape != (cfg.height, cfg.width, 3) or grads.pos.shape != (n, 2):
+        raise AssertionError("l2_render_and_grads_mxu: wrong shapes")
+    expect_launches("MXU entry point", launches, {"l2_mxu": 1})
+    log(f"  launches: { {k: v for k, v in launches.items() if v} }; colour "
+        f"{tuple(color.shape)}, gradients of {n} splats, finite")
+    return launches
+
+
+def window_fit_phase(dev, smi: str, runs: int = 3):
+    """The window layout through train.loop.fit (K and W tuned by fit) and
+    the resident fit of the same reordered population, each logged at
+    every step with the launch counts set to 0 just before and read just
+    after; then ``runs`` timed fits of each without a per-step sync (the
+    statics tuned beforehand, as the CLI does). Gates: the two MSE
+    trajectories are equal bit for bit up to the first step with an
+    escaped pair, and iterations 0, 1 and 9 are gs2d_tpu's scan path's.
+    Returns (window launches, resident launches)."""
+    from gs2d_tpu_torch.ops import render_window as rw
+    from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.train.loop import fit
+
+    state, cfg, full = window_population(dev)
+    log(f"[fit] train.loop.fit, binning window: squirrel_cls "
+        f"{cfg.width}x{cfg.height}, {cfg.n_splats} Morton-reordered splats, "
+        "tile_h 32, L2, 200 iterations")
+
+    def logged(binning):
+        reset_counts()
+        _, hist = fit(full, cfg.replace(binning=binning), 200, dev,
+                      state=state, log_every=1, log_fn=None)
+        torch.cuda.synchronize()
+        return read_counts(), hist
+
+    launches_w, hist_w = logged("window")
+    launches_r, hist_r = logged("resident")
+    expect_launches("window fit", launches_w, {"l2_window": 200})
+    expect_launches("resident fit of the window population", launches_r,
+                    {"l2_resident": 200})
+    mse = {r["iter"]: r["mse"] for r in hist_w}
+    mse_r = {r["iter"]: r["mse"] for r in hist_r}
+    if len(mse) != 200 or not all(np.isfinite(list(mse.values()))):
+        raise AssertionError("window trajectory incomplete or non-finite")
+    escapes = [rw_["n_dropped"] - rr_["n_dropped"]
+               for rw_, rr_ in zip(hist_w, hist_r)]
+    first = next((i for i, e in enumerate(escapes) if e), 200)
+    equal = all(mse[i] == mse_r[i] for i in range(min(first + 1, 200)))
+    tuned = rw.tune_window(state.params,
+                           tl.tune_tile_capacity(state.params, cfg))
+    log(f"  K={tuned.max_splats_per_tile} W={tuned.window_width} of "
+        f"{rw._n_pad(N_WINDOW)}; escaped pairs: {sum(escapes)} over 200 "
+        f"steps (first at step {first if first < 200 else 'none'}); "
+        f"capacity drops {sum(r['n_dropped'] for r in hist_r)}")
+    log(f"  window MSE equals the resident fit's bit for bit up to "
+        f"iteration {min(first, 199)}: {equal}; MSE-255 @ 50 / 200: "
+        f"{mse[49]:.4f} / {mse[199]:.4f} (resident {mse_r[49]:.4f} / "
+        f"{mse_r[199]:.4f})")
+    if not equal:
+        raise AssertionError("window trajectory differs from the resident "
+                             "one while nothing escaped")
+    check_trajectory(mse, TRAJECTORY_WINDOW)
+    for binning, statics in (("window", tuned),
+                             ("resident", tuned.replace(binning="resident",
+                                                        window_width=None))):
+        rates = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit(full, statics, 200, dev, state=state, log_every=0,
+                log_fn=None)
+            torch.cuda.synchronize()
+            rates.append(200 / (time.perf_counter() - t0))
+        log(f"  timed {binning} fits ({runs} x 200 iters, no per-step "
+            f"sync): it/s {', '.join(f'{r:.2f}' for r in rates)}; median "
+            f"{float(np.median(rates)):.2f} = {median_ms(rates):.3f} "
+            f"ms/step [{smi}]")
+    return launches_w, launches_r
+
+
 def run_cli(argv) -> str:
     from gs2d_tpu_torch import cli
 
@@ -712,21 +1066,23 @@ def check_mse(mse: dict, it: int, want: float, rtol: float) -> None:
         raise AssertionError(f"MSE @ {it + 1} off the reference")
 
 
-def reset_counts() -> None:
+def kernel_modules() -> tuple:
     from gs2d_tpu_torch.ops import render_dense as rdn
     from gs2d_tpu_torch.ops import render_flat as rf
+    from gs2d_tpu_torch.ops import render_mxu as rm
     from gs2d_tpu_torch.ops import render_resident as rr
+    from gs2d_tpu_torch.ops import render_window as rw
 
-    for mod in (rr, rf, rdn):
+    return rr, rf, rdn, rw, rm
+
+
+def reset_counts() -> None:
+    for mod in kernel_modules():
         mod.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    from gs2d_tpu_torch.ops import render_dense as rdn
-    from gs2d_tpu_torch.ops import render_flat as rf
-    from gs2d_tpu_torch.ops import render_resident as rr
-
-    return {**rr.launches, **rf.launches, **rdn.launches}
+    return {k: v for mod in kernel_modules() for k, v in mod.launches.items()}
 
 
 def logged_fit(argv) -> tuple:
@@ -866,6 +1222,10 @@ KERNELS = (
      "gs2d_tpu/ops/render_pallas_flat.py:227"),
     ("bwd_flat", "gs2d_tpu_torch/csrc/render_flat.cu",
      "gs2d_tpu/ops/render_pallas_flat.py:265"),
+    ("l2_window", "gs2d_tpu_torch/csrc/render_resident.cu",
+     "gs2d_tpu/ops/render_pallas_window.py:112"),
+    ("l2_mxu", "gs2d_tpu_torch/csrc/render_mxu.cu",
+     "gs2d_tpu/ops/render_pallas_mxu.py:159"),
 )
 
 
@@ -935,6 +1295,13 @@ def main() -> int:
     errs.update(flat_errs)
     times.update(new_times)
     times.update(flat_times)
+    e64, _ = compare_resident64(dev, smi)
+    for kk, v in e64.items():
+        errs[kk] = max(errs[kk], v)
+    errs["l2_window"], window_times, _ = compare_window(dev, smi)
+    errs["l2_mxu"], mxu_times, mxu_inputs = compare_mxu(dev, smi)
+    times["l2_window"] = window_times["l2_window"]
+    times.update(mxu_times)
 
     # ---- main paths: the CLI's fits -----------------------------------------
     total = {}
@@ -943,7 +1310,7 @@ def main() -> int:
         for kk, v in launches.items():
             total[kk] = total.get(kk, 0) + v
 
-    launches, mse_l2, rates = fit_phase(MINI, 1024, smi)
+    launches, mse_l2, rates = fit_phase(MINI, 1024, smi, runs=3)
     expect_launches("resident L2 fit", launches,
                     {"l2_resident": 200, "fwd_resident": 1})
     count(launches)
@@ -952,7 +1319,7 @@ def main() -> int:
     log("[profile] resident L2 train step, 20 steps")
     log(profile_fused(cfg_main, MINI, dev, median_ms(rates)))
 
-    launches, mse, rates = fit_phase(FULL, N_10K, smi)
+    launches, mse, rates = fit_phase(FULL, N_10K, smi, runs=3)
     expect_launches("flat L2 fit", launches,
                     {"fwd_flat": 201, "bwd_flat": 200})
     count(launches)
@@ -1015,6 +1382,22 @@ def main() -> int:
     count(launches)
     check_trajectory(mse, TRAJECTORY_SSIM_10K)
     log(f"  MSE-255 @ 200: {mse[199]:.4f} (no gate)")
+
+    for launches in window_fit_phase(dev, smi):
+        count(launches)
+
+    log("[fit] the default fit on 64-row tiles, logged")
+    launches, mse = logged_fit([MINI, "--splats", "1024", "--iters", "200",
+                                "--device", "cuda", "--tile-h", "64"])
+    expect_launches("64-row resident L2 fit", launches,
+                    {"l2_resident": 200, "fwd_resident": 1})
+    count(launches)
+    check_trajectory(mse, {it: (mse_l2[it], TILE64_RTOL) for it in (0, 1)})
+    for it in (49, 199):
+        log(f"  MSE-255 @ {it + 1}: {mse[it]:.4f} (32-row fit "
+            f"{mse_l2[it]:.4f}; no gate)")
+
+    count(mxu_entry_phase(mxu_inputs))
 
     for kk, _, _ in KERNELS:
         if not total.get(kk):

@@ -1,6 +1,6 @@
 """Command-line fitting app of the PyTorch port (the counterpart of
 ``gs2d_tpu/cli.py`` for the resident, flat and dense fitting paths, L2 or
-the SSIM mix).
+the SSIM mix, with Morton reordering between fit blocks).
 
 Usage:
   python -m gs2d_tpu_torch.fit assets/squirrel_cls_mini.npy --splats 1024 \
@@ -17,12 +17,15 @@ through that layout's forward kernel with the fit's config. ``--ssim``
 mixes lambda * (1 - SSIM) into the objective and trains on the modular
 path (the layout's forward and backward kernels under autograd), with the
 default per-tile capacity as gs2d_tpu's CLI does. The tile height follows
-gs2d_tpu's policy unless ``--tile-h`` is given. ``--device`` defaults to
-``cuda`` and exits 2 when no GPU is visible; ``--device cpu`` runs the
+gs2d_tpu's policy unless ``--tile-h`` is given. ``--reorder-every N`` fits
+in blocks of at most N iterations and re-sorts the population along the
+Morton curve between blocks, as gs2d_tpu's CLI does. The window layout is
+not a CLI choice, in gs2d_tpu or here: it is reached through
+``train.loop.fit`` with ``cfg.binning = "window"``. ``--device`` defaults
+to ``cuda`` and exits 2 when no GPU is visible; ``--device cpu`` runs the
 kernels' plain PyTorch versions. Flags of ``gs2d_tpu.cli`` for features
-this port does not have yet are not accepted (argparse exits 2), and
-layouts it does not have exit 2, so nothing a user asks for is silently
-ignored.
+this port does not have yet are not accepted (argparse exits 2), so
+nothing a user asks for is silently ignored.
 """
 
 from __future__ import annotations
@@ -60,11 +63,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="pixel-tile height (0 = auto: gs2d_tpu's policy, 32, "
                         "or 64 for deep, tall populations)")
     p.add_argument("--binning",
-                   choices=["auto", "resident", "flat", "dense", "window"],
+                   choices=["auto", "dense", "flat", "resident"],
                    default="auto",
                    help="tile binning layout (auto picks by population size "
-                        "as gs2d_tpu does; window is not ported yet and "
-                        "exits 2)")
+                        "as gs2d_tpu does)")
+    p.add_argument("--reorder-every", type=int, default=0,
+                   help="re-sort splats along the Morton curve every N "
+                        "iterations (changes the compositing order)")
     p.add_argument("--ssim", type=float, default=0.0, metavar="LAMBDA",
                    help="mix lambda*(1-SSIM) into the objective (0 = pure "
                         "L2, the reference objective); runs on the modular "
@@ -76,7 +81,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.reorder_every < 0:
+        parser.error("--reorder-every must be >= 0")
 
     import torch
 
@@ -94,6 +102,7 @@ def main(argv=None) -> int:
     from gs2d_tpu_torch.ops import render_resident as rr
     from gs2d_tpu_torch.ops import tiles as tl
     from gs2d_tpu_torch.train.loop import fit, init_train_state
+    from gs2d_tpu_torch.train.reorder import reorder_state
     from gs2d_tpu_torch.utils.profiling import JsonlLogger, ThroughputCounter
 
     ref = load_image(args.image)
@@ -113,11 +122,7 @@ def main(argv=None) -> int:
     else:
         # The deterministic init lets the policy measure the pair depth.
         cfg = tl.tune_tile_height(cfg, state.params)
-    try:
-        layout = rd.resolve_binning(cfg)  # "auto" depends on the tile grid
-    except NotImplementedError as e:
-        print(f"error: {e}")
-        return 2
+    layout = rd.resolve_binning(cfg)  # "auto" depends on the tile grid
     # Binning statics are tuned here rather than inside fit() so the final
     # render below uses the fit's config. The SSIM path keeps the default
     # per-tile capacity, as gs2d_tpu's does.
@@ -130,9 +135,19 @@ def main(argv=None) -> int:
     logger = JsonlLogger(os.path.join(args.out, "metrics.jsonl"))
     tc = ThroughputCounter(h, w, args.splats)
     t_start = time.perf_counter()
-    state, hist = fit(ref, cfg, args.iters, device, state=state,
-                      log_every=args.log_every, log_fn=print,
-                      ssim_lambda=args.ssim)
+    hist, done = [], 0
+    block = min(args.iters, args.reorder_every or args.iters)
+    while done < args.iters:
+        n = min(block, args.iters - done)
+        state, h = fit(ref, cfg, n, device, state=state,
+                       log_every=args.log_every, log_fn=print,
+                       ssim_lambda=args.ssim, iter_offset=done)
+        hist += h
+        done += n
+        if done < args.iters and args.reorder_every \
+                and done % args.reorder_every == 0:
+            state = reorder_state(state, cfg)
+            print(f"morton reorder at iter {done}")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     total = time.perf_counter() - t_start

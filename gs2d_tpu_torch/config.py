@@ -5,9 +5,8 @@ kept as the port's own copy so that this package never imports the JAX one.
 class, so the two cannot drift apart silently.
 
 Field meanings are documented in ``gs2d_tpu/config.py``; the port runs the
-``resident``, ``flat`` and ``dense`` layouts, and refuses configurations
-that need a later slice (see ``ops/render.resolve_binning`` and
-``train/loop.fit``).
+``resident``, ``flat``, ``dense`` and ``window`` layouts, and refuses
+configurations that need a later slice (see ``train/loop.fit``).
 """
 
 from __future__ import annotations

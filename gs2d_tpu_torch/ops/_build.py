@@ -36,18 +36,21 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 # C entry points and their argument types (csrc/render_resident.cu,
-# csrc/render_flat.cu, csrc/render_dense.cu).
+# csrc/render_flat.cu, csrc/render_dense.cu, csrc/render_mxu.cu).
 SIGNATURES = {
     "gs2d_l2_resident": [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P],
     "gs2d_fwd_resident": [_P] * 5 + [_I] * 7 + [_F, _F, _I, _P],
     "gs2d_bwd_resident": [_P] * 9 + [_I] * 9 + [_F, _F, _I, _P],
+    "gs2d_l2_window": [_P] * 8 + [_I] * 10 + [_F, _F, _I, _P],
     "gs2d_rows_per_thread": [],
     "gs2d_max_threads": [],
+    "gs2d_max_smem_per_block": [],
     "gs2d_fwd_flat": [_P] * 5 + [_I] * 9 + [_F, _F, _I, _P],
     "gs2d_bwd_flat": [_P] * 10 + [_I] * 10 + [_F, _F, _I, _P],
     "gs2d_fwd_dense": [_P] * 4 + [_I] * 9 + [_F, _F, _I, _P],
     "gs2d_bwd_dense": [_P] * 9 + [_I] * 10 + [_F, _F, _I, _P],
     "gs2d_l2_dense": [_P] * 7 + [_I] * 10 + [_F, _F, _I, _P],
+    "gs2d_l2_mxu": [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P],
 }
 
 

@@ -39,27 +39,20 @@ _JAX_RESIDENT_BUDGET = 800 * 1024
 
 def resolve_binning(cfg: SplatConfig) -> str:
     """The layout gs2d_tpu.ops.render_pallas_flat.resolve_binning picks for
-    ``cfg``, where that is "resident", "flat" or "dense"; the window layout
-    is a later slice and raises ``NotImplementedError``."""
+    ``cfg``: "resident", "flat", "dense" or, asked for by name, "window"."""
     if cfg.binning not in ("auto", "dense", "flat", "resident", "window"):
         raise ValueError(f"unknown binning {cfg.binning!r}")
-    layout = cfg.binning
-    if layout == "auto":
-        k = -(-_max_per_tile(cfg) // 128) * 128
-        smem = (4 * tl.N_FIELDS * (cfg.n_splats + 1)
-                + 4 * cfg.n_tiles_x * cfg.n_tiles_y * k)
-        fits = smem <= _JAX_RESIDENT_BUDGET
-        if cfg.n_splats <= RESIDENT_THRESHOLD and fits:
-            layout = "resident"
-        elif cfg.n_splats >= FLAT_THRESHOLD:
-            layout = "flat"
-        else:
-            layout = "dense"
-    if layout == "window":
-        raise NotImplementedError(
-            "binning layout 'window' is not ported yet (ROADMAP.md queue 2: "
-            "the window kernel)")
-    return layout
+    if cfg.binning != "auto":
+        return cfg.binning
+    k = -(-_max_per_tile(cfg) // 128) * 128
+    smem = (4 * tl.N_FIELDS * (cfg.n_splats + 1)
+            + 4 * cfg.n_tiles_x * cfg.n_tiles_y * k)
+    fits = smem <= _JAX_RESIDENT_BUDGET
+    if cfg.n_splats <= RESIDENT_THRESHOLD and fits:
+        return "resident"
+    if cfg.n_splats >= FLAT_THRESHOLD:
+        return "flat"
+    return "dense"
 
 
 def _max_per_tile(cfg: SplatConfig) -> int:

@@ -93,11 +93,13 @@ def _fwd_resident_plain(table, ids_s, count, cfg: SplatConfig):
 
 
 def _replay_plain(table, ids_s, count, n_splats: int, cfg: SplatConfig,
-                  coords, gc_rgb, gf, comp):
+                  coords, gc_rgb, gf, comp, drop=None):
     """The backward replay of every tile's list from the carry ``comp`` =
     (ga, T) under the cotangent planes: moments (16, n_pad). Per-(tile,
     slot) partials are added onto the splat axis in tile order; padded
-    slots carry exactly zero and land on the dropped row N."""
+    slots carry exactly zero and land on the dropped row N. Slots where the
+    (n_tiles, K) mask ``drop`` is set add nothing (the window layout's
+    escaped pairs)."""
     yy, xx, fy, fx, inside = coords
     rows = table.reshape(-1, tl.N_FIELDS)
     n_k = int(count.max()) if count.numel() else 0
@@ -111,7 +113,10 @@ def _replay_plain(table, ids_s, count, n_splats: int, cfg: SplatConfig,
                       device=table.device)
     if cols:
         partial = torch.stack(cols, dim=1).reshape(-1, 9)
-        acc.index_add_(0, ids_s[:, :n_k].reshape(-1).long(), partial)
+        ids = ids_s[:, :n_k].long()
+        if drop is not None:
+            ids = torch.where(drop[:, :n_k], n_pad, ids)
+        acc.index_add_(0, ids.reshape(-1), partial)
     grads16 = torch.zeros((rd.N_GRAD_FIELDS, n_pad), dtype=torch.float32,
                           device=table.device)
     grads16[:9] = acc[:n_pad].T
@@ -119,8 +124,9 @@ def _replay_plain(table, ids_s, count, n_splats: int, cfg: SplatConfig,
 
 
 def _l2_resident_plain(table, ids_s, count, ref_chw, n_splats: int,
-                       cfg: SplatConfig):
-    """Plain twin of kernel 1: (color (1, 3, Hp, Wp), moments (16, n_pad))."""
+                       cfg: SplatConfig, drop=None):
+    """Plain twin of kernel 1: (color (1, 3, Hp, Wp), moments (16, n_pad));
+    ``drop`` as in _replay_plain."""
     coords = rd.tile_coords(cfg, table.device)
     fin_r, fin_g, fin_b, _ = _composite(table, ids_s, count, cfg, coords)
     ref_t = rd.to_tiles(ref_chw[0], cfg)
@@ -128,7 +134,7 @@ def _l2_resident_plain(table, ids_s, count, ref_chw, n_splats: int,
     gf = gc[0] * fin_r + gc[1] * fin_g + gc[2] * fin_b
     comp = (torch.zeros_like(gf), coords[4].to(torch.float32))
     grads16 = _replay_plain(table, ids_s, count, n_splats, cfg, coords, gc,
-                            gf, comp)
+                            gf, comp, drop)
     color = rd.from_tiles(torch.stack([fin_r, fin_g, fin_b]), cfg)[None]
     return color, grads16
 
@@ -148,15 +154,38 @@ def _bwd_resident_plain(table, ids_s, count, fin, gc, cin, tin,
 # CUDA launches.
 # ---------------------------------------------------------------------------
 
-def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int):
+# Kernels 1, 3 and 12 reduce each slot's moments in rounds of this many
+# slots, one round per warp in shared memory (csrc/render_resident.cu kChunk).
+_REDUCE_SLOTS = 32
+
+
+def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int,
+                  reduce: bool = True):
+    """Raise on what the kernels do not take: the tile shape (tile_w a
+    multiple of 32; tiles taller than one pass of max_threads x rows pixels
+    are walked in passes of sub_h rows that must divide the tile), the
+    block's shared memory (K staged table rows, plus the reduction rounds
+    of the kernels with a backward: ``reduce``) against the card's limit,
+    and the tensors. Returns the library."""
     lib = library()
     rows, max_threads = lib.gs2d_rows_per_thread(), lib.gs2d_max_threads()
-    threads = cfg.tile_w * cfg.tile_h // rows
-    if cfg.tile_h % rows or cfg.tile_w % 32 or threads > max_threads:
+    sub_h = min(cfg.tile_h, max_threads * rows // cfg.tile_w)
+    if cfg.tile_w % 32 or sub_h <= 0 or sub_h % rows or cfg.tile_h % sub_h:
         raise ValueError(
             f"tile {cfg.tile_h}x{cfg.tile_w} unsupported by the CUDA kernels "
-            f"(tile_h a multiple of {rows}, tile_w of 32, "
-            f"tile_h*tile_w <= {rows * max_threads})")
+            f"(tile_w a multiple of 32; passes of min(tile_h, "
+            f"{max_threads * rows} // tile_w) rows, a multiple of {rows} "
+            "that divides tile_h)")
+    threads = cfg.tile_w * sub_h // rows
+    table_bytes = 4 * k * tl.N_FIELDS
+    reduce_bytes = 4 * (threads // 32) * _REDUCE_SLOTS * rd.N_MOMENTS \
+        if reduce else 0
+    limit = lib.gs2d_max_smem_per_block()
+    if table_bytes + reduce_bytes > limit:
+        raise ValueError(
+            f"K={k} needs {table_bytes + reduce_bytes} B of shared memory per "
+            f"block ({k} table rows x {4 * tl.N_FIELDS} B + {reduce_bytes} B "
+            f"of reduction rounds), more than the card's {limit} B")
     n_tiles = cfg.n_tiles_x * cfg.n_tiles_y
     for name, t, dtype, shape in (
             ("table", table, torch.float32, None),
@@ -172,10 +201,11 @@ def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int):
     return lib
 
 
-def _l2_resident_cuda(table, ids_s, count, ref_chw, n_splats: int,
-                      cfg: SplatConfig):
-    k = ids_s.shape[1]
-    lib = _check_inputs(cfg, table, ids_s, count, k)
+def _check_l2_inputs(cfg: SplatConfig, table, ids_s, count, ref_chw,
+                     n_splats: int):
+    """_check_inputs for the fused L2 kernels (1 and 12), with the target
+    and the table's row count. Returns the library."""
+    lib = _check_inputs(cfg, table, ids_s, count, ids_s.shape[1])
     hp, wp = cfg.padded_height, cfg.padded_width
     if (ref_chw.shape != (1, 3, hp, wp) or ref_chw.dtype != torch.float32
             or not ref_chw.is_contiguous() or ref_chw.device != table.device):
@@ -183,18 +213,31 @@ def _l2_resident_cuda(table, ids_s, count, ref_chw, n_splats: int,
                          f"{wp}) on {table.device}")
     if table.numel() != (n_splats + 1) * tl.N_FIELDS:
         raise ValueError("table does not hold n_splats + 1 rows")
-    dev = table.device
+    return lib
+
+
+def _l2_outputs(cfg: SplatConfig, k: int, n_splats: int, dev):
+    """Kernel 1's and 12's outputs: colour (1, 3, Hp, Wp), the zeroed
+    per-(tile, slot) partials (passes add into them) and the zeroed
+    (16, n_pad) moment rows."""
     n_tiles = cfg.n_tiles_x * cfg.n_tiles_y
-    n_pad = _n_pad(n_splats)
-    color = torch.empty((1, 3, hp, wp), dtype=torch.float32, device=dev)
-    partial = torch.empty((n_tiles, k, 9), dtype=torch.float32, device=dev)
-    grads16 = torch.zeros((rd.N_GRAD_FIELDS, n_pad), dtype=torch.float32,
-                          device=dev)
+    return (torch.empty((1, 3, cfg.padded_height, cfg.padded_width),
+                        dtype=torch.float32, device=dev),
+            torch.zeros((n_tiles, k, 9), dtype=torch.float32, device=dev),
+            torch.zeros((rd.N_GRAD_FIELDS, _n_pad(n_splats)),
+                        dtype=torch.float32, device=dev))
+
+
+def _l2_resident_cuda(table, ids_s, count, ref_chw, n_splats: int,
+                      cfg: SplatConfig):
+    k = ids_s.shape[1]
+    lib = _check_l2_inputs(cfg, table, ids_s, count, ref_chw, n_splats)
+    color, partial, grads16 = _l2_outputs(cfg, k, n_splats, table.device)
     err = lib.gs2d_l2_resident(
         table.data_ptr(), ids_s.data_ptr(), count.data_ptr(),
         ref_chw.data_ptr(), color.data_ptr(), partial.data_ptr(),
-        grads16.data_ptr(), n_splats, n_pad, cfg.height, cfg.width,
-        cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, cfg.n_tiles_y, k,
+        grads16.data_ptr(), n_splats, _n_pad(n_splats), cfg.height,
+        cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, cfg.n_tiles_y, k,
         cfg.cutoff_sq, cfg.min_throughput, int(cfg.use_exp_approx),
         stream(table))
     check(err, "l2_resident kernel launch")
@@ -204,7 +247,7 @@ def _l2_resident_cuda(table, ids_s, count, ref_chw, n_splats: int,
 
 def _fwd_resident_cuda(table, ids_s, count, cfg: SplatConfig):
     k = ids_s.shape[1]
-    lib = _check_inputs(cfg, table, ids_s, count, k)
+    lib = _check_inputs(cfg, table, ids_s, count, k, reduce=False)
     dev = table.device
     hp, wp = cfg.padded_height, cfg.padded_width
     color = torch.empty((1, 3, hp, wp), dtype=torch.float32, device=dev)
@@ -235,7 +278,7 @@ def _bwd_resident_cuda(table, ids_s, count, fin, gc, cin, tin,
         raise ValueError("table does not hold n_splats + 1 rows")
     dev = table.device
     n_pad = _n_pad(n_splats)
-    partial = torch.empty((cfg.n_tiles_x * cfg.n_tiles_y, k, 9),
+    partial = torch.zeros((cfg.n_tiles_x * cfg.n_tiles_y, k, 9),
                           dtype=torch.float32, device=dev)
     grads16 = torch.zeros((rd.N_GRAD_FIELDS, n_pad), dtype=torch.float32,
                           device=dev)

@@ -1,7 +1,7 @@
 """The fitting loop (the counterpart of ``gs2d_tpu/train/loop.py``, resident,
-flat and dense layouts): one train step = binning + the layout's L2 kernels
-+ moments_to_grads + Adam + metrics, driven by a host loop. The SSIM
-objective takes the modular step instead: the differentiable render
+flat, dense and window layouts): one train step = binning + the layout's
+L2 kernels + moments_to_grads + Adam + metrics, driven by a host loop. The
+SSIM objective takes the modular step instead: the differentiable render
 (forward kernel, backward kernel under autograd's cotangent), the loss
 head, ``torch.autograd.grad``, then the same Adam and metrics.
 
@@ -25,6 +25,7 @@ from gs2d_tpu_torch.ops import render as rd
 from gs2d_tpu_torch.ops import render_dense as rdn
 from gs2d_tpu_torch.ops import render_flat as rf
 from gs2d_tpu_torch.ops import render_resident as rr
+from gs2d_tpu_torch.ops import render_window as rw
 from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.params import FIELDS, GaussianParams, init_params
 from gs2d_tpu_torch.train.adam import AdamState, adam_update, init_adam_state
@@ -72,7 +73,8 @@ def _tail(state: TrainState, grads: GaussianParams, color, ref,
 
 def make_train_step_fused(cfg: SplatConfig):
     """Single-device train step through the layout's L2 kernels: the
-    resident, flat and dense branches of gs2d_tpu's ``_fused_step_body``,
+    resident, flat, dense and window branches of gs2d_tpu's
+    ``_fused_step_body``,
     binning every step. Returns ``step(state, ref_chw) -> (state,
     StepAux)``; the target must be pre-padded with ``render.pad_ref_chw``.
     Raises for a layout not ported yet and for flat capacities of the split
@@ -94,6 +96,9 @@ def make_train_step_fused(cfg: SplatConfig):
                                                       cfg)
         elif layout == "resident":
             color, grads, n_dropped = rr.l2_step_resident(
+                state.params, ref_chw, cfg, k)
+        elif layout == "window":
+            color, grads, n_dropped = rw.l2_step_window(
                 state.params, ref_chw, cfg, k)
         else:
             color, grads, n_dropped = rdn.l2_step_dense(
@@ -139,18 +144,22 @@ def fit(
     log_fn=print,
     scan_chunk: int = 0,
     ssim_lambda: float = 0.0,
+    iter_offset: int = 0,
 ):
     """The host loop of a fit (main.cpp:334-851 minus the GUI).
 
     ``ref`` is the (H, W, 3) target. Unset binning statics are tuned from
     the population first, as gs2d_tpu's fit does: the flat capacity
     (render_flat.tune_flat_config) for the flat layout, the per-tile
-    capacity (tiles.tune_tile_capacity) for the others. ``ssim_lambda`` > 0
+    capacity (tiles.tune_tile_capacity) for the others, then the window
+    width (render_window.tune_window) for the window layout. ``iter_offset``
+    shifts the logged iteration numbers (callers fitting in blocks pass the
+    global start). ``ssim_lambda`` > 0
     takes the modular step (make_train_step) and, as gs2d_tpu does, tunes
     no per-tile capacity and zeroes ``rebin_margin``; the flat statics are
     still tuned, since its render needs them. ``scan_chunk`` > 1 is a later
     slice and raises. Returns (state, history), history being the logged
-    steps' dicts."""
+    steps' dicts (iteration, MSE, PSNR, the step's n_dropped, seconds)."""
     if scan_chunk and scan_chunk > 1:
         raise NotImplementedError(
             "scan_chunk > 1 has no counterpart yet (CUDA graphs over the "
@@ -165,6 +174,9 @@ def fit(
             cfg = rf.tune_flat_config(state.params, cfg)
     elif cfg.max_splats_per_tile is None and not ssim_lambda:
         cfg = tl.tune_tile_capacity(state.params, cfg)
+    if (not ssim_lambda and rd.resolve_binning(cfg) == "window"
+            and cfg.window_width is None):
+        cfg = rw.tune_window(state.params, cfg)
     if ssim_lambda:
         step_fn = make_train_step(cfg, ssim_lambda)
         ref_in = torch.as_tensor(ref, dtype=torch.float32, device=device)
@@ -194,13 +206,15 @@ def fit(
     for it in range(iterations):
         state, aux = step_fn(state, ref_in)
         if log_every and (it % log_every == 0 or it == iterations - 1):
-            check(aux, it)
+            check(aux, it + iter_offset)
             mse = float(aux.mse)
-            rec = {"iter": it, "mse": mse, "psnr": float(aux.psnr),
+            rec = {"iter": it + iter_offset, "mse": mse,
+                   "psnr": float(aux.psnr), "n_dropped": int(aux.n_dropped),
                    "elapsed_s": time.perf_counter() - t0}
             history.append(rec)
             if log_fn:
-                log_fn(f"{it} itr, mse {mse:.4f}, psnr {rec['psnr']:.2f} dB")
+                log_fn(f"{it + iter_offset} itr, mse {mse:.4f}, psnr "
+                       f"{rec['psnr']:.2f} dB")
     if aux is not None:
-        check(aux, iterations - 1)
+        check(aux, iterations - 1 + iter_offset)
     return state, history

@@ -15,7 +15,9 @@ from gs2d_tpu_torch.config import SplatConfig
 from gs2d_tpu_torch.ops import render as rd
 from gs2d_tpu_torch.ops import render_dense as rdn
 from gs2d_tpu_torch.ops import render_flat as rf
+from gs2d_tpu_torch.ops import render_mxu as rm
 from gs2d_tpu_torch.ops import render_resident as rr
+from gs2d_tpu_torch.ops import render_window as rw
 from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.ops import tiles_flat as tlf
 from gs2d_tpu_torch.params import params_from_numpy
@@ -261,3 +263,110 @@ def test_dense_unsupported_tile_shape_raises(dev):
     cfg, b, _ = dense_inputs(dev, 3, 64, 32, 64)
     with pytest.raises(ValueError):
         rdn._fwd_dense_cuda(b.tile_params, b.count, cfg.replace(tile_h=16))
+
+
+@pytest.mark.parametrize("n", [130, 300])
+def test_resident_kernels_take_64_row_tiles(dev, n):
+    """Kernels 1-3 walk a 64x128 tile in two 32-row passes."""
+    cfg, table, ids, count, ref = inputs(dev, n + 64, n, 64, k=512)
+    c_k, g_k = rr._l2_resident_cuda(table, ids, count, ref, n, cfg)
+    c_p, g_p = rr._l2_resident_plain(table, ids, count, ref, n, cfg)
+    f_k, t_k = rr._fwd_resident_cuda(table, ids, count, cfg)
+    f_p, t_p = rr._fwd_resident_plain(table, ids, count, cfg)
+    args = (table, ids, count, f_p[0].contiguous(),
+            random_cotangent(dev, cfg, n), 0.5 * f_p[0],
+            (0.5 * t_p[0]).contiguous(), n, cfg)
+    m_k = rr._bwd_resident_cuda(*args)
+    m_p = rr._bwd_resident_plain(*args)
+    torch.cuda.synchronize()
+    for got, want in ((c_k, c_p), (f_k, f_p), (t_k, t_p)):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    for got, want in ((g_k, g_p), (m_k, m_p)):
+        atol = 1e-4 * max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+def test_resident_kernels_refuse_too_much_shared_memory(dev):
+    """K = 4096 table rows need 256 KiB of shared memory: the wrapper
+    raises with the numbers instead of launching."""
+    cfg, table, ids, count, ref = inputs(dev, 4, 16, 32, k=4096)
+    with pytest.raises(ValueError, match="shared memory"):
+        rr._l2_resident_cuda(table, ids, count, ref, 16, cfg)
+
+
+def test_window_kernel_equals_resident_at_full_width(dev):
+    """Kernel 12 at W = n_pad: colour and moments equal kernel 1's bit for
+    bit."""
+    n = 300
+    cfg, table, ids, count, ref = inputs(dev, 31, n, 32, k=512)
+    b = tl.TileBinning(ids=torch.where(ids < n, ids, -1), count=count,
+                       n_dropped=torch.zeros((), dtype=torch.int32))
+    bases, escaped = rw.window_bases(b, n, rw._n_pad(n))
+    before = rw.launches["l2_window"]
+    c_w, g_w = rw._l2_window_cuda(table, ids, count, bases, ref, n, cfg,
+                                  rw._n_pad(n))
+    c_r, g_r = rr._l2_resident_cuda(table, ids, count, ref, n, cfg)
+    torch.cuda.synchronize()
+    assert rw.launches["l2_window"] == before + 1 and int(escaped) == 0
+    assert torch.equal(c_w, c_r) and torch.equal(g_w, g_r)
+
+
+def test_window_kernel_drops_escapes_like_plain(dev):
+    """Kernel 12 at W = 128 with escapes: colour equal to kernel 1's, the
+    moments within the resident tolerance of the plain twin's."""
+    n = 300
+    cfg, table, ids, count, ref = inputs(dev, 32, n, 32, k=512)
+    b = tl.TileBinning(ids=torch.where(ids < n, ids, -1), count=count,
+                       n_dropped=torch.zeros((), dtype=torch.int32))
+    bases, escaped = rw.window_bases(b, n, 128)
+    assert int(escaped) > 0
+    c_w, g_w = rw._l2_window_cuda(table, ids, count, bases, ref, n, cfg, 128)
+    c_p, g_p = rw._l2_window_plain(table, ids, count, bases, ref, n, cfg,
+                                   128)
+    c_r, _ = rr._l2_resident_cuda(table, ids, count, ref, n, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(c_w, c_r)
+    atol = 1e-4 * max(1.0, float(g_p.abs().max()))
+    torch.testing.assert_close(g_w, g_p, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("n,tile_h,k,kc", [(200, 32, 256, 128),
+                                           (300, 64, 512, 256)])
+def test_mxu_kernel_matches_plain_and_dense(dev, n, tile_h, k, kc):
+    """Kernel 13 against its plain twin: the colour from the same
+    per-pixel float32 program (1e-6), the gradient rows from pixel sums
+    taken in another order, whose rounding the combine's cancellation
+    (s_xx = m_xx - 2 ex m_x + ex^2 m_1, |ex| up to the tile's half-width)
+    lifts to about 1e-4 of a field's scale (1e-3 allowed). Against the
+    dense L2 kernel: tests/test_fused.py's 2e-3 * max(1, |g|) for the
+    gradients; the colour within 2e-4, since with sx down to 1.5 px the
+    coefficient c_0 = a ex^2 + ... reaches about 1800 and its float32
+    rounding moves D2 by about 1e-4 (the default fit's 6-10 px splats stay
+    within gs2d_tpu's 5e-5, which chip_smoke.py gates)."""
+    cfg, b, ref = dense_inputs(dev, n + k, n, tile_h, k)
+    args = (b.tile_params, b.ids, b.count, ref, n, cfg, kc)
+    before = rm.launches["l2_mxu"]
+    c_k, rows_k, g_k = rm._l2_mxu_cuda(*args)
+    c_p, rows_p, g_p = rm._l2_mxu_plain(*args)
+    c_d, _, g9 = rdn._l2_dense_cuda(b.tile_params, b.ids, b.count, ref, n,
+                                    cfg)
+    torch.cuda.synchronize()
+    assert rm.launches["l2_mxu"] == before + 1
+    torch.testing.assert_close(c_k, c_p, rtol=0, atol=1e-6)
+    for got, want in ((rows_k.reshape(-1, 9).T, rows_p.reshape(-1, 9).T),
+                      (g_k, g_p)):
+        for f in range(rd.N_MOMENTS):
+            atol = 1e-3 * max(1.0, float(want[f].abs().max()))
+            torch.testing.assert_close(got[f], want[f], rtol=0, atol=atol)
+    torch.testing.assert_close(c_k, c_d, rtol=0, atol=2e-4)
+    d, _ = population(n + k, n, W, H)
+    p = params_from_numpy({f: v.astype(np.float32) for f, v in d.items()},
+                          dev)
+    g_dense = rd.moments_to_grads(rd.unpack_moments(g9, n),
+                                  tl.packed_fields(p, cfg.splat_bounds))
+    g_mxu = rd.unpack_moments(g_k, n)
+    for f in ("pos", "sx", "sy", "rot", "color", "opacity"):
+        want = getattr(g_dense, f)
+        torch.testing.assert_close(
+            getattr(g_mxu, f), want, rtol=0,
+            atol=2e-3 * max(1.0, float(want.abs().max())))

@@ -178,10 +178,9 @@ def test_resolve_binning_flat_where_jax_is(kw):
 
 @pytest.mark.parametrize("kw", [dict(binning="window")])
 def test_resolve_binning_other_layouts_raise(kw):
-    assert jrpf.resolve_binning(JaxConfig(tile_h=32, **kw)) not in (
-        "resident", "flat", "dense")
-    with pytest.raises(NotImplementedError):
-        trd.resolve_binning(SplatConfig(tile_h=32, **kw))
+    """The window layout, asked for by name, resolves in both packages."""
+    assert jrpf.resolve_binning(JaxConfig(tile_h=32, **kw)) == "window"
+    assert trd.resolve_binning(SplatConfig(tile_h=32, **kw)) == "window"
 
 
 def test_resolve_binning_rejects_unknown():
