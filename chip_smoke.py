@@ -16,16 +16,29 @@ through them with the CLI and check their MSE trajectories:
   resident fit of the same population (kernel 1);
 - the default fit with ``--tile-h 64`` (kernels 1 and 2 on 64-row tiles);
 - the MXU-form entry point ``l2_render_and_grads_mxu`` at the default
-  fit's init (kernel 13).
+  fit's init (kernel 13);
+- the measurement entry points, ``scripts.probe_mxu_moments.main`` (kernels
+  15a-c: the moment reduction on the CUDA cores and on the tensor cores)
+  and ``scripts.roofline.main`` (kernel 14, the float32 FMA ceiling, the
+  HBM ceiling, and five workloads' shares of the published and the
+  measured ceilings);
+- the 1080p fit, flat layout (a synthetic 1920x1080 target, 102 400 splats,
+  200 iterations; kernels 10 and 11 at ``BASELINE.json`` configs[2]);
+- the default fit checkpointed, and resumed half way: the resumed fit's
+  MSEs must equal the uninterrupted fit's bit for bit;
+- ``train.loop.fit_with_recovery`` with an injected fault (exactly one
+  recovery, the learning rate halved; kernels 2 and 3 under the modular L2
+  step), then the CLI's ``--recover`` without a fault.
 
     python3 chip_smoke.py
 
 Prints one line per phase; the line before the last is the kernels' JSON
 report and the last is {"ok": true, "device": {...}}. A kernel's
 ``launches`` there is its launch count summed over the paths' logged runs
-(the fits and the MXU entry point's call), each path counted from zero;
-``bound_ms`` is the least time the card could
-take for the work of its timed call (see ``bound``). Any failure raises
+(the fits, the MXU entry point's call, the two scripts, resume and
+recovery), each path counted from zero; ``bound_ms`` is the least time the
+card could take for the work of its timed call (see
+``gs2d_tpu_torch/scripts/roofline.py::bound``). Any failure raises
 and the script exits non-zero without printing a result; without a CUDA
 GPU it exits 1 at once.
 """
@@ -36,13 +49,18 @@ import contextlib
 import io
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
+
+from gs2d_tpu_torch.scripts.roofline import (F32_PEAK, HBM_RATE, bound,
+                                             flat_listed_rows, live_work,
+                                             nbytes)
+from gs2d_tpu_torch.utils.profiling import (cuda_ms, device_trace,
+                                            timed_call)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MINI = os.path.join(ROOT, "assets", "squirrel_cls_mini.npy")
@@ -105,75 +123,41 @@ MXU_PLAIN_RTOL = 1e-3
 MXU_COLOR_ATOL = 5e-5
 MXU_GRAD_RTOL = 2e-3
 
-# The least time the card could take for a kernel's work: the larger of its
-# float32 operations over the H100's 67 TFLOP/s (outside the tensor cores)
-# and its bytes (each input read once, each output written once) over
-# 3.35 TB/s (NVIDIA's data sheet, SXM, 700 W). Operations are counted from
-# csrc/splat_terms.cuh with each float add, subtract, multiply, divide,
-# sqrt, compare, min/max, select and float-to-int conversion as one, and
-# each term where it first varies:
-# - ROW_OPS per (row, pair) with a live pixel: splat_terms' vy and the ellipse quadratic's
-#   row interval (qb 2, qc 3 with d*vy*vy, disc 4, the root 5, kq 4, r0/r1
-#   2, the bounds 6); integer bound tests not counted;
-# - PIXEL_OPS per live (pixel, pair), live being covered with T above the
-#   threshold (the others need no work): splat_terms' vx 1, the rest of d2
-#   6, the fast exp 8, alpha 1, the T test 1;
-# - FWD_OPS and BWD_OPS per live (pixel, pair) on top: fwd_one's weight,
-#   colour sums and T update; bwd_one's gcdot, ga, the 1/(1 - alpha) guard,
-#   dL/dalpha, the six moment sums and T update (the selects that only
-#   mask dead pixels are not counted). The fused L2 kernels count
-#   splat_terms once for both passes;
-# - COLUMN_OPS per (column, pair) with a live pixel: Moments::finish's 3
-#   products and 9 adds of the sum over the tile's columns;
-# - per image pixel, the cotangent terms: 10 in the backward (gf, ga's
-#   start) and 8 in the L2 kernels (gC = C - ref, gf).
-# The live counts come from the plain composite of this run's inputs.
-F32_PEAK = 67e12
-HBM_RATE = 3.35e12
-ROW_OPS = 27
-PIXEL_OPS = 17
-FWD_OPS = 9
-BWD_OPS = 30
-COLUMN_OPS = 12
-# Kernel 13 (csrc/render_mxu.cu), counted the same way: per live (pixel,
-# pair) D2 from the coefficients and its basis terms x'y', y'^2 12, the
-# fast exp 8, alpha 1 and the T test 1 (MXU_PIXEL_OPS, once for both
-# phases), phase 0's FWD_OPS, and phase 1's weights 3, colour sums 6, the
-# guard 2, dL/dalpha 18, q 1, T 2 and the seven column sums 14
-# (MXU_BWD_OPS); per (column, pair) the x' products 4 and the ten sums over
-# columns 10; per image pixel gC 3.
-MXU_PIXEL_OPS = 22
-MXU_BWD_OPS = 46
-MXU_COLUMN_OPS = 14
+# The bounds (the least time the card could take for a kernel's work) come
+# from gs2d_tpu_torch/scripts/roofline.py::bound over live_work's counts,
+# against the H100's published 67 TFLOP/s and 3.35 TB/s; the operation
+# model is spelled out there.
+
+# Kernel 14 against its plain version: both round each step once, so they
+# agree to the unit in the last place but for the plain version's rare
+# double rounding (ops/probes.py); FMA_ULPS units of the result.
+# Kernel 15a: the moments' sum-order class (GRAD_RTOL of the result).
+# Kernels 15b and 15c: what 3xTF32 keeps. Each product loses about 2^-21
+# of its size and the sums are taken in another order than the plain
+# versions' float32 products, and the tensor cores' accumulators truncate.
+# Every output is held to PROBE_TC_RTOL of the size of its own terms
+# (ops/probes.py::moments_output_sizes; 15c's 128 outputs cycle through nine
+# moments whose sizes differ by about 1e3, and three of them cancel);
+# measured on the H100: 1.2e-7 (15b) and 2.5e-6 (15c) of that size at most.
+PROBE_TC_RTOL = 1e-5
+N_100K = 102400
+
+
+T_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
+    """Print a line; a phase heading ("[...") gets the seconds since the
+    script started in front."""
+    if msg.startswith("["):
+        msg = f"{time.perf_counter() - T_START:6.1f}s {msg}"
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int, warm: bool = True) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls, after
-    one warm-up call unless ``warm`` is False."""
-    if warm:
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def device_lines() -> tuple:
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    return name, smi
+    from gs2d_tpu_torch.utils.hardware import card_line
+
+    return torch.cuda.get_device_name(0), card_line("cuda:0")
 
 
 def population(seed: int, n: int, width: int, height: int,
@@ -188,56 +172,13 @@ def population(seed: int, n: int, width: int, height: int,
     return {k: v.astype(np.float32) for k, v in d.items()}
 
 
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def live_work(rows, count, cfg) -> dict:
-    """What a front-to-back composite from T = 1 must evaluate: the live
-    (pixel, pair) evaluations ("pixels"), and the (row, pair) and (column,
-    pair) counts with at least one live pixel ("rows", "columns"), summed
-    over the tiles. ``rows`` (n_tiles, K, 16) holds each tile's listed
-    packed rows (pad rows past its count)."""
-    from gs2d_tpu_torch.ops import render as rd
-
-    yy, xx, fy, fx, inside = rd.tile_coords(cfg, rows.device)
-    T = inside.to(torch.float32)
-    n = torch.zeros(3, dtype=torch.int64, device=rows.device)
-    for k in range(int(count.max())):
-        live, alpha, *_ = rd._splat_terms(rows[:, k], fx, fy, xx, yy, inside,
-                                          T, cfg)
-        live &= (k < count)[:, None, None]
-        n += torch.stack([live.sum(), live.any(2).sum(), live.any(1).sum()])
-        T = torch.where(live, T * (1.0 - alpha), T)
-    return dict(zip(("pixels", "rows", "columns"), n.tolist()))
-
-
-def bound(kind: str, work: dict, cfg, n_bytes: int):
-    """(bound_ms, bound_by) of a forward ("fwd"), backward ("bwd"), fused
-    L2 ("l2") or MXU-form L2 ("mxu") kernel that does ``work`` (live_work's
-    counts) and moves ``n_bytes``."""
-    img = cfg.height * cfg.width
-    rows = work["rows"] * ROW_OPS
-    px = work["pixels"]
-    cols = work["columns"] * COLUMN_OPS
-    ops = {"fwd": rows + px * (PIXEL_OPS + FWD_OPS),
-           "bwd": rows + px * (PIXEL_OPS + BWD_OPS) + cols + 10 * img,
-           "l2": rows + px * (PIXEL_OPS + FWD_OPS + BWD_OPS) + cols
-           + 8 * img,
-           "mxu": rows + px * (MXU_PIXEL_OPS + FWD_OPS + MXU_BWD_OPS)
-           + work["columns"] * MXU_COLUMN_OPS + 3 * img}[kind]
-    t_ops, t_bytes = ops / F32_PEAK, n_bytes / HBM_RATE
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def timed_entry(kernel, plain, kind, work, cfg, n_bytes, plain_reps=3):
-    """{ms, plain_ms, bound_ms, bound_by} of one kernel at one input. A
-    single timed plain call (plain_reps=1, for the slow deep lists) skips
-    the warm-up: the compare before it has run the plain version once."""
+def timed_entry(kernel, plain_ms, kind, work, cfg, n_bytes):
+    """{ms, plain_ms, bound_ms, bound_by} of one kernel at one input;
+    ``plain_ms`` is the time of the compare's one call of the plain version
+    (timed_call: the plain walks are host-bound and slow, so each runs
+    once)."""
     bound_ms, bound_by = bound(kind, work, cfg, n_bytes)
-    return {"ms": cuda_ms(kernel, 50),
-            "plain_ms": cuda_ms(plain, plain_reps, warm=plain_reps > 1),
+    return {"ms": cuda_ms(kernel, 50), "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "work": work}
 
 
@@ -294,7 +235,7 @@ def ssim_cotangent(color_chw, ref, cfg):
     return rd.pad_ref_chw(g, cfg)[0]
 
 
-def compare_case(name, params, ref, cfg, dev, timed: bool, plain_reps=3):
+def compare_case(name, params, ref, cfg, dev, timed: bool):
     """Kernels 1 and 2 vs their plain versions on one population. Returns
     ({kernel: max_abs_err}, {kernel: (ms, plain_ms)} or None)."""
     from gs2d_tpu_torch.ops import render as rd
@@ -311,9 +252,11 @@ def compare_case(name, params, ref, cfg, dev, timed: bool, plain_reps=3):
     ref_chw = rd.pad_ref_chw(ref, cfg, dev)
 
     c_k, g_k = rr._l2_resident_cuda(table, ids, b.count, ref_chw, n, cfg)
-    c_p, g_p = rr._l2_resident_plain(table, ids, b.count, ref_chw, n, cfg)
+    (c_p, g_p), l2_plain_ms = timed_call(lambda: rr._l2_resident_plain(
+        table, ids, b.count, ref_chw, n, cfg))
     f_k, t_k = rr._fwd_resident_cuda(table, ids, b.count, cfg)
-    f_p, t_p = rr._fwd_resident_plain(table, ids, b.count, cfg)
+    (f_p, t_p), fwd_plain_ms = timed_call(lambda: rr._fwd_resident_plain(
+        table, ids, b.count, cfg))
     torch.cuda.synchronize()
     for what, x in (("color", c_k), ("moments", g_k), ("fwd color", f_k),
                     ("T", t_k)):
@@ -351,13 +294,11 @@ def compare_case(name, params, ref, cfg, dev, timed: bool, plain_reps=3):
         "l2_resident": timed_entry(
             lambda: rr._l2_resident_cuda(table, ids, b.count, ref_chw, n,
                                          cfg),
-            lambda: rr._l2_resident_plain(table, ids, b.count, ref_chw, n,
-                                          cfg),
-            "l2", work, cfg, base + nbytes(ref_chw, c_k, g_k), plain_reps),
+            l2_plain_ms, "l2", work, cfg,
+            base + nbytes(ref_chw, c_k, g_k)),
         "fwd_resident": timed_entry(
             lambda: rr._fwd_resident_cuda(table, ids, b.count, cfg),
-            lambda: rr._fwd_resident_plain(table, ids, b.count, cfg),
-            "fwd", work, cfg, base + nbytes(f_k, t_k), plain_reps),
+            fwd_plain_ms, "fwd", work, cfg, base + nbytes(f_k, t_k)),
     }
     return errs, times
 
@@ -369,7 +310,7 @@ def compare_flat_case(name, params, ref, cfg, dev, carry=None,
     (3, Hp, Wp), T_in (Hp, Wp); identity when None) under ``g_color``
     (3, Hp, Wp; the L2 cotangent C - ref when None). Kernel 11 runs twice
     and must repeat bit for bit. Returns ({kernel: max_abs_err},
-    {kernel: (ms, plain_ms)} or None)."""
+    {kernel: times} or None)."""
     from gs2d_tpu_torch.ops import render as rd
     from gs2d_tpu_torch.ops import render_flat as rf
     from gs2d_tpu_torch.ops import tiles as tl
@@ -384,7 +325,8 @@ def compare_flat_case(name, params, ref, cfg, dev, carry=None,
         raise AssertionError(f"{name}: binning dropped {int(b.n_dropped)}")
     fwd_in = (b.rows, b.start, b.count, cfg, kc, mc)
     c_k, t_k = rf._fwd_flat_cuda(*fwd_in)
-    c_p, t_p = rf._fwd_flat_plain(*fwd_in)
+    (c_p, t_p), fwd_plain_ms = timed_call(
+        lambda: rf._fwd_flat_plain(*fwd_in))
     if g_color is None:
         g_color = c_p - rd.pad_ref_chw(ref, cfg, dev)[0]
     cin, tin = carry if carry is not None else rd.identity_carry(cfg, dev)
@@ -392,7 +334,8 @@ def compare_flat_case(name, params, ref, cfg, dev, carry=None,
               cin, tin, n, cfg, kc, mc)
     m_k, g_k = rf._bwd_flat_cuda(*bwd_in)
     m_k2, g_k2 = rf._bwd_flat_cuda(*bwd_in)
-    m_p, g_p = rf._bwd_flat_plain(*bwd_in)
+    (m_p, g_p), bwd_plain_ms = timed_call(
+        lambda: rf._bwd_flat_plain(*bwd_in))
     torch.cuda.synchronize()
     for what, x in (("color", c_k), ("T", t_k), ("moments", m_k),
                     ("splat moments", g_k)):
@@ -426,22 +369,15 @@ def compare_flat_case(name, params, ref, cfg, dev, carry=None,
     errs = {"fwd_flat": fwd_err, "bwd_flat": grad_err}
     if not timed:
         return errs, None
-    k = torch.arange(int(b.count.max()), device=dev)
-    idx = torch.where(k[None] < b.count[:, None], b.start[:, None] + k[None],
-                      b.rows.shape[0])
-    rows_ext = torch.cat([b.rows, tl.pad_row(dev)[None]])
-    work = live_work(rows_ext[idx.long()], b.count, cfg)
+    work = live_work(flat_listed_rows(b, dev), b.count, cfg)
     base = nbytes(b.rows, b.start, b.count)
     times = {
         "fwd_flat": timed_entry(
-            lambda: rf._fwd_flat_cuda(*fwd_in),
-            lambda: rf._fwd_flat_plain(*fwd_in), "fwd", work, cfg,
-            base + nbytes(c_k, t_k), plain_reps=2),
+            lambda: rf._fwd_flat_cuda(*fwd_in), fwd_plain_ms, "fwd", work,
+            cfg, base + nbytes(c_k, t_k)),
         "bwd_flat": timed_entry(
-            lambda: rf._bwd_flat_cuda(*bwd_in),
-            lambda: rf._bwd_flat_plain(*bwd_in), "bwd", work, cfg,
-            base + nbytes(b.ids, c_p, g_color, cin, tin, g_k),
-            plain_reps=2),
+            lambda: rf._bwd_flat_cuda(*bwd_in), bwd_plain_ms, "bwd", work,
+            cfg, base + nbytes(b.ids, c_p, g_color, cin, tin, g_k)),
     }
     return errs, times
 
@@ -526,7 +462,7 @@ def compare_flat(dev, smi: str):
 
 
 def compare_bwd_resident_case(name, params, ref, cfg, dev, carry=None,
-                              g_color=None, timed=False, plain_reps=3):
+                              g_color=None, timed=False):
     """Kernel 3 vs its plain version on one population under ``g_color``
     (3, Hp, Wp; the SSIM cotangent of the render when None) from ``carry``
     (C_in (3, Hp, Wp), T_in (Hp, Wp); identity when None). It runs twice
@@ -548,7 +484,7 @@ def compare_bwd_resident_case(name, params, ref, cfg, dev, carry=None,
     args = (table, ids, b.count, fin, g_color.contiguous(), cin, tin, n, cfg)
     m_k = rr._bwd_resident_cuda(*args)
     m_k2 = rr._bwd_resident_cuda(*args)
-    m_p = rr._bwd_resident_plain(*args)
+    m_p, plain_ms = timed_call(lambda: rr._bwd_resident_plain(*args))
     torch.cuda.synchronize()
     require_finite(name, moments=m_k)
     if not torch.equal(m_k, m_k2):
@@ -566,10 +502,8 @@ def compare_bwd_resident_case(name, params, ref, cfg, dev, carry=None,
     work = live_work(table.reshape(-1, tl.N_FIELDS)[ids.long()], b.count,
                        cfg)
     return err, {"bwd_resident": timed_entry(
-        lambda: rr._bwd_resident_cuda(*args),
-        lambda: rr._bwd_resident_plain(*args), "bwd", work, cfg,
-        nbytes(table, ids, b.count, fin, g_color, cin, tin, m_k),
-        plain_reps)}
+        lambda: rr._bwd_resident_cuda(*args), plain_ms, "bwd", work, cfg,
+        nbytes(table, ids, b.count, fin, g_color, cin, tin, m_k))}
 
 
 def compare_dense_case(name, params, ref, cfg, dev, carry=None,
@@ -591,17 +525,19 @@ def compare_dense_case(name, params, ref, cfg, dev, carry=None,
     tp, ids, count = b.tile_params, b.ids, b.count
     ref_chw = rd.pad_ref_chw(ref, cfg, dev)
     c_k, t_k = rdn._fwd_dense_cuda(tp, count, cfg)
-    c_p, t_p = rdn._fwd_dense_plain(tp, count, cfg)
+    (c_p, t_p), fwd_plain_ms = timed_call(
+        lambda: rdn._fwd_dense_plain(tp, count, cfg))
     if g_color is None:
         g_color = ssim_cotangent(c_p, ref, cfg)
     cin, tin = carry if carry is not None else rd.identity_carry(cfg, dev)
     bwd_in = (tp, ids, count, c_p, g_color.contiguous(), cin, tin, n, cfg)
     m_k, g_k = rdn._bwd_dense_cuda(*bwd_in)
     m_k2, g_k2 = rdn._bwd_dense_cuda(*bwd_in)
-    m_p, g_p = rdn._bwd_dense_plain(*bwd_in)
+    (m_p, g_p), bwd_plain_ms = timed_call(
+        lambda: rdn._bwd_dense_plain(*bwd_in))
     l2_in = (tp, ids, count, ref_chw, n, cfg)
     l2_k = rdn._l2_dense_cuda(*l2_in)
-    l2_p = rdn._l2_dense_plain(*l2_in)
+    l2_p, l2_plain_ms = timed_call(lambda: rdn._l2_dense_plain(*l2_in))
     torch.cuda.synchronize()
     require_finite(name, color=c_k, T=t_k, moments=m_k, l2_color=l2_k[0],
                    l2_moments=l2_k[2])
@@ -633,16 +569,13 @@ def compare_dense_case(name, params, ref, cfg, dev, carry=None,
     base = nbytes(tp, ids, count)
     entries = {
         "fwd_dense": lambda: timed_entry(
-            lambda: rdn._fwd_dense_cuda(tp, count, cfg),
-            lambda: rdn._fwd_dense_plain(tp, count, cfg), "fwd", work, cfg,
-            nbytes(tp, count, c_k, t_k)),
+            lambda: rdn._fwd_dense_cuda(tp, count, cfg), fwd_plain_ms, "fwd",
+            work, cfg, nbytes(tp, count, c_k, t_k)),
         "bwd_dense": lambda: timed_entry(
-            lambda: rdn._bwd_dense_cuda(*bwd_in),
-            lambda: rdn._bwd_dense_plain(*bwd_in), "bwd", work, cfg,
-            base + nbytes(c_p, g_color, cin, tin, g_k)),
+            lambda: rdn._bwd_dense_cuda(*bwd_in), bwd_plain_ms, "bwd", work,
+            cfg, base + nbytes(c_p, g_color, cin, tin, g_k)),
         "l2_dense": lambda: timed_entry(
-            lambda: rdn._l2_dense_cuda(*l2_in),
-            lambda: rdn._l2_dense_plain(*l2_in), "l2", work, cfg,
+            lambda: rdn._l2_dense_cuda(*l2_in), l2_plain_ms, "l2", work, cfg,
             base + nbytes(ref_chw, l2_k[0], l2_k[2])),
     }
     return errs, {kk: entries[kk]() for kk in timed}
@@ -780,10 +713,8 @@ def compare_resident64(dev, smi: str):
     cfg = cfg.replace(max_splats_per_tile=-(-int(b.count.max()) // 256)
                       * 256)
     name = f"deep, tall, N={n}, 64-row tiles"
-    errs, times = compare_case(name, p, ref, cfg, dev, timed=True,
-                               plain_reps=1)
-    e3, t3 = compare_bwd_resident_case(name, p, ref, cfg, dev, timed=True,
-                                       plain_reps=1)
+    errs, times = compare_case(name, p, ref, cfg, dev, timed=True)
+    e3, t3 = compare_bwd_resident_case(name, p, ref, cfg, dev, timed=True)
     errs["bwd_resident"] = e3
     times.update(t3)
     log_times(times, f"on 64-row tiles (K={cfg.max_splats_per_tile})", smi)
@@ -847,8 +778,8 @@ def compare_window(dev, smi: str):
         bases, escaped = rw.window_bases(b, n, width)
         args = (table, ids, b.count, bases, ref_chw, n, cfg, width)
         c_w, g_w = rw._l2_window_cuda(*args)
-        c_p, g_p = rw._l2_window_plain(*args)
-        torch.cuda.synchronize()
+        (c_p, g_p), plain_ms = timed_call(
+            lambda: rw._l2_window_plain(*args))
         require_finite(label, color=c_w, moments=g_w)
         want = escaped_numpy(b.ids, n, width)
         col_err = float((c_w - c_p).abs().max())
@@ -875,15 +806,14 @@ def compare_window(dev, smi: str):
             work = live_work(table.reshape(-1, tl.N_FIELDS)[ids.long()],
                              b.count, cfg)
             times["l2_window"] = timed_entry(
-                lambda: rw._l2_window_cuda(*args),
-                lambda: rw._l2_window_plain(*args), "l2", work, cfg,
+                lambda: rw._l2_window_cuda(*args), plain_ms, "l2", work, cfg,
                 nbytes(table, ids, b.count, bases, ref_chw, c_w, g_w))
             times["l2_resident, same inputs"] = timed_entry(
                 lambda: rr._l2_resident_cuda(table, ids, b.count, ref_chw, n,
                                              cfg),
-                lambda: rr._l2_resident_plain(table, ids, b.count, ref_chw, n,
-                                              cfg), "l2", work, cfg,
-                nbytes(table, ids, b.count, ref_chw, c_r, g_r))
+                timed_call(lambda: rr._l2_resident_plain(
+                    table, ids, b.count, ref_chw, n, cfg))[1], "l2", work,
+                cfg, nbytes(table, ids, b.count, ref_chw, c_r, g_r))
     log_times(times, f"at the window fit's init (K={k}, W={tuned})", smi)
     return err, times, cfg
 
@@ -916,7 +846,8 @@ def compare_mxu(dev, smi: str):
     args = (b.tile_params, b.ids, b.count, ref_chw, n, cfg, kc)
     c_k, rows_k, g_k = rm._l2_mxu_cuda(*args)
     c_k2, rows_k2, g_k2 = rm._l2_mxu_cuda(*args)
-    c_p, rows_p, g_p = rm._l2_mxu_plain(*args)
+    (c_p, rows_p, g_p), plain_ms = timed_call(
+        lambda: rm._l2_mxu_plain(*args))
     c_d, _, m_d = rdn._l2_dense_cuda(b.tile_params, b.ids, b.count, ref_chw,
                                      n, cfg)
     torch.cuda.synchronize()
@@ -947,9 +878,8 @@ def compare_mxu(dev, smi: str):
         raise AssertionError("l2_mxu disagrees with kernel 4")
     work = live_work(b.tile_params, b.count, cfg)
     times = {"l2_mxu": timed_entry(
-        lambda: rm._l2_mxu_cuda(*args), lambda: rm._l2_mxu_plain(*args),
-        "mxu", work, cfg, nbytes(b.tile_params, b.ids, b.count, ref_chw, c_k,
-                                 g_k))}
+        lambda: rm._l2_mxu_cuda(*args), plain_ms, "mxu", work, cfg,
+        nbytes(b.tile_params, b.ids, b.count, ref_chw, c_k, g_k))}
     log_times(times, f"at the default fit's init (K={k}, kc={kc})", smi)
     return max(col_err, g_err), times, (b, ref_chw, n, cfg)
 
@@ -977,7 +907,7 @@ def mxu_entry_phase(inputs) -> dict:
     return launches
 
 
-def window_fit_phase(dev, smi: str, runs: int = 3):
+def window_fit_phase(dev, smi: str, runs: int = 2):
     """The window layout through train.loop.fit (K and W tuned by fit) and
     the resident fit of the same reordered population, each logged at
     every step with the launch counts set to 0 just before and read just
@@ -1067,13 +997,14 @@ def check_mse(mse: dict, it: int, want: float, rtol: float) -> None:
 
 
 def kernel_modules() -> tuple:
+    from gs2d_tpu_torch.ops import probes
     from gs2d_tpu_torch.ops import render_dense as rdn
     from gs2d_tpu_torch.ops import render_flat as rf
     from gs2d_tpu_torch.ops import render_mxu as rm
     from gs2d_tpu_torch.ops import render_resident as rr
     from gs2d_tpu_torch.ops import render_window as rw
 
-    return rr, rf, rdn, rw, rm
+    return rr, rf, rdn, rw, rm, probes
 
 
 def reset_counts() -> None:
@@ -1085,15 +1016,25 @@ def read_counts() -> dict:
     return {k: v for mod in kernel_modules() for k, v in mod.launches.items()}
 
 
-def logged_fit(argv) -> tuple:
-    """One CLI fit logged at every step, the launch counts set to 0 just
-    before it and read just after. Returns (launches, {iter: mse})."""
-    with tempfile.TemporaryDirectory() as out:
+def read_metrics(out: str) -> list:
+    return [json.loads(x) for x in
+            open(os.path.join(out, "metrics.jsonl")).read().splitlines()]
+
+
+def logged_fit(argv, out=None, iters: int = 200, no_drops=False) -> tuple:
+    """One CLI fit of ``iters`` iterations logged at every step, the launch
+    counts set to 0 just before it and read just after, into ``out`` (a
+    temporary directory when None); ``no_drops`` fails it on an overflow
+    warning. Returns (launches, {iter: mse})."""
+    with contextlib.ExitStack() as stack:
+        if out is None:
+            out = stack.enter_context(tempfile.TemporaryDirectory())
+        seen = len(read_metrics(out)) \
+            if os.path.exists(os.path.join(out, "metrics.jsonl")) else 0
         reset_counts()
         printed = run_cli(argv + ["--log-every", "1", "--out", out])
         launches = read_counts()
-        recs = [json.loads(x) for x in
-                open(os.path.join(out, "metrics.jsonl")).read().splitlines()]
+        recs = read_metrics(out)[seen:]
         mse = {r["iter"]: r["mse"] for r in recs if "iter" in r}
         done = [r for r in recs if r.get("event") == "done"][0]
         png = os.path.getsize(os.path.join(out, "render_final.png"))
@@ -1102,29 +1043,32 @@ def logged_fit(argv) -> tuple:
         f"{done['iters_per_s']:.1f} it/s")
     warnings = [x for x in printed.splitlines() if x.startswith("WARNING")]
     log(f"  overflow warnings: {warnings if warnings else 'none'}")
-    if len(mse) != 200 or not all(np.isfinite(list(mse.values()))):
+    if len(mse) != iters or not all(np.isfinite(list(mse.values()))):
         raise AssertionError("trajectory incomplete or non-finite")
+    if warnings and no_drops:
+        raise AssertionError(f"pairs dropped to a capacity cap: {warnings}")
     return launches, mse
 
 
 def fit_phase(image: str, splats: int, smi: str, extra=(),
-              runs: int = 5):
+              runs: int = 5, no_drops=False, keep=None):
     """The CLI's 200-iteration fit of ``image`` (with ``extra`` flags): once
-    logged at every step (launch counts and the MSE trajectory), then
-    ``runs`` timed runs without a per-step sync. Returns (launches,
-    {iter: mse}, it/s of the timed runs)."""
+    logged at every step (launch counts and the MSE trajectory; ``no_drops``
+    as in logged_fit), then ``runs`` timed runs without a per-step sync,
+    the last of them into the directory ``keep`` when one is given.
+    Returns (launches, {iter: mse}, it/s of the timed runs)."""
     argv = [image, "--splats", str(splats), "--iters", "200", "--device",
             "cuda", *extra]
     log(f"[fit] python -m gs2d_tpu_torch.fit {os.path.basename(image)} "
         f"{' '.join(argv[1:])}")
-    launches, mse = logged_fit(argv)
+    launches, mse = logged_fit(argv, no_drops=no_drops)
     rates = []
-    for _ in range(runs):
-        with tempfile.TemporaryDirectory() as out:
+    for i in range(runs):
+        with contextlib.ExitStack() as stack:
+            out = keep if keep and i == runs - 1 else stack.enter_context(
+                tempfile.TemporaryDirectory())
             run_cli(argv + ["--log-every", "0", "--out", out])
-            rates.append([json.loads(x) for x in open(os.path.join(
-                out, "metrics.jsonl")).read().splitlines()][-1]
-                ["iters_per_s"])
+            rates.append(read_metrics(out)[-1]["iters_per_s"])
     q1, med, q3 = np.percentile(rates, [25, 50, 75])
     log(f"  timed runs ({runs} x 200 iters, no per-step sync): it/s "
         f"{', '.join(f'{r:.2f}' for r in rates)}; median {med:.2f} "
@@ -1150,23 +1094,21 @@ def same_trajectory(a: dict, b: dict) -> bool:
     return all(a[i] == b[i] for i in range(200))
 
 
-def step_profile(step, state, ref_in, step_ms: float, steps: int = 20) -> str:
+def step_profile(step, state, ref_in, step_ms: float, steps: int = 10) -> str:
     """Device time per step by kernel over a steady window of ``step`` from
-    ``state``, from torch.profiler; the idle share is taken against
+    ``state``, from utils.profiling.device_trace; the idle share is taken against
     ``step_ms``, the step time of an unprofiled run."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
         state, _ = step(state, ref_in)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tempfile.TemporaryDirectory() as tmp, device_trace(tmp) as prof:
         for _ in range(steps):
             state, _ = step(state, ref_in)
         torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     rows = []
     total = 0.0
     launches = 0
@@ -1205,6 +1147,293 @@ def median_ms(rates) -> float:
     return 1e3 / float(np.median(rates))
 
 
+def probe_entry(ms: float, plain_ms: float, flops: int, n_bytes: int):
+    """{ms, plain_ms, bound_ms, bound_by} of a probe kernel that does
+    ``flops`` float32 operations and writes ``n_bytes``."""
+    t_ops, t_bytes = flops / F32_PEAK, n_bytes / HBM_RATE
+    return {"ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def compare_probes(dev, smi: str):
+    """Kernels 14 and 15a-c against their plain versions on the card, at
+    the shapes the measurement scripts give them: kernel 14 at every chain
+    count of its sweep (the count with the best rate is reported), the
+    moment probes at K = 512 on one block and on one block per SM (the
+    latter is timed and reported). Returns (max errors, times)."""
+    from gs2d_tpu_torch.ops import probes
+
+    log("[compare] probe kernels 14, 15a-c vs plain PyTorch on the card")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    errs, times = {}, {}
+    best = None
+    for chains in probes.FMA_CHAINS[1:]:
+        got = probes.fma_peak(chains, dev)
+        want = probes.fma_peak_plain(chains, probes.FMA_INNER, 1, 1, dev)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = probes.FMA_ULPS * 2.0 ** -23 * float(want.abs().max())
+        if not torch.isfinite(got).all() or err > tol:
+            raise AssertionError(f"fma_peak chains={chains}: err {err} > "
+                                 f"{tol}")
+        errs["fma_peak"] = max(errs.get("fma_peak", 0.0), err)
+        ms = cuda_ms(lambda: probes.fma_peak(chains, dev), 5)
+        flops = probes.fma_peak_flops(chains, probes.FMA_INNER, got.numel())
+        log(f"  fma_peak chains={chains}: sum {float(got[0, 0])!r}, err "
+            f"{err:.3g} (tol {tol:.3g}), {ms:.4f} ms, "
+            f"{flops / ms / 1e9:.3f} TFLOP/s [{smi}]")
+        if best is None or flops / ms > best[0]:
+            best = (flops / ms, chains, ms, flops, nbytes(got))
+    _, chains, ms, flops, out_bytes = best
+    times["fma_peak"] = probe_entry(
+        ms, cuda_ms(lambda: probes.fma_peak_plain(
+            chains, probes.FMA_INNER, probes.FMA_GRID, probes.FMA_THREADS,
+            dev), 3), flops, out_bytes)
+    for kind, (name, fn, plain) in probes.MOMENT_PROBES.items():
+        rtol = GRAD_RTOL if kind == "vpu" else PROBE_TC_RTOL
+        for n_blocks in (1, sms):
+            got = fn(dev, n_k=probes.N_K, n_blocks=n_blocks)
+            want = plain(probes.N_K, n_blocks, dev)
+            torch.cuda.synchronize()
+            # Each output against the size of its own terms: 15c's columns
+            # cycle through nine moments whose sizes differ by about 1e3.
+            err = (got - want).abs()
+            sizes = probes.moments_output_sizes(kind, want, probes.N_K)
+            tol = rtol * sizes
+            worst = int((err / tol).argmax())
+            log(f"  {name}, {n_blocks} block(s): err {float(err.max()):.3g};"
+                f" nearest its tolerance at column {worst % probes.TILE_W}: "
+                f"err {float(err.flatten()[worst]):.3g} of "
+                f"{float(want.flatten()[worst]):.6g}, "
+                f"{float((err / sizes).max()):.3g} of its terms' size "
+                f"{float(sizes.flatten()[worst]):.6g} (tol {rtol} of it)")
+            if not torch.isfinite(got).all() or bool((err > tol).any()):
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     "version")
+            errs[name] = max(errs.get(name, 0.0), float(err.max()))
+        times[name] = probe_entry(
+            cuda_ms(lambda: fn(dev, n_k=probes.N_K, n_blocks=sms), 50),
+            cuda_ms(lambda: plain(probes.N_K, sms, dev), 1),
+            sms * probes.moments_flops(kind, probes.N_K), nbytes(got))
+    for kk, t in times.items():
+        log(f"  {kk}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.2f} ms, "
+            f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}), "
+            f"{t['bound_ms'] / t['ms']:.5f} of the bound [{smi}]")
+    return errs, times
+
+
+def probe_phase() -> dict:
+    """The two measurement entry points in this process, their lines
+    logged, the launch counts set to 0 just before and read just after.
+    Fails on a share of the published ceiling above 100% or a measured FMA
+    ceiling more than 5% above the published one (either would be a
+    counting fault). Returns the counts."""
+    from gs2d_tpu_torch.ops import probes
+    from gs2d_tpu_torch.scripts import probe_mxu_moments, roofline
+
+    log("[probe] python -m gs2d_tpu_torch.scripts.probe_mxu_moments; "
+        "python -m gs2d_tpu_torch.scripts.roofline")
+    reset_counts()
+    moments, roof = {}, {}
+    for mod, got in ((probe_mxu_moments, moments), (roofline, roof)):
+        rc = mod.main(["--device", "cuda"], collect=got, log=log)
+        if rc != 0:
+            raise AssertionError(f"{mod.__name__} exited {rc}")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if len(moments) != 6 or len(roof["workloads"]) != 5:
+        raise AssertionError("a probe line or a workload is missing")
+    if 2 * roof["fma_per_s"] > 1.05 * F32_PEAK:
+        raise AssertionError(f"measured FMA ceiling {2 * roof['fma_per_s']} "
+                             "FLOP/s above the published one: counting fault")
+    for r in roof["workloads"]:
+        if not 0.0 < r["share_published"] <= 1.0:
+            raise AssertionError(f"{r['workload']}: share "
+                                 f"{r['share_published']} of the published "
+                                 "ceiling")
+    want = {"l2_resident": 1, "l2_dense": 2, "fwd_flat": 2, "bwd_flat": 2}
+    for kk, n in want.items():  # a first call, a warm-up, the timed calls
+        if launches[kk] != n * 12:
+            raise AssertionError(f"roofline: {kk} launched {launches[kk]} "
+                                 f"times, expected {n * 12}")
+    for kk in probes.launches:
+        if not launches[kk]:
+            raise AssertionError(f"{kk}: not launched by its script")
+    log(f"  launches: { {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def fit_1080p_phase(dev, smi: str) -> dict:
+    """BASELINE.json configs[2] through the CLI: a synthetic 1920x1080
+    target written to a temporary .npy, 102 400 splats, --binning auto
+    (flat), 200 iterations, one logged run and one timed run; then kernels
+    10 and 11 against their plain versions at this init. Gates: the launch
+    counts, no dropped pair, finite parameters (the final checkpoint), the
+    kernels' agreement. Returns the logged run's counts."""
+    from gs2d_tpu_torch.config import SplatConfig
+    from gs2d_tpu_torch.io.checkpoint import Checkpointer
+    from gs2d_tpu_torch.io.image import synthetic_target
+    from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.ops import render_flat as rf
+    from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.params import FIELDS, init_params
+    from gs2d_tpu_torch.train.loop import (init_train_state,
+                                           make_train_step_fused)
+
+    ref = synthetic_target(1080, 1920)
+    with tempfile.TemporaryDirectory() as tmp:
+        image = os.path.join(tmp, "synthetic_1080p.npy")
+        np.save(image, ref)
+        out = os.path.join(tmp, "timed")
+        launches, mse, rates = fit_phase(
+            image, N_100K, smi, ["--checkpoint-every", "200"], runs=1,
+            no_drops=True, keep=out)
+        expect_launches("1080p flat fit", launches,
+                        {"fwd_flat": 201, "bwd_flat": 200})
+        log(f"  MSE-255 @ 1 / 50 / 200: {mse[0]:.4f} / {mse[49]:.4f} / "
+            f"{mse[199]:.4f} (no reference trajectory at this size)")
+        cfg = SplatConfig(width=1920, height=1080, n_splats=N_100K)
+        step, state = Checkpointer(os.path.join(
+            out, "checkpoints")).restore_latest(init_train_state(cfg, dev))
+    if step != 200:
+        raise AssertionError(f"1080p fit: latest checkpoint {step}")
+    require_finite("1080p fit", **{f: getattr(state.params, f)
+                                   for f in FIELDS})
+    log("  checkpoint step_200.npz: all parameters finite")
+    p_init = init_params(cfg, dev)
+    cfg = tl.tune_tile_height(cfg, p_init)
+    _, times = compare_flat_case("pcg3d init 102400 on 1920x1080", p_init,
+                                 ref, cfg, dev, timed=True)
+    log_times(times, "at the 1080p/100k init", smi)
+    log("[profile] flat L2 train step at 1080p/100k, 10 steps")
+    log(step_profile(make_train_step_fused(rf.tune_flat_config(p_init, cfg)),
+                     init_train_state(cfg, dev), rd.pad_ref_chw(ref, cfg, dev),
+                     median_ms(rates)))
+    return launches
+
+
+def resume_phase() -> dict:
+    """The default fit for 200 iterations with --checkpoint-every 100;
+    then 100 iterations into a second directory and --resume for the other
+    100. The resumed fit's MSEs at iterations 100-199 must equal the
+    uninterrupted fit's bit for bit. Returns the summed counts."""
+    log("[resume] the default fit, uninterrupted and resumed at 100")
+    base = [MINI, "--splats", "1024", "--device", "cuda",
+            "--checkpoint-every", "100"]
+    total = {}
+
+    def add(launches, n):
+        expect_launches("checkpointed fit", launches,
+                        {"l2_resident": n, "fwd_resident": 1})
+        for kk, v in launches.items():
+            total[kk] = total.get(kk, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        one, two = os.path.join(tmp, "whole"), os.path.join(tmp, "halves")
+        launches, whole = logged_fit(base + ["--iters", "200"], out=one)
+        add(launches, 200)
+        launches, first = logged_fit(base + ["--iters", "100"], out=two,
+                                     iters=100)
+        add(launches, 100)
+        launches, second = logged_fit(base + ["--iters", "100", "--resume"],
+                                      out=two, iters=100)
+        add(launches, 100)
+        steps = [sorted(int(f[5:-4]) for f in os.listdir(
+            os.path.join(d, "checkpoints"))) for d in (one, two)]
+    if steps != [[100, 200], [100, 200]]:
+        raise AssertionError(f"checkpoint steps {steps}")
+    if sorted(second) != list(range(100, 200)):
+        raise AssertionError("the resumed fit does not log iterations "
+                             "100-199")
+    same = sum(whole[i] == {**first, **second}[i] for i in range(200))
+    log(f"  checkpoints at {steps[0]}; resumed MSEs equal the uninterrupted "
+        f"fit's bit for bit at {same} of 200 iterations (MSE-255 @ 100 / "
+        f"200: {whole[99]:.4f} / {whole[199]:.4f}, resumed "
+        f"{first[99]:.4f} / {second[199]:.4f})")
+    if same != 200:
+        raise AssertionError("resume does not equal the uninterrupted fit")
+    return total
+
+
+def recovery_phase(dev) -> dict:
+    """train.loop.fit_with_recovery on the default workload (1024 splats, 60
+    iterations, checkpoint_every 20) with a fault injected as gs2d_tpu's
+    test does: the first call of loop.fit runs 30 real iterations,
+    checkpointing, then raises FloatingPointError. Gates: exactly one
+    recovery, the learning rate halved, the latest checkpoint at step 60, a
+    finite state, kernels 2 and 3 launched. Then the CLI's --recover with
+    no fault: 0 recoveries and a render. Returns the summed counts."""
+    import gs2d_tpu_torch.train.loop as loop_mod
+    from gs2d_tpu_torch.config import SplatConfig
+    from gs2d_tpu_torch.io.checkpoint import Checkpointer, load_npz_config
+    from gs2d_tpu_torch.io.image import load_image
+    from gs2d_tpu_torch.params import FIELDS
+
+    log("[recover] fit_with_recovery, 1024 splats, 60 iterations, a fault "
+        "injected after 30")
+    ref = load_image(MINI)
+    cfg = SplatConfig(width=ref.shape[1], height=ref.shape[0], n_splats=1024,
+                      tile_h=32)
+    calls = {"n": 0}
+    orig_fit = loop_mod.fit
+
+    def sabotaged_fit(*args, **kw):
+        calls["n"] += 1
+        if calls["n"] == 1:
+            orig_fit(args[0], args[1], 30, *args[3:], **kw)
+            raise FloatingPointError("injected")
+        return orig_fit(*args, **kw)
+
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Checkpointer(os.path.join(tmp, "ck"))
+        reset_counts()
+        loop_mod.fit = sabotaged_fit
+        try:
+            state, hist, n_rec = loop_mod.fit_with_recovery(
+                ref, cfg, 60, ck, dev, checkpoint_every=20, log_every=10,
+                log_fn=lines.append)
+        finally:
+            loop_mod.fit = orig_fit
+        torch.cuda.synchronize()
+        launches = read_counts()
+        latest, steps = ck.latest_step(), ck.all_steps()
+        lr = load_npz_config(os.path.join(tmp, "ck",
+                                          "step_60.npz")).learning_rate
+    for line in lines:
+        log(f"  {line}")
+    log(f"  {n_rec} recovery, checkpoints {steps}, learning rate "
+        f"{cfg.learning_rate} -> {lr}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    require_finite("fit_with_recovery", **{f: getattr(state.params, f)
+                                           for f in FIELDS})
+    if n_rec != 1 or latest != 60 or lr != cfg.learning_rate * 0.5:
+        raise AssertionError("recovery: wrong count, step or learning rate")
+    # 30 steps before the fault, then 40 from the checkpoint at step 20.
+    expect_launches("fit_with_recovery", launches,
+                    {"fwd_resident": 70, "bwd_resident": 70})
+    total = dict(launches)
+    log("[recover] python -m gs2d_tpu_torch.fit --recover, no fault")
+    with tempfile.TemporaryDirectory() as out:
+        reset_counts()
+        printed = run_cli([MINI, "--splats", "1024", "--iters", "60",
+                           "--device", "cuda", "--recover",
+                           "--checkpoint-every", "20", "--log-every", "20",
+                           "--out", out])
+        launches = read_counts()
+        png = os.path.getsize(os.path.join(out, "render_final.png"))
+    log(f"  {printed.splitlines()[-1]}; render_final.png {png} bytes; "
+        f"launches { {k: v for k, v in launches.items() if v} }")
+    if "done (0 recoveries)" not in printed:
+        raise AssertionError("--recover without a fault reported recoveries")
+    expect_launches("--recover fit", launches,
+                    {"fwd_resident": 61, "bwd_resident": 60})
+    for kk, v in launches.items():
+        total[kk] = total.get(kk, 0) + v
+    return total
+
+
 KERNELS = (
     ("l2_resident", "gs2d_tpu_torch/csrc/render_resident.cu",
      "gs2d_tpu/ops/render_pallas_resident.py:88"),
@@ -1226,6 +1455,13 @@ KERNELS = (
      "gs2d_tpu/ops/render_pallas_window.py:112"),
     ("l2_mxu", "gs2d_tpu_torch/csrc/render_mxu.cu",
      "gs2d_tpu/ops/render_pallas_mxu.py:159"),
+    ("fma_peak", "gs2d_tpu_torch/csrc/probes.cu", "scripts/roofline.py:95"),
+    ("moments_cuda_cores", "gs2d_tpu_torch/csrc/probes.cu",
+     "scripts/probe_mxu_moments.py:47"),
+    ("moments_tensor_cores", "gs2d_tpu_torch/csrc/probes.cu",
+     "scripts/probe_mxu_moments.py:76"),
+    ("moments_scratch_contraction", "gs2d_tpu_torch/csrc/probes.cu",
+     "scripts/probe_mxu_moments.py:111"),
 )
 
 
@@ -1302,6 +1538,12 @@ def main() -> int:
     errs["l2_mxu"], mxu_times, mxu_inputs = compare_mxu(dev, smi)
     times["l2_window"] = window_times["l2_window"]
     times.update(mxu_times)
+    probe_errs, probe_times = compare_probes(dev, smi)
+    errs.update(probe_errs)
+    times.update(probe_times)
+    from gs2d_tpu_torch.ops import probes
+    log(f"  fma_peak compiled code (cuobjdump -sass), per chain count: "
+        f"{probes.fma_sass_counts()}")
 
     # ---- main paths: the CLI's fits -----------------------------------------
     total = {}
@@ -1310,16 +1552,16 @@ def main() -> int:
         for kk, v in launches.items():
             total[kk] = total.get(kk, 0) + v
 
-    launches, mse_l2, rates = fit_phase(MINI, 1024, smi, runs=3)
+    launches, mse_l2, rates = fit_phase(MINI, 1024, smi, runs=2)
     expect_launches("resident L2 fit", launches,
                     {"l2_resident": 200, "fwd_resident": 1})
     count(launches)
     check_trajectory(mse_l2, {it: (want, TRAJECTORY_RTOL)
                               for it, want in TRAJECTORY.items()})
-    log("[profile] resident L2 train step, 20 steps")
+    log("[profile] resident L2 train step, 10 steps")
     log(profile_fused(cfg_main, MINI, dev, median_ms(rates)))
 
-    launches, mse, rates = fit_phase(FULL, N_10K, smi, runs=3)
+    launches, mse, rates = fit_phase(FULL, N_10K, smi, runs=2)
     expect_launches("flat L2 fit", launches,
                     {"fwd_flat": 201, "bwd_flat": 200})
     count(launches)
@@ -1330,11 +1572,11 @@ def main() -> int:
                           n_splats=N_10K)
     p0 = init_params(cfg_10k, dev)
     cfg_10k = rf.tune_flat_config(p0, tl.tune_tile_height(cfg_10k, p0))
-    log("[profile] flat L2 train step, 20 steps")
+    log("[profile] flat L2 train step, 10 steps")
     log(profile_fused(cfg_10k, FULL, dev, median_ms(rates)))
 
     ssim = ["--ssim", SSIM]
-    launches, mse_ssim, rates = fit_phase(MINI, 1024, smi, ssim, runs=3)
+    launches, mse_ssim, rates = fit_phase(MINI, 1024, smi, ssim, runs=2)
     expect_launches("resident SSIM fit", launches,
                     {"fwd_resident": 201, "bwd_resident": 200})
     count(launches)
@@ -1351,14 +1593,14 @@ def main() -> int:
     log("  repeats bit for bit (200 of 200 MSEs equal)")
     cfg_ssim = tl.tune_tile_height(SplatConfig(width=w, height=h,
                                                n_splats=1024), p_init)
-    log("[profile] modular SSIM train step (resident), 20 steps")
+    log("[profile] modular SSIM train step (resident), 10 steps")
     log(step_profile(make_train_step(cfg_ssim, float(SSIM)),
                      init_train_state(cfg_ssim, dev),
                      torch.as_tensor(ref, dtype=torch.float32, device=dev),
                      median_ms(rates)))
 
     dense = ["--binning", "dense"]
-    launches, mse, _ = fit_phase(MINI, 1024, smi, dense, runs=3)
+    launches, mse, _ = fit_phase(MINI, 1024, smi, dense, runs=2)
     expect_launches("dense L2 fit", launches,
                     {"l2_dense": 200, "fwd_dense": 1})
     count(launches)
@@ -1368,7 +1610,7 @@ def main() -> int:
         f"{same_trajectory(mse, mse_l2)}")
 
     launches, mse, _ = fit_phase(MINI, 1024, smi, dense + ssim,
-                                 runs=3)
+                                 runs=2)
     expect_launches("dense SSIM fit", launches,
                     {"fwd_dense": 201, "bwd_dense": 200})
     count(launches)
@@ -1376,7 +1618,7 @@ def main() -> int:
     log(f"  equals the resident SSIM trajectory bit for bit: "
         f"{same_trajectory(mse, mse_ssim)}")
 
-    launches, mse, _ = fit_phase(FULL, N_10K, smi, ssim, runs=3)
+    launches, mse, _ = fit_phase(FULL, N_10K, smi, ssim, runs=2)
     expect_launches("flat SSIM fit", launches,
                     {"fwd_flat": 201, "bwd_flat": 200})
     count(launches)
@@ -1398,6 +1640,11 @@ def main() -> int:
             f"{mse_l2[it]:.4f}; no gate)")
 
     count(mxu_entry_phase(mxu_inputs))
+    count(probe_phase())
+    count(fit_1080p_phase(dev, smi))
+    count(resume_phase())
+    count(recovery_phase(dev))
+    log("[done] every phase passed")
 
     for kk, _, _ in KERNELS:
         if not total.get(kk):

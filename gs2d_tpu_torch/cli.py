@@ -1,6 +1,7 @@
 """Command-line fitting app of the PyTorch port (the counterpart of
 ``gs2d_tpu/cli.py`` for the resident, flat and dense fitting paths, L2 or
-the SSIM mix, with Morton reordering between fit blocks).
+the SSIM mix, with Morton reordering between fit blocks, checkpoints with
+resume, recovery from non-finite parameters and mid-fit render dumps).
 
 Usage:
   python -m gs2d_tpu_torch.fit assets/squirrel_cls_mini.npy --splats 1024 \
@@ -9,6 +10,8 @@ Usage:
       --iters 200 --out runs/torch_fit_10k
   python -m gs2d_tpu_torch.fit assets/squirrel_cls_mini.npy --splats 1024 \
       --iters 200 --ssim 0.2 --binning dense --out runs/torch_fit_ssim
+  python -m gs2d_tpu_torch.fit assets/squirrel_cls_mini.npy --iters 200 \
+      --checkpoint-every 100 --out runs/torch_fit_ck    # then --resume
 
 Fits through the layout gs2d_tpu would pick (``--binning auto``: resident
 for small populations, flat above 4096 splats, dense for small populations
@@ -21,7 +24,15 @@ gs2d_tpu's policy unless ``--tile-h`` is given. ``--reorder-every N`` fits
 in blocks of at most N iterations and re-sorts the population along the
 Morton curve between blocks, as gs2d_tpu's CLI does. The window layout is
 not a CLI choice, in gs2d_tpu or here: it is reached through
-``train.loop.fit`` with ``cfg.binning = "window"``. ``--device`` defaults
+``train.loop.fit`` with ``cfg.binning = "window"``.
+``--checkpoint-every N`` writes ``<out>/checkpoints/step_<n>.npz`` at every
+N-th global iteration and at the end (gs2d_tpu's npz format, so either
+package resumes the other's run); ``--resume`` continues from the newest
+one and exits 2 when there is none. ``--recover`` fits through
+``train.loop.fit_with_recovery``: on non-finite parameters it restores the
+newest checkpoint and halves the learning rate instead of aborting.
+``--save-render-every N`` dumps ``render_<iter>.png`` at every N-th
+iteration. ``--device`` defaults
 to ``cuda`` and exits 2 when no GPU is visible; ``--device cpu`` runs the
 kernels' plain PyTorch versions. Flags of ``gs2d_tpu.cli`` for features
 this port does not have yet are not accepted (argparse exits 2), so
@@ -56,6 +67,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--exact-exp", action="store_true",
                    help="exact exp instead of the (1+x/8)^8 approximation")
     p.add_argument("--log-every", type=int, default=50)
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in --out")
+    p.add_argument("--recover", action="store_true",
+                   help="on non-finite parameters, restore the latest "
+                        "checkpoint with halved lr instead of aborting")
+    p.add_argument("--save-render-every", type=int, default=0)
     p.add_argument("--max-per-tile", type=int, default=0,
                    help="per-tile splat capacity (0 = tuned from the "
                         "initial population)")
@@ -83,8 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.reorder_every < 0:
-        parser.error("--reorder-every must be >= 0")
+    for flag in ("reorder_every", "checkpoint_every", "save_render_every"):
+        if getattr(args, flag) < 0:
+            parser.error(f"--{flag.replace('_', '-')} must be >= 0")
 
     import torch
 
@@ -95,13 +114,15 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
 
     from gs2d_tpu_torch.config import SplatConfig
+    from gs2d_tpu_torch.io.checkpoint import Checkpointer
     from gs2d_tpu_torch.io.image import load_image, save_image
     from gs2d_tpu_torch.ops import render as rd
     from gs2d_tpu_torch.ops import render_dense as rdn
     from gs2d_tpu_torch.ops import render_flat as rf
     from gs2d_tpu_torch.ops import render_resident as rr
     from gs2d_tpu_torch.ops import tiles as tl
-    from gs2d_tpu_torch.train.loop import fit, init_train_state
+    from gs2d_tpu_torch.train.loop import (fit, fit_with_recovery,
+                                           init_train_state)
     from gs2d_tpu_torch.train.reorder import reorder_state
     from gs2d_tpu_torch.utils.profiling import JsonlLogger, ThroughputCounter
 
@@ -131,23 +152,82 @@ def main(argv=None) -> int:
     elif cfg.max_splats_per_tile is None and not args.ssim:
         cfg = tl.tune_tile_capacity(state.params, cfg)
 
+    def dump_render(params, name: str) -> None:
+        """The layout's forward kernel with the fit's config, as a PNG."""
+        if layout == "flat":
+            color, n_dropped = rf.render_flat(params, cfg)
+        elif layout == "dense":
+            color, n_dropped = rdn.render_dense(params, cfg,
+                                                rd._max_per_tile(cfg))
+        else:
+            color, n_dropped = rr.render_resident(params, cfg,
+                                                  rd._max_per_tile(cfg))
+        if int(n_dropped) > 0:
+            print(f"WARNING: render {name} dropped {int(n_dropped)} "
+                  "splat-tile pairs to binning capacity")
+        save_image(os.path.join(args.out, name), color.cpu().numpy())
+
     os.makedirs(args.out, exist_ok=True)
+    ck_dir = os.path.join(args.out, "checkpoints")
+    ck = Checkpointer(ck_dir) \
+        if (args.checkpoint_every or args.resume or args.recover) else None
+    start_iter = 0
+    if args.resume:
+        step, state = ck.restore_latest(state)
+        if step is None:
+            # Starting over silently would discard the run the user asked
+            # to continue (and overwrite its artifacts at the end).
+            print(f"error: --resume found no checkpoint under {ck_dir}")
+            return 2
+        start_iter = step
+        print(f"resumed from checkpoint step {step}")
     logger = JsonlLogger(os.path.join(args.out, "metrics.jsonl"))
+
+    if args.recover:
+        # As in gs2d_tpu: iterations are counted from the checkpoint
+        # directory's newest step, --iters is the total, the step is modular.
+        state, hist, n_rec = fit_with_recovery(
+            ref, cfg, args.iters, ck, device,
+            checkpoint_every=args.checkpoint_every or 100,
+            log_every=args.log_every)
+        for rec in hist:
+            logger.log(**rec)
+        dump_render(state.params, "render_final.png")
+        print(f"done ({n_rec} recoveries)")
+        logger.close()
+        return 0
+
     tc = ThroughputCounter(h, w, args.splats)
     t_start = time.perf_counter()
-    hist, done = [], 0
-    block = min(args.iters, args.reorder_every or args.iters)
-    while done < args.iters:
-        n = min(block, args.iters - done)
+    hist, done = [], start_iter
+    end = start_iter + args.iters
+
+    def on_ckpt(st, it):
+        # ``it`` is block-relative (fit() restarts at 0 each block); ``done``
+        # is the global iteration across blocks and resume.
+        ck.save(done + it, st, cfg)
+
+    # Renders are dumped and splats reordered at block boundaries, so every
+    # N-iteration cadence bounds the block size.
+    block = args.iters
+    for every in (args.reorder_every, args.save_render_every):
+        if every:
+            block = min(block, every)
+    while done < end:
+        n = min(block, end - done)
         state, h = fit(ref, cfg, n, device, state=state,
                        log_every=args.log_every, log_fn=print,
+                       checkpoint_every=args.checkpoint_every,
+                       checkpoint_fn=on_ckpt if args.checkpoint_every else None,
                        ssim_lambda=args.ssim, iter_offset=done)
         hist += h
         done += n
-        if done < args.iters and args.reorder_every \
+        if done < end and args.reorder_every \
                 and done % args.reorder_every == 0:
             state = reorder_state(state, cfg)
             print(f"morton reorder at iter {done}")
+        if args.save_render_every and done % args.save_render_every == 0:
+            dump_render(state.params, f"render_{done:06d}.png")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     total = time.perf_counter() - t_start
@@ -158,19 +238,9 @@ def main(argv=None) -> int:
           f"({rates['iters_per_s']:.1f} iters/s)")
     logger.log(event="done", seconds=total, **rates)
 
-    if layout == "flat":
-        color, n_dropped = rf.render_flat(state.params, cfg)
-    elif layout == "dense":
-        color, n_dropped = rdn.render_dense(state.params, cfg,
-                                            rd._max_per_tile(cfg))
-    else:
-        color, n_dropped = rr.render_resident(state.params, cfg,
-                                              rd._max_per_tile(cfg))
-    if int(n_dropped) > 0:
-        print(f"WARNING: final render dropped {int(n_dropped)} splat-tile "
-              "pairs to binning capacity")
-    save_image(os.path.join(args.out, "render_final.png"),
-               color.cpu().numpy())
+    dump_render(state.params, "render_final.png")
+    if ck is not None:
+        ck.save(end, state, cfg)
     logger.close()
     return 0
 

@@ -36,7 +36,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 # C entry points and their argument types (csrc/render_resident.cu,
-# csrc/render_flat.cu, csrc/render_dense.cu, csrc/render_mxu.cu).
+# csrc/render_flat.cu, csrc/render_dense.cu, csrc/render_mxu.cu,
+# csrc/probes.cu).
 SIGNATURES = {
     "gs2d_l2_resident": [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P],
     "gs2d_fwd_resident": [_P] * 5 + [_I] * 7 + [_F, _F, _I, _P],
@@ -51,19 +52,32 @@ SIGNATURES = {
     "gs2d_bwd_dense": [_P] * 9 + [_I] * 10 + [_F, _F, _I, _P],
     "gs2d_l2_dense": [_P] * 7 + [_I] * 10 + [_F, _F, _I, _P],
     "gs2d_l2_mxu": [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P],
+    "gs2d_fma_threads": [],
+    "gs2d_fma_unroll": [],
+    "gs2d_probe_batch": [],
+    "gs2d_fma_peak": [_P, _I, _I, _I, _F, _F, _P],
+    "gs2d_moments_cuda_cores": [_P, _I, _I, _P],
+    "gs2d_moments_tensor_cores": [_P, _I, _I, _P],
+    "gs2d_moments_scratch_contraction": [_P, _I, _I, _P],
+    "gs2d_contraction_smem_bytes": [_I],
 }
 
 
-def _nvcc() -> str:
+def toolkit_binary(name: str) -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump)."""
     for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-            return os.path.join(home, "bin", "nvcc")
-    found = shutil.which("nvcc")
+        if home and os.path.exists(os.path.join(home, "bin", name)):
+            return os.path.join(home, "bin", name)
+    found = shutil.which(name)
     if found is None:
         raise RuntimeError(
-            "nvcc not found (set CUDA_HOME); the CUDA kernels are built from "
-            "gs2d_tpu_torch/csrc at first use")
+            f"{name} not found (set CUDA_HOME); the CUDA kernels are built "
+            "from gs2d_tpu_torch/csrc at first use")
     return found
+
+
+def _nvcc() -> str:
+    return toolkit_binary("nvcc")
 
 
 def _sources():

@@ -3,7 +3,7 @@
 
 The math follows the reference's expanded trigonometric forms so that
 float32 rounding matches (main.cpp:206-221, 432-436, 488-489). The eigen
-helpers serve only visualization and are not part of this slice.
+helpers (main.cpp:188-196, 223-234) serve visualization, not the hot path.
 """
 
 from __future__ import annotations
@@ -35,6 +35,27 @@ def inv_cov_of(s11, s12, s22):
     with inv = [[a, b], [b, d]] (adjugate / det; main.cpp:432-436)."""
     det = det_of_cov(s11, s12, s22)
     return s22 / det, -s12 / det, s11 / det, det
+
+
+def eigenvalues_2x2(s11, s12, s22):
+    """Eigenvalues of the symmetric 2x2 matrix, lambda0 >= lambda1, and its
+    determinant (reference main.cpp:188-196)."""
+    mean = (s11 + s22) * 0.5
+    det = det_of_cov(s11, s12, s22)
+    d = torch.sqrt(torch.clamp(mean * mean - det, min=0.0))
+    return mean + d, mean - d, det
+
+
+def eigenvectors_of_cov(s11, s12, s22, lambda0):
+    """Unit eigenvectors (e0 for lambda0, e1 perpendicular), the branch
+    chosen for numerical stability (reference main.cpp:223-234)."""
+    eps = 1e-15
+    ex = torch.where(s11 < s22, s12 + eps, lambda0 - s22)
+    ey = torch.where(s11 < s22, lambda0 - s11, s12 + eps)
+    norm = torch.sqrt(ex * ex + ey * ey)
+    e0 = torch.stack([ex / norm, ey / norm], dim=-1)
+    e1 = torch.stack([-e0[..., 1], e0[..., 0]], dim=-1)
+    return e0, e1
 
 
 def bbox_half_height(a_inv, det, bounds: float):

@@ -23,6 +23,7 @@ from gs2d_tpu_torch.config import SplatConfig
 from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.ops.numerics import exp_ref, trunc_to_int
 from gs2d_tpu_torch.params import GaussianParams
+from gs2d_tpu_torch.utils.hardware import warn_if_untuned
 
 G_PX, G_PY, G_SX, G_SY, G_ROT, G_CR, G_CG, G_CB, G_OP = range(9)
 N_MOMENTS = 9       # moment rows G_PX..G_OP
@@ -44,6 +45,7 @@ def resolve_binning(cfg: SplatConfig) -> str:
         raise ValueError(f"unknown binning {cfg.binning!r}")
     if cfg.binning != "auto":
         return cfg.binning
+    warn_if_untuned()  # thresholds and byte budget come from v5e sweeps
     k = -(-_max_per_tile(cfg) // 128) * 128
     smem = (4 * tl.N_FIELDS * (cfg.n_splats + 1)
             + 4 * cfg.n_tiles_x * cfg.n_tiles_y * k)
@@ -124,7 +126,10 @@ SAT_WALK_THRESHOLD = 8192
 
 
 def _sat_walk(cfg: SplatConfig) -> bool:
-    return cfg.n_splats >= SAT_WALK_THRESHOLD
+    if cfg.n_splats >= SAT_WALK_THRESHOLD:
+        warn_if_untuned()  # the gate comes from a v5e sweep
+        return True
+    return False
 
 
 def saturating_loop(n_steps: int, step, carry, get_t, mt: float,

@@ -34,6 +34,7 @@ from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.ops._build import check, library, on_card, stream
 from gs2d_tpu_torch.ops.numerics import exp_ref, trunc_to_int
 from gs2d_tpu_torch.params import GaussianParams
+from gs2d_tpu_torch.utils.hardware import resolve_budget
 
 # Kernel launch counts since the last reset_launch_counts().
 launches = {"l2_mxu": 0}
@@ -231,7 +232,7 @@ def _l2_mxu_cuda(tile_params, ids, count, ref_chw, n_splats: int,
     # Staged rows and coefficients of a chunk, and the warps' reduction
     # rounds of 32 slots.
     need = 4 * (kc * (tl.N_FIELDS + N_COEFS) + threads // 32 * 32 * N_SUMS)
-    limit = lib.gs2d_max_smem_per_block()
+    limit = resolve_budget("smem_per_block", lib.gs2d_max_smem_per_block())
     if need > limit:
         raise ValueError(f"chunk {kc} needs {need} B of shared memory per "
                          f"block, more than the card's {limit} B")

@@ -33,6 +33,7 @@ from gs2d_tpu_torch.ops import render as rd
 from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.ops._build import check, library, on_card, stream
 from gs2d_tpu_torch.params import GaussianParams
+from gs2d_tpu_torch.utils.hardware import resolve_budget
 
 # Kernel launch counts since the last reset_launch_counts().
 launches = {"l2_resident": 0, "fwd_resident": 0, "bwd_resident": 0}
@@ -180,7 +181,7 @@ def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int,
     table_bytes = 4 * k * tl.N_FIELDS
     reduce_bytes = 4 * (threads // 32) * _REDUCE_SLOTS * rd.N_MOMENTS \
         if reduce else 0
-    limit = lib.gs2d_max_smem_per_block()
+    limit = resolve_budget("smem_per_block", lib.gs2d_max_smem_per_block())
     if table_bytes + reduce_bytes > limit:
         raise ValueError(
             f"K={k} needs {table_bytes + reduce_bytes} B of shared memory per "

@@ -29,6 +29,7 @@ from gs2d_tpu_torch.config import SplatConfig
 from gs2d_tpu_torch.ops import geometry
 from gs2d_tpu_torch.ops.numerics import trunc_to_int
 from gs2d_tpu_torch.params import GaussianParams
+from gs2d_tpu_torch.utils.hardware import warn_if_untuned
 
 # Field order in the packed per-splat parameter rows the kernels consume
 # (gs2d_tpu/ops/tiles.py:36-51; the CUDA header mirrors it).
@@ -296,6 +297,7 @@ def tune_tile_height(cfg: SplatConfig,
     cfg32 = cfg.replace(tile_h=PRODUCTION_TILE_H)
     if p is None:
         return cfg32
+    warn_if_untuned()  # the breakpoints come from a v5e sweep
     tx0, tx1, ty0, ty1, off = splat_tile_bbox(p, cfg32)
     h_t = ty1 - ty0 + 1
     live = ~off

@@ -1,9 +1,10 @@
 """The fitting loop (the counterpart of ``gs2d_tpu/train/loop.py``, resident,
 flat, dense and window layouts): one train step = binning + the layout's
 L2 kernels + moments_to_grads + Adam + metrics, driven by a host loop. The
-SSIM objective takes the modular step instead: the differentiable render
-(forward kernel, backward kernel under autograd's cotangent), the loss
-head, ``torch.autograd.grad``, then the same Adam and metrics.
+SSIM objective, and ``fit_with_recovery``, take the modular step instead:
+the differentiable render (forward kernel, backward kernel under
+autograd's cotangent), the loss head, ``torch.autograd.grad``, then the
+same Adam and metrics.
 
 PyTorch runs eagerly, so the JAX package's ``jit``/``lax.scan`` have no
 counterpart here: steps run in a Python loop and stay queued on the device
@@ -109,12 +110,14 @@ def make_train_step_fused(cfg: SplatConfig):
     return one_step
 
 
-def make_train_step(cfg: SplatConfig, ssim_lambda: float):
-    """The modular train step of the SSIM objective (gs2d_tpu's
-    ``make_train_step`` over ``production_render``): leaf copies of the
-    parameters, the (1-lam)*L2 + lam*(1-SSIM) mix through the
-    differentiable render, ``torch.autograd.grad`` (the backward kernel runs
-    there), then Adam and the metrics. The L2 objective trains through
+def make_train_step(cfg: SplatConfig, ssim_lambda: float = 0.0):
+    """The modular train step (gs2d_tpu's ``make_train_step`` over
+    ``production_render``): leaf copies of the parameters, the loss head
+    over the differentiable render, ``torch.autograd.grad`` (the backward
+    kernel runs there), then Adam and the metrics. The head is the
+    (1-lam)*L2 + lam*(1-SSIM) mix, or for ``ssim_lambda`` = 0 the
+    reference's 0.5 * sum((C - ref)^2), whose cotangent is C - ref
+    (main.cpp:616); plain L2 fits usually train through
     ``make_train_step_fused``. The loss and its gradient run under
     ``ssim.conv_flags()``. Returns ``step(state, ref) -> (state, StepAux)``
     for the unpadded (H, W, 3) target ``ref``; unlike gs2d_tpu's modular
@@ -126,7 +129,11 @@ def make_train_step(cfg: SplatConfig, ssim_lambda: float):
         with conv_flags():
             color, n_dropped = rf.production_render(
                 GaussianParams(**dict(zip(FIELDS, leaves))), cfg)
-            loss = mixed_loss(color, ref, ssim_lambda)
+            if ssim_lambda:
+                loss = mixed_loss(color, ref, ssim_lambda)
+            else:
+                d = color - ref
+                loss = 0.5 * torch.sum(d * d)
             g = torch.autograd.grad(loss, leaves)
         grads = GaussianParams(**dict(zip(FIELDS, g)))
         return _tail(state, grads, color.detach(), ref, n_dropped, cfg)
@@ -142,6 +149,10 @@ def fit(
     state: Optional[TrainState] = None,
     log_every: int = 0,
     log_fn=print,
+    checkpoint_every: int = 0,
+    checkpoint_fn=None,
+    raise_on_nonfinite: bool = True,
+    use_fused: bool = True,
     scan_chunk: int = 0,
     ssim_lambda: float = 0.0,
     iter_offset: int = 0,
@@ -154,12 +165,19 @@ def fit(
     capacity (tiles.tune_tile_capacity) for the others, then the window
     width (render_window.tune_window) for the window layout. ``iter_offset``
     shifts the logged iteration numbers (callers fitting in blocks pass the
-    global start). ``ssim_lambda`` > 0
-    takes the modular step (make_train_step) and, as gs2d_tpu does, tunes
-    no per-tile capacity and zeroes ``rebin_margin``; the flat statics are
-    still tuned, since its render needs them. ``scan_chunk`` > 1 is a later
-    slice and raises. Returns (state, history), history being the logged
-    steps' dicts (iteration, MSE, PSNR, the step's n_dropped, seconds)."""
+    global start). ``use_fused`` picks the fused L2 step
+    (make_train_step_fused; gs2d_tpu's production path, and the default
+    here, where gs2d_tpu's default is its scan renderer, which the port does
+    not have); without it, or with ``ssim_lambda`` > 0 (the fused kernels
+    hard-code the L2 cotangent), the fit takes the modular step
+    (make_train_step) and, as gs2d_tpu does, tunes no per-tile capacity and
+    zeroes ``rebin_margin``; the flat statics are still tuned, since its
+    render needs them. ``checkpoint_fn(state, it)`` is called after every
+    ``checkpoint_every``-th step with the block-relative count of steps
+    done. ``raise_on_nonfinite`` = False leaves the NaN tripwire to the
+    caller (StepAux.all_finite). ``scan_chunk`` > 1 is a later slice and
+    raises. Returns (state, history), history being the logged steps' dicts
+    (iteration, MSE, PSNR, the step's n_dropped, seconds)."""
     if scan_chunk and scan_chunk > 1:
         raise NotImplementedError(
             "scan_chunk > 1 has no counterpart yet (CUDA graphs over the "
@@ -167,22 +185,24 @@ def fit(
     device = torch.device(device)
     if state is None:
         state = init_train_state(cfg, device)
-    if ssim_lambda and cfg.rebin_margin != 0:
+    if ssim_lambda:
+        use_fused = False
+    if not use_fused and cfg.rebin_margin != 0:
         cfg = cfg.replace(rebin_margin=0.0)  # the modular path rebins eagerly
     if rf.use_flat(cfg):
         if cfg.flat_capacity is None or cfg.flat_max_chunks is None:
             cfg = rf.tune_flat_config(state.params, cfg)
-    elif cfg.max_splats_per_tile is None and not ssim_lambda:
+    elif cfg.max_splats_per_tile is None and use_fused:
         cfg = tl.tune_tile_capacity(state.params, cfg)
-    if (not ssim_lambda and rd.resolve_binning(cfg) == "window"
+    if (use_fused and rd.resolve_binning(cfg) == "window"
             and cfg.window_width is None):
         cfg = rw.tune_window(state.params, cfg)
-    if ssim_lambda:
-        step_fn = make_train_step(cfg, ssim_lambda)
-        ref_in = torch.as_tensor(ref, dtype=torch.float32, device=device)
-    else:
+    if use_fused:
         step_fn = make_train_step_fused(cfg)
         ref_in = rd.pad_ref_chw(ref, cfg, device)
+    else:
+        step_fn = make_train_step(cfg, ssim_lambda)
+        ref_in = torch.as_tensor(ref, dtype=torch.float32, device=device)
 
     history = []
     t0 = time.perf_counter()
@@ -190,7 +210,7 @@ def fit(
 
     def check(aux, it):
         nonlocal warned_drop
-        if not bool(aux.all_finite):
+        if raise_on_nonfinite and not bool(aux.all_finite):
             raise FloatingPointError(
                 f"non-finite splat parameters at iteration {it} "
                 "(reference aborts here, main.cpp:752-785)")
@@ -215,6 +235,66 @@ def fit(
             if log_fn:
                 log_fn(f"{it + iter_offset} itr, mse {mse:.4f}, psnr "
                        f"{rec['psnr']:.2f} dB")
+        if checkpoint_every and checkpoint_fn \
+                and (it + 1) % checkpoint_every == 0:
+            checkpoint_fn(state, it + 1)
     if aux is not None:
         check(aux, iterations - 1 + iter_offset)
     return state, history
+
+
+def fit_with_recovery(
+    ref,
+    cfg: SplatConfig,
+    iterations: int,
+    checkpointer,
+    device,
+    checkpoint_every: int = 100,
+    max_recoveries: int = 3,
+    lr_backoff: float = 0.5,
+    log_every: int = 0,
+    log_fn=print,
+):
+    """Failure-tolerant fitting: the reference hard-aborts on non-finite
+    parameters (main.cpp:752-785); here the NaN tripwire triggers a restore
+    from the latest checkpoint with the learning rate backed off (a
+    divergent step replayed identically would fault identically), up to
+    ``max_recoveries`` times. It starts from the checkpointer's latest
+    checkpoint if there is one and, as in gs2d_tpu, trains through the
+    modular step (the differentiable render's forward and backward kernels
+    under an L2 head), not the fused one.
+
+    Returns (state, history, n_recoveries)."""
+    device = torch.device(device)
+    step0, state = checkpointer.restore_latest(init_train_state(cfg, device))
+    done = step0 or 0
+    recoveries = 0
+    history = []
+
+    def ckpt(s, it):
+        checkpointer.save(done + it, s, cfg)
+
+    while done < iterations:
+        try:
+            state, hist = fit(
+                ref, cfg, iterations - done, device, state=state,
+                log_every=log_every, log_fn=log_fn,
+                checkpoint_every=checkpoint_every, checkpoint_fn=ckpt,
+                use_fused=False)
+            for rec in hist:
+                rec["iter"] += done
+            history.extend(hist)
+            done = iterations
+        except FloatingPointError:
+            recoveries += 1
+            if recoveries > max_recoveries:
+                raise
+            cfg = cfg.replace(learning_rate=cfg.learning_rate * lr_backoff)
+            step0, state = checkpointer.restore_latest(
+                init_train_state(cfg, device))
+            done = step0 or 0
+            if log_fn:
+                log_fn(f"non-finite parameters: restored checkpoint "
+                       f"{done}, lr backed off to {cfg.learning_rate}")
+    checkpointer.save(iterations, state, cfg)
+    return state, history, recoveries

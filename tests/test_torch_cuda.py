@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from gs2d_tpu_torch.config import SplatConfig
+from gs2d_tpu_torch.ops import probes
 from gs2d_tpu_torch.ops import render as rd
 from gs2d_tpu_torch.ops import render_dense as rdn
 from gs2d_tpu_torch.ops import render_flat as rf
@@ -370,3 +371,58 @@ def test_mxu_kernel_matches_plain_and_dense(dev, n, tile_h, k, kc):
         torch.testing.assert_close(
             getattr(g_mxu, f), want, rtol=0,
             atol=2e-3 * max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.parametrize("chains", [1, 2, 4, 8, 16, 32])
+def test_fma_peak_matches_plain_and_is_fused(dev, chains):
+    """Kernel 14: every thread's sum equals the plain version's (each step
+    rounded once) within FMA_ULPS units, and the compiled loop holds fused
+    multiply-adds only."""
+    before = probes.launches["fma_peak"]
+    got = probes.fma_peak(chains, dev, grid=64)
+    want = probes.fma_peak_plain(chains, probes.FMA_INNER, 64, 256, dev)
+    torch.cuda.synchronize()
+    assert got.shape == (64, 256)
+    tol = probes.FMA_ULPS * 2.0 ** -23 * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    assert probes.launches["fma_peak"] == before + 1
+    sass = probes.fma_sass_counts()[chains]
+    assert sass["FFMA"] >= chains and sass["FMUL"] == 0
+    assert sass["FADD"] == chains - 1  # the chains' sum
+
+
+def test_fma_peak_refuses_bad_shapes(dev):
+    with pytest.raises(ValueError):
+        probes.fma_peak(3, dev)
+    with pytest.raises(ValueError):
+        probes.fma_peak(4, dev, inner=12)
+
+
+@pytest.mark.parametrize("kind,rtol", [("vpu", 1e-4), ("mxu", 1e-5),
+                                       ("mxu2", 1e-5)])
+@pytest.mark.parametrize("n_k,n_blocks", [(64, 1), (512, 3)])
+def test_moment_probes_match_plain(dev, kind, rtol, n_k, n_blocks):
+    """Kernels 15a-c against their plain versions: the moments' sum-order
+    class for the CUDA-core reduction, what 3xTF32 keeps for the two
+    tensor-core forms, each output against the size of its terms
+    (probes.moments_output_sizes: 15c's columns cycle through nine moments
+    of very different sizes); every block writes the same row, and a second
+    launch repeats the first bit for bit."""
+    name, fn, plain = probes.MOMENT_PROBES[kind]
+    before = probes.launches[name]
+    got = fn(dev, n_k=n_k, n_blocks=n_blocks)
+    again = fn(dev, n_k=n_k, n_blocks=n_blocks)
+    want = plain(n_k, n_blocks, dev)
+    torch.cuda.synchronize()
+    assert got.shape == (n_blocks, 128) and torch.isfinite(got).all()
+    sizes = probes.moments_output_sizes(kind, want, n_k)
+    assert ((got - want).abs() <= rtol * sizes).all()
+    assert torch.equal(got, again) and torch.equal(got, got[:1].expand_as(got))
+    assert probes.launches[name] == before + 2
+
+
+def test_scratch_contraction_refuses_what_it_cannot_hold(dev):
+    with pytest.raises(ValueError):
+        probes.moments_scratch_contraction(dev, n_k=60)   # not batches of 8
+    with pytest.raises(ValueError):
+        probes.moments_scratch_contraction(dev, n_k=4096)  # shared memory
