@@ -92,6 +92,36 @@ __device__ __forceinline__ Splat load_splat(const float* row) {
   return s;
 }
 
+// Exact per-row x interval of a splat from the ellipse quadratic
+// (main.cpp:497-509) at vy = (row centre) - py: returns whether the row
+// meets the ellipse at all (disc >= 0) and writes the columns [beg_x, end_x]
+// it covers there. splat_terms and the resident kernels' per-warp cull
+// (render_resident.cu) both call it, so they decide coverage on the same
+// bits.
+__device__ __forceinline__ bool row_interval(const Splat& s, float vy,
+                                             const RenderArgs& p, int& beg_x,
+                                             int& end_x) {
+  const float qb = 2.0f * s.b * vy;
+  const float qc = s.d * vy * vy - p.cutoff_sq;
+  const float disc = qb * qb - 4.0f * s.a * qc;
+  const float sq = sqrtf(nan_max(disc, 0.0f));
+  const float sgn = qb < 0.0f ? -1.0f : 1.0f;
+  const float kq = (-qb - sgn * sq) * 0.5f;
+  const float r0 = kq / s.a;
+  const float r1 = qc / kq;
+  beg_x = trunc_i32(s.px + nan_min(r0, r1));
+  end_x = trunc_i32(s.px + nan_max(r0, r1));
+  return disc >= 0.0f;
+}
+
+// The Gaussian term of splat s at offset (vx, vy) from its centre, times
+// its opacity (_splat_terms' alpha).
+__device__ __forceinline__ float gauss_alpha(const Splat& s, float vx,
+                                             float vy, const RenderArgs& p) {
+  const float d2 = s.a * vx * vx + 2.0f * s.b * vx * vy + s.d * vy * vy;
+  return exp_term(-0.5f * d2, p.use_exp_approx) * s.op;
+}
+
 // Coverage + alpha of one splat at one pixel (_splat_terms). Returns live;
 // alpha, vx, vy are written through.
 __device__ __forceinline__ bool splat_terms(const Splat& s, int xx, int yy,
@@ -102,25 +132,23 @@ __device__ __forceinline__ bool splat_terms(const Splat& s, int xx, int yy,
   vy = fy - s.py;
   vx = fx - s.px;
   const bool row_ok = (yy >= s.beg_y) && (yy <= s.end_y);
-
-  // Exact per-row x interval from the ellipse quadratic (main.cpp:497-509).
-  const float qb = 2.0f * s.b * vy;
-  const float qc = s.d * vy * vy - p.cutoff_sq;
-  const float disc = qb * qb - 4.0f * s.a * qc;
-  const bool q_ok = disc >= 0.0f;
-  const float sq = sqrtf(nan_max(disc, 0.0f));
-  const float sgn = qb < 0.0f ? -1.0f : 1.0f;
-  const float kq = (-qb - sgn * sq) * 0.5f;
-  const float r0 = kq / s.a;
-  const float r1 = qc / kq;
-  const int beg_x = trunc_i32(s.px + nan_min(r0, r1));
-  const int end_x = trunc_i32(s.px + nan_max(r0, r1));
+  int beg_x, end_x;
+  const bool q_ok = row_interval(s, vy, p, beg_x, end_x);
   const bool col_ok = (xx >= beg_x) && (xx <= end_x);
   const bool cover = row_ok && q_ok && col_ok && inside;
-
-  const float d2 = s.a * vx * vx + 2.0f * s.b * vx * vy + s.d * vy * vy;
-  alpha = exp_term(-0.5f * d2, p.use_exp_approx) * s.op;
+  alpha = gauss_alpha(s, vx, vy, p);
   return cover && (T >= p.min_throughput);
+}
+
+// The composite step of a pixel whose live flag and alpha are known.
+__device__ __forceinline__ void fwd_step(const Splat& s, bool live,
+                                         float alpha, float& cr, float& cg,
+                                         float& cb, float& T) {
+  const float w = live ? T * alpha : 0.0f;
+  cr = cr + w * s.cr;
+  cg = cg + w * s.cg;
+  cb = cb + w * s.cb;
+  T = live ? T * (1.0f - alpha) : T;
 }
 
 // One front-to-back composite step at one pixel (_fwd_one).
@@ -131,11 +159,7 @@ __device__ __forceinline__ void fwd_one(const Splat& s, int xx, int yy,
   float alpha, vx, vy;
   const bool live = splat_terms(s, xx, yy, fx, fy, inside, T, p, alpha, vx,
                                 vy);
-  const float w = live ? T * alpha : 0.0f;
-  cr = cr + w * s.cr;
-  cg = cg + w * s.cg;
-  cb = cb + w * s.cb;
-  T = live ? T * (1.0f - alpha) : T;
+  fwd_step(s, live, alpha, cr, cg, cb, T);
 }
 
 // A thread's running column sums for one splat (_moment_reduce, first
@@ -160,17 +184,11 @@ struct Moments {
   }
 };
 
-// One splat's backward step at one pixel (_bwd_splat_step): replay the
-// composite with the cotangent-weighted prefix ga and add the pixel's terms
-// to the thread's moment sums.
-__device__ __forceinline__ void bwd_one(const Splat& s, int xx, int yy,
-                                        float fx, float fy, bool inside,
-                                        const RenderArgs& p, float gc_r,
-                                        float gc_g, float gc_b, float gf,
-                                        float& ga, float& T, Moments& m) {
-  float alpha, vx, vy;
-  const bool live = splat_terms(s, xx, yy, fx, fy, inside, T, p, alpha, vx,
-                                vy);
+// The replay step of a pixel whose live flag, alpha and vy are known.
+__device__ __forceinline__ void bwd_step(const Splat& s, bool live,
+                                         float alpha, float vy, float gc_r,
+                                         float gc_g, float gc_b, float gf,
+                                         float& ga, float& T, Moments& m) {
   const float mw = live ? 1.0f : 0.0f;
   const float w_c = alpha * T * mw;
   const float gcdot = gc_r * s.cr + gc_g * s.cg + gc_b * s.cb;
@@ -188,14 +206,27 @@ __device__ __forceinline__ void bwd_one(const Splat& s, int xx, int yy,
   T = live ? T * (1.0f - alpha) : T;
 }
 
-// Adds to acc the moment row of splat i in one tile's run: run_ids holds
-// the run's n splat ids in ascending order (index order; padding never lies
-// inside a run) and run_mom their n x kMoments moment rows. A binary search
-// finds the one match, if any. Called for tiles in ascending order, it sums
-// each splat's rows in a fixed order without atomics.
-__device__ __forceinline__ void add_run_moments(const int* run_ids, int n,
-                                                const float* run_mom, int i,
-                                                float acc[kMoments]) {
+// One splat's backward step at one pixel (_bwd_splat_step): replay the
+// composite with the cotangent-weighted prefix ga and add the pixel's terms
+// to the thread's moment sums.
+__device__ __forceinline__ void bwd_one(const Splat& s, int xx, int yy,
+                                        float fx, float fy, bool inside,
+                                        const RenderArgs& p, float gc_r,
+                                        float gc_g, float gc_b, float gf,
+                                        float& ga, float& T, Moments& m) {
+  float alpha, vx, vy;
+  const bool live = splat_terms(s, xx, yy, fx, fy, inside, T, p, alpha, vx,
+                                vy);
+  bwd_step(s, live, alpha, vy, gc_r, gc_g, gc_b, gf, ga, T, m);
+}
+
+// The slot of splat i in one tile's run, or -1: run_ids holds the run's n
+// splat ids in ascending order (index order; padding never lies inside a
+// run), so a binary search finds the one match, if any.
+// add_run_moments adds to acc the moment row of splat i in the run, run_mom
+// holding the run's n x kMoments moment rows. Called for tiles in ascending
+// order, it sums each splat's rows in a fixed order without atomics.
+__device__ __forceinline__ int find_in_run(const int* run_ids, int n, int i) {
   int lo = 0, hi = n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -205,8 +236,15 @@ __device__ __forceinline__ void add_run_moments(const int* run_ids, int n,
       hi = mid;
     }
   }
-  if (lo < n && run_ids[lo] == i) {
-    const float* src = run_mom + (size_t)lo * kMoments;
+  return (lo < n && run_ids[lo] == i) ? lo : -1;
+}
+
+__device__ __forceinline__ void add_run_moments(const int* run_ids, int n,
+                                                const float* run_mom, int i,
+                                                float acc[kMoments]) {
+  const int slot = find_in_run(run_ids, n, i);
+  if (slot >= 0) {
+    const float* src = run_mom + (size_t)slot * kMoments;
 #pragma unroll
     for (int f = 0; f < kMoments; ++f) acc[f] += src[f];
   }

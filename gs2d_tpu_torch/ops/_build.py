@@ -39,8 +39,8 @@ _F = ctypes.c_float
 # csrc/render_flat.cu, csrc/render_dense.cu, csrc/render_mxu.cu,
 # csrc/probes.cu).
 SIGNATURES = {
-    "gs2d_l2_resident": [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P],
-    "gs2d_fwd_resident": [_P] * 5 + [_I] * 7 + [_F, _F, _I, _P],
+    "gs2d_l2_resident": [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P],
+    "gs2d_fwd_resident": [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P],
     "gs2d_bwd_resident": [_P] * 9 + [_I] * 9 + [_F, _F, _I, _P],
     "gs2d_l2_window": [_P] * 8 + [_I] * 10 + [_F, _F, _I, _P],
     "gs2d_rows_per_thread": [],

@@ -246,6 +246,25 @@ def from_tiles(tiles: torch.Tensor, cfg: SplatConfig) -> torch.Tensor:
         ch, cfg.padded_height, cfg.padded_width)
 
 
+def _row_interval(px, a, b, d, vy, cfg: SplatConfig):
+    """Exact per-row x interval from the ellipse quadratic (main.cpp:497-509)
+    at vy = (row centre) - py: (q_ok, the row meets the ellipse; beg_x,
+    end_x, the int32 columns it covers there). The twin of
+    csrc/splat_terms.cuh's row_interval, which the kernels' coverage and the
+    resident kernels' per-warp cull share."""
+    qb = 2.0 * b * vy
+    qc = d * vy * vy - cfg.cutoff_sq
+    disc = qb * qb - 4.0 * a * qc
+    sq = torch.sqrt(torch.maximum(disc, torch.zeros_like(disc)))
+    sgn = torch.where(qb < 0.0, -1.0, 1.0)
+    kq = (-qb - sgn * sq) * 0.5
+    r0 = kq / a
+    r1 = qc / kq
+    # torch.minimum/maximum propagate NaN like jnp.minimum/maximum.
+    return (disc >= 0.0, trunc_to_int(px + torch.minimum(r0, r1)),
+            trunc_to_int(px + torch.maximum(r0, r1)))
+
+
 def _splat_terms(rows, fx, fy, xx, yy, inside, T, cfg: SplatConfig):
     """Per-pixel coverage + alpha of one splat per tile.
 
@@ -262,20 +281,7 @@ def _splat_terms(rows, fx, fy, xx, yy, inside, T, cfg: SplatConfig):
 
     # Row walk bounds: y in [trunc(py-h), trunc(py+h)] (main.cpp:490-492).
     row_ok = (yy >= trunc_to_int(py - h)) & (yy <= trunc_to_int(py + h))
-
-    # Exact per-row x interval from the ellipse quadratic (main.cpp:497-509).
-    qb = 2.0 * b * vy
-    qc = d * vy * vy - cfg.cutoff_sq
-    disc = qb * qb - 4.0 * a * qc
-    q_ok = disc >= 0.0
-    sq = torch.sqrt(torch.maximum(disc, torch.zeros_like(disc)))
-    sgn = torch.where(qb < 0.0, -1.0, 1.0)
-    kq = (-qb - sgn * sq) * 0.5
-    r0 = kq / a
-    r1 = qc / kq
-    # torch.minimum/maximum propagate NaN like jnp.minimum/maximum.
-    beg_x = trunc_to_int(px + torch.minimum(r0, r1))
-    end_x = trunc_to_int(px + torch.maximum(r0, r1))
+    q_ok, beg_x, end_x = _row_interval(px, a, b, d, vy, cfg)
     col_ok = (xx >= beg_x) & (xx <= end_x)
 
     cover = row_ok & q_ok & col_ok & inside

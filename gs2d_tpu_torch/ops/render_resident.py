@@ -20,6 +20,14 @@ launch the CUDA kernels of ``csrc/render_resident.cu`` for CUDA tensors
 (``_l2_resident_plain`` / ``_fwd_resident_plain`` / ``_bwd_resident_plain``)
 for CPU tensors. Each wrapper adds one to ``launches[<name>]`` where it
 launches its kernel, and nowhere else.
+
+Kernels 1 and 2 run one warp per patch of 8 rows x 32 columns (the pixels
+warp w of a one-block-per-tile pass owned), four patches a block, and each
+warp walks only the slots whose splat covers a pixel of its
+patch (or has a non-finite field): ``patch_cover_mask`` is that cull in
+plain PyTorch, for the tests and ``chip_smoke.py``. The cull and the warp's
+saturation exit skip only exact zeros, so the twins compute the kernels'
+function unchanged.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from gs2d_tpu_torch.config import SplatConfig
 from gs2d_tpu_torch.ops import render as rd
 from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.ops._build import check, library, on_card, stream
+from gs2d_tpu_torch.ops.numerics import trunc_to_int
 from gs2d_tpu_torch.params import GaussianParams
 from gs2d_tpu_torch.utils.hardware import resolve_budget
 
@@ -66,6 +75,14 @@ def _n_pad(n_splats: int) -> int:
     return -(-n_splats // 128) * 128
 
 
+def patches_per_tile(cfg: SplatConfig, rows: int) -> int:
+    """Warp patches of kernels 1 and 2 in a tile, each ``rows`` (the
+    library's gs2d_rows_per_thread) x 32 pixels. Patch j is row group
+    j // (tile_w / 32) and column group j % (tile_w / 32), which is warp w
+    of pass p at j = p * (warps per pass) + w: the moments' sum order."""
+    return (cfg.tile_h // rows) * (cfg.tile_w // 32)
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (CPU path; the card-side reference in chip_smoke).
 # ---------------------------------------------------------------------------
@@ -93,6 +110,20 @@ def _fwd_resident_plain(table, ids_s, count, cfg: SplatConfig):
     return color, rd.from_tiles(T[None], cfg)
 
 
+def _tile_order_sum(partial, ids, n_pad: int):
+    """(n_pad + 1, 9) splat-axis sums of (n_tiles, n_k, 9) per-(tile, slot)
+    partials at (n_tiles, n_k) ids, row n_pad collecting what is dropped:
+    one index_add_ per tile, in tile order. A tile's ids are distinct but
+    for the pad row N and the dropped row, whose adds are exact zeros or
+    discarded, so every splat's sum is taken in tile order on any device
+    (one index_add_ over all rows adds in a varying order on CUDA)."""
+    acc = torch.zeros((n_pad + 1, 9), dtype=torch.float32,
+                      device=partial.device)
+    for t in range(partial.shape[0]):
+        acc.index_add_(0, ids[t], partial[t])
+    return acc
+
+
 def _replay_plain(table, ids_s, count, n_splats: int, cfg: SplatConfig,
                   coords, gc_rgb, gf, comp, drop=None):
     """The backward replay of every tile's list from the carry ``comp`` =
@@ -110,17 +141,14 @@ def _replay_plain(table, ids_s, count, n_splats: int, cfg: SplatConfig,
                                        yy, inside, cfg, comp, gf, gc_rgb)
         cols.append(col)
     n_pad = _n_pad(n_splats)
-    acc = torch.zeros((n_pad + 1, 9), dtype=torch.float32,
-                      device=table.device)
+    grads16 = torch.zeros((rd.N_GRAD_FIELDS, n_pad), dtype=torch.float32,
+                          device=table.device)
     if cols:
-        partial = torch.stack(cols, dim=1).reshape(-1, 9)
         ids = ids_s[:, :n_k].long()
         if drop is not None:
             ids = torch.where(drop[:, :n_k], n_pad, ids)
-        acc.index_add_(0, ids.reshape(-1), partial)
-    grads16 = torch.zeros((rd.N_GRAD_FIELDS, n_pad), dtype=torch.float32,
-                          device=table.device)
-    grads16[:9] = acc[:n_pad].T
+        acc = _tile_order_sum(torch.stack(cols, dim=1), ids, n_pad)
+        grads16[:9] = acc[:n_pad].T
     return grads16
 
 
@@ -140,6 +168,44 @@ def _l2_resident_plain(table, ids_s, count, ref_chw, n_splats: int,
     return color, grads16
 
 
+def patch_cover_mask(table, ids_s, count, cfg: SplatConfig, rows: int):
+    """The cull of kernels 1 and 2 in plain PyTorch: (n_tiles, patches per
+    tile, K) bool (patches as in patches_per_tile, ``rows`` high), set where
+    slot k < count[t] of tile t lists a splat that covers a pixel of the
+    warp's patch (some row inside the image and the splat's row walk whose
+    render._row_interval meets the patch's columns inside the image:
+    _splat_terms' cover, decided per row) or has a non-finite field (px, py,
+    a, b, d, h, cr, cg, cb, op). Used by the tests and chip_smoke.py, never
+    on the main path."""
+    ncg = cfg.tile_w // 32
+    n_tiles, k = ids_s.shape
+    dev = table.device
+    fields = table.reshape(-1, tl.N_FIELDS)[ids_s.long()]     # (T, K, F)
+    f = lambda i: fields[:, None, :, i]                        # (T, 1, K)
+    t = torch.arange(n_tiles, device=dev)
+    ty = torch.div(t, cfg.n_tiles_x, rounding_mode="floor")
+    tx = t - ty * cfg.n_tiles_x
+    yy = (ty[:, None] * cfg.tile_h
+          + torch.arange(cfg.tile_h, device=dev))[:, :, None]  # (T, th, 1)
+    py, h = f(tl.FIELD_PY), f(tl.FIELD_H)
+    row_ok = ((yy >= trunc_to_int(py - h)) & (yy <= trunc_to_int(py + h))
+              & (yy < cfg.height))
+    q_ok, beg_x, end_x = rd._row_interval(
+        f(tl.FIELD_PX), f(tl.FIELD_A), f(tl.FIELD_B), f(tl.FIELD_D),
+        yy.to(torch.float32) + 0.5 - py, cfg)
+    x0 = (tx[:, None] * cfg.tile_w
+          + 32 * torch.arange(ncg, device=dev))[:, None, None, :]
+    x_hi = torch.clamp(x0 + 31, max=cfg.width - 1)
+    meets = (torch.maximum(beg_x.long()[..., None], x0)
+             <= torch.minimum(end_x.long()[..., None], x_hi))
+    hit = (row_ok & q_ok)[..., None] & meets                   # (T, th, K, c)
+    hit = hit.reshape(n_tiles, cfg.tile_h // rows, rows, k, ncg).any(dim=2)
+    hit = hit.permute(0, 1, 3, 2).reshape(n_tiles, -1, k)
+    bad = ~torch.isfinite(fields[..., : tl.FIELD_OP + 1]).all(dim=-1)
+    listed = torch.arange(k, device=dev)[None] < count[:, None].to(dev)
+    return (hit | bad[:, None]) & listed[:, None]
+
+
 def _bwd_resident_plain(table, ids_s, count, fin, gc, cin, tin,
                         n_splats: int, cfg: SplatConfig):
     """Plain twin of kernel 3: moments (16, n_pad). ``fin``, ``gc`` and
@@ -155,19 +221,20 @@ def _bwd_resident_plain(table, ids_s, count, fin, gc, cin, tin,
 # CUDA launches.
 # ---------------------------------------------------------------------------
 
-# Kernels 1, 3 and 12 reduce each slot's moments in rounds of this many
-# slots, one round per warp in shared memory (csrc/render_resident.cu kChunk).
+# Kernels 3 and 12 reduce each slot's moments in rounds of this many slots,
+# one round per warp in shared memory (csrc/render_resident.cu kChunk).
 _REDUCE_SLOTS = 32
 
 
-def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int,
-                  reduce: bool = True):
+def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int, *,
+                  stages_rows: bool):
     """Raise on what the kernels do not take: the tile shape (tile_w a
     multiple of 32; tiles taller than one pass of max_threads x rows pixels
     are walked in passes of sub_h rows that must divide the tile), the
-    block's shared memory (K staged table rows, plus the reduction rounds
-    of the kernels with a backward: ``reduce``) against the card's limit,
-    and the tensors. Returns the library."""
+    shared memory of the kernels that stage the K listed table rows
+    (``stages_rows``: the one-block-per-tile kernels 3 and 12, which also
+    hold the reduction rounds there) against the card's limit, and the
+    tensors. Returns the library."""
     lib = library()
     rows, max_threads = lib.gs2d_rows_per_thread(), lib.gs2d_max_threads()
     sub_h = min(cfg.tile_h, max_threads * rows // cfg.tile_w)
@@ -177,16 +244,18 @@ def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int,
             f"(tile_w a multiple of 32; passes of min(tile_h, "
             f"{max_threads * rows} // tile_w) rows, a multiple of {rows} "
             "that divides tile_h)")
-    threads = cfg.tile_w * sub_h // rows
-    table_bytes = 4 * k * tl.N_FIELDS
-    reduce_bytes = 4 * (threads // 32) * _REDUCE_SLOTS * rd.N_MOMENTS \
-        if reduce else 0
-    limit = resolve_budget("smem_per_block", lib.gs2d_max_smem_per_block())
-    if table_bytes + reduce_bytes > limit:
-        raise ValueError(
-            f"K={k} needs {table_bytes + reduce_bytes} B of shared memory per "
-            f"block ({k} table rows x {4 * tl.N_FIELDS} B + {reduce_bytes} B "
-            f"of reduction rounds), more than the card's {limit} B")
+    if stages_rows:
+        table_bytes = 4 * k * tl.N_FIELDS
+        threads = cfg.tile_w * sub_h // rows
+        reduce_bytes = 4 * (threads // 32) * _REDUCE_SLOTS * rd.N_MOMENTS
+        limit = resolve_budget("smem_per_block",
+                               lib.gs2d_max_smem_per_block())
+        if table_bytes + reduce_bytes > limit:
+            raise ValueError(
+                f"K={k} needs {table_bytes + reduce_bytes} B of shared "
+                f"memory per block ({k} table rows x {4 * tl.N_FIELDS} B + "
+                f"{reduce_bytes} B of reduction rounds), more than the "
+                f"card's {limit} B")
     n_tiles = cfg.n_tiles_x * cfg.n_tiles_y
     for name, t, dtype, shape in (
             ("table", table, torch.float32, None),
@@ -203,10 +272,11 @@ def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int,
 
 
 def _check_l2_inputs(cfg: SplatConfig, table, ids_s, count, ref_chw,
-                     n_splats: int):
+                     n_splats: int, *, stages_rows: bool):
     """_check_inputs for the fused L2 kernels (1 and 12), with the target
     and the table's row count. Returns the library."""
-    lib = _check_inputs(cfg, table, ids_s, count, ids_s.shape[1])
+    lib = _check_inputs(cfg, table, ids_s, count, ids_s.shape[1],
+                        stages_rows=stages_rows)
     hp, wp = cfg.padded_height, cfg.padded_width
     if (ref_chw.shape != (1, 3, hp, wp) or ref_chw.dtype != torch.float32
             or not ref_chw.is_contiguous() or ref_chw.device != table.device):
@@ -218,9 +288,9 @@ def _check_l2_inputs(cfg: SplatConfig, table, ids_s, count, ref_chw,
 
 
 def _l2_outputs(cfg: SplatConfig, k: int, n_splats: int, dev):
-    """Kernel 1's and 12's outputs: colour (1, 3, Hp, Wp), the zeroed
-    per-(tile, slot) partials (passes add into them) and the zeroed
-    (16, n_pad) moment rows."""
+    """Kernel 12's outputs: colour (1, 3, Hp, Wp), the zeroed per-(tile,
+    slot) partials (passes add into them) and the zeroed (16, n_pad) moment
+    rows."""
     n_tiles = cfg.n_tiles_x * cfg.n_tiles_y
     return (torch.empty((1, 3, cfg.padded_height, cfg.padded_width),
                         dtype=torch.float32, device=dev),
@@ -229,36 +299,77 @@ def _l2_outputs(cfg: SplatConfig, k: int, n_splats: int, dev):
                         dtype=torch.float32, device=dev))
 
 
+def patch_rows() -> int:
+    """Pixel rows of a warp patch of kernels 1 and 2 (the library's)."""
+    return library().gs2d_rows_per_thread()
+
+
+def patch_partial_shape(cfg: SplatConfig, k: int) -> Tuple[int, ...]:
+    """Kernel 1's per-patch moment partials: (n_tiles, K, patches per tile,
+    9). Its scratch is uninitialised: the kernel writes every entry its sum
+    reads (a culled or saturated slot's exact zero included)."""
+    return (cfg.n_tiles_x * cfg.n_tiles_y, k,
+            patches_per_tile(cfg, patch_rows()), 9)
+
+
+def _walked_ptr(walked, cfg: SplatConfig, dev) -> int:
+    """The optional (patches, 2) int32 count of survivors and walked
+    survivors per patch (chip_smoke.py's), as a pointer (0 when None)."""
+    if walked is None:
+        return 0
+    shape = (cfg.n_tiles_x * cfg.n_tiles_y
+             * patches_per_tile(cfg, patch_rows()), 2)
+    if (tuple(walked.shape) != shape or walked.dtype != torch.int32
+            or not walked.is_contiguous() or walked.device != dev):
+        raise ValueError(f"walked: need contiguous int32 {shape} on {dev}")
+    return walked.data_ptr()
+
+
 def _l2_resident_cuda(table, ids_s, count, ref_chw, n_splats: int,
-                      cfg: SplatConfig):
+                      cfg: SplatConfig, partial=None, walked=None):
+    """Kernel 1. ``partial`` replaces the uninitialised scratch (a test's
+    NaN-filled buffer); ``walked`` gets each patch's survivor counts."""
     k = ids_s.shape[1]
-    lib = _check_l2_inputs(cfg, table, ids_s, count, ref_chw, n_splats)
-    color, partial, grads16 = _l2_outputs(cfg, k, n_splats, table.device)
+    lib = _check_l2_inputs(cfg, table, ids_s, count, ref_chw, n_splats,
+                           stages_rows=False)
+    dev = table.device
+    shape = patch_partial_shape(cfg, k)
+    if partial is None:
+        partial = torch.empty(shape, dtype=torch.float32, device=dev)
+    elif (tuple(partial.shape) != shape or partial.dtype != torch.float32
+          or not partial.is_contiguous() or partial.device != dev):
+        raise ValueError(f"partial: need contiguous float32 {shape} on "
+                         f"{dev}")
+    color = torch.empty((1, 3, cfg.padded_height, cfg.padded_width),
+                        dtype=torch.float32, device=dev)
+    grads16 = torch.zeros((rd.N_GRAD_FIELDS, _n_pad(n_splats)),
+                          dtype=torch.float32, device=dev)
     err = lib.gs2d_l2_resident(
         table.data_ptr(), ids_s.data_ptr(), count.data_ptr(),
         ref_chw.data_ptr(), color.data_ptr(), partial.data_ptr(),
-        grads16.data_ptr(), n_splats, _n_pad(n_splats), cfg.height,
-        cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, cfg.n_tiles_y, k,
-        cfg.cutoff_sq, cfg.min_throughput, int(cfg.use_exp_approx),
-        stream(table))
+        grads16.data_ptr(), _walked_ptr(walked, cfg, dev), n_splats,
+        _n_pad(n_splats), cfg.height, cfg.width, cfg.tile_h, cfg.tile_w,
+        cfg.n_tiles_x, cfg.n_tiles_y, k, cfg.cutoff_sq, cfg.min_throughput,
+        int(cfg.use_exp_approx), stream(table))
     check(err, "l2_resident kernel launch")
     launches["l2_resident"] += 1
     return color, grads16
 
 
-def _fwd_resident_cuda(table, ids_s, count, cfg: SplatConfig):
+def _fwd_resident_cuda(table, ids_s, count, cfg: SplatConfig, walked=None):
+    """Kernel 2; ``walked`` as in _l2_resident_cuda."""
     k = ids_s.shape[1]
-    lib = _check_inputs(cfg, table, ids_s, count, k, reduce=False)
+    lib = _check_inputs(cfg, table, ids_s, count, k, stages_rows=False)
     dev = table.device
     hp, wp = cfg.padded_height, cfg.padded_width
     color = torch.empty((1, 3, hp, wp), dtype=torch.float32, device=dev)
     trans = torch.empty((1, hp, wp), dtype=torch.float32, device=dev)
     err = lib.gs2d_fwd_resident(
         table.data_ptr(), ids_s.data_ptr(), count.data_ptr(),
-        color.data_ptr(), trans.data_ptr(), cfg.height, cfg.width,
-        cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, cfg.n_tiles_y, k,
-        cfg.cutoff_sq, cfg.min_throughput, int(cfg.use_exp_approx),
-        stream(table))
+        color.data_ptr(), trans.data_ptr(), _walked_ptr(walked, cfg, dev),
+        cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
+        cfg.n_tiles_y, k, cfg.cutoff_sq, cfg.min_throughput,
+        int(cfg.use_exp_approx), stream(table))
     check(err, "fwd_resident kernel launch")
     launches["fwd_resident"] += 1
     return color, trans
@@ -267,7 +378,7 @@ def _fwd_resident_cuda(table, ids_s, count, cfg: SplatConfig):
 def _bwd_resident_cuda(table, ids_s, count, fin, gc, cin, tin,
                        n_splats: int, cfg: SplatConfig):
     k = ids_s.shape[1]
-    lib = _check_inputs(cfg, table, ids_s, count, k)
+    lib = _check_inputs(cfg, table, ids_s, count, k, stages_rows=True)
     hp, wp = cfg.padded_height, cfg.padded_width
     for name, t, shape in (("fin", fin, (3, hp, wp)), ("gc", gc, (3, hp, wp)),
                            ("cin", cin, (3, hp, wp)), ("tin", tin, (hp, wp))):

@@ -120,7 +120,8 @@ def _l2_window_plain(table, ids_s, count, bases, ref_chw, n_splats: int,
 def _l2_window_cuda(table, ids_s, count, bases, ref_chw, n_splats: int,
                     cfg: SplatConfig, width: int):
     k = ids_s.shape[1]
-    lib = rr._check_l2_inputs(cfg, table, ids_s, count, ref_chw, n_splats)
+    lib = rr._check_l2_inputs(cfg, table, ids_s, count, ref_chw, n_splats,
+                              stages_rows=True)
     n_tiles = cfg.n_tiles_x * cfg.n_tiles_y
     if (bases.dtype != torch.int32 or tuple(bases.shape) != (n_tiles,)
             or not bases.is_contiguous() or bases.device != table.device):

@@ -10,7 +10,8 @@ PyTorch runs eagerly, so the JAX package's ``jit``/``lax.scan`` have no
 counterpart here: steps run in a Python loop and stay queued on the device
 between log points (CUDA graphs over the step are a later change). The
 reference's NaN abort (main.cpp:752-785) is an ``all_finite`` flag per step
-that ``fit`` checks where it logs, raising ``FloatingPointError``.
+that ``fit`` checks where it logs and before each checkpoint, raising
+``FloatingPointError``.
 """
 
 from __future__ import annotations
@@ -174,8 +175,10 @@ def fit(
     zeroes ``rebin_margin``; the flat statics are still tuned, since its
     render needs them. ``checkpoint_fn(state, it)`` is called after every
     ``checkpoint_every``-th step with the block-relative count of steps
-    done. ``raise_on_nonfinite`` = False leaves the NaN tripwire to the
-    caller (StepAux.all_finite). ``scan_chunk`` > 1 is a later slice and
+    done, if the state is finite; a non-finite state raises
+    ``FloatingPointError`` there instead, or with ``raise_on_nonfinite`` =
+    False is logged and not saved. ``raise_on_nonfinite`` = False leaves
+    the NaN tripwire to the caller (StepAux.all_finite). ``scan_chunk`` > 1 is a later slice and
     raises. Returns (state, history), history being the logged steps' dicts
     (iteration, MSE, PSNR, the step's n_dropped, seconds)."""
     if scan_chunk and scan_chunk > 1:
@@ -237,7 +240,17 @@ def fit(
                        f"{rec['psnr']:.2f} dB")
         if checkpoint_every and checkpoint_fn \
                 and (it + 1) % checkpoint_every == 0:
-            checkpoint_fn(state, it + 1)
+            # One sync per checkpoint: a non-finite state is never saved, so
+            # fit_with_recovery never restores one.
+            if bool(aux.all_finite):
+                checkpoint_fn(state, it + 1)
+            elif raise_on_nonfinite:
+                raise FloatingPointError(
+                    f"non-finite splat parameters at iteration "
+                    f"{it + iter_offset}: checkpoint {it + 1} not saved")
+            elif log_fn:
+                log_fn(f"WARNING: non-finite splat parameters at iteration "
+                       f"{it + iter_offset}: checkpoint {it + 1} not saved")
     if aux is not None:
         check(aux, iterations - 1 + iter_offset)
     return state, history

@@ -180,6 +180,43 @@ def test_raise_on_nonfinite_can_be_left_to_the_caller():
     assert not np.isfinite(out.params.sx.numpy()).all()
 
 
+@pytest.mark.parametrize("raise_on_nonfinite", [True, False])
+def test_no_checkpoint_of_a_nonfinite_state(tmp_path, raise_on_nonfinite):
+    """A NaN injected into the state after the checkpoint at step 2 makes
+    step 3 non-finite: fit saves steps 1 and 2 only, and raises at the
+    checkpoint of step 3 (or, leaving the tripwire to the caller, logs and
+    skips the saves of steps 3 and 4). Every file written holds finite
+    leaves, so fit_with_recovery can never restore a non-finite state."""
+    cfg = SplatConfig(**KW)
+    ck = tck.Checkpointer(str(tmp_path / "ck"))
+    lines = []
+
+    def save(state, it):
+        ck.save(it, state, cfg)
+        if it == 2:
+            state.params.sx[3] = float("nan")
+
+    def run():
+        return tloop.fit(synthetic_target(H, W), cfg, 4, "cpu",
+                         checkpoint_every=1, checkpoint_fn=save,
+                         log_fn=lines.append,
+                         raise_on_nonfinite=raise_on_nonfinite)
+
+    if raise_on_nonfinite:
+        with pytest.raises(FloatingPointError, match="checkpoint 3 not saved"):
+            run()
+    else:
+        out, _ = run()
+        assert not np.isfinite(out.params.sx.numpy()).all()
+        assert sum("checkpoint 3 not saved" in x for x in lines) == 1
+        assert sum("checkpoint 4 not saved" in x for x in lines) == 1
+    assert ck.all_steps() == [1, 2]
+    for step in ck.all_steps():
+        with np.load(str(tmp_path / "ck" / f"step_{step}.npz")) as z:
+            assert all(np.isfinite(z[key]).all() for key in z.files
+                       if key.startswith("leaf_"))
+
+
 def test_recovers_from_injected_fault(tmp_path):
     """The counterpart of gs2d_tpu's TestElasticRecovery: the first call of
     loop.fit runs 3 real iterations, checkpointing, then faults; the recovery

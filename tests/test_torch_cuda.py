@@ -288,11 +288,25 @@ def test_resident_kernels_take_64_row_tiles(dev, n):
 
 
 def test_resident_kernels_refuse_too_much_shared_memory(dev):
-    """K = 4096 table rows need 256 KiB of shared memory: the wrapper
-    raises with the numbers instead of launching."""
+    """K = 4096 table rows need 256 KiB of shared memory in the
+    one-block-per-tile kernels 3 and 12: the wrappers raise with the numbers
+    instead of launching. Kernels 1 and 2 stage nothing in shared memory
+    and take that K."""
     cfg, table, ids, count, ref = inputs(dev, 4, 16, 32, k=4096)
+    fin, trans = rr._fwd_resident_plain(table, ids, count, cfg)
+    args = (table, ids, count, fin[0].contiguous(),
+            random_cotangent(dev, cfg, 4), 0.5 * fin[0],
+            (0.5 * trans[0]).contiguous(), 16, cfg)
     with pytest.raises(ValueError, match="shared memory"):
-        rr._l2_resident_cuda(table, ids, count, ref, 16, cfg)
+        rr._bwd_resident_cuda(*args)
+    with pytest.raises(ValueError, match="shared memory"):
+        full_width_window(table, ids, count, ref, 16, cfg)
+    c_k, g_k = rr._l2_resident_cuda(table, ids, count, ref, 16, cfg)
+    c_p, g_p = rr._l2_resident_plain(table, ids, count, ref, 16, cfg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(c_k, c_p, rtol=0, atol=1e-6)
+    atol = 1e-4 * max(1.0, float(g_p.abs().max()))
+    torch.testing.assert_close(g_k, g_p, rtol=0, atol=atol)
 
 
 def test_window_kernel_equals_resident_at_full_width(dev):
@@ -310,6 +324,106 @@ def test_window_kernel_equals_resident_at_full_width(dev):
     torch.cuda.synchronize()
     assert rw.launches["l2_window"] == before + 1 and int(escaped) == 0
     assert torch.equal(c_w, c_r) and torch.equal(g_w, g_r)
+
+
+def full_width_window(table, ids, count, ref, n, cfg):
+    """Kernel 12 at W = n_pad: the one-block-per-tile L2 step (kernel 1's
+    design before its warp patches)."""
+    b = tl.TileBinning(ids=torch.where(ids < n, ids, -1), count=count,
+                       n_dropped=torch.zeros((), dtype=torch.int32))
+    bases, _ = rw.window_bases(b, n, rw._n_pad(n))
+    return rw._l2_window_cuda(table, ids, count, bases, ref, n, cfg,
+                              rw._n_pad(n))
+
+
+def nan_splat_inputs(dev, tile_h=32):
+    """130 random splats with a NaN position at splat 40: every tile that
+    lists it must come out NaN exactly where the unculled walk's does."""
+    cfg, table, ids, count, ref = inputs(dev, 77, 130, tile_h)
+    rows = table.reshape(-1, tl.N_FIELDS)
+    rows[40, tl.FIELD_PX] = float("nan")
+    return cfg, table, ids, count, ref
+
+
+def assert_same_bits(got, want):
+    """torch.equal on the finite entries and equal NaN masks."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
+@pytest.mark.parametrize("case", ["130/8", "130/32", "64/16", "300/64",
+                                  "opacity-1", "nan"])
+def test_patch_kernels_equal_one_block_per_tile(dev, case):
+    """Kernel 1 on warp patches equals kernel 12 at full width (the
+    one-block-per-tile design) bit for bit, colour and moments; kernel 2's
+    colour equals kernel 1's and its T the plain version's within 1e-6."""
+    if case == "nan":
+        cfg, table, ids, count, ref = nan_splat_inputs(dev)
+    elif case == "opacity-1":
+        d, ref = population(5, 64, W, H, opacity=(1.0, 1.0))
+        d["pos"][:16] = np.floor(d["pos"][:16]) + 0.5
+        cfg = SplatConfig(width=W, height=H, n_splats=64, tile_h=8,
+                          max_splats_per_tile=64)
+        p = params_from_numpy({f: v.astype(np.float32)
+                               for f, v in d.items()}, dev)
+        b = tl.bin_splats(p, cfg, 64, ids_only=True)
+        table, ids, count = (rr.resident_table(p, cfg), rr._remap_ids(b, 64),
+                             b.count)
+        ref = rd.pad_ref_chw(ref, cfg, dev)
+    else:
+        n, tile_h = map(int, case.split("/"))
+        cfg, table, ids, count, ref = inputs(dev, n + tile_h, n, tile_h,
+                                             k=512 if tile_h == 64 else 128)
+    n = cfg.n_splats
+    c_k, g_k = rr._l2_resident_cuda(table, ids, count, ref, n, cfg)
+    c_w, g_w = full_width_window(table, ids, count, ref, n, cfg)
+    f_k, t_k = rr._fwd_resident_cuda(table, ids, count, cfg)
+    _, t_p = rr._fwd_resident_plain(table, ids, count, cfg)
+    torch.cuda.synchronize()
+    assert_same_bits(c_k, c_w)
+    assert_same_bits(g_k, g_w)
+    assert_same_bits(f_k, c_k)
+    if case == "nan":
+        assert torch.isnan(g_k).any() and torch.isfinite(c_k).any()
+    else:
+        torch.testing.assert_close(t_k, t_p, rtol=0, atol=1e-6)
+
+
+def test_patch_partials_never_read_unwritten(dev):
+    """Kernel 1's partial scratch is not zeroed: a buffer pre-filled with
+    NaN gives the same moments bit for bit, so every entry the sum reads is
+    written (a culled or saturated slot's zero included)."""
+    cfg, table, ids, count, ref = inputs(dev, 11, 300, 32, k=512)
+    filled = torch.full(rr.patch_partial_shape(cfg, 512), float("nan"),
+                        device=dev)
+    c_a, g_a = rr._l2_resident_cuda(table, ids, count, ref, 300, cfg,
+                                    partial=filled)
+    c_b, g_b = rr._l2_resident_cuda(table, ids, count, ref, 300, cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(g_a).all()
+    assert torch.equal(c_a, c_b) and torch.equal(g_a, g_b)
+
+
+@pytest.mark.parametrize("tile_h", [8, 32, 64])
+def test_patch_survivors_are_the_plain_mask(dev, tile_h):
+    """Each warp's survivors are patch_cover_mask's slots, patch by patch,
+    in kernels 1 and 2 alike; the saturation exit walks at most them."""
+    cfg, table, ids, count, ref = inputs(dev, 3 + tile_h, 300, tile_h, k=512)
+    mask = rr.patch_cover_mask(table, ids, count, cfg, rr.patch_rows())
+    want = mask.sum(dim=-1).reshape(-1).to(torch.int32)
+    for launch in (
+            lambda w: rr._l2_resident_cuda(table, ids, count, ref, 300, cfg,
+                                           walked=w),
+            lambda w: rr._fwd_resident_cuda(table, ids, count, cfg,
+                                            walked=w)):
+        walked = torch.full((want.numel(), 2), -1, dtype=torch.int32,
+                            device=dev)
+        launch(walked)
+        torch.cuda.synchronize()
+        assert torch.equal(walked[:, 0], want)
+        assert bool((walked[:, 1] <= walked[:, 0]).all())
+        assert bool((walked[:, 1] >= 0).all())
 
 
 def test_window_kernel_drops_escapes_like_plain(dev):
