@@ -1,14 +1,16 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build the CUDA kernels,
-hold each against its plain PyTorch version (kernels 1 and 2, on warp
-patches, also against the one-block-per-tile walk of kernel 12 at full
-width, bit for bit, with their survivors against the plain cull mask), then
-drive the fitting paths through them with the CLI and check their MSE
+hold each against its plain PyTorch version (the warp-patch kernels also
+against a one-block-per-tile walk of the same pairs, bit for bit: kernels 1
+and 2 against kernel 12 at full width, kernels 10 and 11 against the dense
+kernels 6/7 and 8/9, each with its survivors against the plain cull mask),
+then drive the fitting paths through them with the CLI and check their MSE
 trajectories:
 
 - the default fit, resident layout (squirrel_cls_mini 268x213, 1024 splats,
   L2, 200 iterations; kernels 1 and 2);
 - the 10 240-splat fit, flat layout (squirrel_cls 535x426, 200 iterations;
-  kernels 10 and 11);
+  kernels 10 and 11), and with ``--binning dense`` (kernels 4/5), which must
+  equal it 200 of 200;
 - the default fit with ``--ssim 0.2``, resident layout (kernels 2 and 3),
   run twice: the second run must repeat the first bit for bit;
 - the default fit with ``--binning dense`` (kernels 4/5, 6/7);
@@ -434,14 +436,104 @@ def compare_nan_case(dev) -> None:
                   130, cfg)
 
 
+def kernel_split(fn, parts, reps: int = 10) -> dict:
+    """Device ms of one launch of each kernel whose name holds one of
+    ``parts`` (torch.profiler over ``reps`` calls of ``fn``, after one; the
+    sum over the launches the trace holds, over their count, which is
+    logged as "seen"), and beside them "events", the CUDA-event ms of a
+    call of ``fn`` over ``reps`` untraced calls."""
+    from torch.autograd import DeviceType
+
+    fn()
+    _, event_ms = timed_call(fn, reps)
+    with tempfile.TemporaryDirectory() as tmp, device_trace(tmp) as prof:
+        for _ in range(reps):
+            fn()
+    total = dict.fromkeys(parts, 0.0)
+    seen = dict.fromkeys(parts, 0)
+    for ev in prof.key_averages():
+        part = next((x for x in parts if x in ev.key), None)
+        if ev.device_type == DeviceType.CUDA and part is not None:
+            total[part] += ev.self_device_time_total / 1e3
+            seen[part] += ev.count
+    return {**{x: total[x] / max(1, seen[x]) for x in parts},
+            "events": event_ms, "seen": min(seen.values())}
+
+
+# Kernel 11's three kernels (csrc/render_flat.cu), for its time split.
+BWD_FLAT_PARTS = ("bwd_flat_kernel", "flat_patch_sum_kernel",
+                  "segment_sum_flat_kernel")
+
+
+def flat_vs_dense(name, b, rows, bd, tp, fwd_out, bwd_out, bwd_planes, n,
+                  cfg) -> None:
+    """Kernels 10 and 11 against the dense kernels 6/7 and 8/9, which keep
+    the one-block-per-tile chunk walk (tile_walk.cuh) over the same rows in
+    the same order: colour, T, the per-pair moments matched by (tile, slot)
+    and the (9, n) splat sums equal bit for bit (NaN masks included), and
+    every row outside the runs is 0."""
+    from gs2d_tpu_torch.ops import render_dense as rdn
+
+    c_d, t_d = rdn._fwd_dense_cuda(tp, bd.count, cfg)
+    part_d, g_d = rdn._bwd_dense_cuda(tp, bd.ids, bd.count, *bwd_planes, n,
+                                      cfg)
+    (c_k, t_k), (m_k, g_k) = fwd_out, bwd_out
+    k = torch.arange(tp.shape[1], device=tp.device)
+    listed = k[None] < b.count[:, None]
+    pair = (b.start[:, None] + k[None]).long()[listed]
+    outside = torch.ones(m_k.shape[0], dtype=torch.bool, device=tp.device)
+    outside[pair] = False
+    same = {"colour": same_bits(c_k, c_d), "T": same_bits(t_k, t_d),
+            "pair moments": same_bits(m_k[pair], part_d[listed]),
+            "splat sums": same_bits(g_k, g_d),
+            "rows outside the runs 0": bool((m_k[outside] == 0).all())}
+    if not all(same.values()):
+        raise AssertionError(f"{name}: kernels 10/11 differ from the dense "
+                             f"kernels 6/7 and 8/9: {same}")
+    log(f"  {name}: kernels 10 and 11 equal the dense kernels 6/7 and 8/9 "
+        f"bit for bit (colour, T, {int(pair.numel())} pair moments, splat "
+        f"sums; NaN in {int(torch.isnan(g_k).sum())} splat moments)")
+
+
+def flat_survivors(b, rows, fwd_in, bwd_in, fields, cfg, dev) -> str:
+    """Kernels 10 and 11's survivors per patch against the plain cull mask
+    (listed_cover_mask of the flat runs), patch by patch; returns the
+    totals: (patch, slot) steps of the one-block-per-tile walk, survivors,
+    and survivors walked before each kernel's saturation exit."""
+    from gs2d_tpu_torch.ops import render_flat as rf
+    from gs2d_tpu_torch.ops import render_resident as rr
+
+    mask = rr.listed_cover_mask(flat_listed_rows(b._replace(rows=rows), dev),
+                                b.count, cfg, rr.patch_rows())
+    want = mask.sum(dim=-1).reshape(-1).to(torch.int32)
+    walked = [torch.full((want.numel(), 2), -1, dtype=torch.int32,
+                         device=dev) for _ in range(2)]
+    rf._fwd_flat_cuda(*fwd_in, walked=walked[0])
+    rf._bwd_flat_cuda(*bwd_in, fields=fields, walked=walked[1])
+    torch.cuda.synchronize()
+    for kk, got in zip(("fwd_flat", "bwd_flat"), walked):
+        if not torch.equal(got[:, 0], want):
+            raise AssertionError(f"{kk}: survivors differ from the plain "
+                                 "cull mask")
+    steps = int(b.count.sum()) * mask.shape[1]
+    return (f"(patch, slot) steps {steps}, survivors {int(want.sum())} "
+            f"(plain mask, equal patch by patch), walked before the "
+            f"saturation exit: kernel 10 {int(walked[0][:, 1].sum())}, "
+            f"kernel 11 {int(walked[1][:, 1].sum())}")
+
+
 def compare_flat_case(name, params, ref, cfg, dev, carry=None,
-                      g_color=None, timed=False):
+                      g_color=None, timed=False, nan_splat=None):
     """Kernels 10 and 11 vs their plain versions on one population, with the
-    flat statics tuned from it. The backward replays from ``carry`` (C_in
-    (3, Hp, Wp), T_in (Hp, Wp); identity when None) under ``g_color``
-    (3, Hp, Wp; the L2 cotangent C - ref when None). Kernel 11 runs twice
-    and must repeat bit for bit. Returns ({kernel: max_abs_err},
-    {kernel: times} or None)."""
+    flat statics tuned from it, and vs the dense kernels (flat_vs_dense) on
+    a dense binning of it (K the largest count, no drop). The backward
+    replays from ``carry`` (C_in (3, Hp, Wp), T_in (Hp, Wp); identity when
+    None) under ``g_color`` (3, Hp, Wp; the L2 cotangent C - ref when None).
+    Kernel 11 runs twice and must repeat bit for bit. ``nan_splat``: that
+    splat's position is NaN in both layouts' pregathered rows, and the plain
+    versions are not compared (their walk stops only where every tile has
+    saturated, so their NaNs fall elsewhere). Returns ({kernel:
+    max_abs_err}, {kernel: times} or None)."""
     from gs2d_tpu_torch.ops import render as rd
     from gs2d_tpu_torch.ops import render_flat as rf
     from gs2d_tpu_torch.ops import tiles as tl
@@ -452,28 +544,61 @@ def compare_flat_case(name, params, ref, cfg, dev, carry=None,
     cfg = rf.tune_flat_config(params, cfg)
     m_cap, kc, mc = cfg.flat_capacity, cfg.flat_chunk, cfg.flat_max_chunks
     b = tlf.bin_splats_flat(params, cfg, m_cap, kc=kc, max_chunks=mc)
-    if int(b.n_dropped):
-        raise AssertionError(f"{name}: binning dropped {int(b.n_dropped)}")
-    fwd_in = (b.rows, b.start, b.count, cfg, kc, mc)
+    bd = tl.bin_splats(params, cfg.replace(binning="dense"),
+                       max(1, int(b.count.max())))
+    if int(b.n_dropped) or int(bd.n_dropped):
+        raise AssertionError(f"{name}: binning dropped {int(b.n_dropped)} "
+                             f"(flat), {int(bd.n_dropped)} (dense)")
+    rows, tp = b.rows, bd.tile_params
+    if nan_splat is not None:
+        rows, tp = rows.clone(), tp.clone()
+        rows[b.ids == nan_splat, tl.FIELD_PX] = float("nan")
+        tp[bd.ids == nan_splat, tl.FIELD_PX] = float("nan")
+    fields = tl.packed_fields(params, cfg.splat_bounds)
+    fwd_in = (rows, b.start, b.count, cfg, kc, mc)
     c_k, t_k = rf._fwd_flat_cuda(*fwd_in)
-    (c_p, t_p), fwd_plain_ms = timed_call(
-        lambda: rf._fwd_flat_plain(*fwd_in))
+    if nan_splat is None:
+        (c_p, t_p), fwd_plain_ms = timed_call(
+            lambda: rf._fwd_flat_plain(*fwd_in))
+    else:
+        c_p = c_k
     if g_color is None:
         g_color = c_p - rd.pad_ref_chw(ref, cfg, dev)[0]
     cin, tin = carry if carry is not None else rd.identity_carry(cfg, dev)
-    bwd_in = (b.rows, b.ids, b.start, b.count, c_p, g_color.contiguous(),
-              cin, tin, n, cfg, kc, mc)
-    m_k, g_k = rf._bwd_flat_cuda(*bwd_in)
-    m_k2, g_k2 = rf._bwd_flat_cuda(*bwd_in)
+    bwd_planes = (c_p, g_color.contiguous(), cin, tin)
+    bwd_in = (rows, b.ids, b.start, b.count, *bwd_planes, n, cfg, kc, mc)
+    m_k, g_k = rf._bwd_flat_cuda(*bwd_in, fields=fields)
+    m_k2, g_k2 = rf._bwd_flat_cuda(*bwd_in, fields=fields)
+    torch.cuda.synchronize()
+    if not (same_bits(m_k2, m_k) and same_bits(g_k2, g_k)):
+        raise AssertionError(f"{name}: bwd_flat does not repeat bit for bit")
+    flat_vs_dense(name, b, rows, bd, tp, (c_k, t_k), (m_k, g_k), bwd_planes,
+                  n, cfg)
+    survivors = flat_survivors(b, rows, fwd_in, bwd_in, fields, cfg, dev)
+    log(f"  {name}: {survivors}")
+    if nan_splat is not None:
+        # The chunk walk stops where its 32-row pass saturates, the patch
+        # walk gives the NaNs of the walk without exits (render_flat.cu):
+        # they agree while no pass of the NaN splat's tiles saturates.
+        tiles = torch.unique(torch.searchsorted(
+            b.start, torch.nonzero(b.ids == nan_splat)[:, 0].to(torch.int32),
+            right=True) - 1)
+        passes = rd.to_tiles(torch.nan_to_num(t_k)[None], cfg)[0][tiles]
+        open_ = (passes.reshape(len(tiles), -1, 32 * cfg.tile_w)
+                 >= cfg.min_throughput).any(dim=-1)
+        log(f"  {name}: splat {nan_splat} listed in tiles "
+            f"{tiles.tolist()}, every 32-row pass of them unsaturated: "
+            f"{bool(open_.all())}; NaN in {int(torch.isnan(c_k).sum())} "
+            f"colour values, {int(torch.isnan(m_k).sum())} pair moments")
+        if not bool(open_.all()) or not torch.isnan(g_k).any():
+            raise AssertionError(f"{name}: not the case it should be")
+        return {}, None
     (m_p, g_p), bwd_plain_ms = timed_call(
         lambda: rf._bwd_flat_plain(*bwd_in))
-    torch.cuda.synchronize()
     for what, x in (("color", c_k), ("T", t_k), ("moments", m_k),
                     ("splat moments", g_k)):
         if not torch.isfinite(x).all():
             raise AssertionError(f"{name}: non-finite kernel {what}")
-    if not (torch.equal(m_k, m_k2) and torch.equal(g_k, g_k2)):
-        raise AssertionError(f"{name}: bwd_flat does not repeat bit for bit")
     fwd_err = max(float((c_k - c_p).abs().max()),
                   float((t_k - t_p).abs().max()))
     ratios = []
@@ -481,7 +606,6 @@ def compare_flat_case(name, params, ref, cfg, dev, carry=None,
         tol = GRAD_RTOL * torch.clamp(want.abs().max(dim=0).values, min=1.0)
         ratios.append(float(((got - want).abs().max(dim=0).values
                              / tol).max()))
-    fields = tl.packed_fields(params, cfg.splat_bounds)
     g_kernel = rd.moments_to_grads(rd.unpack_moments(g_k, n), fields)
     g_plain = rd.moments_to_grads(rd.unpack_moments(g_p, n), fields)
     grad_err = max(float((getattr(g_kernel, f) - getattr(g_plain, f))
@@ -502,14 +626,24 @@ def compare_flat_case(name, params, ref, cfg, dev, carry=None,
         return errs, None
     work = live_work(flat_listed_rows(b, dev), b.count, cfg)
     base = nbytes(b.rows, b.start, b.count)
+    bwd = lambda: rf._bwd_flat_cuda(*bwd_in, fields=fields)
     times = {
         "fwd_flat": timed_entry(
             lambda: rf._fwd_flat_cuda(*fwd_in), fwd_plain_ms, "fwd", work,
             cfg, base + nbytes(c_k, t_k)),
         "bwd_flat": timed_entry(
-            lambda: rf._bwd_flat_cuda(*bwd_in), bwd_plain_ms, "bwd", work,
-            cfg, base + nbytes(b.ids, c_p, g_color, cin, tin, g_k)),
+            bwd, bwd_plain_ms, "bwd", work, cfg,
+            base + nbytes(b.ids, c_p, g_color, cin, tin, g_k)),
     }
+    split = kernel_split(bwd, BWD_FLAT_PARTS)
+    scratch = rf.partial_shape(cfg, m_cap)
+    log(f"  kernel 11 split (device ms a launch, torch.profiler, "
+        f"{split['seen']} of 10 calls' launches seen): replay "
+        f"{split[BWD_FLAT_PARTS[0]]:.4f}, patch sum "
+        f"{split[BWD_FLAT_PARTS[1]]:.4f}, splat sum "
+        f"{split[BWD_FLAT_PARTS[2]]:.4f}; CUDA events {split['events']:.4f} "
+        f"ms a call; patch partials {scratch} = "
+        f"{4 * np.prod(scratch) / 1e6:.1f} MB")
     return errs, times
 
 
@@ -535,7 +669,8 @@ def compare_flat(dev, smi: str):
     from gs2d_tpu_torch.ops import tiles_flat as tlf
     from gs2d_tpu_torch.params import init_params, params_from_numpy
 
-    log("[compare] flat kernels vs plain PyTorch on the card")
+    log("[compare] flat kernels vs plain PyTorch and the dense kernels on "
+        "the card")
     errs = {"fwd_flat": 0.0, "bwd_flat": 0.0}
 
     def add(e):
@@ -548,6 +683,8 @@ def compare_flat(dev, smi: str):
                       flat_chunk=32, binning="flat")
     p_rand = params_from_numpy(population(10, 600, w, h), dev)
     add(compare_flat_case("random, kc=32", p_rand, mini, cfg, dev)[0])
+    compare_flat_case("random, kc=32, splat 40 at a NaN position", p_rand,
+                      mini, cfg, dev, nan_splat=40)
     p1 = population(11, 300, w, h, opacity=(1.0, 1.0))
     p1["pos"][:64] = np.floor(p1["pos"][:64]) + 0.5
     add(compare_flat_case("opacity-1 centred", params_from_numpy(p1, dev),
@@ -1694,12 +1831,24 @@ def main() -> int:
     log("[profile] resident L2 train step, 10 steps")
     log(profile_fused(cfg_main, MINI, dev, median_ms(rates)))
 
+    dense = ["--binning", "dense"]
     launches, mse, rates = fit_phase(FULL, N_10K, smi, runs=2)
     expect_launches("flat L2 fit", launches,
                     {"fwd_flat": 201, "bwd_flat": 200})
     count(launches)
     check_trajectory(mse, TRAJECTORY_10K)
     log(f"  MSE-255 @ 200: {mse[199]:.4f} (no gate)")
+    log("[fit] the 10k fit with --binning dense, logged")
+    launches, mse_dense = logged_fit([FULL, "--splats", str(N_10K), "--iters",
+                                      "200", "--device", "cuda", *dense])
+    expect_launches("10k dense L2 fit", launches,
+                    {"l2_dense": 200, "fwd_dense": 1})
+    count(launches)
+    # Kernels 4/5 keep the one-block-per-tile walk and its sums over the
+    # same pairs, so this holds kernels 10 and 11 to it over 200 steps.
+    if not same_trajectory(mse_dense, mse):
+        raise AssertionError("the 10k dense L2 fit differs from the flat one")
+    log("  equals the flat L2 trajectory bit for bit (200 of 200 MSEs)")
     full = load_image(FULL)
     cfg_10k = SplatConfig(width=full.shape[1], height=full.shape[0],
                           n_splats=N_10K)
@@ -1732,7 +1881,6 @@ def main() -> int:
                      torch.as_tensor(ref, dtype=torch.float32, device=dev),
                      median_ms(rates)))
 
-    dense = ["--binning", "dense"]
     launches, mse, _ = fit_phase(MINI, 1024, smi, dense, runs=2)
     expect_launches("dense L2 fit", launches,
                     {"l2_dense": 200, "fwd_dense": 1})

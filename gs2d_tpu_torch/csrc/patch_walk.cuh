@@ -1,0 +1,375 @@
+// Warp-patch walk of one tile's list, shared by the resident kernels 1 and 2
+// (render_resident.cu) and the flat kernels 10 and 11 (render_flat.cu).
+//
+// Each warp owns one patch, the 8 rows x 32 columns that warp w of a
+// one-block-per-tile pass owned (lane = column; tile_walk.cuh's pass), and a
+// block holds kPatchWarps = 4 patches of one pass of one tile (a 32-column
+// strip of a 32-row pass). A warp culls its tile's list 32 slots at a time,
+// a lane a slot: the lane reads the splat's row and decides, for the patch's
+// 8 rows at once, which lanes it covers (row walk, row_interval, image
+// bounds: the bits of splat_terms' cover). The survivors of a cull, the
+// slots covering a pixel of the patch or with a non-finite field, are walked
+// in list order, each broadcast from its lane by shuffles with its covered
+// lanes, so a step tests a lane's own range in place of recomputing the
+// interval. Nothing is staged in shared memory, so the list length is not
+// bounded by it.
+//
+// The two layouts differ only in where slot k's row lies, which the walk
+// takes as a row source (a template parameter, no branch in the step):
+// TableRun reads the resident table through the tile's ids, FlatRun the
+// tile's run of pregathered rows.
+//
+// Exactness. A culled slot's step adds exact zeros and leaves (C, T, ga)
+// unchanged, as long as its Gaussian term is finite (a finite,
+// positive-definite conic) and the warp's cotangent and carries are: 0 * NaN
+// is how a step that covers nothing still reaches the outputs. Hence
+// non-finite splats are never culled, and once a pixel of the warp holds a
+// non-finite cotangent or carry, the replay walks every later slot. The
+// forward stops its walk after the survivor at which no pixel of the patch
+// keeps T >= min_throughput (the early-out then fails everywhere for every
+// later step), walking only the non-finite survivors after it; the replay
+// either takes that prefix from the forward (kernel 1, whose replay T
+// follows the forward's bit for bit) or finds its own on its replayed T
+// (kernel 11, from a carry-in). So on finite inputs the patch walk computes
+// what the one-block-per-tile walk (tile_walk.cuh) computes, bit for bit;
+// where a splat or a carry is not finite it gives the NaNs of that walk
+// without its saturation exits.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <limits.h>
+
+#include "splat_terms.cuh"
+#include "tile_walk.cuh"
+
+namespace gs2d {
+namespace patch {
+
+constexpr int kRows = walk::kRows;  // pixel rows of a patch
+constexpr int kPatchWarps = 4;      // patches (warps) per block
+
+// The patches of a launch: passes per tile, row groups per pass (sub_h /
+// kRows), 32-column groups per pass, and blocks per pass.
+struct PatchGrid {
+  int n_pass, ngrp, ncg, bpp;
+};
+
+struct Patch {
+  int tile, pass, warp;  // warp: its index within the pass (the sum order)
+  int lane, x0, xx, y0;  // x0, y0: the patch's first column and row
+  float fx;
+  bool active;           // false for the spare warps of a pass's last block
+};
+
+// This thread's patch. A block holds kPatchWarps consecutive warps of one
+// pass in strip order (column group outer, row group inner): at 4 row groups
+// a block is one 32-column strip. The patch itself is what warp
+// grp * ncg + cg of a one-block-per-tile pass owned.
+__device__ __forceinline__ Patch patch_of(const RenderArgs& p,
+                                          const PatchGrid& g) {
+  const int per_tile = g.n_pass * g.bpp;
+  const int rem = blockIdx.x % per_tile;
+  const int s = (rem % g.bpp) * kPatchWarps + (threadIdx.x >> 5);
+  const int cg = s / g.ngrp, grp = s % g.ngrp;
+  Patch c;
+  c.tile = blockIdx.x / per_tile;
+  c.pass = rem / g.bpp;
+  c.warp = grp * g.ncg + cg;
+  c.active = s < g.ngrp * g.ncg;
+  c.lane = threadIdx.x & 31;
+  c.x0 = (c.tile % p.n_tiles_x) * p.tile_w + cg * 32;
+  c.xx = c.x0 + c.lane;
+  c.y0 = (c.tile / p.n_tiles_x) * p.tile_h + (c.pass * g.ngrp + grp) * kRows;
+  c.fx = (float)c.xx + 0.5f;
+  return c;
+}
+
+// The patch grid of a launch whose pass geometry walk_args fixed.
+inline PatchGrid patch_grid(const walk::WalkArgs& a) {
+  PatchGrid g;
+  g.n_pass = a.p.tile_h / a.sub_h;
+  g.ngrp = a.sub_h / kRows;
+  g.ncg = a.p.tile_w / 32;
+  g.bpp = (g.ngrp * g.ncg + kPatchWarps - 1) / kPatchWarps;
+  return g;
+}
+
+inline int patch_blocks(const walk::WalkArgs& a, const PatchGrid& g) {
+  return a.p.n_tiles_x * a.p.n_tiles_y * g.n_pass * g.bpp;
+}
+
+// Writes a patch's (survivors, survivors walked) into walked (patches, 2),
+// patches in (tile, pass, warp) order, when the caller asked for them.
+__device__ __forceinline__ void record_walk(int* walked, const Patch& c,
+                                            const PatchGrid& g, int survivors,
+                                            int n_walked) {
+  if (walked == nullptr || c.lane != 0) return;
+  const size_t w =
+      ((size_t)c.tile * g.n_pass + c.pass) * (g.ngrp * g.ncg) + c.warp;
+  walked[2 * w] = survivors;
+  walked[2 * w + 1] = n_walked;
+}
+
+// Row sources: slot k's 16-float row in tile `tile`'s list.
+struct TableRun {  // the resident table through the (n_tiles, K) ids
+  const float* table;
+  const int* ids;
+  int k_cap;
+  __device__ __forceinline__ const float* row(int tile, int k) const {
+    return table + (size_t)ids[(size_t)tile * k_cap + k] * kFields;
+  }
+};
+
+struct FlatRun {  // one tile's run of pregathered rows
+  const float* run;
+  __device__ __forceinline__ const float* row(int, int k) const {
+    return run + (size_t)k * kFields;
+  }
+};
+
+// One listed slot as the lane that culls it holds it: the splat's scalars
+// and, per patch row r, the lanes [lo_r, hi_r] it covers there (empty as
+// lo = 1, hi = 0), one byte each: lo in span[r / 4], hi in span[2 + r / 4].
+struct Slot {
+  Splat s;
+  unsigned span[4];
+  bool keep;  // covers a pixel of the patch, or a field is not finite
+  bool bad;   // a field is not finite
+};
+
+// The cull of slot k of the patch's tile (keep false past n): the cover of
+// splat_terms (row walk, row_interval, image bounds) decided for the 8 rows
+// at once, on the same bits.
+template <class Run>
+__device__ __forceinline__ Slot cull_slot(const Run& run, int k, int n,
+                                          const Patch& c,
+                                          const RenderArgs& p) {
+  Slot sl = {};
+  if (k >= n) return sl;
+  const float* row = run.row(c.tile, k);
+  sl.s = load_splat(row);
+#pragma unroll
+  for (int f = kPx; f <= kOp; ++f) sl.bad |= !isfinite(row[f]);
+  const int x_hi = min(c.x0 + 31, p.width - 1);
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int yy = c.y0 + r;
+    int beg_x, end_x;
+    const bool q_ok = row_interval(sl.s, (float)yy + 0.5f - sl.s.py, p,
+                                   beg_x, end_x);
+    const int lo = max(beg_x, c.x0), hi = min(end_x, x_hi);
+    const bool on = q_ok && yy >= sl.s.beg_y && yy <= sl.s.end_y &&
+                    yy < p.height && lo <= hi;
+    any |= on;
+    const unsigned shift = 8u * (r % 4);
+    sl.span[r / 4] |= (on ? (unsigned)(lo - c.x0) : 1u) << shift;
+    sl.span[2 + r / 4] |= (on ? (unsigned)(hi - c.x0) : 0u) << shift;
+  }
+  sl.keep = any || sl.bad;
+  return sl;
+}
+
+// Slot `src`'s splat and spans, from the lane that culled it to the warp.
+__device__ __forceinline__ Slot broadcast(const Slot& sl, int src) {
+  constexpr unsigned kAll = 0xffffffffu;
+  Slot b;
+  b.s.px = __shfl_sync(kAll, sl.s.px, src);
+  b.s.py = __shfl_sync(kAll, sl.s.py, src);
+  b.s.a = __shfl_sync(kAll, sl.s.a, src);
+  b.s.b = __shfl_sync(kAll, sl.s.b, src);
+  b.s.d = __shfl_sync(kAll, sl.s.d, src);
+  b.s.cr = __shfl_sync(kAll, sl.s.cr, src);
+  b.s.cg = __shfl_sync(kAll, sl.s.cg, src);
+  b.s.cb = __shfl_sync(kAll, sl.s.cb, src);
+  b.s.op = __shfl_sync(kAll, sl.s.op, src);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) b.span[i] = __shfl_sync(kAll, sl.span[i], src);
+  return b;
+}
+
+// Whether this lane's pixel in patch row r is covered by the broadcast slot.
+__device__ __forceinline__ bool covered(const Slot& b, int r, int lane) {
+  const unsigned shift = 8u * (r % 4);
+  const int lo = (int)((b.span[r / 4] >> shift) & 0xffu);
+  const int hi = (int)((b.span[2 + r / 4] >> shift) & 0xffu);
+  return lane >= lo && lane <= hi;
+}
+
+// Whether no pixel of the warp keeps T >= min_throughput.
+__device__ __forceinline__ bool saturated(const float (&T)[kRows],
+                                          const RenderArgs& p) {
+  int open = 0;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) open |= T[r] >= p.min_throughput;
+  return !__any_sync(0xffffffffu, open);
+}
+
+// One forward step of the patch's 8 pixels over a broadcast slot (fwd_one
+// with the cover of its spans).
+__device__ __forceinline__ void fwd_patch_step(
+    const Slot& b, const Patch& c, const RenderArgs& p, float (&cr)[kRows],
+    float (&cg)[kRows], float (&cb)[kRows], float (&T)[kRows]) {
+  const float vx = c.fx - b.s.px;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float vy = ((float)(c.y0 + r) + 0.5f) - b.s.py;
+    const float alpha = gauss_alpha(b.s, vx, vy, p);
+    const bool live = covered(b, r, c.lane) && T[r] >= p.min_throughput;
+    fwd_step(b.s, live, alpha, cr[r], cg[r], cb[r], T[r]);
+  }
+}
+
+// The forward composite of the patch over the n listed slots of its tile,
+// (cr, cg, cb, T) carried in registers (T starting at 1 inside the image,
+// 0 on padding), walking the survivors of each 32-slot cull in list order.
+// The full walk stops after the survivor at which no pixel of the patch
+// keeps T >= min_throughput; after it only the non-finite survivors are
+// walked. Returns that prefix's length (the replay's); survivors and walked
+// get the survivors' count and how many were walked.
+template <class Run>
+__device__ __forceinline__ int fwd_patch(
+    const Run& run, int n, const Patch& c, const RenderArgs& p,
+    float (&cr)[kRows], float (&cg)[kRows], float (&cb)[kRows],
+    float (&T)[kRows], int& survivors, int& walked) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    cr[r] = cg[r] = cb[r] = 0.0f;
+    T[r] = (c.y0 + r < p.height && c.xx < p.width) ? 1.0f : 0.0f;
+  }
+  int n_full = -1;  // set at the saturation exit
+  survivors = walked = 0;
+  for (int k0 = 0; k0 < n; k0 += 32) {
+    const Slot sl = cull_slot(run, k0 + c.lane, n, c, p);
+    unsigned todo = __ballot_sync(0xffffffffu, sl.keep);
+    const unsigned bad = __ballot_sync(0xffffffffu, sl.bad);
+    survivors += __popc(todo);
+    if (n_full >= 0) todo &= bad;
+    while (todo) {
+      const int src = __ffs(todo) - 1;
+      todo &= todo - 1;
+      fwd_patch_step(broadcast(sl, src), c, p, cr, cg, cb, T);
+      ++walked;
+      if (n_full >= 0) continue;
+      if (saturated(T, p)) {
+        n_full = walked;
+        todo &= bad;
+      }
+    }
+  }
+  return n_full >= 0 ? n_full : walked;
+}
+
+// Whether a pixel of the warp holds a non-finite value of x: once a replay
+// input or carry is, a step that covers nothing still adds 0 * NaN to its
+// moments and to ga, so no slot may be skipped any more.
+__device__ __forceinline__ bool any_nonfinite(const float (&x)[kRows]) {
+  bool bad = false;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) bad |= !isfinite(x[r]);
+  return __any_sync(0xffffffffu, bad);
+}
+
+// One replay step of the patch's 8 pixels over a broadcast slot (bwd_one
+// with the cover of its spans): writes the slot's 9-moment warp sum (the
+// fixed-order lane tree of tile_walk.cuh's bwd_pass) to dst.
+__device__ __forceinline__ void bwd_patch_step(
+    const Slot& b, const Patch& c, const RenderArgs& p,
+    const float (&gc_r)[kRows], const float (&gc_g)[kRows],
+    const float (&gc_b)[kRows], const float (&gf)[kRows], float (&ga)[kRows],
+    float (&T)[kRows], float* __restrict__ dst) {
+  const float vx = c.fx - b.s.px;
+  Moments m;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float vy = ((float)(c.y0 + r) + 0.5f) - b.s.py;
+    const float alpha = gauss_alpha(b.s, vx, vy, p);
+    const bool live = covered(b, r, c.lane) && T[r] >= p.min_throughput;
+    bwd_step(b.s, live, alpha, vy, gc_r[r], gc_g[r], gc_b[r], gf[r], ga[r],
+             T[r], m);
+  }
+  float v[kMoments];
+  m.finish(vx, v);
+#pragma unroll
+  for (int f = 0; f < kMoments; ++f) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v[f] += __shfl_down_sync(0xffffffffu, v[f], off);
+    }
+  }
+  if (c.lane == 0) {
+#pragma unroll
+    for (int f = 0; f < kMoments; ++f) dst[f] = v[f];
+  }
+}
+
+// The replay of the patch from the carry (ga, T) under the cotangent (gc,
+// gf), writing every listed slot's partial (slot k's at part + k *
+// slot_stride): the first n_full survivors and the non-finite ones after
+// them, and an exact zero for every other slot. kOwnExit: n_full is not
+// known in advance (no forward ran) and is set after the survivor at which
+// no pixel of the patch keeps T >= min_throughput on the replay's own T.
+// Once the warp is poisoned, every later slot is walked, as the unculled
+// walk does. survivors and walked get the survivors' count and the steps
+// walked.
+template <bool kOwnExit, class Run>
+__device__ __forceinline__ void bwd_patch(
+    const Run& run, int n, int n_full, const Patch& c, const RenderArgs& p,
+    const float (&gc_r)[kRows], const float (&gc_g)[kRows],
+    const float (&gc_b)[kRows], const float (&gf)[kRows], float (&ga)[kRows],
+    float (&T)[kRows], float* __restrict__ part, size_t slot_stride,
+    int& survivors, int& walked) {
+  bool bad = any_nonfinite(gc_r) || any_nonfinite(gc_g) ||
+             any_nonfinite(gc_b) || any_nonfinite(gf) || any_nonfinite(ga) ||
+             any_nonfinite(T);
+  if (kOwnExit) n_full = INT_MAX;
+  survivors = walked = 0;
+  int j = 0;  // survivors met so far
+  for (int k0 = 0; k0 < n; k0 += 32) {
+    const Slot sl = cull_slot(run, k0 + c.lane, n, c, p);
+    const unsigned listed = __ballot_sync(0xffffffffu, k0 + c.lane < n);
+    const unsigned nonfin = __ballot_sync(0xffffffffu, sl.bad);
+    unsigned todo = __ballot_sync(0xffffffffu, sl.keep);
+    survivors += __popc(todo);
+    unsigned full = bad ? listed : 0u;  // the slots walked unculled
+    if (!bad) {
+      while (todo) {
+        const int src = __ffs(todo) - 1;
+        todo &= todo - 1;
+        float* dst = part + (size_t)(k0 + src) * slot_stride;
+        if (j++ >= n_full && !((nonfin >> src) & 1u)) {
+          if (c.lane < kMoments) dst[c.lane] = 0.0f;
+          continue;
+        }
+        bwd_patch_step(broadcast(sl, src), c, p, gc_r, gc_g, gc_b, gf, ga, T,
+                       dst);
+        ++walked;
+        if (any_nonfinite(ga) || any_nonfinite(T)) {
+          bad = true;
+          full = listed & ~((2u << src) - 1u);  // the slots after src
+          break;
+        }
+        if (kOwnExit && j < n_full && saturated(T, p)) n_full = j;
+      }
+    }
+    // A culled slot before the unculled walk is an exact zero.
+    const bool zero = (listed >> c.lane) & 1u && !sl.keep &&
+                      !((full >> c.lane) & 1u);
+    if (zero) {
+#pragma unroll
+      for (int f = 0; f < kMoments; ++f) {
+        part[(size_t)(k0 + c.lane) * slot_stride + f] = 0.0f;
+      }
+    }
+    while (full) {
+      const int src = __ffs(full) - 1;
+      full &= full - 1;
+      bwd_patch_step(broadcast(sl, src), c, p, gc_r, gc_g, gc_b, gf, ga, T,
+                     part + (size_t)(k0 + src) * slot_stride);
+      ++walked;
+    }
+  }
+}
+
+}  // namespace patch
+}  // namespace gs2d

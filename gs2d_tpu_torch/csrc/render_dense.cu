@@ -50,7 +50,7 @@ fwd_dense_kernel(const float* __restrict__ rows, const int* __restrict__ count,
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);  // kc x kFields
   const RenderArgs& p = a.p;
-  const walk::TileWalk w = walk::tile_walk(nullptr, count, a);
+  const walk::TileWalk w = walk::tile_walk(count, a);
   const size_t wp = (size_t)p.n_tiles_x * p.tile_w;
   const size_t plane = (size_t)p.n_tiles_y * p.tile_h * wp;
 
@@ -82,7 +82,7 @@ bwd_dense_kernel(const float* __restrict__ rows, const int* __restrict__ count,
   extern __shared__ float4 smem4[];
   float* srows = reinterpret_cast<float*>(smem4);     // kc x kFields
   float* red = srows + (size_t)a.kc * kFields;        // warps x kGroup x 9
-  const walk::TileWalk w = walk::tile_walk(nullptr, count, a);
+  const walk::TileWalk w = walk::tile_walk(count, a);
   for (int pass = 0; pass < a.p.tile_h; pass += a.sub_h) {
     const int y0 = w.y0 + pass;
     float gc_r[kRows], gc_g[kRows], gc_b[kRows], gf[kRows], ga[kRows],
@@ -102,7 +102,7 @@ l2_dense_kernel(const float* __restrict__ rows, const int* __restrict__ count,
   float* srows = reinterpret_cast<float*>(smem4);     // kc x kFields
   float* red = srows + (size_t)a.kc * kFields;        // warps x kGroup x 9
   const RenderArgs& p = a.p;
-  const walk::TileWalk w = walk::tile_walk(nullptr, count, a);
+  const walk::TileWalk w = walk::tile_walk(count, a);
   const size_t wp = (size_t)p.n_tiles_x * p.tile_w;
   const size_t plane = (size_t)p.n_tiles_y * p.tile_h * wp;
 

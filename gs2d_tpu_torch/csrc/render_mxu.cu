@@ -57,7 +57,6 @@ using walk::WalkArgs;
 constexpr int kGroup = walk::kGroup;  // slots per reduction round
 constexpr int kCoefs = 6;     // c_xx, c_xy, c_yy, c_x, c_y, c_0
 constexpr int kSums = 10;     // m_xx, m_xy, m_yy, m_x, m_y, m_1, w.gC x3, q/op
-constexpr int kSx = 10, kSy = 11, kCos = 12, kSin = 13;  // packed fields
 
 // Stage chunk c's n_here rows of the tile's run into srows (the dense
 // kernels' walk: the run of tile t starts at t * K), then form their
@@ -132,7 +131,7 @@ l2_mxu_kernel(const float* __restrict__ rows, const int* __restrict__ count,
   float* scoef = srows + (size_t)a.kc * kFields;        // kc x kCoefs
   float* red = scoef + (size_t)a.kc * kCoefs;           // warps x kGroup x 10
   const RenderArgs& p = a.p;
-  const walk::TileWalk run = walk::tile_walk(nullptr, count, a);
+  const walk::TileWalk run = walk::tile_walk(count, a);
   const int tile = blockIdx.x;
   const int tile_x0 = (tile % p.n_tiles_x) * p.tile_w;
   const int tile_y0 = (tile / p.n_tiles_x) * p.tile_h;

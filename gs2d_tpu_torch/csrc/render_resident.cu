@@ -39,40 +39,26 @@
 // than one pass of kMaxThreads x kRows pixels (64-row tiles at tile_w 128)
 // is walked in passes of sub_h rows.
 //
-// Kernels 1 and 2 on warp patches. The one-block-per-tile design ran 21
-// blocks of 16 warps on 132 SMs at the default 268x213 workload and had
-// every warp evaluate every listed splat at all 256 of its pixels, about
-// 12x the live evaluations. Now each warp owns one patch, the 8 rows x 32
-// columns that warp w of a pass owned before (lane = column), and a block
-// holds kPatchWarps = 4 patches of one pass of one tile (a 32-column strip
-// of a 32-row pass), so the default workload runs 84 blocks. One warp a
-// block (336 blocks) ran kernel 2 slower and kernel 1 no faster (PERF.md).
-// A warp culls its tile's list 32 slots at a time, a lane a slot: the lane
-// reads the splat's row and decides, for the patch's 8 rows at once, which
-// lanes it covers (row walk, row_interval, image bounds: the bits of
-// splat_terms' cover). The survivors of a cull, the slots covering a pixel
-// of the patch or with a non-finite field, are walked in list order, each
-// broadcast from its lane by shuffles with its covered lanes, so a step
-// tests a lane's own range in place of recomputing the interval. Nothing is
-// staged in shared memory, so K is not bounded by it. A culled slot's step
-// adds exact zeros and leaves (C, T, ga) unchanged, as long as its Gaussian
-// term is finite (a finite, positive-definite conic) and the warp's
-// cotangent and carries are: 0 * NaN is how a step that covers nothing
-// still reaches the outputs. Hence the second rule, and once a pixel of the
-// warp holds a non-finite cotangent or carry, the replay walks every later
-// slot. The forward stops its walk after the survivor at which no pixel of
-// the patch keeps T >= min_throughput (the early-out then fails everywhere
-// for every later step; tile_walk.cuh's exit), walking only the non-finite
-// survivors after it; the replay culls again and walks the same survivors,
-// its T following the forward's bit for bit. Kernel 1 writes one 9-moment
-// partial per (tile, slot, pass, warp), the warp's lane tree as before, and
-// an exact zero for every slot it did not walk; patch_sum_kernel adds them
-// in the order of the one-block-per-tile sums (warps in index order, then
-// passes in order, then tiles in order). So colour, T and the moments equal
-// the one-block-per-tile kernels' (kernel 12 at W = n_pad) bit for bit.
+// Kernels 1 and 2 on warp patches (patch_walk.cuh, shared with the flat
+// kernels 10 and 11). The one-block-per-tile design ran 21 blocks of 16
+// warps on 132 SMs at the default 268x213 workload and had every warp
+// evaluate every listed splat at all 256 of its pixels, about 12x the live
+// evaluations. Now each warp owns one 8 x 32 patch and walks only the slots
+// of the tile's list (read through TableRun) whose splat covers one of its
+// pixels, with a saturation exit, 4 patches a block: the default workload
+// runs 84 blocks. One warp a block (336 blocks) ran kernel 2 slower and
+// kernel 1 no faster (PERF.md). The replay culls again and walks the
+// forward's survivors, its T following the forward's bit for bit. Kernel 1
+// writes one 9-moment partial per (tile, slot, pass, warp), the warp's lane
+// tree as before, and an exact zero for every slot it did not walk;
+// patch_sum_kernel adds them in the order of the one-block-per-tile sums
+// (warps in index order, then passes in order, then tiles in order). So
+// colour, T and the moments equal the one-block-per-tile kernels' (kernel
+// 12 at W = n_pad) bit for bit.
 
 #include <cuda_runtime.h>
 
+#include "patch_walk.cuh"
 #include "splat_terms.cuh"
 #include "tile_walk.cuh"
 
@@ -267,275 +253,12 @@ bwd_resident_kernel(const float* __restrict__ table,
   }
 }
 
-// ---- Kernels 1 and 2: warp patches ---------------------------------------
+// ---- Kernels 1 and 2: warp patches (patch_walk.cuh) -----------------------
 
-// Warps (patches) per block of kernels 1 and 2.
-constexpr int kPatchWarps = 4;
-
-// The patches of a launch: passes per tile, row groups per pass (sub_h /
-// kRows), 32-column groups per pass, and blocks per pass.
-struct PatchGrid {
-  int n_pass, ngrp, ncg, bpp;
-};
-
-struct Patch {
-  int tile, pass, warp;  // warp: its index within the pass (the sum order)
-  int lane, x0, xx, y0;  // x0, y0: the patch's first column and row
-  float fx;
-  bool active;           // false for the spare warps of a pass's last block
-};
-
-// This thread's patch. A block holds kPatchWarps consecutive warps of one
-// pass in strip order (column group outer, row group inner): at 4 row groups
-// a block is one 32-column strip. The patch itself is what warp
-// grp * ncg + cg of a one-block-per-tile pass owned (pixel_coords).
-__device__ __forceinline__ Patch patch_of(const RenderArgs& p,
-                                          const PatchGrid& g) {
-  const int per_tile = g.n_pass * g.bpp;
-  const int rem = blockIdx.x % per_tile;
-  const int s = (rem % g.bpp) * kPatchWarps + (threadIdx.x >> 5);
-  const int cg = s / g.ngrp, grp = s % g.ngrp;
-  Patch c;
-  c.tile = blockIdx.x / per_tile;
-  c.pass = rem / g.bpp;
-  c.warp = grp * g.ncg + cg;
-  c.active = s < g.ngrp * g.ncg;
-  c.lane = threadIdx.x & 31;
-  c.x0 = (c.tile % p.n_tiles_x) * p.tile_w + cg * 32;
-  c.xx = c.x0 + c.lane;
-  c.y0 = (c.tile / p.n_tiles_x) * p.tile_h + (c.pass * g.ngrp + grp) * kRows;
-  c.fx = (float)c.xx + 0.5f;
-  return c;
-}
-
-// One listed slot as the lane that culls it holds it: the splat's scalars
-// and, per patch row r, the lanes [lo_r, hi_r] it covers there (empty as
-// lo = 1, hi = 0), one byte each: lo in span[r / 4], hi in span[2 + r / 4].
-struct Slot {
-  Splat s;
-  unsigned span[4];
-  bool keep;  // covers a pixel of the patch, or a field is not finite
-  bool bad;   // a field is not finite
-};
-
-// The cull of slot k of the patch's tile (keep false past count): the
-// cover of splat_terms (row walk, row_interval, image bounds) decided for
-// the 8 rows at once, on the same bits.
-__device__ __forceinline__ Slot cull_slot(const float* __restrict__ table,
-                                          const int* __restrict__ ids, int k,
-                                          int n, const Patch& c,
-                                          const RenderArgs& p) {
-  Slot sl = {};
-  if (k >= n) return sl;
-  const float* row = table + (size_t)ids[(size_t)c.tile * p.k_cap + k] *
-                                 kFields;
-  sl.s = load_splat(row);
-#pragma unroll
-  for (int f = kPx; f <= kOp; ++f) sl.bad |= !isfinite(row[f]);
-  const int x_hi = min(c.x0 + 31, p.width - 1);
-  bool any = false;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int yy = c.y0 + r;
-    int beg_x, end_x;
-    const bool q_ok = row_interval(sl.s, (float)yy + 0.5f - sl.s.py, p,
-                                   beg_x, end_x);
-    const int lo = max(beg_x, c.x0), hi = min(end_x, x_hi);
-    const bool on = q_ok && yy >= sl.s.beg_y && yy <= sl.s.end_y &&
-                    yy < p.height && lo <= hi;
-    any |= on;
-    const unsigned shift = 8u * (r % 4);
-    sl.span[r / 4] |= (on ? (unsigned)(lo - c.x0) : 1u) << shift;
-    sl.span[2 + r / 4] |= (on ? (unsigned)(hi - c.x0) : 0u) << shift;
-  }
-  sl.keep = any || sl.bad;
-  return sl;
-}
-
-// Slot `src`'s splat and spans, from the lane that culled it to the warp.
-__device__ __forceinline__ Slot broadcast(const Slot& sl, int src) {
-  constexpr unsigned kAll = 0xffffffffu;
-  Slot b;
-  b.s.px = __shfl_sync(kAll, sl.s.px, src);
-  b.s.py = __shfl_sync(kAll, sl.s.py, src);
-  b.s.a = __shfl_sync(kAll, sl.s.a, src);
-  b.s.b = __shfl_sync(kAll, sl.s.b, src);
-  b.s.d = __shfl_sync(kAll, sl.s.d, src);
-  b.s.cr = __shfl_sync(kAll, sl.s.cr, src);
-  b.s.cg = __shfl_sync(kAll, sl.s.cg, src);
-  b.s.cb = __shfl_sync(kAll, sl.s.cb, src);
-  b.s.op = __shfl_sync(kAll, sl.s.op, src);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) b.span[i] = __shfl_sync(kAll, sl.span[i], src);
-  return b;
-}
-
-// Whether this lane's pixel in patch row r is covered by the broadcast slot.
-__device__ __forceinline__ bool covered(const Slot& b, int r, int lane) {
-  const unsigned shift = 8u * (r % 4);
-  const int lo = (int)((b.span[r / 4] >> shift) & 0xffu);
-  const int hi = (int)((b.span[2 + r / 4] >> shift) & 0xffu);
-  return lane >= lo && lane <= hi;
-}
-
-// One forward step of the patch's 8 pixels over a broadcast slot (fwd_one
-// with the cover of its spans).
-__device__ __forceinline__ void fwd_patch_step(
-    const Slot& b, const Patch& c, const RenderArgs& p, float (&cr)[kRows],
-    float (&cg)[kRows], float (&cb)[kRows], float (&T)[kRows]) {
-  const float vx = c.fx - b.s.px;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const float vy = ((float)(c.y0 + r) + 0.5f) - b.s.py;
-    const float alpha = gauss_alpha(b.s, vx, vy, p);
-    const bool live = covered(b, r, c.lane) && T[r] >= p.min_throughput;
-    fwd_step(b.s, live, alpha, cr[r], cg[r], cb[r], T[r]);
-  }
-}
-
-// The forward composite of the patch over the n listed slots of its tile,
-// (cr, cg, cb, T) carried in registers (T starting at 1 inside the image,
-// 0 on padding), walking the survivors of each 32-slot cull in list order.
-// The full walk stops after the survivor at which no pixel of the patch
-// keeps T >= min_throughput; after it only the non-finite survivors are
-// walked. Returns that prefix's length (the replay's); survivors and walked
-// get the survivors' count and how many were walked.
-__device__ __forceinline__ int fwd_patch(
-    const float* __restrict__ table, const int* __restrict__ ids, int n,
-    const Patch& c, const RenderArgs& p, float (&cr)[kRows],
-    float (&cg)[kRows], float (&cb)[kRows], float (&T)[kRows],
-    int& survivors, int& walked) {
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    cr[r] = cg[r] = cb[r] = 0.0f;
-    T[r] = (c.y0 + r < p.height && c.xx < p.width) ? 1.0f : 0.0f;
-  }
-  int n_full = -1;  // set at the saturation exit
-  survivors = walked = 0;
-  for (int k0 = 0; k0 < n; k0 += 32) {
-    const Slot sl = cull_slot(table, ids, k0 + c.lane, n, c, p);
-    unsigned todo = __ballot_sync(0xffffffffu, sl.keep);
-    const unsigned bad = __ballot_sync(0xffffffffu, sl.bad);
-    survivors += __popc(todo);
-    if (n_full >= 0) todo &= bad;
-    while (todo) {
-      const int src = __ffs(todo) - 1;
-      todo &= todo - 1;
-      fwd_patch_step(broadcast(sl, src), c, p, cr, cg, cb, T);
-      ++walked;
-      if (n_full >= 0) continue;
-      int open = 0;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) open |= T[r] >= p.min_throughput;
-      if (!__any_sync(0xffffffffu, open)) {
-        n_full = walked;
-        todo &= bad;
-      }
-    }
-  }
-  return n_full >= 0 ? n_full : walked;
-}
-
-// Whether a pixel of the warp holds a non-finite value of x: once a replay
-// input or carry is, a step that covers nothing still adds 0 * NaN to its
-// moments and to ga, so no slot may be skipped any more.
-__device__ __forceinline__ bool any_nonfinite(const float (&x)[kRows]) {
-  bool bad = false;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) bad |= !isfinite(x[r]);
-  return __any_sync(0xffffffffu, bad);
-}
-
-// One replay step of the patch's 8 pixels over a broadcast slot (bwd_one
-// with the cover of its spans): writes the slot's 9-moment warp sum (the
-// fixed-order lane tree of replay_moments) to dst.
-__device__ __forceinline__ void bwd_patch_step(
-    const Slot& b, const Patch& c, const RenderArgs& p,
-    const float (&gc_r)[kRows], const float (&gc_g)[kRows],
-    const float (&gc_b)[kRows], const float (&gf)[kRows], float (&ga)[kRows],
-    float (&T)[kRows], float* __restrict__ dst) {
-  const float vx = c.fx - b.s.px;
-  Moments m;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const float vy = ((float)(c.y0 + r) + 0.5f) - b.s.py;
-    const float alpha = gauss_alpha(b.s, vx, vy, p);
-    const bool live = covered(b, r, c.lane) && T[r] >= p.min_throughput;
-    bwd_step(b.s, live, alpha, vy, gc_r[r], gc_g[r], gc_b[r], gf[r], ga[r],
-             T[r], m);
-  }
-  float v[kMoments];
-  m.finish(vx, v);
-#pragma unroll
-  for (int f = 0; f < kMoments; ++f) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      v[f] += __shfl_down_sync(0xffffffffu, v[f], off);
-    }
-  }
-  if (c.lane == 0) {
-#pragma unroll
-    for (int f = 0; f < kMoments; ++f) dst[f] = v[f];
-  }
-}
-
-// The replay of the patch from the carry (ga, T) under the cotangent (gc,
-// gf), writing every listed slot's partial (slot k's at part + k *
-// slot_stride): the forward's walk, i.e. the first n_full survivors and
-// the non-finite ones after them, and an exact zero for every other slot.
-// Once the warp is poisoned, every later slot is walked, as the unculled
-// walk does.
-__device__ __forceinline__ void bwd_patch(
-    const float* __restrict__ table, const int* __restrict__ ids, int n,
-    int n_full, const Patch& c, const RenderArgs& p,
-    const float (&gc_r)[kRows], const float (&gc_g)[kRows],
-    const float (&gc_b)[kRows], const float (&gf)[kRows], float (&ga)[kRows],
-    float (&T)[kRows], float* __restrict__ part, size_t slot_stride) {
-  bool bad = any_nonfinite(gc_r) || any_nonfinite(gc_g) ||
-             any_nonfinite(gc_b) || any_nonfinite(gf) || any_nonfinite(ga) ||
-             any_nonfinite(T);
-  int j = 0;  // survivors met so far
-  for (int k0 = 0; k0 < n; k0 += 32) {
-    const Slot sl = cull_slot(table, ids, k0 + c.lane, n, c, p);
-    const unsigned listed = __ballot_sync(0xffffffffu, k0 + c.lane < n);
-    const unsigned nonfin = __ballot_sync(0xffffffffu, sl.bad);
-    unsigned todo = __ballot_sync(0xffffffffu, sl.keep);
-    unsigned full = bad ? listed : 0u;  // the slots walked unculled
-    if (!bad) {
-      while (todo) {
-        const int src = __ffs(todo) - 1;
-        todo &= todo - 1;
-        float* dst = part + (size_t)(k0 + src) * slot_stride;
-        if (j++ >= n_full && !((nonfin >> src) & 1u)) {
-          if (c.lane < kMoments) dst[c.lane] = 0.0f;
-          continue;
-        }
-        bwd_patch_step(broadcast(sl, src), c, p, gc_r, gc_g, gc_b, gf, ga, T,
-                       dst);
-        if (any_nonfinite(ga) || any_nonfinite(T)) {
-          bad = true;
-          full = listed & ~((2u << src) - 1u);  // the slots after src
-          break;
-        }
-      }
-    }
-    // A culled slot before the unculled walk is an exact zero.
-    const bool zero = (listed >> c.lane) & 1u && !sl.keep &&
-                      !((full >> c.lane) & 1u);
-    if (zero) {
-#pragma unroll
-      for (int f = 0; f < kMoments; ++f) {
-        part[(size_t)(k0 + c.lane) * slot_stride + f] = 0.0f;
-      }
-    }
-    while (full) {
-      const int src = __ffs(full) - 1;
-      full &= full - 1;
-      bwd_patch_step(broadcast(sl, src), c, p, gc_r, gc_g, gc_b, gf, ga, T,
-                     part + (size_t)(k0 + src) * slot_stride);
-    }
-  }
-}
+using patch::kPatchWarps;
+using patch::Patch;
+using patch::PatchGrid;
+using patch::TableRun;
 
 // Kernel 1 on warp patches. partial is (n_tiles, K, n_pass, warps per pass,
 // 9); every entry of a slot below count[t] is written once. walked, when
@@ -546,16 +269,17 @@ l2_resident_kernel(const float* __restrict__ table,
                    const float* __restrict__ ref, float* __restrict__ color,
                    float* __restrict__ partial, int* __restrict__ walked,
                    RenderArgs p, PatchGrid g) {
-  const Patch c = patch_of(p, g);
+  const Patch c = patch::patch_of(p, g);
   if (!c.active) return;
   const int n = count[c.tile];
+  const TableRun run{table, ids, p.k_cap};
   const int wpp = g.ngrp * g.ncg;
   float gc_r[kRows], gc_g[kRows], gc_b[kRows], gf[kRows], ga[kRows],
       T[kRows];
   int n_survivors, n_walked;
   // gc_* hold the composite colour until the cotangent is formed.
-  const int n_full = fwd_patch(table, ids, n, c, p, gc_r, gc_g, gc_b, T,
-                               n_survivors, n_walked);
+  const int n_full = patch::fwd_patch(run, n, c, p, gc_r, gc_g, gc_b, T,
+                                      n_survivors, n_walked);
   const size_t wp = (size_t)p.n_tiles_x * p.tile_w;
   const size_t plane = (size_t)p.n_tiles_y * p.tile_h * wp;
 #pragma unroll
@@ -577,13 +301,11 @@ l2_resident_kernel(const float* __restrict__ table,
   float* part = partial + ((size_t)c.tile * p.k_cap * g.n_pass + c.pass) *
                               wpp * kMoments +
                 c.warp * kMoments;
-  bwd_patch(table, ids, n, n_full, c, p, gc_r, gc_g, gc_b, gf, ga, T, part,
-            slot_stride);
-  if (walked != nullptr && c.lane == 0) {
-    const size_t w = ((size_t)c.tile * g.n_pass + c.pass) * wpp + c.warp;
-    walked[2 * w] = n_survivors;
-    walked[2 * w + 1] = n_walked;
-  }
+  int replay_survivors, replay_walked;
+  patch::bwd_patch<false>(run, n, n_full, c, p, gc_r, gc_g, gc_b, gf, ga, T,
+                          part, slot_stride, replay_survivors,
+                          replay_walked);
+  patch::record_walk(walked, c, g, n_survivors, n_walked);
 }
 
 // Kernel 2 on warp patches: kernel 1's forward, written out as (C, T).
@@ -593,12 +315,12 @@ fwd_resident_kernel(const float* __restrict__ table,
                     const int* __restrict__ count, float* __restrict__ color,
                     float* __restrict__ trans, int* __restrict__ walked,
                     RenderArgs p, PatchGrid g) {
-  const Patch c = patch_of(p, g);
+  const Patch c = patch::patch_of(p, g);
   if (!c.active) return;
   float cr[kRows], cg[kRows], cb[kRows], T[kRows];
   int n_survivors, n_walked;
-  fwd_patch(table, ids, count[c.tile], c, p, cr, cg, cb, T, n_survivors,
-            n_walked);
+  patch::fwd_patch(TableRun{table, ids, p.k_cap}, count[c.tile], c, p, cr,
+                   cg, cb, T, n_survivors, n_walked);
   const size_t wp = (size_t)p.n_tiles_x * p.tile_w;
   const size_t plane = (size_t)p.n_tiles_y * p.tile_h * wp;
 #pragma unroll
@@ -609,12 +331,7 @@ fwd_resident_kernel(const float* __restrict__ table,
     color[2 * plane + i] = cb[r];
     trans[i] = T[r];
   }
-  if (walked != nullptr && c.lane == 0) {
-    const int wpp = g.ngrp * g.ncg;
-    const size_t w = ((size_t)c.tile * g.n_pass + c.pass) * wpp + c.warp;
-    walked[2 * w] = n_survivors;
-    walked[2 * w + 1] = n_walked;
-  }
+  patch::record_walk(walked, c, g, n_survivors, n_walked);
 }
 
 // Splat-axis expansion: grads16[f][i] = sum over tiles, in tile order, of
@@ -717,20 +434,6 @@ int resident_args(int height, int width, int tile_h, int tile_w,
                          use_exp_approx, a);
 }
 
-// The patch grid of kernels 1 and 2.
-PatchGrid patch_grid(const walk::WalkArgs& a) {
-  PatchGrid g;
-  g.n_pass = a.p.tile_h / a.sub_h;
-  g.ngrp = a.sub_h / kRows;
-  g.ncg = a.p.tile_w / 32;
-  g.bpp = (g.ngrp * g.ncg + kPatchWarps - 1) / kPatchWarps;
-  return g;
-}
-
-int patch_blocks(const walk::WalkArgs& a, const PatchGrid& g) {
-  return a.p.n_tiles_x * a.p.n_tiles_y * g.n_pass * g.bpp;
-}
-
 }  // namespace gs2d
 
 using namespace gs2d;
@@ -778,8 +481,8 @@ int gs2d_l2_resident(const float* table, const int* ids, const int* count,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  const PatchGrid g = patch_grid(a);
-  l2_resident_kernel<<<patch_blocks(a, g), kPatchWarps * 32, 0, s>>>(
+  const PatchGrid g = patch::patch_grid(a);
+  l2_resident_kernel<<<patch::patch_blocks(a, g), kPatchWarps * 32, 0, s>>>(
       table, ids, count, ref, color, partial, walked, a.p, g);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -864,8 +567,8 @@ int gs2d_fwd_resident(const float* table, const int* ids, const int* count,
                     &a) == 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const PatchGrid g = patch_grid(a);
-  fwd_resident_kernel<<<patch_blocks(a, g), kPatchWarps * 32, 0,
+  const PatchGrid g = patch::patch_grid(a);
+  fwd_resident_kernel<<<patch::patch_blocks(a, g), kPatchWarps * 32, 0,
                         (cudaStream_t)stream>>>(table, ids, count, color,
                                                 trans, walked, a.p, g);
   return (int)cudaGetLastError();

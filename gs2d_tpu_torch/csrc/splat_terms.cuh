@@ -29,6 +29,7 @@ constexpr int kFields = 16;
 constexpr int kMoments = 9;  // moment rows G_PX..G_OP (ops/render.py)
 constexpr int kPx = 0, kPy = 1, kA = 2, kB = 3, kD = 4, kH = 5;
 constexpr int kCr = 6, kCg = 7, kCb = 8, kOp = 9;
+constexpr int kSx = 10, kSy = 11, kCos = 12, kSin = 13;  // cos, sin of rot
 
 // Fast-exp flush threshold (gs2d_tpu_torch/config.py EXP_APPROX_FLUSH).
 constexpr float kExpFlush = 0.00001814586175896693021059036255f;

@@ -1,23 +1,24 @@
-// Chunk walk of one tile's contiguous run of pregathered pair rows, shared by
-// the flat kernels (render_flat.cu) and the dense kernels (render_dense.cu).
+// Chunk walk of one tile's contiguous run of pregathered pair rows: the
+// one-block-per-tile walk of the dense kernels 4-9 (render_dense.cu) and of
+// the MXU-form kernel 13 (render_mxu.cu).
 //
-// Both layouts store a tile's index-ordered (tile, splat) pairs as a run of
-// 16-float rows of one (M, 16) array: the flat layout's run starts at
-// start[t] (a multiple of kc), the dense layout's at t * K (its
-// (n_tiles, K, 16) tile_params). One block owns one tile and walks its
-// ceil(count / kc) chunks in order, staging each chunk's rows (contiguous,
-// so the reads coalesce) into shared memory; the (C, T) and (ga, T) carries
-// stay in registers across chunks. Each thread keeps kRows pixels of one
-// tile column. A tile taller than one pass of kMaxThreads x kRows pixels
-// (64-row tiles at tile_w 128) is walked in passes of sub_h rows, each a
-// full walk of the list; the backward adds the passes' moment sums in pass
-// order. Early exits, both exact (they skip only steps whose every pixel
-// fails the T >= 1/256 early-out, so they contribute exactly zero): a chunk
-// is skipped once no pixel of the pass is unsaturated, and with sat_walk set
-// (N >= SAT_WALK_THRESHOLD in the wrappers) the same block-wide check runs
-// every kGroup (= SAT_CHECK_EVERY) splats inside a chunk. They are the TPU
-// chunked kernels' exits; the unchunked TPU kernels have none, which gives
-// the same outputs.
+// The dense layout stores a tile's index-ordered (tile, splat) pairs as a
+// run of 16-float rows starting at t * K (its (n_tiles, K, 16) tile_params).
+// One block owns one tile and walks its ceil(count / kc) chunks in order,
+// staging each chunk's rows (contiguous, so the reads coalesce) into shared
+// memory; the (C, T) and (ga, T) carries stay in registers across chunks.
+// Each thread keeps kRows pixels of one tile column. A tile taller than one
+// pass of kMaxThreads x kRows pixels (64-row tiles at tile_w 128) is walked
+// in passes of sub_h rows, each a full walk of the list; the backward adds
+// the passes' moment sums in pass order. Early exits, both exact (they skip
+// only steps whose every pixel fails the T >= 1/256 early-out, so they
+// contribute exactly zero): a chunk is skipped once no pixel of the pass is
+// unsaturated, and with sat_walk set (N >= SAT_WALK_THRESHOLD in the
+// wrappers) the same block-wide check runs every kGroup (= SAT_CHECK_EVERY)
+// splats inside a chunk. They are the TPU chunked kernels' exits; the
+// unchunked TPU kernels have none, which gives the same outputs. The
+// warp-patch kernels (patch_walk.cuh) take the pass geometry (walk_args,
+// kRows) and the cotangent load (load_cotangent, also kernel 3's) from here.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,7 +39,7 @@ struct WalkArgs {
   int max_chunks;  // chunk cap per tile (the TPU grid's chunk axis)
   int sat_walk;    // check saturation inside a chunk too
   int sub_h;       // pixel rows per pass
-  int stride;      // run start of tile t is t * stride when start is null
+  int stride;      // run start of tile t is t * stride
 };
 
 // This block's tile run and this thread's column, and the first pixel row
@@ -50,13 +51,12 @@ struct TileWalk {
   bool col_in;
 };
 
-__device__ __forceinline__ TileWalk tile_walk(const int* start,
-                                              const int* count,
+__device__ __forceinline__ TileWalk tile_walk(const int* count,
                                               const WalkArgs& a) {
   const RenderArgs& p = a.p;
   const int tile = blockIdx.x;
   TileWalk w;
-  w.s0 = start != nullptr ? start[tile] : tile * a.stride;
+  w.s0 = tile * a.stride;
   w.n = count[tile];
   w.nb = min((w.n + a.kc - 1) / a.kc, a.max_chunks);
   w.xx = (tile % p.n_tiles_x) * p.tile_w + threadIdx.x % p.tile_w;

@@ -3,9 +3,13 @@
 4096 splats.
 
 Each tile's pregathered (tile, splat) pair rows form a run of whole kc-row
-blocks in one flat (M, N_FIELDS) array (``ops/tiles_flat.py``); the kernels
-walk a tile's run chunk by chunk, and the backward writes one 9-moment row
-per flat row, which a tile-order segment sum adds onto the splat axis.
+blocks in one flat (M, N_FIELDS) array (``ops/tiles_flat.py``). The kernels
+run one warp per 8 x 32 pixel patch over a tile's run, walking only the rows
+whose splat covers a pixel of the patch, up to the patch's saturation
+(``csrc/patch_walk.cuh``, shared with the resident kernels 1 and 2;
+``render_resident.listed_cover_mask`` is that cull in plain PyTorch); the
+backward writes one 9-moment row per flat row and adds each splat's rows
+over the tiles of its tile box, in tile order, onto the splat axis.
 
 Two kernels, each behind a wrapper that dispatches on the tensors' device:
 
@@ -173,45 +177,81 @@ def _check_inputs(cfg: SplatConfig, rows, start, count, kc: int, *planes):
 
 
 def _fwd_flat_cuda(rows, start, count, cfg: SplatConfig, kc: int,
-                   max_chunks: int):
+                   max_chunks: int, walked=None):
+    """Kernel 10; ``walked`` (patches, 2) int32 gets each warp patch's
+    survivors and survivors walked (render_resident._walked_ptr)."""
     lib = _check_inputs(cfg, rows, start, count, kc)
     hp, wp = cfg.padded_height, cfg.padded_width
     color = torch.empty((3, hp, wp), dtype=torch.float32, device=rows.device)
     trans = torch.empty((hp, wp), dtype=torch.float32, device=rows.device)
     err = lib.gs2d_fwd_flat(
         rows.data_ptr(), start.data_ptr(), count.data_ptr(),
-        color.data_ptr(), trans.data_ptr(), cfg.height, cfg.width,
+        color.data_ptr(), trans.data_ptr(),
+        rr._walked_ptr(walked, cfg, rows.device), cfg.height, cfg.width,
         cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, cfg.n_tiles_y, kc,
-        max_chunks, int(rd._sat_walk(cfg)), cfg.cutoff_sq,
-        cfg.min_throughput, int(cfg.use_exp_approx), stream(rows))
+        max_chunks, cfg.cutoff_sq, cfg.min_throughput,
+        int(cfg.use_exp_approx), stream(rows))
     check(err, "fwd_flat kernel launch")
     launches["fwd_flat"] += 1
     return color, trans
 
 
+def partial_shape(cfg: SplatConfig, m_rows: int) -> Tuple[int, ...]:
+    """Kernel 11's per-patch moment partials: (patches per tile, M, 9),
+    patch (pass, warp) at pass * warps per pass + warp. Its scratch is
+    uninitialised: the patch sum reads only the entries of listed rows,
+    which the replay writes (a culled or saturated row's exact zero
+    included)."""
+    return (rr.patches_per_tile(cfg, rr.patch_rows()), m_rows, rd.N_MOMENTS)
+
+
 def _bwd_flat_cuda(rows, ids, start, count, fin, gc, cin, tin,
                    n_splats: int, cfg: SplatConfig, kc: int,
-                   max_chunks: int):
+                   max_chunks: int, *, fields, partial=None, walked=None,
+                   boxes=None):
+    """Kernel 11: the plain twin's arguments plus ``fields``, the
+    (N_FIELDS, n) packed fields of the splats (tiles.packed_fields), from
+    which the splat sum takes each splat's tile box. ``partial`` replaces
+    the uninitialised scratch (a test's NaN-filled buffer); ``walked`` as in
+    _fwd_flat_cuda; ``boxes`` (n, 4) int32 gets each splat's box (tx0, tx1,
+    ty0, ty1; empty as ty0 > ty1)."""
     hp, wp = cfg.padded_height, cfg.padded_width
     lib = _check_inputs(cfg, rows, start, count, kc,
                         ("fin", fin, (3, hp, wp)),
                         ("gc", gc, (3, hp, wp)), ("cin", cin, (3, hp, wp)),
-                        ("tin", tin, (hp, wp)))
+                        ("tin", tin, (hp, wp)),
+                        ("fields", fields, (tl.N_FIELDS, n_splats)))
     if ids.dtype != torch.int32 or tuple(ids.shape) != (rows.shape[0],) \
             or not ids.is_contiguous() or ids.device != rows.device:
         raise ValueError("ids: need contiguous int32 (M,) beside rows")
     dev = rows.device
-    moments = torch.zeros((rows.shape[0], rd.N_MOMENTS), dtype=torch.float32,
+    m_rows = rows.shape[0]
+    shape = partial_shape(cfg, m_rows)
+    if partial is None:
+        partial = torch.empty(shape, dtype=torch.float32, device=dev)
+    elif (tuple(partial.shape) != shape or partial.dtype != torch.float32
+          or not partial.is_contiguous() or partial.device != dev):
+        raise ValueError(f"partial: need contiguous float32 {shape} on "
+                         f"{dev}")
+    if boxes is not None and (
+            tuple(boxes.shape) != (n_splats, 4) or boxes.dtype != torch.int32
+            or not boxes.is_contiguous() or boxes.device != dev):
+        raise ValueError(f"boxes: need contiguous int32 ({n_splats}, 4) on "
+                         f"{dev}")
+    # Every row of both outputs is written by the kernels.
+    moments = torch.empty((m_rows, rd.N_MOMENTS), dtype=torch.float32,
                           device=dev)
     grads9 = torch.empty((rd.N_MOMENTS, n_splats), dtype=torch.float32,
                          device=dev)
     err = lib.gs2d_bwd_flat(
         rows.data_ptr(), ids.data_ptr(), start.data_ptr(), count.data_ptr(),
         fin.data_ptr(), gc.data_ptr(), cin.data_ptr(), tin.data_ptr(),
-        moments.data_ptr(), grads9.data_ptr(), n_splats, cfg.height,
-        cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, cfg.n_tiles_y, kc,
-        max_chunks, int(rd._sat_walk(cfg)), cfg.cutoff_sq,
-        cfg.min_throughput, int(cfg.use_exp_approx), stream(rows))
+        fields.data_ptr(), partial.data_ptr(), moments.data_ptr(),
+        grads9.data_ptr(), rr._walked_ptr(walked, cfg, dev),
+        0 if boxes is None else boxes.data_ptr(), n_splats, m_rows,
+        cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
+        cfg.n_tiles_y, kc, max_chunks, cfg.cutoff_sq, cfg.min_throughput,
+        cfg.splat_bounds, int(cfg.use_exp_approx), stream(rows))
     check(err, "bwd_flat kernel launch")
     launches["bwd_flat"] += 1
     return moments, grads9
@@ -230,11 +270,14 @@ def _forward_chw(binning: tlf.FlatBinning, cfg: SplatConfig, kc: int,
 def _backward_chw(binning: tlf.FlatBinning, fin, gc, cin, tin,
                   n_splats: int, cfg: SplatConfig, kc: int, max_chunks: int,
                   params: GaussianParams) -> GaussianParams:
-    fn = _bwd_flat_cuda if on_card(binning.rows) else _bwd_flat_plain
-    _, grads9 = fn(binning.rows, binning.ids, binning.start, binning.count,
-                   fin, gc, cin, tin, n_splats, cfg, kc, max_chunks)
-    return rd.moments_to_grads(rd.unpack_moments(grads9, n_splats),
-                               tl.packed_fields(params, cfg.splat_bounds))
+    fields = tl.packed_fields(params, cfg.splat_bounds)
+    args = (binning.rows, binning.ids, binning.start, binning.count, fin, gc,
+            cin, tin, n_splats, cfg, kc, max_chunks)
+    if on_card(binning.rows):
+        _, grads9 = _bwd_flat_cuda(*args, fields=fields)
+    else:
+        _, grads9 = _bwd_flat_plain(*args)
+    return rd.moments_to_grads(rd.unpack_moments(grads9, n_splats), fields)
 
 
 def forward_flat(binning: tlf.FlatBinning, cfg: SplatConfig, kc: int,

@@ -24,7 +24,7 @@ launches its kernel, and nowhere else.
 Kernels 1 and 2 run one warp per patch of 8 rows x 32 columns (the pixels
 warp w of a one-block-per-tile pass owned), four patches a block, and each
 warp walks only the slots whose splat covers a pixel of its
-patch (or has a non-finite field): ``patch_cover_mask`` is that cull in
+patch (or has a non-finite field): ``listed_cover_mask`` is that cull in
 plain PyTorch, for the tests and ``chip_smoke.py``. The cull and the warp's
 saturation exit skip only exact zeros, so the twins compute the kernels'
 function unchanged.
@@ -169,7 +169,17 @@ def _l2_resident_plain(table, ids_s, count, ref_chw, n_splats: int,
 
 
 def patch_cover_mask(table, ids_s, count, cfg: SplatConfig, rows: int):
-    """The cull of kernels 1 and 2 in plain PyTorch: (n_tiles, patches per
+    """The cull of kernels 1 and 2 in plain PyTorch: listed_cover_mask of
+    the table rows the tiles' id lists name."""
+    return listed_cover_mask(table.reshape(-1, tl.N_FIELDS)[ids_s.long()],
+                             count, cfg, rows)
+
+
+def listed_cover_mask(fields, count, cfg: SplatConfig, rows: int):
+    """The cull of the warp-patch kernels (1, 2, 10, 11) in plain PyTorch,
+    from each tile's listed rows ``fields`` (n_tiles, K, N_FIELDS): the
+    resident table through the ids, or a flat binning's runs
+    (scripts/roofline.py::flat_listed_rows). Returns (n_tiles, patches per
     tile, K) bool (patches as in patches_per_tile, ``rows`` high), set where
     slot k < count[t] of tile t lists a splat that covers a pixel of the
     warp's patch (some row inside the image and the splat's row walk whose
@@ -178,9 +188,8 @@ def patch_cover_mask(table, ids_s, count, cfg: SplatConfig, rows: int):
     a, b, d, h, cr, cg, cb, op). Used by the tests and chip_smoke.py, never
     on the main path."""
     ncg = cfg.tile_w // 32
-    n_tiles, k = ids_s.shape
-    dev = table.device
-    fields = table.reshape(-1, tl.N_FIELDS)[ids_s.long()]     # (T, K, F)
+    n_tiles, k = fields.shape[:2]
+    dev = fields.device
     f = lambda i: fields[:, None, :, i]                        # (T, 1, K)
     t = torch.arange(n_tiles, device=dev)
     ty = torch.div(t, cfg.n_tiles_x, rounding_mode="floor")

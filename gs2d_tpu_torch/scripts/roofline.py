@@ -61,6 +61,7 @@ with a smaller ``workloads`` (the tests do).
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 
 F32_PEAK = 67e12     # FLOP/s, float32 outside the tensor cores (data sheet)
@@ -218,7 +219,8 @@ def workload(name, asset, w, h, n_splats, binning, device, reps: int = 10):
         b = tlf.bin_splats_flat(p, cfg, cfg.flat_capacity, kc=kc,
                                 max_chunks=mc)
         fwd = rf._fwd_flat_cuda if card else rf._fwd_flat_plain
-        bwd = rf._bwd_flat_cuda if card else rf._bwd_flat_plain
+        bwd = (functools.partial(rf._bwd_flat_cuda, fields=tl.packed_fields(
+            p, cfg.splat_bounds)) if card else rf._bwd_flat_plain)
         fwd_in = (b.rows, b.start, b.count, cfg, kc, mc)
         color, trans = fwd(*fwd_in)
         gc = (color - ref_chw[0]).contiguous()

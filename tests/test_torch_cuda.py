@@ -22,6 +22,7 @@ from gs2d_tpu_torch.ops import render_window as rw
 from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.ops import tiles_flat as tlf
 from gs2d_tpu_torch.params import params_from_numpy
+from gs2d_tpu_torch.scripts.roofline import flat_listed_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -109,6 +110,17 @@ def test_unsupported_tile_shape_raises(dev):
         rr._fwd_resident_cuda(table, ids, count, cfg.replace(tile_h=4))
 
 
+def flat_params(dev, seed, n, opacity=(0.3, 1.0)):
+    d, ref = population(seed, n, W, H, opacity)
+    return params_from_numpy({f: v.astype(np.float32) for f, v in d.items()},
+                             dev), ref
+
+
+def flat_fields(dev, seed, n, cfg):
+    """The packed fields of flat_inputs' population (kernel 11's boxes)."""
+    return tl.packed_fields(flat_params(dev, seed, n)[0], cfg.splat_bounds)
+
+
 def flat_inputs(dev, seed, n, tile_h, kc):
     """A flat binning and the L2 backward's planes for a seeded population."""
     cfg = SplatConfig(width=W, height=H, n_splats=n, tile_h=tile_h,
@@ -140,7 +152,8 @@ def test_flat_kernels_match_plain(dev, monkeypatch, n, tile_h, kc, sat):
     cin, tin = rd.identity_carry(cfg, dev)
     args = (b.rows, b.ids, b.start, b.count, c_p, (c_p - ref).contiguous(),
             cin, tin, n, cfg, kc, mc)
-    m_k, g_k = rf._bwd_flat_cuda(*args)
+    m_k, g_k = rf._bwd_flat_cuda(*args, fields=flat_fields(dev, n + tile_h
+                                                           + kc, n, cfg))
     m_p, g_p = rf._bwd_flat_plain(*args)
     torch.cuda.synchronize()
     for got, want in ((m_k, m_p), (g_k, g_p)):
@@ -158,8 +171,9 @@ def test_flat_backward_repeats_bit_for_bit_with_carry(dev):
     g = torch.randn(c_in.shape, generator=gen, device=dev)
     args = (b.rows, b.ids, b.start, b.count, c_in, g, c_in * 0.5,
             t_in * 0.5, 250, cfg, kc, mc)
-    first = rf._bwd_flat_cuda(*args)
-    again = rf._bwd_flat_cuda(*args)
+    fields = flat_fields(dev, 5, 250, cfg)
+    first = rf._bwd_flat_cuda(*args, fields=fields)
+    again = rf._bwd_flat_cuda(*args, fields=fields)
     plain = rf._bwd_flat_plain(*args)
     torch.cuda.synchronize()
     for x, y, z in zip(first, again, plain):
@@ -173,6 +187,150 @@ def test_flat_unsupported_tile_shape_raises(dev):
     with pytest.raises(ValueError):
         rf._fwd_flat_cuda(b.rows, b.start, b.count, cfg.replace(tile_h=16),
                           16, cfg.flat_max_chunks)
+
+
+def flat_and_dense(dev, seed, n, tile_h, kc, nan_splat=None):
+    """One population binned both ways (the dense K at the largest count, no
+    drop); ``nan_splat``'s position NaN in both layouts' pregathered rows.
+    Returns (params, cfg, flat binning, flat rows, dense binning, dense
+    rows, ref (3, Hp, Wp))."""
+    p, ref = flat_params(dev, seed, n)
+    cfg = rf.tune_flat_config(p, SplatConfig(
+        width=W, height=H, n_splats=n, tile_h=tile_h, flat_chunk=kc,
+        binning="flat"))
+    b = tlf.bin_splats_flat(p, cfg, cfg.flat_capacity, kc=kc,
+                            max_chunks=cfg.flat_max_chunks)
+    bd = tl.bin_splats(p, cfg.replace(binning="dense"),
+                       max(1, int(b.count.max())))
+    assert int(b.n_dropped) == 0 and int(bd.n_dropped) == 0
+    assert torch.equal(b.count, bd.count)
+    rows, tp = b.rows.clone(), bd.tile_params.clone()
+    if nan_splat is not None:
+        rows[b.ids == nan_splat, tl.FIELD_PX] = float("nan")
+        tp[bd.ids == nan_splat, tl.FIELD_PX] = float("nan")
+    return p, cfg, b, rows, bd, tp, rd.pad_ref_chw(ref, cfg, dev)[0]
+
+
+@pytest.mark.parametrize("case", ["200/32/16", "300/32/32", "200/64/32",
+                                  "300/64/16/sat", "carry", "nan"])
+def test_flat_kernels_equal_dense_bit_for_bit(dev, monkeypatch, case):
+    """Kernels 10 and 11 on warp patches against the dense kernels 6/7 and
+    8/9, which keep the one-block-per-tile chunk walk over the same rows in
+    the same order: colour, T, the per-pair moments matched by (tile, slot)
+    and the (9, n) splat sums, bit for bit; kernel 11 repeats. The NaN case
+    (splat 40 at a NaN position in both layouts) holds where no 32-row pass
+    of its tiles saturates, the condition under which the chunk walk's
+    block-wide exits stop nowhere (render_flat.cu)."""
+    parts = case.split("/")
+    if "sat" in parts:
+        monkeypatch.setattr(rd, "SAT_WALK_THRESHOLD", 1)
+    n, tile_h, kc = ((int(parts[0]), int(parts[1]), int(parts[2]))
+                     if parts[0].isdigit() else (130, 32, 32))
+    nan = 40 if case == "nan" else None
+    p, cfg, b, rows, bd, tp, ref = flat_and_dense(dev, n + kc, n, tile_h, kc,
+                                                  nan)
+    mc = cfg.flat_max_chunks
+    c_k, t_k = rf._fwd_flat_cuda(rows, b.start, b.count, cfg, kc, mc)
+    c_d, t_d = rdn._fwd_dense_cuda(tp, bd.count, cfg)
+    if case == "carry":
+        cin, tin = 0.5 * c_d, (0.5 * t_d).contiguous()
+        gc = random_cotangent(dev, cfg, n)
+    else:
+        cin, tin = rd.identity_carry(cfg, dev)
+        gc = (c_d - ref).contiguous()
+    args = (c_d, gc, cin, tin, n, cfg)
+    fields = tl.packed_fields(p, cfg.splat_bounds)
+    m_k, g_k = rf._bwd_flat_cuda(rows, b.ids, b.start, b.count, *args, kc,
+                                 mc, fields=fields)
+    m_k2, g_k2 = rf._bwd_flat_cuda(rows, b.ids, b.start, b.count, *args, kc,
+                                   mc, fields=fields)
+    part_d, g_d = rdn._bwd_dense_cuda(tp, bd.ids, bd.count, *args)
+    torch.cuda.synchronize()
+    k = torch.arange(tp.shape[1], device=dev)
+    listed = k[None] < b.count[:, None]
+    pair = (b.start[:, None] + k[None]).long()[listed]
+    assert_same_bits(c_k, c_d)
+    assert_same_bits(t_k, t_d)
+    assert_same_bits(m_k[pair], part_d[listed])
+    assert_same_bits(g_k, g_d)
+    assert torch.equal(m_k.nan_to_num(), m_k2.nan_to_num())
+    assert torch.equal(g_k.nan_to_num(), g_k2.nan_to_num())
+    unlisted = torch.ones(m_k.shape[0], dtype=torch.bool, device=dev)
+    unlisted[pair] = False
+    assert bool((m_k[unlisted] == 0).all())
+    if nan is not None:
+        assert torch.isnan(g_k).any() and torch.isfinite(c_k).any()
+        tiles = rd.to_tiles(t_d[None], cfg)[0].reshape(
+            cfg.n_tiles_x * cfg.n_tiles_y, -1, 32 * cfg.tile_w)
+        assert bool((tiles >= cfg.min_throughput).any(dim=-1).all())
+    else:
+        assert torch.isfinite(g_k).all()
+
+
+def test_flat_partials_never_read_unwritten(dev):
+    """Kernel 11's partial scratch is not zeroed: a buffer pre-filled with
+    NaN gives the same moments bit for bit."""
+    cfg, b, ref = flat_inputs(dev, 11, 300, 64, 32)
+    kc, mc = cfg.flat_chunk, cfg.flat_max_chunks
+    c, _ = rf._fwd_flat_cuda(b.rows, b.start, b.count, cfg, kc, mc)
+    cin, tin = rd.identity_carry(cfg, dev)
+    args = (b.rows, b.ids, b.start, b.count, c, (c - ref).contiguous(), cin,
+            tin, 300, cfg, kc, mc)
+    fields = flat_fields(dev, 11, 300, cfg)
+    filled = torch.full(rf.partial_shape(cfg, b.rows.shape[0]),
+                        float("nan"), device=dev)
+    m_a, g_a = rf._bwd_flat_cuda(*args, fields=fields, partial=filled)
+    m_b, g_b = rf._bwd_flat_cuda(*args, fields=fields)
+    torch.cuda.synchronize()
+    assert torch.isfinite(m_a).all() and torch.isfinite(g_a).all()
+    assert torch.equal(m_a, m_b) and torch.equal(g_a, g_b)
+
+
+@pytest.mark.parametrize("tile_h", [32, 64])
+def test_flat_survivors_are_the_plain_mask(dev, tile_h):
+    """Each warp's survivors in kernels 10 and 11 are listed_cover_mask's
+    slots of the flat runs, patch by patch; each walks at most them."""
+    cfg, b, ref = flat_inputs(dev, 3 + tile_h, 300, tile_h, 32)
+    kc, mc = cfg.flat_chunk, cfg.flat_max_chunks
+    mask = rr.listed_cover_mask(flat_listed_rows(b, dev), b.count, cfg,
+                                rr.patch_rows())
+    want = mask.sum(dim=-1).reshape(-1).to(torch.int32)
+    got = [torch.full((want.numel(), 2), -1, dtype=torch.int32, device=dev)
+           for _ in range(2)]
+    c, _ = rf._fwd_flat_cuda(b.rows, b.start, b.count, cfg, kc, mc,
+                             walked=got[0])
+    cin, tin = rd.identity_carry(cfg, dev)
+    rf._bwd_flat_cuda(b.rows, b.ids, b.start, b.count, c,
+                      (c - ref).contiguous(), cin, tin, 300, cfg, kc, mc,
+                      fields=flat_fields(dev, 3 + tile_h, 300, cfg),
+                      walked=got[1])
+    torch.cuda.synchronize()
+    for walked in got:
+        assert torch.equal(walked[:, 0], want)
+        assert bool((walked[:, 1] <= walked[:, 0]).all())
+        assert bool((walked[:, 1] >= 0).all())
+
+
+def test_flat_boxes_are_the_binnings(dev):
+    """Kernel 11's splat sum searches each splat's tile box, computed in the
+    kernel from the packed fields: it equals tiles._bbox_and_quad's, empty
+    for offscreen splats."""
+    cfg, b, ref = flat_inputs(dev, 21, 300, 32, 32)
+    p, _ = flat_params(dev, 21, 300)
+    p.pos[:40] += torch.tensor([4.0 * W, -3.0 * H], device=dev)
+    fields = tl.packed_fields(p, cfg.splat_bounds)
+    kc, mc = cfg.flat_chunk, cfg.flat_max_chunks
+    cin, tin = rd.identity_carry(cfg, dev)
+    boxes = torch.full((300, 4), -7, dtype=torch.int32, device=dev)
+    rf._bwd_flat_cuda(b.rows, b.ids, b.start, b.count, cin, cin, cin, tin,
+                      300, cfg, kc, mc, fields=fields, boxes=boxes)
+    torch.cuda.synchronize()
+    (tx0, tx1, ty0, ty1, off), _ = tl._bbox_and_quad(p, cfg)
+    on = ~off
+    assert int(off.sum()) >= 40
+    want = torch.stack([tx0, tx1, ty0, ty1], dim=1).to(torch.int32)
+    assert torch.equal(boxes[on], want[on])
+    assert bool((boxes[off, 2] > boxes[off, 3]).all())
 
 
 def random_cotangent(dev, cfg, seed):
