@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build the CUDA kernels,
 hold each against its plain PyTorch version (the warp-patch kernels also
-against a one-block-per-tile walk of the same pairs, bit for bit: kernels 1
-and 2 against kernel 12 at full width, kernels 10 and 11 against the dense
-kernels 6/7 and 8/9, each with its survivors against the plain cull mask),
+against the one-block-per-tile chunk walk of the dense kernels 6/7 and 8/9
+over the same pairs, bit for bit: the L2 kernels 1, 4/5 and 12 against 6/7,
+then gC = C - ref, then 8/9, kernel 2 against 6/7, kernels 10 and 11
+against 6/7 and 8/9, each with its survivors against the plain cull mask),
 then drive the fitting paths through them with the CLI and check their MSE
 trajectories:
 
@@ -36,6 +37,7 @@ trajectories:
   step), then the CLI's ``--recover`` without a fault.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profiles   # only the fused L2 steps' profiles
 
 Prints one line per phase; the line before the last is the kernels' JSON
 report and the last is {"ok": true, "device": {...}}. A kernel's
@@ -259,9 +261,8 @@ def same_bits(got, want) -> bool:
 
 
 def full_width_window(table, ids, count, ref_chw, n, cfg):
-    """The arguments of kernel 12 at W = n_pad: the one-block-per-tile L2
-    step, kernel 1's design before its warp patches, on kernel 1's
-    inputs."""
+    """The arguments of kernel 12 at W = n_pad, where it computes kernel 1's
+    function with kernel 1's sums, on kernel 1's inputs."""
     from gs2d_tpu_torch.ops import render_window as rw
     from gs2d_tpu_torch.ops import tiles as tl
 
@@ -271,42 +272,82 @@ def full_width_window(table, ids, count, ref_chw, n, cfg):
     return (table, ids, count, bases, ref_chw, n, cfg, rw._n_pad(n))
 
 
-def patch_vs_tile(name, table, ids, count, ref_chw, n, cfg) -> None:
-    """Kernel 1 on warp patches against kernel 12 at W = n_pad (the
-    one-block-per-tile design): colour and moments bit for bit (equal NaN
-    masks where a splat is not finite); kernel 2's colour against kernel
-    1's, bit for bit."""
+def gathered_rows(table, ids):
+    """The dense (n_tiles, K, 16) rows of a resident binning: the table
+    rows its ids name (the pad row past each tile's count)."""
+    from gs2d_tpu_torch.ops import tiles as tl
+
+    return table.reshape(-1, tl.N_FIELDS)[ids.long()].contiguous()
+
+
+def chain(tp, ids, count, ref_chw, n, cfg):
+    """The in-call reference of the L2 kernels 1, 4/5 and 12: the dense
+    kernels 6/7 and 8/9, which keep the one-block-per-tile chunk walk
+    (tile_walk.cuh), over the rows tp (n_tiles, K, 16): the forward, gC = C
+    - ref, the replay from the identity carry. Returns (colour (3, Hp, Wp),
+    T (Hp, Wp), slot partials (n_tiles, K, 9), moments (9, n))."""
+    from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.ops import render_dense as rdn
+
+    color, trans = rdn._fwd_dense_cuda(tp, count, cfg)
+    cin, tin = rd.identity_carry(cfg, tp.device)
+    part, g9 = rdn._bwd_dense_cuda(tp, ids, count, color,
+                                   (color - ref_chw[0]).contiguous(), cin,
+                                   tin, n, cfg)
+    return color, trans, part, g9
+
+
+def slot_sums(partial, count, cfg):
+    """The per-(tile, slot) sums of a warp-patch L2 kernel's partials."""
+    from gs2d_tpu_torch.ops import render_resident as rr
+
+    return rr.patch_slot_sums(partial, count, rr.patch_passes(cfg))
+
+
+def dense_vs_chain(tp, ids, count, ref_chw, n, cfg) -> bool:
+    """Kernel 4/5 against the chunk walk on the same rows, bit for bit:
+    colour, slot partials and moments (equal NaN masks)."""
+    from gs2d_tpu_torch.ops import render_dense as rdn
+
+    c_ch, _, part_ch, g_ch = chain(tp, ids, count, ref_chw, n, cfg)
+    c_d, part_d, g_d = rdn._l2_dense_cuda(tp, ids, count, ref_chw, n, cfg)
+    return (same_bits(c_d, c_ch) and same_bits(g_d, g_ch)
+            and same_bits(slot_sums(part_d, count, cfg), part_ch))
+
+
+def vs_chain(name, table, ids, count, ref_chw, n, cfg) -> None:
+    """Kernels 1, 4/5 (on the table rows the ids name) and 12 at W = n_pad
+    against the chunk walk (chain) bit for bit: colour and moments (equal
+    NaN masks where a splat is not finite), 4/5's slot partials, kernel
+    2's colour against kernel 1's and its T against the chain's."""
     from gs2d_tpu_torch.ops import render_resident as rr
     from gs2d_tpu_torch.ops import render_window as rw
 
+    tp = gathered_rows(table, ids)
+    c_ch, t_ch, _, g_ch = chain(tp, ids, count, ref_chw, n, cfg)
+    c_k, g_k = rr._l2_resident_cuda(table, ids, count, ref_chw, n, cfg)
     c_w, g_w = rw._l2_window_cuda(*full_width_window(table, ids, count,
                                                      ref_chw, n, cfg))
-    c_k, g_k = rr._l2_resident_cuda(table, ids, count, ref_chw, n, cfg)
-    f_k, _ = rr._fwd_resident_cuda(table, ids, count, cfg)
-    if not (same_bits(c_k, c_w) and same_bits(g_k, g_w)
-            and same_bits(f_k, c_k)):
-        raise AssertionError(f"{name}: kernel 1 or 2 differs from the "
-                             "one-block-per-tile kernel")
-    log(f"  {name}: kernel 1 equals kernel 12 at W = n_pad bit for bit "
-        f"(colour, moments; NaN in {int(torch.isnan(g_w).sum())} moments), "
-        "kernel 2's colour equals kernel 1's")
+    f_k, t_k = rr._fwd_resident_cuda(table, ids, count, cfg)
+    same = {"kernel 1": same_bits(c_k[0], c_ch) and same_bits(g_k[:9, :n],
+                                                               g_ch),
+            "kernel 12": same_bits(c_w[0], c_ch) and same_bits(g_w[:9, :n],
+                                                               g_ch),
+            "kernels 4/5": dense_vs_chain(tp, ids, count, ref_chw, n, cfg),
+            "kernel 2": same_bits(f_k, c_k) and same_bits(t_k[0], t_ch)}
+    if not all(same.values()):
+        raise AssertionError(f"{name}: differs from the chunk walk: {same}")
+    log(f"  {name}: kernels 1, 4/5 and 12 (W = n_pad) equal the chunk walk "
+        f"(kernels 6/7, gC, then 8/9) bit for bit (colour, moments, 4/5's "
+        f"slot partials; NaN in {int(torch.isnan(g_ch).sum())} moments), "
+        "kernel 2's colour equals kernel 1's and its T the chain's")
 
 
-def survivor_counts(table, ids, count, ref_chw, n, cfg, dev) -> str:
-    """Kernels 1 and 2's survivors per patch against the plain cull mask
-    (patch_cover_mask), patch by patch; returns the totals: (patch, slot)
-    steps of the one-block-per-tile walk, survivors, and survivors walked
-    before the saturation exit."""
-    from gs2d_tpu_torch.ops import render_resident as rr
-
-    mask = rr.patch_cover_mask(table, ids, count, cfg, rr.patch_rows())
-    want = mask.sum(dim=-1).reshape(-1).to(torch.int32)
+def patch_survivors(launches, want, dev) -> dict:
+    """Each launch's survivors per patch (written to its ``walked``)
+    against ``want``, patch by patch; returns {name: survivors walked}."""
     walked = {}
-    for kk, launch in (
-            ("l2_resident", lambda w: rr._l2_resident_cuda(
-                table, ids, count, ref_chw, n, cfg, walked=w)),
-            ("fwd_resident", lambda w: rr._fwd_resident_cuda(
-                table, ids, count, cfg, walked=w))):
+    for kk, launch in launches.items():
         got = torch.full((want.numel(), 2), -1, dtype=torch.int32,
                          device=dev)
         launch(got)
@@ -315,25 +356,52 @@ def survivor_counts(table, ids, count, ref_chw, n, cfg, dev) -> str:
             raise AssertionError(f"{kk}: survivors differ from the plain "
                                  "cull mask")
         walked[kk] = int(got[:, 1].sum())
-    if walked["l2_resident"] != walked["fwd_resident"]:
-        raise AssertionError("kernels 1 and 2 walk different survivors")
+    if len(set(walked.values())) != 1:
+        raise AssertionError(f"the kernels walk different survivors: "
+                             f"{walked}")
+    return walked
+
+
+def survivor_counts(table, ids, count, ref_chw, n, cfg, dev) -> str:
+    """Kernels 1, 2, 4/5 (on the gathered rows) and 12 (at W = n_pad):
+    their survivors per patch against the plain cull mask
+    (patch_cover_mask), patch by patch; returns the totals: (patch, slot)
+    steps of the one-block-per-tile walk, survivors, and survivors walked
+    before the saturation exit."""
+    from gs2d_tpu_torch.ops import render_dense as rdn
+    from gs2d_tpu_torch.ops import render_resident as rr
+    from gs2d_tpu_torch.ops import render_window as rw
+
+    mask = rr.patch_cover_mask(table, ids, count, cfg, rr.patch_rows())
+    want = mask.sum(dim=-1).reshape(-1).to(torch.int32)
+    tp = gathered_rows(table, ids)
+    window = full_width_window(table, ids, count, ref_chw, n, cfg)
+    walked = patch_survivors({
+        "kernel 1": lambda w: rr._l2_resident_cuda(
+            table, ids, count, ref_chw, n, cfg, walked=w),
+        "kernel 2": lambda w: rr._fwd_resident_cuda(
+            table, ids, count, cfg, walked=w),
+        "kernels 4/5": lambda w: rdn._l2_dense_cuda(
+            tp, ids, count, ref_chw, n, cfg, walked=w),
+        "kernel 12": lambda w: rw._l2_window_cuda(*window, walked=w)},
+        want, dev)
     steps = int(count.sum()) * mask.shape[1]
     return (f"(patch, slot) steps {steps}, survivors {int(want.sum())} "
-            f"(plain mask {int(mask.sum())}, equal patch by patch), walked "
-            f"before the saturation exit {walked['l2_resident']}")
+            f"(plain mask {int(mask.sum())}, equal patch by patch in "
+            f"{', '.join(walked)}), walked before the saturation exit "
+            f"{walked['kernel 1']}")
 
 
 def compare_case(name, params, ref, cfg, dev, timed: bool,
                  repeat_plain: bool = False):
-    """Kernels 1 and 2 vs their plain versions on one population, and vs
-    the one-block-per-tile design (patch_vs_tile). ``repeat_plain`` runs
-    kernel 1's plain version twice: the two must be equal, so the error
-    ratio repeats. Returns ({kernel: max_abs_err}, {kernel: times} or None;
-    a timed case also times kernel 12 at W = n_pad, under a key with a
-    comma, which the kernels' line does not read)."""
+    """Kernels 1 and 2 vs their plain versions on one population, and
+    kernels 1, 2, 4/5 and 12 vs the chunk walk (vs_chain). ``repeat_plain``
+    runs kernel 1's plain version twice: the two must be equal, so the
+    error ratio repeats. Returns ({kernel: max_abs_err}, {kernel: times} or
+    None; a timed case also times the chunk walk, under a key with a comma,
+    which the kernels' line does not read)."""
     from gs2d_tpu_torch.ops import render as rd
     from gs2d_tpu_torch.ops import render_resident as rr
-    from gs2d_tpu_torch.ops import render_window as rw
     from gs2d_tpu_torch.ops import tiles as tl
     from gs2d_tpu_torch.params import FIELDS
 
@@ -385,7 +453,7 @@ def compare_case(name, params, ref, cfg, dev, timed: bool,
     if col_err > COLOR_ATOL or bool((mom_err > mom_tol).any()) \
             or fwd_err > COLOR_ATOL:
         raise AssertionError(f"{name}: kernel disagrees with plain version")
-    patch_vs_tile(name, table, ids, b.count, ref_chw, n, cfg)
+    vs_chain(name, table, ids, b.count, ref_chw, n, cfg)
     errs = {"l2_resident": max(col_err, grad_err), "fwd_resident": fwd_err}
     if not timed:
         return errs, None
@@ -395,11 +463,11 @@ def compare_case(name, params, ref, cfg, dev, timed: bool,
     base = nbytes(table, ids, b.count)
     l2_bytes = base + nbytes(ref_chw, c_k, g_k)
     fwd_bytes = base + nbytes(f_k, t_k)
-    window = full_width_window(table, ids, b.count, ref_chw, n, cfg)
+    tp = gathered_rows(table, ids)
     return errs, {
-        "l2_window at W = n_pad, one block per tile": timed_entry(
-            lambda: rw._l2_window_cuda(*window), l2_plain_ms, "l2", work,
-            cfg, l2_bytes),
+        "reference, kernels 6/7 then 8/9": timed_entry(
+            lambda: chain(tp, ids, b.count, ref_chw, n, cfg), l2_plain_ms,
+            "l2", work, cfg, l2_bytes),
         "l2_resident": timed_entry(
             lambda: rr._l2_resident_cuda(table, ids, b.count, ref_chw, n,
                                          cfg),
@@ -412,10 +480,9 @@ def compare_case(name, params, ref, cfg, dev, timed: bool,
 
 def compare_nan_case(dev) -> None:
     """A population with one non-finite splat (splat 40's position NaN in
-    the table after binning): kernels 1 and 2 against the one-block-per-
-    tile design bit for bit, NaN masks included (patch_vs_tile). The plain
-    versions are not compared: their outputs are NaN where the kernels'
-    are."""
+    the table after binning): kernels 1, 2, 4/5 and 12 against the chunk
+    walk bit for bit, NaN masks included (vs_chain). The plain versions are
+    not compared: their outputs are NaN where the kernels' are."""
     from gs2d_tpu_torch.config import SplatConfig
     from gs2d_tpu_torch.io.image import load_image
     from gs2d_tpu_torch.ops import render as rd
@@ -431,7 +498,7 @@ def compare_nan_case(dev) -> None:
     b = tl.bin_splats(p, cfg, 128, ids_only=True)
     table = rr.resident_table(p, cfg)
     table.reshape(-1, tl.N_FIELDS)[40, tl.FIELD_PX] = float("nan")
-    patch_vs_tile("random N=130, splat 40 at a NaN position", table,
+    vs_chain("random N=130, splat 40 at a NaN position", table,
                   rr._remap_ids(b, 130), b.count, rd.pad_ref_chw(ref, cfg, dev),
                   130, cfg)
 
@@ -775,13 +842,14 @@ def compare_bwd_resident_case(name, params, ref, cfg, dev, carry=None,
 
 
 def compare_dense_case(name, params, ref, cfg, dev, carry=None,
-                       g_color=None, timed=()):
+                       g_color=None, timed=(), smi: str = ""):
     """The three dense kernels vs their plain versions on one population at
     cfg's K: the forward, the backward under ``g_color`` (3, Hp, Wp; the
     SSIM cotangent of the render when None) from ``carry`` (identity when
-    None), run twice and bit for bit, and the fused L2 step. Returns
-    ({kernel: max_abs_err}, {kernel: times} for the kernels in
-    ``timed``)."""
+    None), run twice and bit for bit, and the fused L2 step, which is also
+    held to the chunk walk (dense_vs_chain). Returns ({kernel:
+    max_abs_err}, {kernel: times} for the kernels in ``timed``; a timed L2
+    step also gets its survivors and its split logged)."""
     from gs2d_tpu_torch.ops import render as rd
     from gs2d_tpu_torch.ops import render_dense as rdn
     from gs2d_tpu_torch.ops import tiles as tl
@@ -805,7 +873,9 @@ def compare_dense_case(name, params, ref, cfg, dev, carry=None,
         lambda: rdn._bwd_dense_plain(*bwd_in))
     l2_in = (tp, ids, count, ref_chw, n, cfg)
     l2_k = rdn._l2_dense_cuda(*l2_in)
+    l2_k = (l2_k[0], slot_sums(l2_k[1], count, cfg), l2_k[2])
     l2_p, l2_plain_ms = timed_call(lambda: rdn._l2_dense_plain(*l2_in))
+    chained = dense_vs_chain(*l2_in)
     torch.cuda.synchronize()
     require_finite(name, color=c_k, T=t_k, moments=m_k, l2_color=l2_k[0],
                    l2_moments=l2_k[2])
@@ -826,13 +896,19 @@ def compare_dense_case(name, params, ref, cfg, dev, carry=None,
         f"err {fwd_err:.3g} | bwd: moment err/tol {ratios['bwd']:.3g}, grad "
         f"err {bwd_err:.3g} of {bwd_scale:.3g}, repeats bit for bit | l2: "
         f"color err {l2_col:.3g}, moment err/tol {ratios['l2']:.3g}, grad "
-        f"err {l2_err:.3g} of {l2_scale:.3g}")
+        f"err {l2_err:.3g} of {l2_scale:.3g}; equals the chunk walk (6/7, "
+        f"gC, then 8/9) bit for bit: {chained}")
     if max(fwd_err, l2_col) > COLOR_ATOL or max(ratios.values()) > 1.0:
         raise AssertionError(f"{name}: kernel disagrees with plain version")
+    if not chained:
+        raise AssertionError(f"{name}: kernel 4/5 differs from the chunk "
+                             "walk")
     errs = {"fwd_dense": fwd_err, "bwd_dense": bwd_err,
             "l2_dense": max(l2_col, l2_err)}
     if not timed:
         return errs, {}
+    if "l2_dense" in timed:
+        dense_l2_report(name, *l2_in, dev, smi)
     work = live_work(tp, count, cfg)
     base = nbytes(tp, ids, count)
     entries = {
@@ -847,6 +923,43 @@ def compare_dense_case(name, params, ref, cfg, dev, carry=None,
             base + nbytes(ref_chw, l2_k[0], l2_k[2])),
     }
     return errs, {kk: entries[kk]() for kk in timed}
+
+
+# Kernels 4/5 and 12's two kernels (csrc/render_dense.cu,
+# csrc/render_resident.cu), for their time split.
+L2_DENSE_PARTS = ("l2_dense_kernel", "patch_sum_kernel")
+L2_WINDOW_PARTS = ("l2_resident_kernel", "patch_sum_kernel")
+
+
+def log_split(what: str, split: dict, parts, smi: str) -> None:
+    log(f"  {what} split (device ms a launch, torch.profiler, "
+        f"{split['seen']} of 10 calls' launches seen): patch kernel "
+        f"{split[parts[0]]:.4f}, patch sum {split[parts[1]]:.4f}; CUDA "
+        f"events {split['events']:.4f} ms a call [{smi}]")
+
+
+def dense_l2_report(name, tp, ids, count, ref_chw, n, cfg, dev,
+                    smi: str) -> None:
+    """Kernel 4/5's survivors per patch against the plain cull mask of the
+    dense rows (listed_cover_mask), its time split into the patch kernel
+    and the patch sum, and the chunk walk's time on the same inputs."""
+    from gs2d_tpu_torch.ops import render_dense as rdn
+    from gs2d_tpu_torch.ops import render_resident as rr
+
+    mask = rr.listed_cover_mask(tp, count, cfg, rr.patch_rows())
+    want = mask.sum(dim=-1).reshape(-1).to(torch.int32)
+    walked = patch_survivors({"kernels 4/5": lambda w: rdn._l2_dense_cuda(
+        tp, ids, count, ref_chw, n, cfg, walked=w)}, want, dev)
+    log(f"  {name}: (patch, slot) steps {int(count.sum()) * mask.shape[1]}, "
+        f"survivors {int(want.sum())} (plain mask, equal patch by patch in "
+        f"kernels 4/5), walked before the saturation exit "
+        f"{walked['kernels 4/5']}")
+    split = kernel_split(lambda: rdn._l2_dense_cuda(tp, ids, count, ref_chw,
+                                                    n, cfg), L2_DENSE_PARTS)
+    log_split(f"kernels 4/5 at {name}", split, L2_DENSE_PARTS, smi)
+    log(f"  the chunk walk (6/7, gC, then 8/9) on the same inputs: "
+        f"{cuda_ms(lambda: chain(tp, ids, count, ref_chw, n, cfg), 20):.4f} "
+        f"ms [{smi}]")
 
 
 def compare_new(dev, smi: str):
@@ -938,11 +1051,35 @@ def compare_new(dev, smi: str):
         cfg_main, p_init)).replace(binning="dense")
     e, t = compare_dense_case(
         f"pcg3d init (L2 path), K={cfg_l2.max_splats_per_tile}", p_init, ref,
-        cfg_l2, dev, timed=("l2_dense",))
+        cfg_l2, dev, timed=("l2_dense",), smi=smi)
     add(e)
     times.update(t)
     log_times(times, "at the default fit's init", smi)
     return errs, times
+
+
+def compare_dense_10k(dev, smi: str) -> dict:
+    """Kernel 4/5 at the 10k fit's init on the dense binning the
+    ``--binning dense`` fit tunes (K = 1024): against its plain version and
+    the chunk walk, with its survivors and its split. Returns its times."""
+    from gs2d_tpu_torch.config import SplatConfig
+    from gs2d_tpu_torch.io.image import load_image
+    from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.params import init_params
+
+    log("[compare] dense L2 kernels 4/5 at the 10k init vs plain PyTorch "
+        "and the chunk walk")
+    full = load_image(FULL)
+    cfg = SplatConfig(width=full.shape[1], height=full.shape[0],
+                      n_splats=N_10K)
+    p = init_params(cfg, dev)
+    cfg = tl.tune_tile_capacity(p, tl.tune_tile_height(cfg, p)).replace(
+        binning="dense")
+    _, times = compare_dense_case(
+        f"pcg3d init 10240, K={cfg.max_splats_per_tile}", p, full, cfg, dev,
+        timed=("l2_dense",), smi=smi)
+    log_times(times, "at the 10k init", smi)
+    return times
 
 
 def deep_tall(seed: int, n: int, width: int, height: int) -> dict:
@@ -1017,10 +1154,12 @@ def escaped_numpy(ids, n: int, width: int) -> int:
 
 def compare_window(dev, smi: str):
     """Kernel 12 on the window fit's population at K and W tuned as fit
-    tunes them, at three widths: W = n_pad and the tuned W (no escape:
-    colour and moments equal kernel 1's bit for bit; the tuned W timed) and
-    W = 128 (escapes: their count equals a numpy count, the colour kernel
-    1's). Each against its plain version. Returns (max error, times, cfg)."""
+    tunes them, at three widths: W = n_pad (also against the chunk walk,
+    vs_chain) and the tuned W (no escape: colour and moments equal kernel
+    1's bit for bit; the tuned W timed, split, and its survivors against
+    the plain cull mask) and W = 128 (escapes: their count equals a numpy
+    count, the colour kernel 1's). Each against its plain version. Returns
+    (max error, times, cfg)."""
     from gs2d_tpu_torch.ops import render as rd
     from gs2d_tpu_torch.ops import render_resident as rr
     from gs2d_tpu_torch.ops import render_window as rw
@@ -1039,6 +1178,7 @@ def compare_window(dev, smi: str):
     ids = rr._remap_ids(b, n)
     ref_chw = rd.pad_ref_chw(full, cfg, dev)
     c_r, g_r = rr._l2_resident_cuda(table, ids, b.count, ref_chw, n, cfg)
+    vs_chain(f"window init, K={k}", table, ids, b.count, ref_chw, n, cfg)
     err, times = 0.0, {}
     fields = rr._table_fields(table, n)
     for label, width in (("n_pad", rw._n_pad(n)), ("tuned", tuned),
@@ -1071,6 +1211,22 @@ def compare_window(dev, smi: str):
                                  "version")
         err = max(err, col_err, g_err)
         if label == "tuned":
+            mask = rr.patch_cover_mask(table, ids, b.count, cfg,
+                                       rr.patch_rows())
+            want = mask.sum(dim=-1).reshape(-1).to(torch.int32)
+            walked = patch_survivors({
+                "kernel 12": lambda w: rw._l2_window_cuda(*args, walked=w),
+                "kernel 1": lambda w: rr._l2_resident_cuda(
+                    table, ids, b.count, ref_chw, n, cfg, walked=w)},
+                want, dev)
+            log(f"  W = {width}: (patch, slot) steps "
+                f"{int(b.count.sum()) * mask.shape[1]}, survivors "
+                f"{int(want.sum())} (plain mask, equal patch by patch in "
+                f"kernel 12, kernel 1), walked before the saturation exit "
+                f"{walked['kernel 12']}")
+            log_split(f"kernel 12 at W = {width}", kernel_split(
+                lambda: rw._l2_window_cuda(*args), L2_WINDOW_PARTS),
+                L2_WINDOW_PARTS, smi)
             work = live_work(table.reshape(-1, tl.N_FIELDS)[ids.long()],
                              b.count, cfg)
             times["l2_window"] = timed_entry(
@@ -1183,7 +1339,8 @@ def window_fit_phase(dev, smi: str, runs: int = 2):
     statics tuned beforehand, as the CLI does). Gates: the two MSE
     trajectories are equal bit for bit up to the first step with an
     escaped pair, and iterations 0, 1 and 9 are gs2d_tpu's scan path's.
-    Returns (window launches, resident launches)."""
+    Returns (window launches, resident launches, the window fit's median
+    ms a step)."""
     from gs2d_tpu_torch.ops import render_window as rw
     from gs2d_tpu_torch.ops import tiles as tl
     from gs2d_tpu_torch.train.loop import fit
@@ -1227,6 +1384,7 @@ def window_fit_phase(dev, smi: str, runs: int = 2):
         raise AssertionError("window trajectory differs from the resident "
                              "one while nothing escaped")
     check_trajectory(mse, TRAJECTORY_WINDOW)
+    step_ms = {}
     for binning, statics in (("window", tuned),
                              ("resident", tuned.replace(binning="resident",
                                                         window_width=None))):
@@ -1242,7 +1400,8 @@ def window_fit_phase(dev, smi: str, runs: int = 2):
             f"sync): it/s {', '.join(f'{r:.2f}' for r in rates)}; median "
             f"{float(np.median(rates)):.2f} = {median_ms(rates):.3f} "
             f"ms/step [{smi}]")
-    return launches_w, launches_r
+        step_ms[binning] = median_ms(rates)
+    return launches_w, launches_r, step_ms["window"]
 
 
 def run_cli(argv) -> str:
@@ -1400,15 +1559,69 @@ def step_profile(step, state, ref_in, step_ms: float, steps: int = 10) -> str:
     return "\n".join(lines)
 
 
-def profile_fused(cfg, image: str, dev, step_ms: float) -> str:
+def fused_cells(dev) -> dict:
+    """The fused L2 train steps of the fits, as the fits tune them: {label:
+    (cfg, initial state, padded target)}."""
+    from gs2d_tpu_torch.config import SplatConfig
     from gs2d_tpu_torch.io.image import load_image
     from gs2d_tpu_torch.ops import render as rd
-    from gs2d_tpu_torch.train.loop import (init_train_state,
-                                           make_train_step_fused)
+    from gs2d_tpu_torch.ops import render_flat as rf
+    from gs2d_tpu_torch.ops import render_window as rw
+    from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.params import init_params
+    from gs2d_tpu_torch.train.loop import init_train_state
 
-    return step_profile(make_train_step_fused(cfg),
-                        init_train_state(cfg, dev),
-                        rd.pad_ref_chw(load_image(image), cfg, dev), step_ms)
+    cells = {}
+    for image, n in ((MINI, 1024), (FULL, N_10K)):
+        ref = load_image(image)
+        cfg = SplatConfig(width=ref.shape[1], height=ref.shape[0],
+                          n_splats=n)
+        p = init_params(cfg, dev)
+        cfg = tl.tune_tile_height(cfg, p)
+        tuned = tl.tune_tile_capacity(p, cfg)
+        kind = "default" if n == 1024 else "10k"
+        if n == 1024:
+            cells[f"resident L2 train step, {kind} fit"] = tuned
+        else:
+            cells[f"flat L2 train step, {kind} fit"] = rf.tune_flat_config(
+                p, cfg)
+        dense = tuned.replace(binning="dense")
+        cells[f"dense L2 train step, {kind} fit (K="
+              f"{dense.max_splats_per_tile})"] = dense
+    out = {label: (cfg, init_train_state(cfg, dev),
+                   rd.pad_ref_chw(load_image(MINI if cfg.n_splats == 1024
+                                             else FULL), cfg, dev))
+           for label, cfg in cells.items()}
+    state, cfg, full = window_population(dev)
+    cfg = rw.tune_window(state.params,
+                         tl.tune_tile_capacity(state.params, cfg))
+    out[f"window L2 train step (K={cfg.max_splats_per_tile}, "
+        f"W={cfg.window_width})"] = (cfg, state,
+                                     rd.pad_ref_chw(full, cfg, dev))
+    return out
+
+
+def profile_cell(cells: dict, prefix: str, step_ms=None) -> None:
+    """Logs the step profile of the cell whose label starts with
+    ``prefix``, against ``step_ms`` (the timed fits' step), or, when None,
+    against 50 unprofiled steps of the same step function timed here."""
+    from gs2d_tpu_torch.train.loop import make_train_step_fused
+
+    label = next(k for k in cells if k.startswith(prefix))
+    cfg, state, ref_chw = cells[label]
+    step = make_train_step_fused(cfg)
+    if step_ms is None:
+        s = state
+        for _ in range(5):
+            s, _ = step(s, ref_chw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            s, _ = step(s, ref_chw)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / 50
+    log(f"[profile] {label}, 10 steps")
+    log(step_profile(step, state, ref_chw, step_ms))
 
 
 def median_ms(rates) -> float:
@@ -1733,14 +1946,13 @@ KERNELS = (
 )
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
         return 1
     from gs2d_tpu_torch.config import SplatConfig
     from gs2d_tpu_torch.io.image import load_image
     from gs2d_tpu_torch.ops import _build
-    from gs2d_tpu_torch.ops import render_flat as rf
     from gs2d_tpu_torch.ops import tiles as tl
     from gs2d_tpu_torch.params import init_params, params_from_numpy
     from gs2d_tpu_torch.train.loop import init_train_state, make_train_step
@@ -1762,6 +1974,17 @@ def main() -> int:
     for line in ptxas.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
+    if argv == ["--profiles"]:
+        # The step profiles alone, each against 50 unprofiled steps of its
+        # own step function: run from another checkout of the port, this
+        # measures that tree's kernels on the same steps.
+        cells = fused_cells(dev)
+        for label in cells:
+            profile_cell(cells, label)
+        return 0
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
 
     # ---- kernels vs plain versions ------------------------------------------
     ref = load_image(MINI)
@@ -1796,6 +2019,7 @@ def main() -> int:
 
     new_errs, new_times = compare_new(dev, smi)
     flat_errs, flat_times = compare_flat(dev, smi)
+    compare_dense_10k(dev, smi)
     errs.update(new_errs)
     errs.update(flat_errs)
     times.update(new_times)
@@ -1828,8 +2052,8 @@ def main() -> int:
     check_trajectory(mse_l2, {it: (want, TRAJECTORY_RTOL)
                               for it, want in TRAJECTORY.items()})
     check_trajectory(mse_l2, TRAJECTORY_JAX)
-    log("[profile] resident L2 train step, 10 steps")
-    log(profile_fused(cfg_main, MINI, dev, median_ms(rates)))
+    cells = fused_cells(dev)
+    profile_cell(cells, "resident L2 train step", median_ms(rates))
 
     dense = ["--binning", "dense"]
     launches, mse, rates = fit_phase(FULL, N_10K, smi, runs=2)
@@ -1838,24 +2062,18 @@ def main() -> int:
     count(launches)
     check_trajectory(mse, TRAJECTORY_10K)
     log(f"  MSE-255 @ 200: {mse[199]:.4f} (no gate)")
-    log("[fit] the 10k fit with --binning dense, logged")
-    launches, mse_dense = logged_fit([FULL, "--splats", str(N_10K), "--iters",
-                                      "200", "--device", "cuda", *dense])
+    profile_cell(cells, "flat L2 train step", median_ms(rates))
+    launches, mse_dense, rates = fit_phase(FULL, N_10K, smi, dense, runs=1)
     expect_launches("10k dense L2 fit", launches,
                     {"l2_dense": 200, "fwd_dense": 1})
     count(launches)
-    # Kernels 4/5 keep the one-block-per-tile walk and its sums over the
-    # same pairs, so this holds kernels 10 and 11 to it over 200 steps.
+    # Kernels 4/5 and kernels 10 and 11 walk the same pairs in the same
+    # order and sum them in the chunk walk's order, so the two fits agree
+    # over 200 steps.
     if not same_trajectory(mse_dense, mse):
         raise AssertionError("the 10k dense L2 fit differs from the flat one")
     log("  equals the flat L2 trajectory bit for bit (200 of 200 MSEs)")
-    full = load_image(FULL)
-    cfg_10k = SplatConfig(width=full.shape[1], height=full.shape[0],
-                          n_splats=N_10K)
-    p0 = init_params(cfg_10k, dev)
-    cfg_10k = rf.tune_flat_config(p0, tl.tune_tile_height(cfg_10k, p0))
-    log("[profile] flat L2 train step, 10 steps")
-    log(profile_fused(cfg_10k, FULL, dev, median_ms(rates)))
+    profile_cell(cells, "dense L2 train step, 10k fit", median_ms(rates))
 
     ssim = ["--ssim", SSIM]
     launches, mse_ssim, rates = fit_phase(MINI, 1024, smi, ssim, runs=2)
@@ -1881,17 +2099,18 @@ def main() -> int:
                      torch.as_tensor(ref, dtype=torch.float32, device=dev),
                      median_ms(rates)))
 
-    launches, mse, _ = fit_phase(MINI, 1024, smi, dense, runs=2)
+    launches, mse, rates = fit_phase(MINI, 1024, smi, dense, runs=2)
     expect_launches("dense L2 fit", launches,
                     {"l2_dense": 200, "fwd_dense": 1})
     count(launches)
     check_trajectory(mse, {it: (want, TRAJECTORY_RTOL)
                            for it, want in TRAJECTORY.items()})
-    # Kernels 4/5 keep the one-block-per-tile walk and its sums, so this
-    # holds kernel 1's warp patches to that design over 200 steps.
+    # Kernels 4/5 and kernel 1 run one patch walk over the same pairs, read
+    # from the tile_params or through the ids, and the same sums.
     if not same_trajectory(mse, mse_l2):
         raise AssertionError("the dense L2 fit differs from the resident one")
     log("  equals the resident L2 trajectory bit for bit (200 of 200 MSEs)")
+    profile_cell(cells, "dense L2 train step, default fit", median_ms(rates))
 
     launches, mse, _ = fit_phase(MINI, 1024, smi, dense + ssim,
                                  runs=2)
@@ -1909,8 +2128,10 @@ def main() -> int:
     check_trajectory(mse, TRAJECTORY_SSIM_10K)
     log(f"  MSE-255 @ 200: {mse[199]:.4f} (no gate)")
 
-    for launches in window_fit_phase(dev, smi):
+    *window_launches, window_ms = window_fit_phase(dev, smi)
+    for launches in window_launches:
         count(launches)
+    profile_cell(cells, "window L2 train step", window_ms)
 
     log("[fit] the default fit on 64-row tiles, logged")
     launches, mse = logged_fit([MINI, "--splats", "1024", "--iters", "200",
@@ -1948,4 +2169,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

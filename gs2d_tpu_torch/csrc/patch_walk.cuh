@@ -1,5 +1,6 @@
-// Warp-patch walk of one tile's list, shared by the resident kernels 1 and 2
-// (render_resident.cu) and the flat kernels 10 and 11 (render_flat.cu).
+// Warp-patch walk of one tile's list, shared by the resident kernels 1, 2 and
+// 12 (render_resident.cu), the dense kernels 4/5 (render_dense.cu) and the
+// flat kernels 10 and 11 (render_flat.cu).
 //
 // Each warp owns one patch, the 8 rows x 32 columns that warp w of a
 // one-block-per-tile pass owned (lane = column; tile_walk.cuh's pass), and a
@@ -14,10 +15,11 @@
 // interval. Nothing is staged in shared memory, so the list length is not
 // bounded by it.
 //
-// The two layouts differ only in where slot k's row lies, which the walk
-// takes as a row source (a template parameter, no branch in the step):
-// TableRun reads the resident table through the tile's ids, FlatRun the
-// tile's run of pregathered rows.
+// The layouts differ only in where slot k's row lies, which the walk takes
+// as a row source (a template parameter, no branch in the step): TableRun
+// reads the resident table through the tile's ids, DenseRun the dense
+// layout's (n_tiles, K, 16) tile_params, FlatRun the tile's run of
+// pregathered rows.
 //
 // Exactness. A culled slot's step adds exact zeros and leaves (C, T, ga)
 // unchanged, as long as its Gaussian term is finite (a finite,
@@ -117,6 +119,14 @@ struct TableRun {  // the resident table through the (n_tiles, K) ids
   int k_cap;
   __device__ __forceinline__ const float* row(int tile, int k) const {
     return table + (size_t)ids[(size_t)tile * k_cap + k] * kFields;
+  }
+};
+
+struct DenseRun {  // the (n_tiles, K, 16) tile_params: tile t owns rows t * K..
+  const float* rows;
+  int k_cap;
+  __device__ __forceinline__ const float* row(int tile, int k) const {
+    return rows + ((size_t)tile * k_cap + k) * kFields;
   }
 };
 
@@ -370,6 +380,65 @@ __device__ __forceinline__ void bwd_patch(
     }
   }
 }
+
+// The fused L2 step of one patch (kernels 1, 4/5 and 12) over the n listed
+// slots of its tile: the forward composite, its colour written to color
+// (3, Hp, Wp), the cotangent gC = C - ref and gf = sum_ch gC * C formed in
+// registers, then the replay from the identity carry, which writes slot
+// k's partial for this patch into partial (n_tiles, p.k_cap, n_pass,
+// warps per pass, 9), an exact zero where it skips the slot. walked, when
+// set, gets the patch's (survivors, survivors walked).
+template <class Run>
+__device__ __forceinline__ void l2_patch(const Run& run, int n,
+                                         const Patch& c, const RenderArgs& p,
+                                         const PatchGrid& g,
+                                         const float* __restrict__ ref,
+                                         float* __restrict__ color,
+                                         float* __restrict__ partial,
+                                         int* __restrict__ walked) {
+  const int wpp = g.ngrp * g.ncg;
+  float gc_r[kRows], gc_g[kRows], gc_b[kRows], gf[kRows], ga[kRows],
+      T[kRows];
+  int n_survivors, n_walked;
+  // gc_* hold the composite colour until the cotangent is formed.
+  const int n_full = fwd_patch(run, n, c, p, gc_r, gc_g, gc_b, T,
+                               n_survivors, n_walked);
+  const size_t wp = (size_t)p.n_tiles_x * p.tile_w;
+  const size_t plane = (size_t)p.n_tiles_y * p.tile_h * wp;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int yy = c.y0 + r;
+    const size_t i = (size_t)yy * wp + c.xx;
+    const float fr = gc_r[r], fg = gc_g[r], fb = gc_b[r];
+    color[i] = fr;
+    color[plane + i] = fg;
+    color[2 * plane + i] = fb;
+    gc_r[r] = fr - ref[i];
+    gc_g[r] = fg - ref[plane + i];
+    gc_b[r] = fb - ref[2 * plane + i];
+    gf[r] = gc_r[r] * fr + gc_g[r] * fg + gc_b[r] * fb;
+    ga[r] = 0.0f;
+    T[r] = (yy < p.height && c.xx < p.width) ? 1.0f : 0.0f;
+  }
+  const size_t slot_stride = (size_t)g.n_pass * wpp * kMoments;
+  float* part = partial + ((size_t)c.tile * p.k_cap * g.n_pass + c.pass) *
+                              wpp * kMoments +
+                c.warp * kMoments;
+  int replay_survivors, replay_walked;
+  bwd_patch<false>(run, n, n_full, c, p, gc_r, gc_g, gc_b, gf, ga, T, part,
+                   slot_stride, replay_survivors, replay_walked);
+  record_walk(walked, c, g, n_survivors, n_walked);
+}
+
+// Launches the splat-axis sum of l2_patch's partials (patch_sum_kernel,
+// render_resident.cu) into rows 0..8 of grads (row stride n_pad): ids
+// (n_tiles, k_cap), the first count[t] of each row ascending; with bases
+// set, splat i takes its partials only from the tiles t with bases[t] <= i
+// < bases[t] + win (kernel 12's window). Returns cudaGetLastError().
+int launch_patch_sum(const int* ids, const int* count, const int* bases,
+                     int win, const float* partial, float* grads, int n_tiles,
+                     int k_cap, const PatchGrid& g, int n_splats, int n_pad,
+                     cudaStream_t stream);
 
 }  // namespace patch
 }  // namespace gs2d

@@ -6,15 +6,18 @@
 // owns rows [t * K, t * K + count[t]), padded slots hold benign rows. Each
 // TPU kernel pair below differs only in how the TPU fits a long list into
 // SMEM (the chunked member takes K > 256 in 256-row chunks over a grid
-// axis, with saturation exits); here one kernel serves both members with
-// the chunk walk of tile_walk.cuh (chunks of kc <= 256 rows in shared
-// memory, register carries, the exits bitwise-neutral), so it takes any K.
+// axis, with saturation exits); here one kernel serves both members, so it
+// takes any K.
 //
-// Kernels 4/5, gs2d_l2_dense: the fused L2 train step. Composite, form the
-//   cotangent gC = C - ref in registers, replay backward, one 9-moment
-//   partial per (tile, slot), then the tile-order segment sum shared with
-//   kernel 1. Replaces gs2d_tpu/ops/render_pallas.py::_l2_fused_kernel
-//   (pallas_call at :958) and ::_l2_chunked_kernel (:1140).
+// Kernels 4/5, gs2d_l2_dense: the fused L2 train step. Replaces
+//   gs2d_tpu/ops/render_pallas.py::_l2_fused_kernel (pallas_call at :958)
+//   and ::_l2_chunked_kernel (:1140). The warp patches of kernels 1 and 12
+//   (patch_walk.cuh: one warp per 8 x 32 patch, 4 a block, an exact
+//   per-warp cull and saturation exit) over the tile_params (DenseRun):
+//   composite, form the cotangent gC = C - ref in registers, replay, one
+//   9-moment partial per (tile, slot, pass, warp), an exact zero where the
+//   walk skips, then kernel 1's patch sum. Colour and moments equal the
+//   chunk walk's below (6/7, then gC, then 8/9) bit for bit.
 // Kernels 6/7, gs2d_fwd_dense: the forward composite (C, T). Replaces
 //   render_pallas.py::_forward_kernel (:597) and ::_fwd_chunked_kernel
 //   (:576).
@@ -22,6 +25,9 @@
 //   (C_in, T_in) under any upstream cotangent, then the segment sum.
 //   Replaces render_pallas.py::_backward_kernel (:728) and
 //   ::_bwd_chunked_kernel (:681).
+// 6/7 and 8/9 keep the chunk walk of tile_walk.cuh (one block per tile,
+// chunks of kc <= 256 rows in shared memory, register carries, the exits
+// bitwise-neutral), the in-call reference of the warp-patch kernels.
 //
 // No G-cache: the TPU's (K, 32, 128) cache of the masked Gaussian term does
 // not fit a block, so the backward re-derives coverage (the alpha_cache=False
@@ -30,11 +36,12 @@
 // a dense fit repeats the resident fit's numbers. What bounds them on the
 // card: about 58 f32 operations per (pixel, pair) forward and 81 backward
 // (counted in chip_smoke.py) against 64 bytes of row per pair, so they are
-// compute and latency bound; one block per tile leaves most SMs idle at the
-// default 21-tile image (ROADMAP.md queue 1b).
+// compute and latency bound; the one block per tile of 6/7 and 8/9 leaves
+// most SMs idle at the default 21-tile image (ROADMAP.md queue 1b).
 
 #include <cuda_runtime.h>
 
+#include "patch_walk.cuh"
 #include "tile_walk.cuh"
 
 namespace gs2d {
@@ -94,50 +101,18 @@ bwd_dense_kernel(const float* __restrict__ rows, const int* __restrict__ count,
   }
 }
 
-__global__ void __launch_bounds__(walk::kMaxThreads)
+// Kernels 4/5 on warp patches: partial is (n_tiles, K, n_pass, warps per
+// pass, 9), every entry of a slot below count[t] written once; walked, when
+// set, gets (survivors, survivors walked) per patch.
+__global__ void __launch_bounds__(patch::kPatchWarps * 32)
 l2_dense_kernel(const float* __restrict__ rows, const int* __restrict__ count,
                 const float* __restrict__ ref, float* __restrict__ color,
-                float* __restrict__ partial, WalkArgs a) {
-  extern __shared__ float4 smem4[];
-  float* srows = reinterpret_cast<float*>(smem4);     // kc x kFields
-  float* red = srows + (size_t)a.kc * kFields;        // warps x kGroup x 9
-  const RenderArgs& p = a.p;
-  const walk::TileWalk w = walk::tile_walk(count, a);
-  const size_t wp = (size_t)p.n_tiles_x * p.tile_w;
-  const size_t plane = (size_t)p.n_tiles_y * p.tile_h * wp;
-
-  for (int pass = 0; pass < p.tile_h; pass += a.sub_h) {
-    const int y0 = w.y0 + pass;
-    // ---- forward composite; gc_* hold the colour until gC is formed ------
-    float gc_r[kRows], gc_g[kRows], gc_b[kRows], gf[kRows], ga[kRows],
-        T[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      gc_r[r] = gc_g[r] = gc_b[r] = 0.0f;
-      T[r] = (y0 + r < p.height && w.col_in) ? 1.0f : 0.0f;
-    }
-    walk::fwd_pass(rows, w, y0, a, srows, gc_r, gc_g, gc_b, T);
-
-    // ---- cotangent gC = C - ref, gf = sum_ch gC * C ----------------------
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const size_t i = (size_t)(y0 + r) * wp + w.xx;
-      const float fr = gc_r[r], fg = gc_g[r], fb = gc_b[r];
-      color[i] = fr;
-      color[plane + i] = fg;
-      color[2 * plane + i] = fb;
-      gc_r[r] = fr - ref[i];
-      gc_g[r] = fg - ref[plane + i];
-      gc_b[r] = fb - ref[2 * plane + i];
-      gf[r] = gc_r[r] * fr + gc_g[r] * fg + gc_b[r] * fb;
-      ga[r] = 0.0f;
-      T[r] = (y0 + r < p.height && w.col_in) ? 1.0f : 0.0f;
-    }
-
-    // ---- backward replay, per-slot moments -------------------------------
-    walk::bwd_pass(rows, w, y0, a, srows, red, gc_r, gc_g, gc_b, gf, ga, T,
-                   partial);
-  }
+                float* __restrict__ partial, int* __restrict__ walked,
+                RenderArgs p, patch::PatchGrid g) {
+  const patch::Patch c = patch::patch_of(p, g);
+  if (!c.active) return;
+  patch::l2_patch(patch::DenseRun{rows, p.k_cap}, count[c.tile], c, p, g,
+                  ref, color, partial, walked);
 }
 
 // Launch constants of a dense walk over (n_tiles, k_cap, 16) rows in
@@ -213,32 +188,33 @@ int gs2d_bwd_dense(const float* rows, const int* ids, const int* count,
                                   n_splats, n_splats, s);
 }
 
-// Kernels 4/5 and the segment sum. ref and color are (3, Hp, Wp); the rest
-// as gs2d_bwd_dense. Returns cudaGetLastError().
+// Kernels 4/5 and the patch sum. ref and color are (3, Hp, Wp); partial is
+// (n_tiles, K, patches per tile, 9) scratch (patches as in gs2d_l2_resident),
+// read only where the patch kernel wrote it; grads9 (9, n_splats) is
+// written whole; walked is null or (patches, 2). Returns
+// cudaGetLastError().
 int gs2d_l2_dense(const float* rows, const int* ids, const int* count,
                   const float* ref, float* color, float* partial,
-                  float* grads9, int n_splats, int height, int width,
-                  int tile_h, int tile_w, int n_tiles_x, int n_tiles_y,
-                  int k_cap, int kc, int sat_walk, float cutoff_sq,
+                  float* grads9, int* walked, int n_splats, int height,
+                  int width, int tile_h, int tile_w, int n_tiles_x,
+                  int n_tiles_y, int k_cap, float cutoff_sq,
                   float min_throughput, int use_exp_approx, void* stream) {
   WalkArgs a;
-  const int threads = gs2d::dense::dense_args(
-      height, width, tile_h, tile_w, n_tiles_x, n_tiles_y, k_cap, kc,
-      sat_walk, cutoff_sq, min_throughput, use_exp_approx, &a);
-  if (threads == 0) return (int)cudaErrorInvalidValue;
-  const int n_tiles = n_tiles_x * n_tiles_y;
-  const size_t smem = gs2d::walk::bwd_smem_bytes(kc, threads);
-  cudaError_t err = cudaFuncSetAttribute(
-      gs2d::dense::l2_dense_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (gs2d::walk::walk_args(height, width, tile_h, tile_w, n_tiles_x,
+                            n_tiles_y, k_cap, 1, 0, k_cap, cutoff_sq,
+                            min_throughput, use_exp_approx, &a) == 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const gs2d::patch::PatchGrid g = gs2d::patch::patch_grid(a);
   cudaStream_t s = (cudaStream_t)stream;
-  gs2d::dense::l2_dense_kernel<<<n_tiles, threads, smem, s>>>(
-      rows, count, ref, color, partial, a);
-  err = cudaGetLastError();
+  gs2d::dense::l2_dense_kernel<<<gs2d::patch::patch_blocks(a, g),
+                                 gs2d::patch::kPatchWarps * 32, 0, s>>>(
+      rows, count, ref, color, partial, walked, a.p, g);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return gs2d::launch_segment_sum(ids, count, partial, grads9, n_tiles, k_cap,
-                                  n_splats, n_splats, s);
+  return gs2d::patch::launch_patch_sum(ids, count, nullptr, 0, partial,
+                                       grads9, n_tiles_x * n_tiles_y, k_cap,
+                                       g, n_splats, n_splats, s);
 }
 
 }  // extern "C"

@@ -25,36 +25,34 @@
 //   _l2_window_kernel (pallas_call at :228), which expands the per-slot
 //   gradient columns onto a per-tile window [base_t, base_t + W) of the
 //   splat axis and drops ids past it (the escaped pairs, counted by the
-//   wrapper). One block per tile (l2_tile: the one-block-per-tile design
-//   kernel 1 had before its warp patches); the window sum adds splat i's
-//   partials only from the tiles whose window holds i, in tile order. At
-//   W = n_pad it computes kernel 1's function with kernel 1's sums, so the
-//   two agree bit for bit.
+//   wrapper). Kernel 1's patch kernel, then patch_sum_kernel with the
+//   window: splat i adds its partials only from the tiles whose window
+//   holds i, in tile order. At W = n_pad it is kernel 1 bit for bit.
 //
 // What bounds them on the card: about 58 f32 operations per live (pixel,
 // slot) in the forward and 81 in the backward replay (scripts/roofline.py),
 // against under 100 KB of table and ids, so all are compute and latency
-// bound. Each thread keeps kRows pixels of one tile column in registers and
-// reads the splat scalars from shared memory as broadcasts. A tile taller
-// than one pass of kMaxThreads x kRows pixels (64-row tiles at tile_w 128)
-// is walked in passes of sub_h rows.
+// bound. Kernel 3 keeps one block per tile: each thread keeps kRows pixels
+// of one tile column in registers and reads the splat scalars from shared
+// memory as broadcasts; a tile taller than one pass of kMaxThreads x kRows
+// pixels (64-row tiles at tile_w 128) is walked in passes of sub_h rows.
 //
-// Kernels 1 and 2 on warp patches (patch_walk.cuh, shared with the flat
-// kernels 10 and 11). The one-block-per-tile design ran 21 blocks of 16
-// warps on 132 SMs at the default 268x213 workload and had every warp
-// evaluate every listed splat at all 256 of its pixels, about 12x the live
-// evaluations. Now each warp owns one 8 x 32 patch and walks only the slots
-// of the tile's list (read through TableRun) whose splat covers one of its
-// pixels, with a saturation exit, 4 patches a block: the default workload
-// runs 84 blocks. One warp a block (336 blocks) ran kernel 2 slower and
-// kernel 1 no faster (PERF.md). The replay culls again and walks the
-// forward's survivors, its T following the forward's bit for bit. Kernel 1
-// writes one 9-moment partial per (tile, slot, pass, warp), the warp's lane
-// tree as before, and an exact zero for every slot it did not walk;
-// patch_sum_kernel adds them in the order of the one-block-per-tile sums
-// (warps in index order, then passes in order, then tiles in order). So
-// colour, T and the moments equal the one-block-per-tile kernels' (kernel
-// 12 at W = n_pad) bit for bit.
+// Kernels 1, 2 and 12 on warp patches (patch_walk.cuh, shared with the
+// dense kernels 4/5 and the flat kernels 10 and 11). The one-block-per-tile
+// design ran 21 blocks of 16 warps on 132 SMs at the default 268x213
+// workload and had every warp evaluate every listed splat at all 256 of its
+// pixels, about 12x the live evaluations. Now each warp owns one 8 x 32
+// patch and walks only the slots of the tile's list (read through TableRun)
+// whose splat covers one of its pixels, with a saturation exit, 4 patches a
+// block: the default workload runs 84 blocks. One warp a block (336 blocks)
+// ran kernel 2 slower and kernel 1 no faster (PERF.md). The replay culls
+// again and walks the forward's survivors, its T following the forward's
+// bit for bit. Kernels 1 and 12 write one 9-moment partial per (tile, slot,
+// pass, warp), the warp's lane tree as before, and an exact zero for every
+// slot they did not walk; patch_sum_kernel adds them in the order of the
+// one-block-per-tile sums (warps in index order, then passes in order, then
+// tiles in order). So colour, T and the moments equal the one-block-per-tile
+// chunk walk's (the dense kernels 6/7, then gC, then 8/9) bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -100,7 +98,7 @@ __device__ __forceinline__ void gather_rows(const float* __restrict__ table,
 
 // The backward replay of a tile's n listed rows (in shared memory) over the
 // pass whose first rows c names, from the carry (ga, T) under the cotangent
-// (gc, gf): pass 2 of kernel 12 and all of kernel 3. Adds the pass's
+// (gc, gf): kernel 3. Adds the pass's
 // 9-moment sum of each slot to out (K x 9, zeroed by the caller); red holds
 // warps x kChunk x 9 floats.
 __device__ __forceinline__ void replay_moments(
@@ -151,80 +149,6 @@ __device__ __forceinline__ void replay_moments(
   }
 }
 
-// The fused L2 step of one tile (kernel 12): gather the listed rows,
-// then per pass composite, form gC = C - ref and gf in registers, and replay
-// backward into the tile's (K, 9) partial.
-__device__ __forceinline__ void l2_tile(const float* __restrict__ table,
-                                        const int* __restrict__ ids,
-                                        const int* __restrict__ count,
-                                        const float* __restrict__ ref,
-                                        float* __restrict__ color,
-                                        float* __restrict__ partial,
-                                        const RenderArgs& p, int sub_h) {
-  extern __shared__ float smem[];
-  float* rows = smem;                               // K x kFields
-  float* red = smem + (size_t)p.k_cap * kFields;    // warps x kChunk x 9
-  const int n = count[blockIdx.x];
-  gather_rows(table, ids, n, p, rows);
-  __syncthreads();
-
-  const size_t wp = (size_t)p.n_tiles_x * p.tile_w;
-  const size_t plane = (size_t)p.n_tiles_y * p.tile_h * wp;
-  for (int pass = 0; pass < p.tile_h; pass += sub_h) {
-    // ---- forward composite ----------------------------------------------
-    PixelCoords c = pixel_coords(p);
-    c.y0 += pass;
-    float gc_r[kRows], gc_g[kRows], gc_b[kRows], gf[kRows], ga[kRows],
-        T[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const bool inside = (c.y0 + r) < p.height && c.xx < p.width;
-      gc_r[r] = gc_g[r] = gc_b[r] = 0.0f;
-      T[r] = inside ? 1.0f : 0.0f;
-    }
-    for (int k = 0; k < n; ++k) {
-      const Splat s = load_splat(rows + k * kFields);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int yy = c.y0 + r;
-        const bool inside = yy < p.height && c.xx < p.width;
-        // gc_* hold the composite colour until the cotangent is formed.
-        fwd_one(s, c.xx, yy, c.fx, (float)yy + 0.5f, inside, p, gc_r[r],
-                gc_g[r], gc_b[r], T[r]);
-      }
-    }
-
-    // ---- cotangent gC = C - ref, gf = sum_ch gC * C ----------------------
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int yy = c.y0 + r;
-      const size_t i = (size_t)yy * wp + c.xx;
-      const float fr = gc_r[r], fg = gc_g[r], fb = gc_b[r];
-      color[i] = fr;
-      color[plane + i] = fg;
-      color[2 * plane + i] = fb;
-      gc_r[r] = fr - ref[i];
-      gc_g[r] = fg - ref[plane + i];
-      gc_b[r] = fb - ref[2 * plane + i];
-      gf[r] = gc_r[r] * fr + gc_g[r] * fg + gc_b[r] * fb;
-      ga[r] = 0.0f;
-      T[r] = (yy < p.height && c.xx < p.width) ? 1.0f : 0.0f;
-    }
-
-    // ---- backward replay, per-slot moments -------------------------------
-    replay_moments(rows, n, c, p, gc_r, gc_g, gc_b, gf, ga, T, red,
-                   partial + (size_t)blockIdx.x * p.k_cap * kMoments);
-  }
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
-l2_window_kernel(const float* __restrict__ table,
-                 const int* __restrict__ ids, const int* __restrict__ count,
-                 const float* __restrict__ ref, float* __restrict__ color,
-                 float* __restrict__ partial, RenderArgs p, int sub_h) {
-  l2_tile(table, ids, count, ref, color, partial, p, sub_h);
-}
-
 __global__ void __launch_bounds__(kMaxThreads)
 bwd_resident_kernel(const float* __restrict__ table,
                     const int* __restrict__ ids,
@@ -253,16 +177,17 @@ bwd_resident_kernel(const float* __restrict__ table,
   }
 }
 
-// ---- Kernels 1 and 2: warp patches (patch_walk.cuh) -----------------------
+// ---- Kernels 1, 2 and 12: warp patches (patch_walk.cuh) -------------------
 
 using patch::kPatchWarps;
 using patch::Patch;
 using patch::PatchGrid;
 using patch::TableRun;
 
-// Kernel 1 on warp patches. partial is (n_tiles, K, n_pass, warps per pass,
-// 9); every entry of a slot below count[t] is written once. walked, when
-// set, gets (survivors, survivors walked) per patch.
+// Kernel 1 (and kernel 12) on warp patches. partial is (n_tiles, K,
+// n_pass, warps per pass, 9); every entry of a slot below count[t] is
+// written once. walked, when set, gets (survivors, survivors walked) per
+// patch.
 __global__ void __launch_bounds__(kPatchWarps * 32)
 l2_resident_kernel(const float* __restrict__ table,
                    const int* __restrict__ ids, const int* __restrict__ count,
@@ -271,41 +196,8 @@ l2_resident_kernel(const float* __restrict__ table,
                    RenderArgs p, PatchGrid g) {
   const Patch c = patch::patch_of(p, g);
   if (!c.active) return;
-  const int n = count[c.tile];
-  const TableRun run{table, ids, p.k_cap};
-  const int wpp = g.ngrp * g.ncg;
-  float gc_r[kRows], gc_g[kRows], gc_b[kRows], gf[kRows], ga[kRows],
-      T[kRows];
-  int n_survivors, n_walked;
-  // gc_* hold the composite colour until the cotangent is formed.
-  const int n_full = patch::fwd_patch(run, n, c, p, gc_r, gc_g, gc_b, T,
-                                      n_survivors, n_walked);
-  const size_t wp = (size_t)p.n_tiles_x * p.tile_w;
-  const size_t plane = (size_t)p.n_tiles_y * p.tile_h * wp;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int yy = c.y0 + r;
-    const size_t i = (size_t)yy * wp + c.xx;
-    const float fr = gc_r[r], fg = gc_g[r], fb = gc_b[r];
-    color[i] = fr;
-    color[plane + i] = fg;
-    color[2 * plane + i] = fb;
-    gc_r[r] = fr - ref[i];
-    gc_g[r] = fg - ref[plane + i];
-    gc_b[r] = fb - ref[2 * plane + i];
-    gf[r] = gc_r[r] * fr + gc_g[r] * fg + gc_b[r] * fb;
-    ga[r] = 0.0f;
-    T[r] = (yy < p.height && c.xx < p.width) ? 1.0f : 0.0f;
-  }
-  const size_t slot_stride = (size_t)g.n_pass * wpp * kMoments;
-  float* part = partial + ((size_t)c.tile * p.k_cap * g.n_pass + c.pass) *
-                              wpp * kMoments +
-                c.warp * kMoments;
-  int replay_survivors, replay_walked;
-  patch::bwd_patch<false>(run, n, n_full, c, p, gc_r, gc_g, gc_b, gf, ga, T,
-                          part, slot_stride, replay_survivors,
-                          replay_walked);
-  patch::record_walk(walked, c, g, n_survivors, n_walked);
+  patch::l2_patch(TableRun{table, ids, p.k_cap}, count[c.tile], c, p, g, ref,
+                  color, partial, walked);
 }
 
 // Kernel 2 on warp patches: kernel 1's forward, written out as (C, T).
@@ -364,39 +256,17 @@ int launch_segment_sum(const int* ids, const int* count,
   return (int)cudaGetLastError();
 }
 
-// Kernel 12's splat-axis sum: as segment_sum_kernel, but splat i takes its
-// partials only from the tiles t with bases[t] <= i < bases[t] + win, in
-// tile order; an id listed past its tile's window (an escaped pair) adds
-// nothing.
-__global__ void window_sum_kernel(const int* __restrict__ ids,
-                                  const int* __restrict__ count,
-                                  const int* __restrict__ bases,
-                                  const float* __restrict__ partial,
-                                  float* __restrict__ grads16, int n_tiles,
-                                  int k_cap, int win, int n_splats,
-                                  int n_pad) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_splats) return;
-  float acc[kMoments];
-#pragma unroll
-  for (int f = 0; f < kMoments; ++f) acc[f] = 0.0f;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int base = bases[t];
-    if (i < base || i >= base + win) continue;
-    add_run_moments(ids + (size_t)t * k_cap, count[t],
-                    partial + (size_t)t * k_cap * kMoments, i, acc);
-  }
-#pragma unroll
-  for (int f = 0; f < kMoments; ++f) grads16[(size_t)f * n_pad + i] = acc[f];
-}
-
-// Kernel 1's splat-axis sum over its per-(tile, slot, pass, warp) partials,
-// one thread per (splat, moment): for each tile in order that lists splat
-// i, the slot's sum is formed as the one-block-per-tile kernels formed it
-// (per pass, acc = 0 and the warps added in index order; out = 0 and the
-// passes added in order) and added to the splat's sum.
+// The splat-axis sum of the per-(tile, slot, pass, warp) partials of
+// kernels 1, 4/5 and 12, one thread per (splat, moment): for each tile in
+// order that lists splat i, the slot's sum is formed as the
+// one-block-per-tile kernels formed it (per pass, acc = 0 and the warps
+// added in index order; out = 0 and the passes added in order) and added to
+// the splat's sum. With bases set (kernel 12), only the tiles t with
+// bases[t] <= i < bases[t] + win add: an id listed past its tile's window
+// (an escaped pair) adds nothing.
 __global__ void patch_sum_kernel(const int* __restrict__ ids,
                                  const int* __restrict__ count,
+                                 const int* __restrict__ bases, int win,
                                  const float* __restrict__ partial,
                                  float* __restrict__ grads16, int n_tiles,
                                  int k_cap, int n_pass, int wpp, int n_splats,
@@ -407,6 +277,7 @@ __global__ void patch_sum_kernel(const int* __restrict__ ids,
   const size_t slot_stride = (size_t)n_pass * wpp * kMoments;
   float acc = 0.0f;
   for (int t = 0; t < n_tiles; ++t) {
+    if (bases != nullptr && (i < bases[t] || i >= bases[t] + win)) continue;
     const int slot = find_in_run(ids + (size_t)t * k_cap, count[t], i);
     if (slot < 0) continue;
     const float* src = partial + ((size_t)t * k_cap + slot) * slot_stride + f;
@@ -421,6 +292,18 @@ __global__ void patch_sum_kernel(const int* __restrict__ ids,
   grads16[(size_t)f * n_pad + i] = acc;
 }
 
+int patch::launch_patch_sum(const int* ids, const int* count,
+                            const int* bases, int win, const float* partial,
+                            float* grads, int n_tiles, int k_cap,
+                            const PatchGrid& g, int n_splats, int n_pad,
+                            cudaStream_t stream) {
+  const int threads = n_splats * kMoments;
+  patch_sum_kernel<<<(threads + 127) / 128, 128, 0, stream>>>(
+      ids, count, bases, win, partial, grads, n_tiles, k_cap, g.n_pass,
+      g.ngrp * g.ncg, n_splats, n_pad);
+  return (int)cudaGetLastError();
+}
+
 // Launch constants of the resident kernels: the walk's passes for the tile
 // shape (tile_walk.cuh) with the whole K-row list as one chunk, so a.p.k_cap
 // is K. Returns the threads per block of a one-block-per-tile kernel, or 0
@@ -432,6 +315,32 @@ int resident_args(int height, int width, int tile_h, int tile_w,
   return walk::walk_args(height, width, tile_h, tile_w, n_tiles_x, n_tiles_y,
                          k_cap, 1, 0, k_cap, cutoff_sq, min_throughput,
                          use_exp_approx, a);
+}
+
+// Kernel 1's patch kernel, then the patch sum (over the window when bases
+// is set: kernel 12). Returns a cudaError_t.
+int l2_patches(const float* table, const int* ids, const int* count,
+               const int* bases, int win, const float* ref, float* color,
+               float* partial, float* grads16, int* walked, int n_splats,
+               int n_pad, int height, int width, int tile_h, int tile_w,
+               int n_tiles_x, int n_tiles_y, int k_cap, float cutoff_sq,
+               float min_throughput, int use_exp_approx,
+               cudaStream_t stream) {
+  walk::WalkArgs a;
+  if (resident_args(height, width, tile_h, tile_w, n_tiles_x, n_tiles_y,
+                    k_cap, cutoff_sq, min_throughput, use_exp_approx,
+                    &a) == 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const PatchGrid g = patch::patch_grid(a);
+  l2_resident_kernel<<<patch::patch_blocks(a, g), kPatchWarps * 32, 0,
+                       stream>>>(table, ids, count, ref, color, partial,
+                                 walked, a.p, g);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return patch::launch_patch_sum(ids, count, bases, win, partial, grads16,
+                                 n_tiles_x * n_tiles_y, k_cap, g, n_splats,
+                                 n_pad, stream);
 }
 
 }  // namespace gs2d
@@ -464,9 +373,9 @@ const char* gs2d_error_string(int err) {
 // Kernel 1. ref and color are (3, Hp, Wp); partial is (n_tiles, K, patches
 // per tile, 9), patch (pass, warp) at pass * warps per pass + warp, which is
 // the patch's 8-row group * (tile_w / 32) + its column group: every entry
-// the sum reads is written by the kernel; grads16 is (16, n_pad), zeroed by the
-// caller (rows 9..15 and columns >= n_splats are left as they are); walked
-// is null or (patches, 2). Returns cudaGetLastError().
+// the sum reads is written by the kernel; grads16 is (16, n_pad), zeroed by
+// the caller (rows 9..15 and columns >= n_splats are left as they are);
+// walked is null or (patches, 2). Returns cudaGetLastError().
 int gs2d_l2_resident(const float* table, const int* ids, const int* count,
                      const float* ref, float* color, float* partial,
                      float* grads16, int* walked, int n_splats, int n_pad,
@@ -474,53 +383,25 @@ int gs2d_l2_resident(const float* table, const int* ids, const int* count,
                      int n_tiles_x, int n_tiles_y, int k_cap,
                      float cutoff_sq, float min_throughput,
                      int use_exp_approx, void* stream) {
-  walk::WalkArgs a;
-  if (resident_args(height, width, tile_h, tile_w, n_tiles_x, n_tiles_y,
-                    k_cap, cutoff_sq, min_throughput, use_exp_approx,
-                    &a) == 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = (cudaStream_t)stream;
-  const PatchGrid g = patch::patch_grid(a);
-  l2_resident_kernel<<<patch::patch_blocks(a, g), kPatchWarps * 32, 0, s>>>(
-      table, ids, count, ref, color, partial, walked, a.p, g);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int threads = n_splats * kMoments;
-  patch_sum_kernel<<<(threads + 127) / 128, 128, 0, s>>>(
-      ids, count, partial, grads16, n_tiles_x * n_tiles_y, k_cap, g.n_pass,
-      g.ngrp * g.ncg, n_splats, n_pad);
-  return (int)cudaGetLastError();
+  return l2_patches(table, ids, count, nullptr, 0, ref, color, partial,
+                    grads16, walked, n_splats, n_pad, height, width, tile_h,
+                    tile_w, n_tiles_x, n_tiles_y, k_cap, cutoff_sq,
+                    min_throughput, use_exp_approx, (cudaStream_t)stream);
 }
 
-// Kernel 12: kernel 1's arguments but walked, plus bases
-// (n_tiles,), each tile's window start, and win, the window width; partial
-// is (n_tiles, K, 9), zeroed by the caller. Returns cudaGetLastError().
+// Kernel 12: kernel 1's arguments plus bases (n_tiles,), each tile's
+// window start, and win, the window width. Returns cudaGetLastError().
 int gs2d_l2_window(const float* table, const int* ids, const int* count,
                    const int* bases, const float* ref, float* color,
-                   float* partial, float* grads16, int n_splats, int n_pad,
-                   int win, int height, int width, int tile_h, int tile_w,
-                   int n_tiles_x, int n_tiles_y, int k_cap, float cutoff_sq,
-                   float min_throughput, int use_exp_approx, void* stream) {
-  walk::WalkArgs a;
-  const int threads =
-      resident_args(height, width, tile_h, tile_w, n_tiles_x, n_tiles_y,
-                    k_cap, cutoff_sq, min_throughput, use_exp_approx, &a);
-  if (threads == 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = walk::bwd_smem_bytes(a.kc, threads);
-  cudaError_t err = cudaFuncSetAttribute(
-      l2_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  l2_window_kernel<<<n_tiles_x * n_tiles_y, threads, smem, s>>>(
-      table, ids, count, ref, color, partial, a.p, a.sub_h);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  window_sum_kernel<<<(n_splats + 127) / 128, 128, 0, s>>>(
-      ids, count, bases, partial, grads16, n_tiles_x * n_tiles_y, k_cap, win,
-      n_splats, n_pad);
-  return (int)cudaGetLastError();
+                   float* partial, float* grads16, int* walked, int n_splats,
+                   int n_pad, int win, int height, int width, int tile_h,
+                   int tile_w, int n_tiles_x, int n_tiles_y, int k_cap,
+                   float cutoff_sq, float min_throughput, int use_exp_approx,
+                   void* stream) {
+  return l2_patches(table, ids, count, bases, win, ref, color, partial,
+                    grads16, walked, n_splats, n_pad, height, width, tile_h,
+                    tile_w, n_tiles_x, n_tiles_y, k_cap, cutoff_sq,
+                    min_throughput, use_exp_approx, (cudaStream_t)stream);
 }
 
 // Kernel 3 and the segment sum. fin, gc and cin are (3, Hp, Wp), tin

@@ -42,7 +42,7 @@ SIGNATURES = {
     "gs2d_l2_resident": [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P],
     "gs2d_fwd_resident": [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P],
     "gs2d_bwd_resident": [_P] * 9 + [_I] * 9 + [_F, _F, _I, _P],
-    "gs2d_l2_window": [_P] * 8 + [_I] * 10 + [_F, _F, _I, _P],
+    "gs2d_l2_window": [_P] * 9 + [_I] * 10 + [_F, _F, _I, _P],
     "gs2d_rows_per_thread": [],
     "gs2d_max_threads": [],
     "gs2d_max_smem_per_block": [],
@@ -50,7 +50,7 @@ SIGNATURES = {
     "gs2d_bwd_flat": [_P] * 14 + [_I] * 10 + [_F, _F, _F, _I, _P],
     "gs2d_fwd_dense": [_P] * 4 + [_I] * 9 + [_F, _F, _I, _P],
     "gs2d_bwd_dense": [_P] * 9 + [_I] * 10 + [_F, _F, _I, _P],
-    "gs2d_l2_dense": [_P] * 7 + [_I] * 10 + [_F, _F, _I, _P],
+    "gs2d_l2_dense": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
     "gs2d_l2_mxu": [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P],
     "gs2d_fma_threads": [],
     "gs2d_fma_unroll": [],

@@ -6,9 +6,12 @@ whose resident table does not fit.
 The dense binning (``tiles.bin_splats`` without ``ids_only``) pregathers
 each tile's index-ordered list into (n_tiles, K, N_FIELDS) ``tile_params``,
 padded slots holding the benign pad row. The backward writes one 9-moment
-partial per (tile, slot), the layout of the resident kernel 1's partials,
-and a tile-order segment sum adds them onto the splat axis without
-atomics, so runs repeat bit for bit.
+partial per (tile, slot) and a tile-order segment sum adds them onto the
+splat axis without atomics, so runs repeat bit for bit. The fused L2 step
+runs the resident kernel 1's warp patches over the tile_params (one partial
+per (tile, slot, pass, warp), its patch sum): the same pairs in the same
+order with the same sums, so it equals the chunk walk of kernels 6/7 and
+8/9 bit for bit, and a dense fit the resident fit.
 
 Three kernels, each behind a wrapper that dispatches on the tensors'
 device:
@@ -35,6 +38,7 @@ import torch
 
 from gs2d_tpu_torch.config import SplatConfig
 from gs2d_tpu_torch.ops import render as rd
+from gs2d_tpu_torch.ops import render_resident as rr
 from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.ops._build import check, library, on_card, stream
 from gs2d_tpu_torch.params import GaussianParams
@@ -221,21 +225,34 @@ def _bwd_dense_cuda(tile_params, ids, count, fin, gc, cin, tin,
 
 
 def _l2_dense_cuda(tile_params, ids, count, ref_chw, n_splats: int,
-                   cfg: SplatConfig):
+                   cfg: SplatConfig, partial=None, walked=None):
+    """Kernels 4/5 on warp patches: (color (3, Hp, Wp), per-patch partials
+    (n_tiles, K, patches per tile, 9), moments (9, n));
+    render_resident.patch_slot_sums gives the partials per (tile, slot) as
+    the plain twin returns them. ``partial`` replaces the uninitialised
+    scratch (the kernel writes every entry its sum reads); ``walked`` gets
+    each patch's survivor counts (render_resident._walked_ptr)."""
     ref = ref_chw[0]
-    lib, k, kc = _check_inputs(cfg, tile_params, count, ids,
-                               (("ref_chw", ref),))
+    lib, k, _ = _check_inputs(cfg, tile_params, count, ids,
+                              (("ref_chw", ref),))
     dev = tile_params.device
+    shape = rr.patch_partial_shape(cfg, k)
+    if partial is None:
+        partial = torch.empty(shape, dtype=torch.float32, device=dev)
+    elif (tuple(partial.shape) != shape or partial.dtype != torch.float32
+          or not partial.is_contiguous() or partial.device != dev):
+        raise ValueError(f"partial: need contiguous float32 {shape} on "
+                         f"{dev}")
     color = torch.empty_like(ref)
-    partial = torch.zeros((ids.shape[0], k, rd.N_MOMENTS),
-                          dtype=torch.float32, device=dev)
     grads9 = torch.empty((rd.N_MOMENTS, n_splats), dtype=torch.float32,
                          device=dev)
     err = lib.gs2d_l2_dense(
         tile_params.data_ptr(), ids.data_ptr(), count.data_ptr(),
         ref.data_ptr(), color.data_ptr(), partial.data_ptr(),
-        grads9.data_ptr(), n_splats, *_statics(cfg, k, kc),
-        stream(tile_params))
+        grads9.data_ptr(), rr._walked_ptr(walked, cfg, dev), n_splats,
+        cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
+        cfg.n_tiles_y, k, cfg.cutoff_sq, cfg.min_throughput,
+        int(cfg.use_exp_approx), stream(tile_params))
     check(err, "l2_dense kernel launch")
     launches["l2_dense"] += 1
     return color, partial, grads9

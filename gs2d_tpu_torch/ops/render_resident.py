@@ -124,14 +124,12 @@ def _tile_order_sum(partial, ids, n_pad: int):
     return acc
 
 
-def _replay_plain(table, ids_s, count, n_splats: int, cfg: SplatConfig,
-                  coords, gc_rgb, gf, comp, drop=None):
+def _replay_partials(table, ids_s, count, cfg: SplatConfig, coords, gc_rgb,
+                     gf, comp):
     """The backward replay of every tile's list from the carry ``comp`` =
-    (ga, T) under the cotangent planes: moments (16, n_pad). Per-(tile,
-    slot) partials are added onto the splat axis in tile order; padded
-    slots carry exactly zero and land on the dropped row N. Slots where the
-    (n_tiles, K) mask ``drop`` is set add nothing (the window layout's
-    escaped pairs)."""
+    (ga, T) under the cotangent planes: the (n_tiles, max count, 9)
+    per-(tile, slot) partials of the one-block-per-tile walk (padded slots
+    carry exactly zero)."""
     yy, xx, fy, fx, inside = coords
     rows = table.reshape(-1, tl.N_FIELDS)
     n_k = int(count.max()) if count.numel() else 0
@@ -140,32 +138,59 @@ def _replay_plain(table, ids_s, count, n_splats: int, cfg: SplatConfig,
         comp, col = rd._bwd_splat_step(rows[ids_s[:, k].long()], fx, fy, xx,
                                        yy, inside, cfg, comp, gf, gc_rgb)
         cols.append(col)
+    if not cols:
+        return torch.zeros((ids_s.shape[0], 0, rd.N_MOMENTS),
+                           dtype=torch.float32, device=table.device)
+    return torch.stack(cols, dim=1)
+
+
+def _sum_partials(partial, ids_s, n_splats: int, drop=None):
+    """Moments (16, n_pad) of (n_tiles, n_k, 9) per-(tile, slot) partials:
+    added onto the splat axis in tile order, padded slots landing on the
+    dropped row N. Slots where the (n_tiles, K) mask ``drop`` is set add
+    nothing (the window layout's escaped pairs)."""
+    n_k = partial.shape[1]
     n_pad = _n_pad(n_splats)
     grads16 = torch.zeros((rd.N_GRAD_FIELDS, n_pad), dtype=torch.float32,
-                          device=table.device)
-    if cols:
+                          device=partial.device)
+    if n_k:
         ids = ids_s[:, :n_k].long()
         if drop is not None:
             ids = torch.where(drop[:, :n_k], n_pad, ids)
-        acc = _tile_order_sum(torch.stack(cols, dim=1), ids, n_pad)
-        grads16[:9] = acc[:n_pad].T
+        grads16[:9] = _tile_order_sum(partial, ids, n_pad)[:n_pad].T
     return grads16
 
 
-def _l2_resident_plain(table, ids_s, count, ref_chw, n_splats: int,
-                       cfg: SplatConfig, drop=None):
-    """Plain twin of kernel 1: (color (1, 3, Hp, Wp), moments (16, n_pad));
-    ``drop`` as in _replay_plain."""
+def _replay_plain(table, ids_s, count, n_splats: int, cfg: SplatConfig,
+                  coords, gc_rgb, gf, comp):
+    """The backward replay's moments (16, n_pad): _replay_partials summed by
+    _sum_partials."""
+    return _sum_partials(_replay_partials(table, ids_s, count, cfg, coords,
+                                          gc_rgb, gf, comp), ids_s, n_splats)
+
+
+def _l2_resident_partials(table, ids_s, count, ref_chw, cfg: SplatConfig):
+    """Kernel 1's function up to the splat-axis sum, in plain PyTorch:
+    (color (1, 3, Hp, Wp), per-(tile, slot) partials (n_tiles, max count,
+    9)) of the one-block-per-tile walk."""
     coords = rd.tile_coords(cfg, table.device)
     fin_r, fin_g, fin_b, _ = _composite(table, ids_s, count, cfg, coords)
     ref_t = rd.to_tiles(ref_chw[0], cfg)
     gc = (fin_r - ref_t[0], fin_g - ref_t[1], fin_b - ref_t[2])
     gf = gc[0] * fin_r + gc[1] * fin_g + gc[2] * fin_b
     comp = (torch.zeros_like(gf), coords[4].to(torch.float32))
-    grads16 = _replay_plain(table, ids_s, count, n_splats, cfg, coords, gc,
-                            gf, comp, drop)
+    partial = _replay_partials(table, ids_s, count, cfg, coords, gc, gf,
+                               comp)
     color = rd.from_tiles(torch.stack([fin_r, fin_g, fin_b]), cfg)[None]
-    return color, grads16
+    return color, partial
+
+
+def _l2_resident_plain(table, ids_s, count, ref_chw, n_splats: int,
+                       cfg: SplatConfig, drop=None):
+    """Plain twin of kernel 1: (color (1, 3, Hp, Wp), moments (16, n_pad));
+    ``drop`` as in _sum_partials."""
+    color, partial = _l2_resident_partials(table, ids_s, count, ref_chw, cfg)
+    return color, _sum_partials(partial, ids_s, n_splats, drop)
 
 
 def patch_cover_mask(table, ids_s, count, cfg: SplatConfig, rows: int):
@@ -230,9 +255,15 @@ def _bwd_resident_plain(table, ids_s, count, fin, gc, cin, tin,
 # CUDA launches.
 # ---------------------------------------------------------------------------
 
-# Kernels 3 and 12 reduce each slot's moments in rounds of this many slots,
+# Kernel 3 reduces each slot's moments in rounds of this many slots,
 # one round per warp in shared memory (csrc/render_resident.cu kChunk).
 _REDUCE_SLOTS = 32
+
+
+def _pass_rows(lib, cfg: SplatConfig) -> int:
+    """Pixel rows of one pass of a tile (walk_args' sub_h)."""
+    return min(cfg.tile_h, lib.gs2d_max_threads() * lib.gs2d_rows_per_thread()
+               // cfg.tile_w)
 
 
 def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int, *,
@@ -241,12 +272,12 @@ def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int, *,
     multiple of 32; tiles taller than one pass of max_threads x rows pixels
     are walked in passes of sub_h rows that must divide the tile), the
     shared memory of the kernels that stage the K listed table rows
-    (``stages_rows``: the one-block-per-tile kernels 3 and 12, which also
-    hold the reduction rounds there) against the card's limit, and the
+    (``stages_rows``: the one-block-per-tile kernel 3, which also holds
+    the reduction rounds there) against the card's limit, and the
     tensors. Returns the library."""
     lib = library()
     rows, max_threads = lib.gs2d_rows_per_thread(), lib.gs2d_max_threads()
-    sub_h = min(cfg.tile_h, max_threads * rows // cfg.tile_w)
+    sub_h = _pass_rows(lib, cfg)
     if cfg.tile_w % 32 or sub_h <= 0 or sub_h % rows or cfg.tile_h % sub_h:
         raise ValueError(
             f"tile {cfg.tile_h}x{cfg.tile_w} unsupported by the CUDA kernels "
@@ -281,11 +312,11 @@ def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int, *,
 
 
 def _check_l2_inputs(cfg: SplatConfig, table, ids_s, count, ref_chw,
-                     n_splats: int, *, stages_rows: bool):
+                     n_splats: int):
     """_check_inputs for the fused L2 kernels (1 and 12), with the target
     and the table's row count. Returns the library."""
     lib = _check_inputs(cfg, table, ids_s, count, ids_s.shape[1],
-                        stages_rows=stages_rows)
+                        stages_rows=False)
     hp, wp = cfg.padded_height, cfg.padded_width
     if (ref_chw.shape != (1, 3, hp, wp) or ref_chw.dtype != torch.float32
             or not ref_chw.is_contiguous() or ref_chw.device != table.device):
@@ -296,21 +327,35 @@ def _check_l2_inputs(cfg: SplatConfig, table, ids_s, count, ref_chw,
     return lib
 
 
-def _l2_outputs(cfg: SplatConfig, k: int, n_splats: int, dev):
-    """Kernel 12's outputs: colour (1, 3, Hp, Wp), the zeroed per-(tile,
-    slot) partials (passes add into them) and the zeroed (16, n_pad) moment
-    rows."""
-    n_tiles = cfg.n_tiles_x * cfg.n_tiles_y
-    return (torch.empty((1, 3, cfg.padded_height, cfg.padded_width),
-                        dtype=torch.float32, device=dev),
-            torch.zeros((n_tiles, k, 9), dtype=torch.float32, device=dev),
-            torch.zeros((rd.N_GRAD_FIELDS, _n_pad(n_splats)),
-                        dtype=torch.float32, device=dev))
-
-
 def patch_rows() -> int:
     """Pixel rows of a warp patch of kernels 1 and 2 (the library's)."""
     return library().gs2d_rows_per_thread()
+
+
+def patch_passes(cfg: SplatConfig) -> int:
+    """Passes of a tile in the patch partials' (pass, warp) order: the
+    library's pass height is min(tile_h, max_threads * rows // tile_w)."""
+    return cfg.tile_h // _pass_rows(library(), cfg)
+
+
+def patch_slot_sums(partial, count, n_pass: int):
+    """(n_tiles, K, 9) per-(tile, slot) sums of the warp-patch L2 kernels'
+    (n_tiles, K, patches per tile, 9) partials, formed as patch_sum_kernel
+    forms them (per pass a = 0 and the warps in index order, out = 0 and the
+    passes in order), 0 past each tile's count (the kernels never write
+    there). The slot partials of the one-block-per-tile chunk walk, bit for
+    bit; for chip_smoke.py and the tests, never on the main path."""
+    n_tiles, k, n_patch, n_mom = partial.shape
+    parts = partial.reshape(n_tiles, k, n_pass, n_patch // n_pass, n_mom)
+    out = torch.zeros((n_tiles, k, n_mom), dtype=partial.dtype,
+                      device=partial.device)
+    for ps in range(n_pass):
+        a = torch.zeros_like(out)
+        for w in range(parts.shape[3]):
+            a = a + parts[:, :, ps, w]
+        out = out + a
+    listed = torch.arange(k, device=partial.device)[None] < count[:, None]
+    return torch.where(listed[..., None], out, torch.zeros_like(out))
 
 
 def patch_partial_shape(cfg: SplatConfig, k: int) -> Tuple[int, ...]:
@@ -334,13 +379,15 @@ def _walked_ptr(walked, cfg: SplatConfig, dev) -> int:
     return walked.data_ptr()
 
 
-def _l2_resident_cuda(table, ids_s, count, ref_chw, n_splats: int,
-                      cfg: SplatConfig, partial=None, walked=None):
-    """Kernel 1. ``partial`` replaces the uninitialised scratch (a test's
-    NaN-filled buffer); ``walked`` gets each patch's survivor counts."""
+def _l2_patches(table, ids_s, count, ref_chw, n_splats: int,
+                cfg: SplatConfig, partial=None, walked=None, window=None):
+    """Kernel 1's launch, or with ``window`` = (bases, width) kernel 12's
+    (the same patch kernel, the patch sum over each tile's window): returns
+    (color (1, 3, Hp, Wp), moments (16, n_pad)). ``partial`` replaces the
+    uninitialised scratch (a test's NaN-filled buffer); ``walked`` gets each
+    patch's survivor counts."""
     k = ids_s.shape[1]
-    lib = _check_l2_inputs(cfg, table, ids_s, count, ref_chw, n_splats,
-                           stages_rows=False)
+    lib = _check_l2_inputs(cfg, table, ids_s, count, ref_chw, n_splats)
     dev = table.device
     shape = patch_partial_shape(cfg, k)
     if partial is None:
@@ -353,16 +400,31 @@ def _l2_resident_cuda(table, ids_s, count, ref_chw, n_splats: int,
                         dtype=torch.float32, device=dev)
     grads16 = torch.zeros((rd.N_GRAD_FIELDS, _n_pad(n_splats)),
                           dtype=torch.float32, device=dev)
-    err = lib.gs2d_l2_resident(
-        table.data_ptr(), ids_s.data_ptr(), count.data_ptr(),
-        ref_chw.data_ptr(), color.data_ptr(), partial.data_ptr(),
-        grads16.data_ptr(), _walked_ptr(walked, cfg, dev), n_splats,
-        _n_pad(n_splats), cfg.height, cfg.width, cfg.tile_h, cfg.tile_w,
-        cfg.n_tiles_x, cfg.n_tiles_y, k, cfg.cutoff_sq, cfg.min_throughput,
-        int(cfg.use_exp_approx), stream(table))
-    check(err, "l2_resident kernel launch")
-    launches["l2_resident"] += 1
+    head = (table.data_ptr(), ids_s.data_ptr(), count.data_ptr())
+    tail = (ref_chw.data_ptr(), color.data_ptr(), partial.data_ptr(),
+            grads16.data_ptr(), _walked_ptr(walked, cfg, dev), n_splats,
+            _n_pad(n_splats))
+    statics = (cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
+               cfg.n_tiles_y, k, cfg.cutoff_sq, cfg.min_throughput,
+               int(cfg.use_exp_approx), stream(table))
+    if window is None:
+        err = lib.gs2d_l2_resident(*head, *tail, *statics)
+        check(err, "l2_resident kernel launch")
+    else:
+        bases, width = window
+        err = lib.gs2d_l2_window(*head, bases.data_ptr(), *tail, width,
+                                 *statics)
+        check(err, "l2_window kernel launch")
     return color, grads16
+
+
+def _l2_resident_cuda(table, ids_s, count, ref_chw, n_splats: int,
+                      cfg: SplatConfig, partial=None, walked=None):
+    """Kernel 1; ``partial`` and ``walked`` as in _l2_patches."""
+    out = _l2_patches(table, ids_s, count, ref_chw, n_splats, cfg, partial,
+                      walked)
+    launches["l2_resident"] += 1
+    return out
 
 
 def _fwd_resident_cuda(table, ids_s, count, cfg: SplatConfig, walked=None):

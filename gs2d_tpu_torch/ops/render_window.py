@@ -13,13 +13,13 @@ the plain resident step.
 
 gs2d_tpu expands each tile's per-slot gradient columns onto its window with
 a one-hot matmul and scatter-adds the (16, W) window blocks. The port never
-expands onto the splat axis: kernel 12 (``csrc/render_resident.cu``
-``l2_window_kernel``) does kernel 1's work per tile and writes one moment
-partial per (tile, slot), and its splat-axis sum adds splat i's partials
-only from the tiles whose window holds i, in tile order. With no escapes
-that is kernel 1's sum over a subset of its tiles in the same order, so the
-window step equals the resident step bit for bit (gs2d_tpu's two differ by
-about 1 ulp in the order of the cross-tile sums).
+expands onto the splat axis: kernel 12 (``csrc/render_resident.cu``) runs
+kernel 1's warp-patch kernel, one moment partial per (tile, slot, pass,
+warp), and its patch sum adds splat i's partials only from the tiles whose
+window holds i, in tile order. With no escapes that is kernel 1's sum over
+a subset of its tiles in the same order, so the window step equals the
+resident step bit for bit (gs2d_tpu's two differ by about 1 ulp in the
+order of the cross-tile sums).
 
 ``l2_render_and_grads_window`` launches kernel 12 for CUDA tensors (adding
 one to ``launches["l2_window"]``) and runs the plain twin
@@ -36,7 +36,7 @@ from gs2d_tpu_torch.config import SplatConfig
 from gs2d_tpu_torch.ops import render as rd
 from gs2d_tpu_torch.ops import render_resident as rr
 from gs2d_tpu_torch.ops import tiles as tl
-from gs2d_tpu_torch.ops._build import check, on_card, stream
+from gs2d_tpu_torch.ops._build import on_card
 from gs2d_tpu_torch.params import GaussianParams
 
 # Kernel launch counts since the last reset_launch_counts().
@@ -118,10 +118,9 @@ def _l2_window_plain(table, ids_s, count, bases, ref_chw, n_splats: int,
 
 
 def _l2_window_cuda(table, ids_s, count, bases, ref_chw, n_splats: int,
-                    cfg: SplatConfig, width: int):
-    k = ids_s.shape[1]
-    lib = rr._check_l2_inputs(cfg, table, ids_s, count, ref_chw, n_splats,
-                              stages_rows=True)
+                    cfg: SplatConfig, width: int, walked=None):
+    """Kernel 12: kernel 1's patch kernel, then the patch sum over each
+    tile's window. ``walked`` as in render_resident._l2_patches."""
     n_tiles = cfg.n_tiles_x * cfg.n_tiles_y
     if (bases.dtype != torch.int32 or tuple(bases.shape) != (n_tiles,)
             or not bases.is_contiguous() or bases.device != table.device):
@@ -130,15 +129,9 @@ def _l2_window_cuda(table, ids_s, count, bases, ref_chw, n_splats: int,
     if width <= 0 or width % 128:
         raise ValueError(f"window width {width}: need a positive multiple "
                          "of 128")
-    color, partial, grads16 = rr._l2_outputs(cfg, k, n_splats, table.device)
-    err = lib.gs2d_l2_window(
-        table.data_ptr(), ids_s.data_ptr(), count.data_ptr(),
-        bases.data_ptr(), ref_chw.data_ptr(), color.data_ptr(),
-        partial.data_ptr(), grads16.data_ptr(), n_splats, _n_pad(n_splats),
-        width, cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
-        cfg.n_tiles_y, k, cfg.cutoff_sq, cfg.min_throughput,
-        int(cfg.use_exp_approx), stream(table))
-    check(err, "l2_window kernel launch")
+    color, grads16 = rr._l2_patches(table, ids_s, count, ref_chw, n_splats,
+                                    cfg, walked=walked,
+                                    window=(bases, width))
     launches["l2_window"] += 1
     return color, grads16
 

@@ -389,6 +389,8 @@ def test_dense_kernels_match_plain(dev, monkeypatch, n, tile_h, k, sat):
     again = rdn._bwd_dense_cuda(*args)
     plain = rdn._bwd_dense_plain(*args)
     l2_k = rdn._l2_dense_cuda(tp, ids, count, ref, n, cfg)
+    l2_k = (l2_k[0], rr.patch_slot_sums(l2_k[1], count, rr.patch_passes(cfg)),
+            l2_k[2])
     l2_p = rdn._l2_dense_plain(tp, ids, count, ref, n, cfg)
     torch.cuda.synchronize()
     for x, y in zip(first, again):
@@ -447,9 +449,9 @@ def test_resident_kernels_take_64_row_tiles(dev, n):
 
 def test_resident_kernels_refuse_too_much_shared_memory(dev):
     """K = 4096 table rows need 256 KiB of shared memory in the
-    one-block-per-tile kernels 3 and 12: the wrappers raise with the numbers
-    instead of launching. Kernels 1 and 2 stage nothing in shared memory
-    and take that K."""
+    one-block-per-tile kernel 3: its wrapper raises with the numbers instead
+    of launching. The warp-patch kernels 1, 2 and 12 stage nothing in
+    shared memory and take that K."""
     cfg, table, ids, count, ref = inputs(dev, 4, 16, 32, k=4096)
     fin, trans = rr._fwd_resident_plain(table, ids, count, cfg)
     args = (table, ids, count, fin[0].contiguous(),
@@ -457,11 +459,11 @@ def test_resident_kernels_refuse_too_much_shared_memory(dev):
             (0.5 * trans[0]).contiguous(), 16, cfg)
     with pytest.raises(ValueError, match="shared memory"):
         rr._bwd_resident_cuda(*args)
-    with pytest.raises(ValueError, match="shared memory"):
-        full_width_window(table, ids, count, ref, 16, cfg)
     c_k, g_k = rr._l2_resident_cuda(table, ids, count, ref, 16, cfg)
+    c_w, g_w = full_width_window(table, ids, count, ref, 16, cfg)
     c_p, g_p = rr._l2_resident_plain(table, ids, count, ref, 16, cfg)
     torch.cuda.synchronize()
+    assert torch.equal(c_w, c_k) and torch.equal(g_w, g_k)
     torch.testing.assert_close(c_k, c_p, rtol=0, atol=1e-6)
     atol = 1e-4 * max(1.0, float(g_p.abs().max()))
     torch.testing.assert_close(g_k, g_p, rtol=0, atol=atol)
@@ -485,8 +487,7 @@ def test_window_kernel_equals_resident_at_full_width(dev):
 
 
 def full_width_window(table, ids, count, ref, n, cfg):
-    """Kernel 12 at W = n_pad: the one-block-per-tile L2 step (kernel 1's
-    design before its warp patches)."""
+    """Kernel 12 at W = n_pad, where it computes kernel 1's function."""
     b = tl.TileBinning(ids=torch.where(ids < n, ids, -1), count=count,
                        n_dropped=torch.zeros((), dtype=torch.int32))
     bases, _ = rw.window_bases(b, n, rw._n_pad(n))
@@ -510,18 +511,37 @@ def assert_same_bits(got, want):
     assert torch.equal(got[~nan], want[~nan])
 
 
-@pytest.mark.parametrize("case", ["130/8", "130/32", "64/16", "300/64",
-                                  "opacity-1", "nan"])
+def chain(tp, ids, count, ref, n, cfg):
+    """The in-call reference of the warp-patch L2 kernels (chip_smoke.py's
+    chain): the dense kernels 6/7, then gC = C - ref, then 8/9, which keep
+    the one-block-per-tile chunk walk, over the rows tp (n_tiles, K, 16).
+    Returns (colour, T, slot partials, moments (9, n))."""
+    color, trans = rdn._fwd_dense_cuda(tp, count, cfg)
+    cin, tin = rd.identity_carry(cfg, tp.device)
+    part, g9 = rdn._bwd_dense_cuda(tp, ids, count, color,
+                                   (color - ref[0]).contiguous(), cin, tin,
+                                   n, cfg)
+    return color, trans, part, g9
+
+
+def gathered(table, ids):
+    """The dense (n_tiles, K, 16) rows of a resident binning."""
+    return table.reshape(-1, tl.N_FIELDS)[ids.long()].contiguous()
+
+
+@pytest.mark.parametrize("case", ["130/32", "64/64", "300/64", "opacity-1",
+                                  "nan"])
 def test_patch_kernels_equal_one_block_per_tile(dev, case):
-    """Kernel 1 on warp patches equals kernel 12 at full width (the
-    one-block-per-tile design) bit for bit, colour and moments; kernel 2's
-    colour equals kernel 1's and its T the plain version's within 1e-6."""
+    """Kernels 1, 12 (at W = n_pad) and 4/5 (on the table rows the ids
+    name) on warp patches equal the one-block-per-tile chunk walk (chain)
+    bit for bit: colour, moments, 4/5's slot partials; kernel 2's colour
+    equals kernel 1's and its T the chain's."""
     if case == "nan":
         cfg, table, ids, count, ref = nan_splat_inputs(dev)
     elif case == "opacity-1":
         d, ref = population(5, 64, W, H, opacity=(1.0, 1.0))
         d["pos"][:16] = np.floor(d["pos"][:16]) + 0.5
-        cfg = SplatConfig(width=W, height=H, n_splats=64, tile_h=8,
+        cfg = SplatConfig(width=W, height=H, n_splats=64, tile_h=32,
                           max_splats_per_tile=64)
         p = params_from_numpy({f: v.astype(np.float32)
                                for f, v in d.items()}, dev)
@@ -534,47 +554,85 @@ def test_patch_kernels_equal_one_block_per_tile(dev, case):
         cfg, table, ids, count, ref = inputs(dev, n + tile_h, n, tile_h,
                                              k=512 if tile_h == 64 else 128)
     n = cfg.n_splats
+    tp = gathered(table, ids)
+    c_ch, t_ch, part_ch, g_ch = chain(tp, ids, count, ref, n, cfg)
     c_k, g_k = rr._l2_resident_cuda(table, ids, count, ref, n, cfg)
     c_w, g_w = full_width_window(table, ids, count, ref, n, cfg)
+    c_d, part_d, g_d = rdn._l2_dense_cuda(tp, ids, count, ref, n, cfg)
     f_k, t_k = rr._fwd_resident_cuda(table, ids, count, cfg)
-    _, t_p = rr._fwd_resident_plain(table, ids, count, cfg)
     torch.cuda.synchronize()
-    assert_same_bits(c_k, c_w)
-    assert_same_bits(g_k, g_w)
+    for color, moments in ((c_k[0], g_k[:9, :n]), (c_w[0], g_w[:9, :n]),
+                           (c_d, g_d)):
+        assert_same_bits(color, c_ch)
+        assert_same_bits(moments, g_ch)
+    assert_same_bits(rr.patch_slot_sums(part_d, count, rr.patch_passes(cfg)),
+                     part_ch)
     assert_same_bits(f_k, c_k)
+    assert_same_bits(t_k[0], t_ch)
     if case == "nan":
         assert torch.isnan(g_k).any() and torch.isfinite(c_k).any()
-    else:
-        torch.testing.assert_close(t_k, t_p, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,tile_h,k,sat", [
+    (200, 32, 256, False), (300, 32, 512, True), (300, 64, 512, True)])
+def test_dense_l2_equals_the_chunk_walk(dev, monkeypatch, n, tile_h, k, sat):
+    """Kernels 4/5 on a dense binning equal the chunk walk over the same
+    tile_params bit for bit (the chunked member's saturating walk forced
+    where ``sat``)."""
+    if sat:
+        monkeypatch.setattr(rd, "SAT_WALK_THRESHOLD", 1)
+    cfg, b, ref = dense_inputs(dev, n + tile_h, n, tile_h, k)
+    tp, ids, count = b.tile_params, b.ids, b.count
+    c_ch, _, part_ch, g_ch = chain(tp, ids, count, ref, n, cfg)
+    c_d, part_d, g_d = rdn._l2_dense_cuda(tp, ids, count, ref, n, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(c_d, c_ch) and torch.equal(g_d, g_ch)
+    assert torch.equal(rr.patch_slot_sums(part_d, count, rr.patch_passes(cfg)),
+                       part_ch)
 
 
 def test_patch_partials_never_read_unwritten(dev):
-    """Kernel 1's partial scratch is not zeroed: a buffer pre-filled with
-    NaN gives the same moments bit for bit, so every entry the sum reads is
-    written (a culled or saturated slot's zero included)."""
+    """The partial scratch of kernels 1 and 4/5 is not zeroed: a buffer
+    pre-filled with NaN gives the same moments bit for bit, so every entry
+    the sum reads is written (a culled or saturated slot's zero
+    included)."""
     cfg, table, ids, count, ref = inputs(dev, 11, 300, 32, k=512)
     filled = torch.full(rr.patch_partial_shape(cfg, 512), float("nan"),
                         device=dev)
     c_a, g_a = rr._l2_resident_cuda(table, ids, count, ref, 300, cfg,
                                     partial=filled)
     c_b, g_b = rr._l2_resident_cuda(table, ids, count, ref, 300, cfg)
+    tp = gathered(table, ids)
+    d_a = rdn._l2_dense_cuda(tp, ids, count, ref, 300, cfg,
+                             partial=torch.full_like(filled, float("nan")))
+    d_b = rdn._l2_dense_cuda(tp, ids, count, ref, 300, cfg)
     torch.cuda.synchronize()
-    assert torch.isfinite(g_a).all()
+    assert torch.isfinite(g_a).all() and torch.isfinite(d_a[2]).all()
     assert torch.equal(c_a, c_b) and torch.equal(g_a, g_b)
+    assert torch.equal(d_a[0], d_b[0]) and torch.equal(d_a[2], d_b[2])
 
 
 @pytest.mark.parametrize("tile_h", [8, 32, 64])
 def test_patch_survivors_are_the_plain_mask(dev, tile_h):
     """Each warp's survivors are patch_cover_mask's slots, patch by patch,
-    in kernels 1 and 2 alike; the saturation exit walks at most them."""
+    in kernels 1, 2, 12 and (at the dense kernels' tile heights) 4/5 alike;
+    the saturation exit walks at most them."""
     cfg, table, ids, count, ref = inputs(dev, 3 + tile_h, 300, tile_h, k=512)
     mask = rr.patch_cover_mask(table, ids, count, cfg, rr.patch_rows())
     want = mask.sum(dim=-1).reshape(-1).to(torch.int32)
-    for launch in (
-            lambda w: rr._l2_resident_cuda(table, ids, count, ref, 300, cfg,
-                                           walked=w),
-            lambda w: rr._fwd_resident_cuda(table, ids, count, cfg,
-                                            walked=w)):
+    b = tl.TileBinning(ids=torch.where(ids < 300, ids, -1), count=count,
+                       n_dropped=torch.zeros((), dtype=torch.int32))
+    bases, _ = rw.window_bases(b, 300, rw._n_pad(300))
+    launches = [
+        lambda w: rr._l2_resident_cuda(table, ids, count, ref, 300, cfg,
+                                       walked=w),
+        lambda w: rr._fwd_resident_cuda(table, ids, count, cfg, walked=w),
+        lambda w: rw._l2_window_cuda(table, ids, count, bases, ref, 300, cfg,
+                                     rw._n_pad(300), walked=w)]
+    if tile_h in rdn.CUDA_TILE_HS:
+        launches.append(lambda w: rdn._l2_dense_cuda(
+            gathered(table, ids), ids, count, ref, 300, cfg, walked=w))
+    for launch in launches:
         walked = torch.full((want.numel(), 2), -1, dtype=torch.int32,
                             device=dev)
         launch(walked)
