@@ -1,9 +1,12 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build the CUDA kernels,
 hold each against its plain PyTorch version (the warp-patch kernels also
-against the one-block-per-tile chunk walk of the dense kernels 6/7 and 8/9
-over the same pairs, bit for bit: the L2 kernels 1, 4/5 and 12 against 6/7,
-then gC = C - ref, then 8/9, kernel 2 against 6/7, kernels 10 and 11
-against 6/7 and 8/9, each with its survivors against the plain cull mask),
+against the one-block-per-tile chunk walk over the same pairs, bit for bit:
+the dense forward 6/7 and the chunk reference gs2d_bwd_chunk, the backward
+8/9 had before their warp patches, which no fit path reaches; the L2
+kernels 1, 4/5 and 12 against 6/7, then gC = C - ref, then the reference,
+kernel 2 against 6/7, the replays 3 and 8/9 against the reference under the
+same planes, kernels 10 and 11 against 6/7 and the reference, each with its
+survivors against the plain cull mask),
 then drive the fitting paths through them with the CLI and check their MSE
 trajectories:
 
@@ -15,7 +18,8 @@ trajectories:
 - the default fit with ``--ssim 0.2``, resident layout (kernels 2 and 3),
   run twice: the second run must repeat the first bit for bit;
 - the default fit with ``--binning dense`` (kernels 4/5, 6/7);
-- the default fit with ``--binning dense --ssim 0.2`` (kernels 6/7, 8/9);
+- the default fit with ``--binning dense --ssim 0.2`` (kernels 6/7, 8/9),
+  which must equal the resident SSIM fit 200 of 200;
 - the 10 240-splat fit with ``--ssim 0.2``, flat layout (kernels 10, 11);
 - the window layout through ``train.loop.fit`` (squirrel_cls 535x426, 8192
   Morton-reordered splats, L2, 200 iterations; kernel 12) beside the
@@ -38,6 +42,9 @@ trajectories:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profiles   # only the fused L2 steps' profiles
+    python3 chip_smoke.py --backward-dump OUT.pt [OTHER.pt]
+        # kernels 3 and 8/9 on kernel 3's compare populations, saved; held
+        # bit for bit to OTHER.pt, the dump of another checkout's kernels
 
 Prints one line per phase; the line before the last is the kernels' JSON
 report and the last is {"ok": true, "device": {...}}. A kernel's
@@ -282,16 +289,18 @@ def gathered_rows(table, ids):
 
 def chain(tp, ids, count, ref_chw, n, cfg):
     """The in-call reference of the L2 kernels 1, 4/5 and 12: the dense
-    kernels 6/7 and 8/9, which keep the one-block-per-tile chunk walk
-    (tile_walk.cuh), over the rows tp (n_tiles, K, 16): the forward, gC = C
-    - ref, the replay from the identity carry. Returns (colour (3, Hp, Wp),
-    T (Hp, Wp), slot partials (n_tiles, K, 9), moments (9, n))."""
+    kernels 6/7 and the chunk reference (the backward kernels 8/9 had before
+    their warp patches, never on a fit path), which keep the
+    one-block-per-tile chunk walk (tile_walk.cuh), over the rows tp
+    (n_tiles, K, 16): the forward, gC = C - ref, the replay from the
+    identity carry. Returns (colour (3, Hp, Wp), T (Hp, Wp), slot partials
+    (n_tiles, K, 9), moments (9, n))."""
     from gs2d_tpu_torch.ops import render as rd
     from gs2d_tpu_torch.ops import render_dense as rdn
 
     color, trans = rdn._fwd_dense_cuda(tp, count, cfg)
     cin, tin = rd.identity_carry(cfg, tp.device)
-    part, g9 = rdn._bwd_dense_cuda(tp, ids, count, color,
+    part, g9 = rdn._bwd_chunk_cuda(tp, ids, count, color,
                                    (color - ref_chw[0]).contiguous(), cin,
                                    tin, n, cfg)
     return color, trans, part, g9
@@ -338,8 +347,9 @@ def vs_chain(name, table, ids, count, ref_chw, n, cfg) -> None:
     if not all(same.values()):
         raise AssertionError(f"{name}: differs from the chunk walk: {same}")
     log(f"  {name}: kernels 1, 4/5 and 12 (W = n_pad) equal the chunk walk "
-        f"(kernels 6/7, gC, then 8/9) bit for bit (colour, moments, 4/5's "
-        f"slot partials; NaN in {int(torch.isnan(g_ch).sum())} moments), "
+        f"(kernels 6/7, gC, then the chunk reference) bit for bit (colour, "
+        f"moments, 4/5's slot partials; NaN in "
+        f"{int(torch.isnan(g_ch).sum())} moments), "
         "kernel 2's colour equals kernel 1's and its T the chain's")
 
 
@@ -465,7 +475,7 @@ def compare_case(name, params, ref, cfg, dev, timed: bool,
     fwd_bytes = base + nbytes(f_k, t_k)
     tp = gathered_rows(table, ids)
     return errs, {
-        "reference, kernels 6/7 then 8/9": timed_entry(
+        "reference, kernels 6/7 then the chunk reference": timed_entry(
             lambda: chain(tp, ids, b.count, ref_chw, n, cfg), l2_plain_ms,
             "l2", work, cfg, l2_bytes),
         "l2_resident": timed_entry(
@@ -534,15 +544,15 @@ BWD_FLAT_PARTS = ("bwd_flat_kernel", "flat_patch_sum_kernel",
 
 def flat_vs_dense(name, b, rows, bd, tp, fwd_out, bwd_out, bwd_planes, n,
                   cfg) -> None:
-    """Kernels 10 and 11 against the dense kernels 6/7 and 8/9, which keep
-    the one-block-per-tile chunk walk (tile_walk.cuh) over the same rows in
-    the same order: colour, T, the per-pair moments matched by (tile, slot)
-    and the (9, n) splat sums equal bit for bit (NaN masks included), and
-    every row outside the runs is 0."""
+    """Kernels 10 and 11 against the dense kernels 6/7 and the chunk
+    reference, which keep the one-block-per-tile chunk walk (tile_walk.cuh)
+    over the same rows in the same order: colour, T, the per-pair moments
+    matched by (tile, slot) and the (9, n) splat sums equal bit for bit
+    (NaN masks included), and every row outside the runs is 0."""
     from gs2d_tpu_torch.ops import render_dense as rdn
 
     c_d, t_d = rdn._fwd_dense_cuda(tp, bd.count, cfg)
-    part_d, g_d = rdn._bwd_dense_cuda(tp, bd.ids, bd.count, *bwd_planes, n,
+    part_d, g_d = rdn._bwd_chunk_cuda(tp, bd.ids, bd.count, *bwd_planes, n,
                                       cfg)
     (c_k, t_k), (m_k, g_k) = fwd_out, bwd_out
     k = torch.arange(tp.shape[1], device=tp.device)
@@ -556,8 +566,9 @@ def flat_vs_dense(name, b, rows, bd, tp, fwd_out, bwd_out, bwd_planes, n,
             "rows outside the runs 0": bool((m_k[outside] == 0).all())}
     if not all(same.values()):
         raise AssertionError(f"{name}: kernels 10/11 differ from the dense "
-                             f"kernels 6/7 and 8/9: {same}")
-    log(f"  {name}: kernels 10 and 11 equal the dense kernels 6/7 and 8/9 "
+                             f"kernels 6/7 and the chunk reference: {same}")
+    log(f"  {name}: kernels 10 and 11 equal the dense kernels 6/7 and the "
+        f"chunk reference "
         f"bit for bit (colour, T, {int(pair.numel())} pair moments, splat "
         f"sums; NaN in {int(torch.isnan(g_k).sum())} splat moments)")
 
@@ -730,7 +741,6 @@ def compare_flat(dev, smi: str):
     """All flat compare cases; returns (max errors, the 10k case's times)."""
     from gs2d_tpu_torch.config import SplatConfig
     from gs2d_tpu_torch.io.image import load_image
-    from gs2d_tpu_torch.ops import render as rd
     from gs2d_tpu_torch.ops import render_flat as rf
     from gs2d_tpu_torch.ops import tiles as tl
     from gs2d_tpu_torch.ops import tiles_flat as tlf
@@ -774,16 +784,12 @@ def compare_flat(dev, smi: str):
             population(14, 400, w, h), dev), mini, cfg_c, dev,
         carry=carry, g_color=g_rand)[0])
     # 64-row tiles, every tile saturated early, the saturating walk forced.
-    threshold = rd.SAT_WALK_THRESHOLD
-    rd.SAT_WALK_THRESHOLD = 1
-    try:
+    with walk_forced(True):
         cfg64 = SplatConfig(width=w, height=h, n_splats=256, tile_h=64,
                             binning="flat")
         add(compare_flat_case("saturated, 64-row tiles, walk forced",
                               params_from_numpy(opaque_stack(15, 256, w, h),
                                                 dev), mini, cfg64, dev)[0])
-    finally:
-        rd.SAT_WALK_THRESHOLD = threshold
     full = load_image(FULL)
     h, w = full.shape[:2]
     cfg_main = SplatConfig(width=w, height=h, n_splats=N_10K)
@@ -796,12 +802,34 @@ def compare_flat(dev, smi: str):
     return errs, times
 
 
-def compare_bwd_resident_case(name, params, ref, cfg, dev, carry=None,
-                              g_color=None, timed=False):
-    """Kernel 3 vs its plain version on one population under ``g_color``
-    (3, Hp, Wp; the SSIM cotangent of the render when None) from ``carry``
-    (C_in (3, Hp, Wp), T_in (Hp, Wp); identity when None). It runs twice
-    and must repeat bit for bit. Returns (max_abs_err, times or None)."""
+# Kernels 3's and 8/9's two kernels (csrc/render_resident.cu,
+# csrc/render_dense.cu), for their time split.
+BWD_RESIDENT_PARTS = ("bwd_resident_kernel", "patch_sum_kernel")
+BWD_DENSE_PARTS = ("bwd_dense_kernel", "patch_sum_kernel")
+
+
+@contextlib.contextmanager
+def walk_forced(forced: bool):
+    """With ``forced``, the chunk walks' saturating walk on at any N (the
+    chunked TPU kernels' exits, SAT_WALK_THRESHOLD = 1)."""
+    from gs2d_tpu_torch.ops import render as rd
+
+    threshold = rd.SAT_WALK_THRESHOLD
+    if forced:
+        rd.SAT_WALK_THRESHOLD = 1
+    try:
+        yield
+    finally:
+        rd.SAT_WALK_THRESHOLD = threshold
+
+
+def backward_inputs(params, ref, cfg, dev, carry=None, g_color=None,
+                    nan_splat=None):
+    """Kernel 3's inputs on one population: the resident binning at cfg's
+    K, the table (``nan_splat``'s position NaN after the forward), the
+    ids, and the planes (fin, gc, cin, tin): the plain forward's colour,
+    ``g_color`` (the SSIM cotangent of that render when None) and ``carry``
+    (identity when None). Returns (table, ids, count, planes)."""
     from gs2d_tpu_torch.ops import render as rd
     from gs2d_tpu_torch.ops import render_resident as rr
     from gs2d_tpu_torch.ops import tiles as tl
@@ -809,36 +837,160 @@ def compare_bwd_resident_case(name, params, ref, cfg, dev, carry=None,
     n, k = params.n, cfg.max_splats_per_tile
     b = tl.bin_splats(params, cfg, k, ids_only=True)
     if int(b.n_dropped):
-        raise AssertionError(f"{name}: binning dropped {int(b.n_dropped)}")
+        raise AssertionError(f"binning dropped {int(b.n_dropped)}")
     table = rr.resident_table(params, cfg)
     ids = rr._remap_ids(b, n)
     fin = rr._fwd_resident_plain(table, ids, b.count, cfg)[0][0].contiguous()
+    if nan_splat is not None:
+        table.reshape(-1, tl.N_FIELDS)[nan_splat, tl.FIELD_PX] = float("nan")
     if g_color is None:
         g_color = ssim_cotangent(fin, ref, cfg)
     cin, tin = carry if carry is not None else rd.identity_carry(cfg, dev)
-    args = (table, ids, b.count, fin, g_color.contiguous(), cin, tin, n, cfg)
+    return table, ids, b.count, (fin, g_color.contiguous(), cin, tin)
+
+
+def backward_cases(dev) -> dict:
+    """The compare populations of kernel 3, {name: (params, target, cfg,
+    {backward_inputs' keywords}, walk forced, timed)}: a random population
+    under a random cotangent from a non-identity carry-in (K = 256 and
+    512), the opacity-1 population centred on pixel centres, saturated
+    64-row tiles (the chunk walk's saturating walk forced), the pcg3d init
+    of the default fit at the SSIM path's K = 256 (timed), random N=130
+    with splat 40 at a NaN position, and the deep, tall 64-row case
+    (timed). The dense compare reuses the first four populations."""
+    from gs2d_tpu_torch.config import SplatConfig
+    from gs2d_tpu_torch.io.image import load_image
+    from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.ops import render_resident as rr
+    from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.params import init_params, params_from_numpy
+
+    ref = load_image(MINI)
+    h, w = ref.shape[:2]
+    base = SplatConfig(width=w, height=h, n_splats=600, tile_h=32,
+                       max_splats_per_tile=256)
+    # A prefix from another population as the carry-in, and a random
+    # upstream cotangent.
+    p_pre = params_from_numpy(population(21, 300, w, h), dev)
+    pre = base.replace(n_splats=300)
+    b_pre = tl.bin_splats(p_pre, pre, 256, ids_only=True)
+    c_pre, t_pre = rr._fwd_resident_plain(rr.resident_table(p_pre, pre),
+                                          rr._remap_ids(b_pre, 300),
+                                          b_pre.count, pre)
+    rand = {"carry": (c_pre[0].contiguous(), t_pre[0].contiguous()),
+            "g_color": torch.randn(
+                (3, base.padded_height, base.padded_width),
+                generator=torch.Generator(dev).manual_seed(22), device=dev)}
+    p1 = population(23, 300, w, h, opacity=(1.0, 1.0))
+    p1["pos"][:64] = np.floor(p1["pos"][:64]) + 0.5
+    cfg_main = SplatConfig(width=w, height=h, n_splats=1024)
+    p_init = init_params(cfg_main, dev)
+    cfg_ssim = tl.tune_tile_height(cfg_main, p_init).replace(
+        max_splats_per_tile=rd._max_per_tile(cfg_main))
+    p_deep, cfg_deep, deep = deep_case(dev)
+    return {
+        "random + carry-in + random cotangent, K=256": (
+            params_from_numpy(population(20, 600, w, h), dev), ref, base,
+            rand, False, False),
+        "random + carry-in + random cotangent, K=512": (
+            params_from_numpy(population(20, 1500, w, h), dev), ref,
+            base.replace(n_splats=1500, max_splats_per_tile=512), rand,
+            False, False),
+        "opacity-1 centred": (params_from_numpy(p1, dev), ref,
+                              base.replace(n_splats=300), {}, False, False),
+        "saturated, 64-row tiles, walk forced": (
+            params_from_numpy(opaque_stack(24, 256, w, h), dev), ref,
+            SplatConfig(width=w, height=h, n_splats=256, tile_h=64,
+                        max_splats_per_tile=512), {}, True, False),
+        "pcg3d init (SSIM path), K=256": (p_init, ref, cfg_ssim, {}, False,
+                                          True),
+        "random N=130, splat 40 at a NaN position": (
+            params_from_numpy(population(3, 130, w, h), dev), ref,
+            base.replace(n_splats=130, max_splats_per_tile=128),
+            {"nan_splat": 40}, False, False),
+        deep: (p_deep, ref, cfg_deep, {}, False, True),
+    }
+
+
+def compare_bwd_resident_case(name, params, ref, cfg, dev, inputs,
+                              timed=False, smi: str = ""):
+    """Kernel 3 on one population (``inputs``: backward_inputs' keywords).
+    It runs twice and must repeat bit for bit; it equals the chunk
+    reference (gs2d_bwd_chunk on the table rows its ids name, under the
+    same planes) bit for bit, with equal NaN masks; its survivors per patch,
+    and those of kernels 8/9 on the same rows, are the plain cull mask's
+    (patch_cover_mask); and it agrees with its plain version (not compared
+    with a NaN splat: both give NaNs there). A timed case also times
+    kernels 8/9 and the chunk reference on the same rows and splits kernels
+    3 and 8/9 into the patch kernel and the patch sum. Returns
+    (max_abs_err, times or None)."""
+    from gs2d_tpu_torch.ops import render_dense as rdn
+    from gs2d_tpu_torch.ops import render_resident as rr
+
+    n, k = params.n, cfg.max_splats_per_tile
+    table, ids, count, planes = backward_inputs(params, ref, cfg, dev,
+                                                **inputs)
+    args = (table, ids, count, *planes, n, cfg)
+    tp = gathered_rows(table, ids)
+    dense_in = (tp, ids, count, *planes, n, cfg)
     m_k = rr._bwd_resident_cuda(*args)
     m_k2 = rr._bwd_resident_cuda(*args)
-    m_p, plain_ms = timed_call(lambda: rr._bwd_resident_plain(*args))
+    _, g_ch = rdn._bwd_chunk_cuda(*dense_in)
     torch.cuda.synchronize()
-    require_finite(name, moments=m_k)
-    if not torch.equal(m_k, m_k2):
+    if not same_bits(m_k2, m_k):
         raise AssertionError(f"{name}: bwd_resident does not repeat bit for "
                              "bit")
+    if not same_bits(m_k[:9, :n], g_ch):
+        raise AssertionError(f"{name}: kernel 3 differs from the chunk "
+                             "reference")
+    mask = rr.patch_cover_mask(table, ids, count, cfg, rr.patch_rows())
+    want = mask.sum(dim=-1).reshape(-1).to(torch.int32)
+    walked = patch_survivors({
+        "kernel 3": lambda w: rr._bwd_resident_cuda(*args, walked=w),
+        "kernels 8/9": lambda w: rdn._bwd_dense_cuda(*dense_in, walked=w)},
+        want, dev)
+    n_nan = int(torch.isnan(g_ch).sum())
+    log(f"  {name}: N={n} K={k} tile {cfg.tile_h}x{cfg.tile_w} max_count="
+        f"{int(count.max())} | kernel 3 repeats and equals the chunk "
+        f"reference bit for bit (moments; NaN in {n_nan}); (patch, slot) "
+        f"steps {int(count.sum()) * mask.shape[1]}, survivors "
+        f"{int(want.sum())} (plain mask, equal patch by patch in kernel 3 "
+        f"and in kernels 8/9 on the same rows), walked "
+        f"{walked['kernel 3']}")
+    if "nan_splat" in inputs:
+        if not n_nan or not torch.isfinite(g_ch).any():
+            raise AssertionError(f"{name}: not the case it should be")
+        return 0.0, None
+    require_finite(name, moments=m_k)
+    m_p, plain_ms = timed_call(lambda: rr._bwd_resident_plain(*args))
     ratio = moment_ratio(m_k, m_p)
     err, scale = grad_error(m_k, m_p, n, rr._table_fields(table, n))
-    log(f"  {name}: N={n} K={k} max_count={int(b.count.max())} | "
-        f"bwd_resident: moment err/tol {ratio:.3g}, grad err {err:.3g} of "
-        f"|grad| max {scale:.3g}, repeats bit for bit")
+    log(f"  {name}: bwd_resident vs plain: moment err/tol {ratio:.3g}, grad "
+        f"err {err:.3g} of |grad| max {scale:.3g}")
     if ratio > 1.0:
         raise AssertionError(f"{name}: kernel disagrees with plain version")
     if not timed:
         return err, None
-    work = live_work(table.reshape(-1, tl.N_FIELDS)[ids.long()], b.count,
-                       cfg)
-    return err, {"bwd_resident": timed_entry(
-        lambda: rr._bwd_resident_cuda(*args), plain_ms, "bwd", work, cfg,
-        nbytes(table, ids, b.count, fin, g_color, cin, tin, m_k))}
+    work = live_work(tp, count, cfg)
+    bwd_bytes = nbytes(table, ids, count, *planes, m_k)
+    dense_bytes = nbytes(tp, ids, count, *planes, g_ch)
+    for what, fn, parts in (
+            ("kernel 3", lambda: rr._bwd_resident_cuda(*args),
+             BWD_RESIDENT_PARTS),
+            ("kernels 8/9", lambda: rdn._bwd_dense_cuda(*dense_in),
+             BWD_DENSE_PARTS)):
+        log_split(f"{what} at {name}", kernel_split(fn, parts), parts, smi)
+    return err, {
+        "bwd_resident": timed_entry(
+            lambda: rr._bwd_resident_cuda(*args), plain_ms, "bwd", work, cfg,
+            bwd_bytes),
+        "bwd_dense, same rows (plain ms: kernel 3's)": timed_entry(
+            lambda: rdn._bwd_dense_cuda(*dense_in), plain_ms, "bwd", work,
+            cfg, dense_bytes),
+        "reference bwd_chunk, same rows (plain ms: kernel 3's)": timed_entry(
+            lambda: rdn._bwd_chunk_cuda(*dense_in), plain_ms, "bwd", work,
+            cfg, dense_bytes),
+    }
 
 
 def compare_dense_case(name, params, ref, cfg, dev, carry=None,
@@ -846,12 +998,16 @@ def compare_dense_case(name, params, ref, cfg, dev, carry=None,
     """The three dense kernels vs their plain versions on one population at
     cfg's K: the forward, the backward under ``g_color`` (3, Hp, Wp; the
     SSIM cotangent of the render when None) from ``carry`` (identity when
-    None), run twice and bit for bit, and the fused L2 step, which is also
-    held to the chunk walk (dense_vs_chain). Returns ({kernel:
-    max_abs_err}, {kernel: times} for the kernels in ``timed``; a timed L2
-    step also gets its survivors and its split logged)."""
+    None), run twice and bit for bit, and the fused L2 step. The backward
+    and the L2 step are also held to the chunk walk bit for bit (the chunk
+    reference under the same planes; dense_vs_chain), and the backward's
+    survivors per patch to the plain cull mask (listed_cover_mask of the
+    tile_params). Returns ({kernel: max_abs_err}, {kernel: times} for the
+    kernels in ``timed``; a timed L2 step also gets its survivors and its
+    split logged)."""
     from gs2d_tpu_torch.ops import render as rd
     from gs2d_tpu_torch.ops import render_dense as rdn
+    from gs2d_tpu_torch.ops import render_resident as rr
     from gs2d_tpu_torch.ops import tiles as tl
 
     n, k = params.n, cfg.max_splats_per_tile
@@ -869,6 +1025,12 @@ def compare_dense_case(name, params, ref, cfg, dev, carry=None,
     bwd_in = (tp, ids, count, c_p, g_color.contiguous(), cin, tin, n, cfg)
     m_k, g_k = rdn._bwd_dense_cuda(*bwd_in)
     m_k2, g_k2 = rdn._bwd_dense_cuda(*bwd_in)
+    m_k, m_k2 = slot_sums(m_k, count, cfg), slot_sums(m_k2, count, cfg)
+    m_ch, g_ch = rdn._bwd_chunk_cuda(*bwd_in)
+    mask = rr.listed_cover_mask(tp, count, cfg, rr.patch_rows())
+    want = mask.sum(dim=-1).reshape(-1).to(torch.int32)
+    walked = patch_survivors({"kernels 8/9": lambda w: rdn._bwd_dense_cuda(
+        *bwd_in, walked=w)}, want, dev)["kernels 8/9"]
     (m_p, g_p), bwd_plain_ms = timed_call(
         lambda: rdn._bwd_dense_plain(*bwd_in))
     l2_in = (tp, ids, count, ref_chw, n, cfg)
@@ -882,6 +1044,7 @@ def compare_dense_case(name, params, ref, cfg, dev, carry=None,
     if not (torch.equal(m_k, m_k2) and torch.equal(g_k, g_k2)):
         raise AssertionError(f"{name}: bwd_dense does not repeat bit for "
                              "bit")
+    replayed = torch.equal(m_k, m_ch) and torch.equal(g_k, g_ch)
     fwd_err = max(float((c_k - c_p).abs().max()),
                   float((t_k - t_p).abs().max()))
     l2_col = float((l2_k[0] - l2_p[0]).abs().max())
@@ -894,15 +1057,22 @@ def compare_dense_case(name, params, ref, cfg, dev, carry=None,
     log(f"  {name}: N={n} K={k} tile {cfg.tile_h}x{cfg.tile_w} "
         f"max_count={int(count.max())} sat_walk={rd._sat_walk(cfg)} | fwd "
         f"err {fwd_err:.3g} | bwd: moment err/tol {ratios['bwd']:.3g}, grad "
-        f"err {bwd_err:.3g} of {bwd_scale:.3g}, repeats bit for bit | l2: "
-        f"color err {l2_col:.3g}, moment err/tol {ratios['l2']:.3g}, grad "
-        f"err {l2_err:.3g} of {l2_scale:.3g}; equals the chunk walk (6/7, "
-        f"gC, then 8/9) bit for bit: {chained}")
+        f"err {bwd_err:.3g} of {bwd_scale:.3g}, repeats bit for bit, equals "
+        f"the chunk reference bit for bit (slot sums, moments): {replayed}; "
+        f"(patch, slot) steps {int(count.sum()) * mask.shape[1]}, survivors "
+        f"{int(want.sum())} (plain mask, equal patch by patch), walked "
+        f"{walked} | l2: color err {l2_col:.3g}, moment err/tol "
+        f"{ratios['l2']:.3g}, grad err {l2_err:.3g} of {l2_scale:.3g}; "
+        f"equals the chunk walk (6/7, gC, then the chunk reference) bit for "
+        f"bit: {chained}")
     if max(fwd_err, l2_col) > COLOR_ATOL or max(ratios.values()) > 1.0:
         raise AssertionError(f"{name}: kernel disagrees with plain version")
     if not chained:
         raise AssertionError(f"{name}: kernel 4/5 differs from the chunk "
                              "walk")
+    if not replayed:
+        raise AssertionError(f"{name}: kernel 8/9 differs from the chunk "
+                             "reference")
     errs = {"fwd_dense": fwd_err, "bwd_dense": bwd_err,
             "l2_dense": max(l2_col, l2_err)}
     if not timed:
@@ -957,104 +1127,66 @@ def dense_l2_report(name, tp, ids, count, ref_chw, n, cfg, dev,
     split = kernel_split(lambda: rdn._l2_dense_cuda(tp, ids, count, ref_chw,
                                                     n, cfg), L2_DENSE_PARTS)
     log_split(f"kernels 4/5 at {name}", split, L2_DENSE_PARTS, smi)
-    log(f"  the chunk walk (6/7, gC, then 8/9) on the same inputs: "
+    log(f"  the chunk walk (6/7, gC, then the chunk reference) on the same "
+        f"inputs: "
         f"{cuda_ms(lambda: chain(tp, ids, count, ref_chw, n, cfg), 20):.4f} "
         f"ms [{smi}]")
 
 
 def compare_new(dev, smi: str):
-    """The compare cases of kernel 3 and the dense kernels: a random
-    population under a random cotangent from a non-identity carry-in (K =
+    """The compare cases of kernel 3 (backward_cases, each also against the
+    chunk reference) and of the dense kernels on the same populations: the
+    random one under a random cotangent from a non-identity carry-in (K =
     256 and K = 512, so both members of each dense pair run), the opacity-1
-    population centred on pixel centres, saturated 64-row tiles with the
-    walk forced (dense), and the pcg3d init of the default fit (timed: kernel
-    3 and the dense forward and backward at the SSIM path's K = 256, the
-    dense L2 step at the L2 fit's tuned K = 512). Returns (max errors,
-    times)."""
-    from gs2d_tpu_torch.config import SplatConfig
-    from gs2d_tpu_torch.io.image import load_image
-    from gs2d_tpu_torch.ops import render as rd
-    from gs2d_tpu_torch.ops import render_resident as rr
+    one, saturated 64-row tiles with the walk forced, and the pcg3d init of
+    the default fit (timed: kernel 3 and the dense forward and backward at
+    the SSIM path's K = 256, the dense L2 step at the L2 fit's tuned K =
+    512). Returns (max errors, times)."""
     from gs2d_tpu_torch.ops import tiles as tl
-    from gs2d_tpu_torch.params import init_params, params_from_numpy
 
-    log("[compare] bwd_resident and the dense kernels vs plain PyTorch")
+    log("[compare] bwd_resident and the dense kernels vs plain PyTorch and "
+        "the chunk reference")
     errs = {"bwd_resident": 0.0, "fwd_dense": 0.0, "bwd_dense": 0.0,
             "l2_dense": 0.0}
     times = {}
 
-    def add(e):
+    def add(e, t):
         for kk, v in e.items():
             errs[kk] = max(errs[kk], v)
+        times.update(t or {})
 
-    ref = load_image(MINI)
-    h, w = ref.shape[:2]
-    base = SplatConfig(width=w, height=h, n_splats=600, tile_h=32,
-                       max_splats_per_tile=256)
-    # A prefix from another population as the carry-in, and a random
-    # upstream cotangent.
-    p_pre = params_from_numpy(population(21, 300, w, h), dev)
-    pre = base.replace(n_splats=300)
-    b_pre = tl.bin_splats(p_pre, pre, 256, ids_only=True)
-    c_pre, t_pre = rr._fwd_resident_plain(rr.resident_table(p_pre, pre),
-                                          rr._remap_ids(b_pre, 300),
-                                          b_pre.count, pre)
-    carry = (c_pre[0].contiguous(), t_pre[0].contiguous())
-    g_rand = torch.randn((3, base.padded_height, base.padded_width),
-                         generator=torch.Generator(dev).manual_seed(22),
-                         device=dev)
-    p_rand = params_from_numpy(population(20, 600, w, h), dev)
-    add({"bwd_resident": compare_bwd_resident_case(
-        "random + carry-in + random cotangent", p_rand, ref, base, dev,
-        carry=carry, g_color=g_rand)[0]})
-    add(compare_dense_case("random + carry-in + random cotangent, K=256",
-                           p_rand, ref, base.replace(binning="dense"), dev,
-                           carry=carry, g_color=g_rand)[0])
-    cfg512 = base.replace(n_splats=1500, max_splats_per_tile=512,
-                          binning="dense")
-    add(compare_dense_case("random + carry-in + random cotangent, K=512",
-                           params_from_numpy(population(20, 1500, w, h),
-                                             dev), ref, cfg512, dev,
-                           carry=carry, g_color=g_rand)[0])
-    p1 = population(23, 300, w, h, opacity=(1.0, 1.0))
-    p1["pos"][:64] = np.floor(p1["pos"][:64]) + 0.5
-    p1 = params_from_numpy(p1, dev)
-    cfg1 = base.replace(n_splats=300)
-    add({"bwd_resident": compare_bwd_resident_case(
-        "opacity-1 centred", p1, ref, cfg1, dev)[0]})
-    add(compare_dense_case("opacity-1 centred", p1, ref,
-                           cfg1.replace(binning="dense"), dev)[0])
-    threshold = rd.SAT_WALK_THRESHOLD
-    rd.SAT_WALK_THRESHOLD = 1
-    try:
-        cfg64 = SplatConfig(width=w, height=h, n_splats=256, tile_h=64,
-                            max_splats_per_tile=512, binning="dense")
-        add(compare_dense_case("saturated, 64-row tiles, walk forced",
-                               params_from_numpy(opaque_stack(24, 256, w, h),
-                                                 dev), ref, cfg64, dev)[0])
-    finally:
-        rd.SAT_WALK_THRESHOLD = threshold
-    cfg_main = SplatConfig(width=w, height=h, n_splats=1024)
-    p_init = init_params(cfg_main, dev)
-    cfg_ssim = tl.tune_tile_height(cfg_main, p_init).replace(
-        max_splats_per_tile=rd._max_per_tile(cfg_main))
-    e, t = compare_bwd_resident_case("pcg3d init (SSIM path), K=256", p_init,
-                                     ref, cfg_ssim, dev, timed=True)
-    add({"bwd_resident": e})
-    times.update(t)
+    cases = backward_cases(dev)
+    for name, (p, ref, cfg, inputs, forced, timed) in cases.items():
+        with walk_forced(forced):
+            e, t = compare_bwd_resident_case(name, p, ref, cfg, dev, inputs,
+                                             timed, smi)
+            # The kernels' line takes kernel 3's time at the SSIM path's
+            # init; the deep case's is logged only.
+            if "nan_splat" not in inputs:
+                add({"bwd_resident": e}, t if name.startswith("pcg3d")
+                    else None)
+            if timed:
+                log_times(t, f"at {name}", smi)
+            if name.startswith(("random", "opacity", "saturated")) \
+                    and "nan_splat" not in inputs:
+                add(*compare_dense_case(
+                    name, p, ref, cfg.replace(binning="dense"), dev,
+                    carry=inputs.get("carry"),
+                    g_color=inputs.get("g_color")))
+    p_init, ref, cfg_ssim, _, _, _ = cases["pcg3d init (SSIM path), K=256"]
     e, t = compare_dense_case("pcg3d init (SSIM path), K=256", p_init, ref,
                               cfg_ssim.replace(binning="dense"), dev,
                               timed=("fwd_dense", "bwd_dense"))
-    add(e)
-    times.update(t)
-    cfg_l2 = tl.tune_tile_capacity(p_init, tl.tune_tile_height(
-        cfg_main, p_init)).replace(binning="dense")
+    add(e, t)
+    cfg_main = cfg_ssim.replace(max_splats_per_tile=None)
+    cfg_l2 = tl.tune_tile_capacity(p_init, cfg_main).replace(binning="dense")
     e, t = compare_dense_case(
         f"pcg3d init (L2 path), K={cfg_l2.max_splats_per_tile}", p_init, ref,
         cfg_l2, dev, timed=("l2_dense",), smi=smi)
-    add(e)
-    times.update(t)
-    log_times(times, "at the default fit's init", smi)
+    add(e, t)
+    log_times({kk: times[kk] for kk in ("fwd_dense", "bwd_dense",
+                                        "l2_dense")},
+              "at the default fit's init", smi)
     return errs, times
 
 
@@ -1096,19 +1228,16 @@ def deep_tall(seed: int, n: int, width: int, height: int) -> dict:
     return {k: v.astype(np.float32) for k, v in d.items()}
 
 
-def compare_resident64(dev, smi: str):
-    """Kernels 1-3 on 64x128 tiles, walked in two 32-row passes: a deep,
-    tall population of 2600 splats on the default target, for which
-    tune_tile_height picks 64 rows, at K = its fullest tile rounded up to
-    256. Returns (max errors, times)."""
+def deep_case(dev):
+    """The deep, tall population of 2600 splats on the default target, for
+    which tune_tile_height picks 64-row tiles, at K = its fullest tile
+    rounded up to 256. Returns (params, cfg, name)."""
     from gs2d_tpu_torch.config import SplatConfig
     from gs2d_tpu_torch.io.image import load_image
     from gs2d_tpu_torch.ops import tiles as tl
     from gs2d_tpu_torch.params import params_from_numpy
 
-    log("[compare] resident kernels 1-3 on 64x128 tiles vs plain PyTorch")
-    ref = load_image(MINI)
-    h, w = ref.shape[:2]
+    h, w = load_image(MINI).shape[:2]
     n = 2600
     p = params_from_numpy(deep_tall(40, n, w, h), dev)
     cfg = tl.tune_tile_height(SplatConfig(width=w, height=h, n_splats=n), p)
@@ -1117,11 +1246,20 @@ def compare_resident64(dev, smi: str):
     b = tl.bin_splats(p, cfg, 4096, ids_only=True)
     cfg = cfg.replace(max_splats_per_tile=-(-int(b.count.max()) // 256)
                       * 256)
-    name = f"deep, tall, N={n}, 64-row tiles"
-    errs, times = compare_case(name, p, ref, cfg, dev, timed=True)
-    e3, t3 = compare_bwd_resident_case(name, p, ref, cfg, dev, timed=True)
-    errs["bwd_resident"] = e3
-    times.update(t3)
+    return p, cfg, f"deep, tall, N={n}, 64-row tiles"
+
+
+def compare_resident64(dev, smi: str):
+    """Kernels 1 and 2 on 64x128 tiles, walked in two 32-row passes, on the
+    deep case (kernel 3's is one of backward_cases). Returns (max errors,
+    times)."""
+    from gs2d_tpu_torch.io.image import load_image
+
+    log("[compare] resident kernels 1 and 2 on 64x128 tiles vs plain "
+        "PyTorch")
+    p, cfg, name = deep_case(dev)
+    errs, times = compare_case(name, p, load_image(MINI), cfg, dev,
+                               timed=True)
     log_times(times, f"on 64-row tiles (K={cfg.max_splats_per_tile})", smi)
     return errs, times
 
@@ -1560,8 +1698,10 @@ def step_profile(step, state, ref_in, step_ms: float, steps: int = 10) -> str:
 
 
 def fused_cells(dev) -> dict:
-    """The fused L2 train steps of the fits, as the fits tune them: {label:
-    (cfg, initial state, padded target)}."""
+    """The train steps of the fits, as the fits tune them: {label: (step
+    function, initial state, target as the step takes it)}. The fused L2
+    steps of every layout, and the modular SSIM step of the default fit,
+    resident and dense."""
     from gs2d_tpu_torch.config import SplatConfig
     from gs2d_tpu_torch.io.image import load_image
     from gs2d_tpu_torch.ops import render as rd
@@ -1569,7 +1709,8 @@ def fused_cells(dev) -> dict:
     from gs2d_tpu_torch.ops import render_window as rw
     from gs2d_tpu_torch.ops import tiles as tl
     from gs2d_tpu_torch.params import init_params
-    from gs2d_tpu_torch.train.loop import init_train_state
+    from gs2d_tpu_torch.train.loop import (init_train_state, make_train_step,
+                                           make_train_step_fused)
 
     cells = {}
     for image, n in ((MINI, 1024), (FULL, N_10K)):
@@ -1588,7 +1729,7 @@ def fused_cells(dev) -> dict:
         dense = tuned.replace(binning="dense")
         cells[f"dense L2 train step, {kind} fit (K="
               f"{dense.max_splats_per_tile})"] = dense
-    out = {label: (cfg, init_train_state(cfg, dev),
+    out = {label: (make_train_step_fused(cfg), init_train_state(cfg, dev),
                    rd.pad_ref_chw(load_image(MINI if cfg.n_splats == 1024
                                              else FULL), cfg, dev))
            for label, cfg in cells.items()}
@@ -1596,8 +1737,18 @@ def fused_cells(dev) -> dict:
     cfg = rw.tune_window(state.params,
                          tl.tune_tile_capacity(state.params, cfg))
     out[f"window L2 train step (K={cfg.max_splats_per_tile}, "
-        f"W={cfg.window_width})"] = (cfg, state,
+        f"W={cfg.window_width})"] = (make_train_step_fused(cfg), state,
                                      rd.pad_ref_chw(full, cfg, dev))
+    mini = load_image(MINI)
+    cfg = SplatConfig(width=mini.shape[1], height=mini.shape[0],
+                      n_splats=1024)
+    cfg = tl.tune_tile_height(cfg, init_params(cfg, dev))
+    for binning in ("resident", "dense"):
+        ssim_cfg = cfg.replace(binning=binning)
+        out[f"modular SSIM train step ({binning}), default fit"] = (
+            make_train_step(ssim_cfg, float(SSIM)),
+            init_train_state(ssim_cfg, dev),
+            torch.as_tensor(mini, dtype=torch.float32, device=dev))
     return out
 
 
@@ -1605,11 +1756,8 @@ def profile_cell(cells: dict, prefix: str, step_ms=None) -> None:
     """Logs the step profile of the cell whose label starts with
     ``prefix``, against ``step_ms`` (the timed fits' step), or, when None,
     against 50 unprofiled steps of the same step function timed here."""
-    from gs2d_tpu_torch.train.loop import make_train_step_fused
-
     label = next(k for k in cells if k.startswith(prefix))
-    cfg, state, ref_chw = cells[label]
-    step = make_train_step_fused(cfg)
+    step, state, ref_chw = cells[label]
     if step_ms is None:
         s = state
         for _ in range(5):
@@ -1915,6 +2063,46 @@ def recovery_phase(dev) -> dict:
     return total
 
 
+def backward_dump(dev, out: str, other=None) -> int:
+    """Kernel 3 and kernels 8/9 (on the table rows kernel 3's ids name) of
+    the package beside this script, on every population of backward_cases
+    under the same planes: logs whether the two give the same moments bit
+    for bit and saves both to ``out`` (torch.save). With ``other``, a dump
+    made by another checkout's kernels (this script copied into it, e.g.
+    the parent's), holds both to it bit for bit. Runs no plain version and
+    no fit. Returns 0 when everything compared is equal, else 1."""
+    from gs2d_tpu_torch.ops import render_dense as rdn
+    from gs2d_tpu_torch.ops import render_resident as rr
+
+    log("[dump] kernels 3 and 8/9 on kernel 3's compare populations")
+    dump, ok = {}, True
+    for name, (p, ref, cfg, inputs, forced, _) in backward_cases(dev).items():
+        with walk_forced(forced):
+            table, ids, count, planes = backward_inputs(p, ref, cfg, dev,
+                                                        **inputs)
+            m3 = rr._bwd_resident_cuda(table, ids, count, *planes, p.n,
+                                       cfg)[:9, : p.n]
+            g89 = rdn._bwd_dense_cuda(gathered_rows(table, ids), ids, count,
+                                      *planes, p.n, cfg)[-1]
+            torch.cuda.synchronize()
+        dump[name] = (m3.cpu(), g89.cpu())
+        same = same_bits(m3, g89)
+        ok &= same
+        log(f"  {name}: kernel 3 equals kernels 8/9 bit for bit: {same} "
+            f"(NaN in {int(torch.isnan(m3).sum())} of {m3.numel()} "
+            "moments)")
+    torch.save(dump, out)
+    if other is not None:
+        theirs = torch.load(other)
+        for name, (m3, g89) in dump.items():
+            same = (same_bits(m3, theirs[name][0]),
+                    same_bits(g89, theirs[name][1]))
+            ok &= all(same)
+            log(f"  {name}: against {os.path.basename(other)}, kernel 3 "
+                f"equal bit for bit: {same[0]}, kernels 8/9: {same[1]}")
+    return 0 if ok else 1
+
+
 KERNELS = (
     ("l2_resident", "gs2d_tpu_torch/csrc/render_resident.cu",
      "gs2d_tpu/ops/render_pallas_resident.py:88"),
@@ -1955,7 +2143,6 @@ def main(argv) -> int:
     from gs2d_tpu_torch.ops import _build
     from gs2d_tpu_torch.ops import tiles as tl
     from gs2d_tpu_torch.params import init_params, params_from_numpy
-    from gs2d_tpu_torch.train.loop import init_train_state, make_train_step
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1982,6 +2169,8 @@ def main(argv) -> int:
         for label in cells:
             profile_cell(cells, label)
         return 0
+    if argv[:1] == ["--backward-dump"] and len(argv) in (2, 3):
+        return backward_dump(dev, *argv[1:])
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2038,6 +2227,9 @@ def main(argv) -> int:
     log(f"  fma_peak compiled code (cuobjdump -sass), per chain count: "
         f"{probes.fma_sass_counts()}")
 
+    from gs2d_tpu_torch.ops import render_dense as rdn
+    chunk_launches = rdn.launches["bwd_chunk"]
+
     # ---- main paths: the CLI's fits -----------------------------------------
     total = {}
 
@@ -2091,13 +2283,8 @@ def main(argv) -> int:
         raise AssertionError("the resident SSIM fit does not repeat bit for "
                              "bit")
     log("  repeats bit for bit (200 of 200 MSEs equal)")
-    cfg_ssim = tl.tune_tile_height(SplatConfig(width=w, height=h,
-                                               n_splats=1024), p_init)
-    log("[profile] modular SSIM train step (resident), 10 steps")
-    log(step_profile(make_train_step(cfg_ssim, float(SSIM)),
-                     init_train_state(cfg_ssim, dev),
-                     torch.as_tensor(ref, dtype=torch.float32, device=dev),
-                     median_ms(rates)))
+    profile_cell(cells, "modular SSIM train step (resident)",
+                 median_ms(rates))
 
     launches, mse, rates = fit_phase(MINI, 1024, smi, dense, runs=2)
     expect_launches("dense L2 fit", launches,
@@ -2112,14 +2299,20 @@ def main(argv) -> int:
     log("  equals the resident L2 trajectory bit for bit (200 of 200 MSEs)")
     profile_cell(cells, "dense L2 train step, default fit", median_ms(rates))
 
-    launches, mse, _ = fit_phase(MINI, 1024, smi, dense + ssim,
-                                 runs=2)
+    launches, mse, rates = fit_phase(MINI, 1024, smi, dense + ssim,
+                                     runs=2)
     expect_launches("dense SSIM fit", launches,
                     {"fwd_dense": 201, "bwd_dense": 200})
     count(launches)
     check_trajectory(mse, TRAJECTORY_SSIM)
-    log(f"  equals the resident SSIM trajectory bit for bit: "
-        f"{same_trajectory(mse, mse_ssim)}")
+    # Kernels 8/9 and kernel 3 run one replay over the same pairs, read from
+    # the tile_params or through the ids, and the same sums.
+    if not same_trajectory(mse, mse_ssim):
+        raise AssertionError("the dense SSIM fit differs from the resident "
+                             "one")
+    log("  equals the resident SSIM trajectory bit for bit (200 of 200 "
+        "MSEs)")
+    profile_cell(cells, "modular SSIM train step (dense)", median_ms(rates))
 
     launches, mse, _ = fit_phase(FULL, N_10K, smi, ssim, runs=2)
     expect_launches("flat SSIM fit", launches,
@@ -2149,6 +2342,10 @@ def main(argv) -> int:
     count(fit_1080p_phase(dev, smi))
     count(resume_phase())
     count(recovery_phase(dev))
+    if total.get("bwd_chunk"):
+        raise AssertionError("a fit path launched the chunk reference")
+    log(f"  the chunk reference (gs2d_bwd_chunk, not a port of a TPU kernel): "
+        f"{chunk_launches} launches in the compare phases, 0 on every path")
     log("[done] every phase passed")
 
     for kk, _, _ in KERNELS:

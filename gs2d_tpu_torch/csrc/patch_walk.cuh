@@ -1,6 +1,6 @@
-// Warp-patch walk of one tile's list, shared by the resident kernels 1, 2 and
-// 12 (render_resident.cu), the dense kernels 4/5 (render_dense.cu) and the
-// flat kernels 10 and 11 (render_flat.cu).
+// Warp-patch walk of one tile's list, shared by the resident kernels 1, 2, 3
+// and 12 (render_resident.cu), the dense kernels 4/5 and 8/9
+// (render_dense.cu) and the flat kernels 10 and 11 (render_flat.cu).
 //
 // Each warp owns one patch, the 8 rows x 32 columns that warp w of a
 // one-block-per-tile pass owned (lane = column; tile_walk.cuh's pass), and a
@@ -32,8 +32,9 @@
 // later step), walking only the non-finite survivors after it; the replay
 // either takes that prefix from the forward (kernel 1, whose replay T
 // follows the forward's bit for bit) or finds its own on its replayed T
-// (kernel 11, from a carry-in). So on finite inputs the patch walk computes
-// what the one-block-per-tile walk (tile_walk.cuh) computes, bit for bit;
+// (kernels 3, 8/9 and 11, from a carry-in). So on finite inputs the patch
+// walk computes what the one-block-per-tile walk (tile_walk.cuh) computes,
+// bit for bit;
 // where a splat or a carry is not finite it gives the NaNs of that walk
 // without its saturation exits.
 #pragma once
@@ -84,6 +85,19 @@ __device__ __forceinline__ Patch patch_of(const RenderArgs& p,
   c.y0 = (c.tile / p.n_tiles_x) * p.tile_h + (c.pass * g.ngrp + grp) * kRows;
   c.fx = (float)c.xx + 0.5f;
   return c;
+}
+
+// The launch constants of a warp-patch kernel over lists of k_cap slots:
+// the walk's passes for the tile shape (tile_walk.cuh's walk_args, which fix
+// the patches' pass order) with the whole list as one chunk, so a->p.k_cap
+// is K. Returns 0 for a shape the kernels do not take.
+inline int patch_args(int height, int width, int tile_h, int tile_w,
+                      int n_tiles_x, int n_tiles_y, int k_cap,
+                      float cutoff_sq, float min_throughput,
+                      int use_exp_approx, walk::WalkArgs* a) {
+  return walk::walk_args(height, width, tile_h, tile_w, n_tiles_x, n_tiles_y,
+                         k_cap, 1, 0, k_cap, cutoff_sq, min_throughput,
+                         use_exp_approx, a);
 }
 
 // The patch grid of a launch whose pass geometry walk_args fixed.
@@ -381,6 +395,22 @@ __device__ __forceinline__ void bwd_patch(
   }
 }
 
+// The per-patch partials of kernels 1, 3, 4/5, 8/9 and 12: (n_tiles,
+// p.k_cap, n_pass, warps per pass, 9). Slot k's partial of patch c lies at
+// patch_partial(...) + k * slot_stride(g).
+__device__ __forceinline__ size_t slot_stride(const PatchGrid& g) {
+  return (size_t)g.n_pass * g.ngrp * g.ncg * kMoments;
+}
+
+__device__ __forceinline__ float* patch_partial(float* partial,
+                                                const Patch& c,
+                                                const PatchGrid& g,
+                                                const RenderArgs& p) {
+  return partial + ((size_t)c.tile * p.k_cap * g.n_pass + c.pass) *
+                       (g.ngrp * g.ncg) * kMoments +
+         c.warp * kMoments;
+}
+
 // The fused L2 step of one patch (kernels 1, 4/5 and 12) over the n listed
 // slots of its tile: the forward composite, its colour written to color
 // (3, Hp, Wp), the cotangent gC = C - ref and gf = sum_ch gC * C formed in
@@ -396,7 +426,6 @@ __device__ __forceinline__ void l2_patch(const Run& run, int n,
                                          float* __restrict__ color,
                                          float* __restrict__ partial,
                                          int* __restrict__ walked) {
-  const int wpp = g.ngrp * g.ncg;
   float gc_r[kRows], gc_g[kRows], gc_b[kRows], gf[kRows], ga[kRows],
       T[kRows];
   int n_survivors, n_walked;
@@ -420,21 +449,44 @@ __device__ __forceinline__ void l2_patch(const Run& run, int n,
     ga[r] = 0.0f;
     T[r] = (yy < p.height && c.xx < p.width) ? 1.0f : 0.0f;
   }
-  const size_t slot_stride = (size_t)g.n_pass * wpp * kMoments;
-  float* part = partial + ((size_t)c.tile * p.k_cap * g.n_pass + c.pass) *
-                              wpp * kMoments +
-                c.warp * kMoments;
   int replay_survivors, replay_walked;
-  bwd_patch<false>(run, n, n_full, c, p, gc_r, gc_g, gc_b, gf, ga, T, part,
-                   slot_stride, replay_survivors, replay_walked);
+  bwd_patch<false>(run, n, n_full, c, p, gc_r, gc_g, gc_b, gf, ga, T,
+                   patch_partial(partial, c, g, p), slot_stride(g),
+                   replay_survivors, replay_walked);
   record_walk(walked, c, g, n_survivors, n_walked);
 }
 
-// Launches the splat-axis sum of l2_patch's partials (patch_sum_kernel,
-// render_resident.cu) into rows 0..8 of grads (row stride n_pad): ids
-// (n_tiles, k_cap), the first count[t] of each row ascending; with bases
-// set, splat i takes its partials only from the tiles t with bases[t] <= i
-// < bases[t] + win (kernel 12's window). Returns cudaGetLastError().
+// The replay of one patch from a carry-in under an upstream cotangent
+// (kernels 3 and 8/9) over the n listed slots of its tile: the planes of
+// its 8 rows read into registers (walk::load_cotangent: gc, gf = sum_ch gC
+// * C_final, ga = sum_ch gC * C_in, T = T_in; fin, gc and cin are (3, Hp,
+// Wp), tin (Hp, Wp)), then bwd_patch with its own saturation exit, slot k's
+// partial written as l2_patch writes it, an exact zero where it skips the
+// slot. walked, when set, gets the patch's (survivors, survivors walked).
+template <class Run>
+__device__ __forceinline__ void replay_patch(
+    const Run& run, int n, const Patch& c, const RenderArgs& p,
+    const PatchGrid& g, const float* __restrict__ fin,
+    const float* __restrict__ gc, const float* __restrict__ cin,
+    const float* __restrict__ tin, float* __restrict__ partial,
+    int* __restrict__ walked) {
+  float gc_r[kRows], gc_g[kRows], gc_b[kRows], gf[kRows], ga[kRows],
+      T[kRows];
+  walk::load_cotangent(fin, gc, cin, tin, p, c.xx, c.y0, gc_r, gc_g, gc_b,
+                       gf, ga, T);
+  int survivors, n_walked;
+  bwd_patch<true>(run, n, 0, c, p, gc_r, gc_g, gc_b, gf, ga, T,
+                  patch_partial(partial, c, g, p), slot_stride(g), survivors,
+                  n_walked);
+  record_walk(walked, c, g, survivors, n_walked);
+}
+
+// Launches the splat-axis sum of l2_patch's and replay_patch's partials
+// (patch_sum_kernel, render_resident.cu) into rows 0..8 of grads (row
+// stride n_pad): ids (n_tiles, k_cap), the first count[t] of each row
+// ascending; with bases set, splat i takes its partials only from the
+// tiles t with bases[t] <= i < bases[t] + win (kernel 12's window). Returns
+// cudaGetLastError().
 int launch_patch_sum(const int* ids, const int* count, const int* bases,
                      int win, const float* partial, float* grads, int n_tiles,
                      int k_cap, const PatchGrid& g, int n_splats, int n_pad,

@@ -17,17 +17,27 @@
 //   composite, form the cotangent gC = C - ref in registers, replay, one
 //   9-moment partial per (tile, slot, pass, warp), an exact zero where the
 //   walk skips, then kernel 1's patch sum. Colour and moments equal the
-//   chunk walk's below (6/7, then gC, then 8/9) bit for bit.
+//   chunk walk's below (6/7, then gC, then gs2d_bwd_chunk) bit for bit.
 // Kernels 6/7, gs2d_fwd_dense: the forward composite (C, T). Replaces
 //   render_pallas.py::_forward_kernel (:597) and ::_fwd_chunked_kernel
 //   (:576).
 // Kernels 8/9, gs2d_bwd_dense: the backward replay from a carry-in prefix
-//   (C_in, T_in) under any upstream cotangent, then the segment sum.
-//   Replaces render_pallas.py::_backward_kernel (:728) and
-//   ::_bwd_chunked_kernel (:681).
-// 6/7 and 8/9 keep the chunk walk of tile_walk.cuh (one block per tile,
-// chunks of kc <= 256 rows in shared memory, register carries, the exits
-// bitwise-neutral), the in-call reference of the warp-patch kernels.
+//   (C_in, T_in) under any upstream cotangent. Replaces
+//   render_pallas.py::_backward_kernel (:728) and ::_bwd_chunked_kernel
+//   (:681). Kernel 3's warp patches over the tile_params (patch_walk.cuh's
+//   replay_patch over DenseRun: an exact per-warp cull, its own saturation
+//   exit on the replayed T), one 9-moment partial per (tile, slot, pass,
+//   warp), then the patch sum.
+// 6/7 keep the chunk walk of tile_walk.cuh (one block per tile, chunks of
+// kc <= 256 rows in shared memory, register carries, the exits
+// bitwise-neutral).
+//
+// gs2d_bwd_chunk, a reference only: the chunk walk's backward (bwd_pass,
+// then the per-(tile, slot) segment sum), the design that kernels 8/9 had
+// before they moved onto warp patches, kept unchanged. It is not a port of
+// a TPU kernel and no fit path reaches it: 6/7, then gC, then it are the
+// in-call reference (chip_smoke.py::chain) of the warp-patch kernels 1, 2,
+// 3, 4/5, 8/9, 10, 11 and 12.
 //
 // No G-cache: the TPU's (K, 32, 128) cache of the masked Gaussian term does
 // not fit a block, so the backward re-derives coverage (the alpha_cache=False
@@ -36,8 +46,8 @@
 // a dense fit repeats the resident fit's numbers. What bounds them on the
 // card: about 58 f32 operations per (pixel, pair) forward and 81 backward
 // (counted in chip_smoke.py) against 64 bytes of row per pair, so they are
-// compute and latency bound; the one block per tile of 6/7 and 8/9 leaves
-// most SMs idle at the default 21-tile image (ROADMAP.md queue 1b).
+// compute and latency bound; the one block per tile of 6/7 leaves most SMs
+// idle at the default 21-tile image (ROADMAP.md queue 1b).
 
 #include <cuda_runtime.h>
 
@@ -82,7 +92,7 @@ fwd_dense_kernel(const float* __restrict__ rows, const int* __restrict__ count,
 }
 
 __global__ void __launch_bounds__(walk::kMaxThreads)
-bwd_dense_kernel(const float* __restrict__ rows, const int* __restrict__ count,
+bwd_chunk_kernel(const float* __restrict__ rows, const int* __restrict__ count,
                  const float* __restrict__ fin, const float* __restrict__ gc,
                  const float* __restrict__ cin, const float* __restrict__ tin,
                  float* __restrict__ partial, WalkArgs a) {
@@ -113,6 +123,19 @@ l2_dense_kernel(const float* __restrict__ rows, const int* __restrict__ count,
   if (!c.active) return;
   patch::l2_patch(patch::DenseRun{rows, p.k_cap}, count[c.tile], c, p, g,
                   ref, color, partial, walked);
+}
+
+// Kernels 8/9 on warp patches: partial and walked as in l2_dense_kernel.
+__global__ void __launch_bounds__(patch::kPatchWarps * 32)
+bwd_dense_kernel(const float* __restrict__ rows, const int* __restrict__ count,
+                 const float* __restrict__ fin, const float* __restrict__ gc,
+                 const float* __restrict__ cin, const float* __restrict__ tin,
+                 float* __restrict__ partial, int* __restrict__ walked,
+                 RenderArgs p, patch::PatchGrid g) {
+  const patch::Patch c = patch::patch_of(p, g);
+  if (!c.active) return;
+  patch::replay_patch(patch::DenseRun{rows, p.k_cap}, count[c.tile], c, p, g,
+                      fin, gc, cin, tin, partial, walked);
 }
 
 // Launch constants of a dense walk over (n_tiles, k_cap, 16) rows in
@@ -158,10 +181,11 @@ int gs2d_fwd_dense(const float* rows, const int* count, float* color,
   return (int)cudaGetLastError();
 }
 
-// Kernels 8/9 and the segment sum. ids is (n_tiles, K); fin, gc and cin
-// are (3, Hp, Wp), tin (Hp, Wp); partial is (n_tiles, K, 9), zeroed by the
-// caller; grads9 is (9, n_splats). Returns cudaGetLastError().
-int gs2d_bwd_dense(const float* rows, const int* ids, const int* count,
+// The chunk reference (bwd_chunk_kernel) and the segment sum. ids is
+// (n_tiles, K); fin, gc and cin are (3, Hp, Wp), tin (Hp, Wp); partial is
+// (n_tiles, K, 9), zeroed by the caller; grads9 is (9, n_splats). Returns
+// cudaGetLastError().
+int gs2d_bwd_chunk(const float* rows, const int* ids, const int* count,
                    const float* fin, const float* gc, const float* cin,
                    const float* tin, float* partial, float* grads9,
                    int n_splats, int height, int width, int tile_h,
@@ -176,16 +200,46 @@ int gs2d_bwd_dense(const float* rows, const int* ids, const int* count,
   const int n_tiles = n_tiles_x * n_tiles_y;
   const size_t smem = gs2d::walk::bwd_smem_bytes(kc, threads);
   cudaError_t err = cudaFuncSetAttribute(
-      gs2d::dense::bwd_dense_kernel,
+      gs2d::dense::bwd_chunk_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  gs2d::dense::bwd_dense_kernel<<<n_tiles, threads, smem, s>>>(
+  gs2d::dense::bwd_chunk_kernel<<<n_tiles, threads, smem, s>>>(
       rows, count, fin, gc, cin, tin, partial, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return gs2d::launch_segment_sum(ids, count, partial, grads9, n_tiles, k_cap,
                                   n_splats, n_splats, s);
+}
+
+// Kernels 8/9 and the patch sum. ids is (n_tiles, K); fin, gc and cin are
+// (3, Hp, Wp), tin (Hp, Wp); partial is (n_tiles, K, patches per tile, 9)
+// scratch, read only where the patch kernel wrote it; grads9 (9, n_splats)
+// is written whole; walked is null or (patches, 2). Returns
+// cudaGetLastError().
+int gs2d_bwd_dense(const float* rows, const int* ids, const int* count,
+                   const float* fin, const float* gc, const float* cin,
+                   const float* tin, float* partial, float* grads9,
+                   int* walked, int n_splats, int height, int width,
+                   int tile_h, int tile_w, int n_tiles_x, int n_tiles_y,
+                   int k_cap, float cutoff_sq, float min_throughput,
+                   int use_exp_approx, void* stream) {
+  WalkArgs a;
+  if (gs2d::patch::patch_args(height, width, tile_h, tile_w, n_tiles_x,
+                              n_tiles_y, k_cap, cutoff_sq, min_throughput,
+                              use_exp_approx, &a) == 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const gs2d::patch::PatchGrid g = gs2d::patch::patch_grid(a);
+  cudaStream_t s = (cudaStream_t)stream;
+  gs2d::dense::bwd_dense_kernel<<<gs2d::patch::patch_blocks(a, g),
+                                  gs2d::patch::kPatchWarps * 32, 0, s>>>(
+      rows, count, fin, gc, cin, tin, partial, walked, a.p, g);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return gs2d::patch::launch_patch_sum(ids, count, nullptr, 0, partial,
+                                       grads9, n_tiles_x * n_tiles_y, k_cap,
+                                       g, n_splats, n_splats, s);
 }
 
 // Kernels 4/5 and the patch sum. ref and color are (3, Hp, Wp); partial is
@@ -200,9 +254,9 @@ int gs2d_l2_dense(const float* rows, const int* ids, const int* count,
                   int n_tiles_y, int k_cap, float cutoff_sq,
                   float min_throughput, int use_exp_approx, void* stream) {
   WalkArgs a;
-  if (gs2d::walk::walk_args(height, width, tile_h, tile_w, n_tiles_x,
-                            n_tiles_y, k_cap, 1, 0, k_cap, cutoff_sq,
-                            min_throughput, use_exp_approx, &a) == 0) {
+  if (gs2d::patch::patch_args(height, width, tile_h, tile_w, n_tiles_x,
+                              n_tiles_y, k_cap, cutoff_sq, min_throughput,
+                              use_exp_approx, &a) == 0) {
     return (int)cudaErrorInvalidValue;
   }
   const gs2d::patch::PatchGrid g = gs2d::patch::patch_grid(a);

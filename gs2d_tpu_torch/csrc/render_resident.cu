@@ -17,8 +17,7 @@
 //   prefix (C_in, T_in) under any upstream cotangent gC read from a plane
 //   (the VJP of the differentiable render, e.g. under the SSIM objective).
 //   Replaces render_pallas_resident.py::_bwd_resident_kernel (pallas_call
-//   at :451). One block per tile: it runs replay_moments over the tile's
-//   whole list and shares the per-(tile, slot) segment sum.
+//   at :451).
 //
 // Kernel 12, gs2d_l2_window: the L2 step with the window layout's
 //   splat-axis sum. Replaces gs2d_tpu/ops/render_pallas_window.py::
@@ -32,27 +31,29 @@
 // What bounds them on the card: about 58 f32 operations per live (pixel,
 // slot) in the forward and 81 in the backward replay (scripts/roofline.py),
 // against under 100 KB of table and ids, so all are compute and latency
-// bound. Kernel 3 keeps one block per tile: each thread keeps kRows pixels
-// of one tile column in registers and reads the splat scalars from shared
-// memory as broadcasts; a tile taller than one pass of kMaxThreads x kRows
-// pixels (64-row tiles at tile_w 128) is walked in passes of sub_h rows.
+// bound.
 //
-// Kernels 1, 2 and 12 on warp patches (patch_walk.cuh, shared with the
-// dense kernels 4/5 and the flat kernels 10 and 11). The one-block-per-tile
-// design ran 21 blocks of 16 warps on 132 SMs at the default 268x213
-// workload and had every warp evaluate every listed splat at all 256 of its
-// pixels, about 12x the live evaluations. Now each warp owns one 8 x 32
-// patch and walks only the slots of the tile's list (read through TableRun)
-// whose splat covers one of its pixels, with a saturation exit, 4 patches a
-// block: the default workload runs 84 blocks. One warp a block (336 blocks)
-// ran kernel 2 slower and kernel 1 no faster (PERF.md). The replay culls
-// again and walks the forward's survivors, its T following the forward's
-// bit for bit. Kernels 1 and 12 write one 9-moment partial per (tile, slot,
-// pass, warp), the warp's lane tree as before, and an exact zero for every
-// slot they did not walk; patch_sum_kernel adds them in the order of the
-// one-block-per-tile sums (warps in index order, then passes in order, then
-// tiles in order). So colour, T and the moments equal the one-block-per-tile
-// chunk walk's (the dense kernels 6/7, then gC, then 8/9) bit for bit.
+// Kernels 1, 2, 3 and 12 on warp patches (patch_walk.cuh, shared with the
+// dense kernels 4/5 and 8/9 and the flat kernels 10 and 11). The
+// one-block-per-tile design ran 21 blocks of 16 warps on 132 SMs at the
+// default 268x213 workload and had every warp evaluate every listed splat
+// at all 256 of its pixels, about 12x the live evaluations; kernel 3 also
+// staged the K listed table rows in shared memory, which bounded K. Now
+// each warp owns one 8 x 32 patch and walks only the slots of the tile's
+// list (read through TableRun) whose splat covers one of its pixels, with a
+// saturation exit, 4 patches a block: the default workload runs 84 blocks.
+// One warp a block (336 blocks) ran kernel 2 slower and kernel 1 no faster
+// (PERF.md). Kernel 1's replay culls again and walks the forward's
+// survivors, its T following the forward's bit for bit; kernel 3 finds its
+// own exit on its replayed T (kernel 11's replay). Kernels 1, 3 and 12 write
+// one 9-moment partial per (tile, slot, pass, warp), the warp's lane tree
+// as before, and an exact zero for every slot they did not walk;
+// patch_sum_kernel adds them in the order of the one-block-per-tile sums
+// (warps in index order, then passes in order, then tiles in order). So
+// colour, T and the moments equal the one-block-per-tile chunk walk's (the
+// dense kernels 6/7, then gC, then the chunk reference gs2d_bwd_chunk)
+// bit for bit; where a splat or a carry is not finite, kernel 3 gives the
+// NaNs of its old walk, which had no exits.
 
 #include <cuda_runtime.h>
 
@@ -62,122 +63,10 @@
 
 namespace gs2d {
 
-constexpr int kRows = walk::kRows;  // pixel rows per thread (one column each)
-constexpr int kChunk = walk::kGroup;  // slots per shared-memory reduction round
+constexpr int kRows = walk::kRows;  // pixel rows of a patch
 constexpr int kMaxThreads = walk::kMaxThreads;
 
-struct PixelCoords {
-  int xx, y0;
-  float fx;
-};
-
-// This thread's column and its first pixel row in pass 0.
-__device__ __forceinline__ PixelCoords pixel_coords(const RenderArgs& p) {
-  const int tile = blockIdx.x;
-  const int tx = tile % p.n_tiles_x;
-  const int ty = tile / p.n_tiles_x;
-  const int col = threadIdx.x % p.tile_w;
-  const int grp = threadIdx.x / p.tile_w;
-  PixelCoords c;
-  c.xx = tx * p.tile_w + col;
-  c.y0 = ty * p.tile_h + grp * kRows;
-  c.fx = (float)c.xx + 0.5f;
-  return c;
-}
-
-// Stage the first n listed rows of the table into shared memory.
-__device__ __forceinline__ void gather_rows(const float* __restrict__ table,
-                                            const int* __restrict__ ids,
-                                            int n, const RenderArgs& p,
-                                            float* rows) {
-  const int* tile_ids = ids + (size_t)blockIdx.x * p.k_cap;
-  for (int i = threadIdx.x; i < n * kFields; i += blockDim.x) {
-    rows[i] = table[(size_t)tile_ids[i / kFields] * kFields + i % kFields];
-  }
-}
-
-// The backward replay of a tile's n listed rows (in shared memory) over the
-// pass whose first rows c names, from the carry (ga, T) under the cotangent
-// (gc, gf): kernel 3. Adds the pass's
-// 9-moment sum of each slot to out (K x 9, zeroed by the caller); red holds
-// warps x kChunk x 9 floats.
-__device__ __forceinline__ void replay_moments(
-    const float* rows, int n, const PixelCoords& c, const RenderArgs& p,
-    const float (&gc_r)[kRows], const float (&gc_g)[kRows],
-    const float (&gc_b)[kRows], const float (&gf)[kRows], float (&ga)[kRows],
-    float (&T)[kRows], float* red, float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  for (int k0 = 0; k0 < n; k0 += kChunk) {
-    const int kn = min(kChunk, n - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      const Splat s = load_splat(rows + (k0 + kk) * kFields);
-      Moments m;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int yy = c.y0 + r;
-        const bool inside = yy < p.height && c.xx < p.width;
-        bwd_one(s, c.xx, yy, c.fx, (float)yy + 0.5f, inside, p, gc_r[r],
-                gc_g[r], gc_b[r], gf[r], ga[r], T[r], m);
-      }
-      float v[kMoments];
-      m.finish(c.fx - s.px, v);
-      // Fixed-order warp tree, then the warps in index order below: the
-      // sum order never changes between runs.
-#pragma unroll
-      for (int f = 0; f < kMoments; ++f) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          v[f] += __shfl_down_sync(0xffffffffu, v[f], off);
-        }
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int f = 0; f < kMoments; ++f) {
-          red[(warp * kChunk + kk) * kMoments + f] = v[f];
-        }
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kn * kMoments; i += blockDim.x) {
-      float acc = 0.0f;
-      for (int w = 0; w < n_warps; ++w) acc += red[w * kChunk * kMoments + i];
-      out[(size_t)k0 * kMoments + i] += acc;
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
-bwd_resident_kernel(const float* __restrict__ table,
-                    const int* __restrict__ ids,
-                    const int* __restrict__ count,
-                    const float* __restrict__ fin,
-                    const float* __restrict__ gc,
-                    const float* __restrict__ cin,
-                    const float* __restrict__ tin,
-                    float* __restrict__ partial, RenderArgs p, int sub_h) {
-  extern __shared__ float smem[];
-  float* rows = smem;                               // K x kFields
-  float* red = smem + (size_t)p.k_cap * kFields;    // warps x kChunk x 9
-  const int n = count[blockIdx.x];
-  gather_rows(table, ids, n, p, rows);
-  __syncthreads();
-
-  for (int pass = 0; pass < p.tile_h; pass += sub_h) {
-    PixelCoords c = pixel_coords(p);
-    c.y0 += pass;
-    float gc_r[kRows], gc_g[kRows], gc_b[kRows], gf[kRows], ga[kRows],
-        T[kRows];
-    walk::load_cotangent(fin, gc, cin, tin, p, c.xx, c.y0, gc_r, gc_g, gc_b,
-                         gf, ga, T);
-    replay_moments(rows, n, c, p, gc_r, gc_g, gc_b, gf, ga, T, red,
-                   partial + (size_t)blockIdx.x * p.k_cap * kMoments);
-  }
-}
-
-// ---- Kernels 1, 2 and 12: warp patches (patch_walk.cuh) -------------------
+// ---- Kernels 1, 2, 3 and 12: warp patches (patch_walk.cuh) ----------------
 
 using patch::kPatchWarps;
 using patch::Patch;
@@ -198,6 +87,25 @@ l2_resident_kernel(const float* __restrict__ table,
   if (!c.active) return;
   patch::l2_patch(TableRun{table, ids, p.k_cap}, count[c.tile], c, p, g, ref,
                   color, partial, walked);
+}
+
+// Kernel 3 on warp patches: the replay from the carry-in planes under the
+// cotangent plane (patch_walk.cuh's replay_patch over TableRun), partial
+// and walked as in kernel 1.
+__global__ void __launch_bounds__(kPatchWarps * 32)
+bwd_resident_kernel(const float* __restrict__ table,
+                    const int* __restrict__ ids,
+                    const int* __restrict__ count,
+                    const float* __restrict__ fin,
+                    const float* __restrict__ gc,
+                    const float* __restrict__ cin,
+                    const float* __restrict__ tin,
+                    float* __restrict__ partial, int* __restrict__ walked,
+                    RenderArgs p, PatchGrid g) {
+  const Patch c = patch::patch_of(p, g);
+  if (!c.active) return;
+  patch::replay_patch(TableRun{table, ids, p.k_cap}, count[c.tile], c, p, g,
+                      fin, gc, cin, tin, partial, walked);
 }
 
 // Kernel 2 on warp patches: kernel 1's forward, written out as (C, T).
@@ -226,9 +134,11 @@ fwd_resident_kernel(const float* __restrict__ table,
   patch::record_walk(walked, c, g, n_survivors, n_walked);
 }
 
-// Splat-axis expansion: grads16[f][i] = sum over tiles, in tile order, of
-// the partial at the slot where splat i appears. Tile lists are ascending
-// in splat id (index order), so each lookup is a binary search.
+// Splat-axis expansion of (n_tiles, K, 9) per-(tile, slot) partials (the
+// chunk reference of render_dense.cu and kernel 13): grads16[f][i] = sum
+// over tiles, in tile order, of the partial at the slot where splat i
+// appears. Tile lists are ascending in splat id (index order), so each
+// lookup is a binary search.
 __global__ void segment_sum_kernel(const int* __restrict__ ids,
                                    const int* __restrict__ count,
                                    const float* __restrict__ partial,
@@ -257,8 +167,8 @@ int launch_segment_sum(const int* ids, const int* count,
 }
 
 // The splat-axis sum of the per-(tile, slot, pass, warp) partials of
-// kernels 1, 4/5 and 12, one thread per (splat, moment): for each tile in
-// order that lists splat i, the slot's sum is formed as the
+// kernels 1, 3, 4/5, 8/9 and 12, one thread per (splat, moment): for each
+// tile in order that lists splat i, the slot's sum is formed as the
 // one-block-per-tile kernels formed it (per pass, acc = 0 and the warps
 // added in index order; out = 0 and the passes added in order) and added to
 // the splat's sum. With bases set (kernel 12), only the tiles t with
@@ -304,19 +214,6 @@ int patch::launch_patch_sum(const int* ids, const int* count,
   return (int)cudaGetLastError();
 }
 
-// Launch constants of the resident kernels: the walk's passes for the tile
-// shape (tile_walk.cuh) with the whole K-row list as one chunk, so a.p.k_cap
-// is K. Returns the threads per block of a one-block-per-tile kernel, or 0
-// for a shape the kernels do not take.
-int resident_args(int height, int width, int tile_h, int tile_w,
-                  int n_tiles_x, int n_tiles_y, int k_cap, float cutoff_sq,
-                  float min_throughput, int use_exp_approx,
-                  walk::WalkArgs* a) {
-  return walk::walk_args(height, width, tile_h, tile_w, n_tiles_x, n_tiles_y,
-                         k_cap, 1, 0, k_cap, cutoff_sq, min_throughput,
-                         use_exp_approx, a);
-}
-
 // Kernel 1's patch kernel, then the patch sum (over the window when bases
 // is set: kernel 12). Returns a cudaError_t.
 int l2_patches(const float* table, const int* ids, const int* count,
@@ -327,9 +224,9 @@ int l2_patches(const float* table, const int* ids, const int* count,
                float min_throughput, int use_exp_approx,
                cudaStream_t stream) {
   walk::WalkArgs a;
-  if (resident_args(height, width, tile_h, tile_w, n_tiles_x, n_tiles_y,
-                    k_cap, cutoff_sq, min_throughput, use_exp_approx,
-                    &a) == 0) {
+  if (patch::patch_args(height, width, tile_h, tile_w, n_tiles_x,
+                        n_tiles_y, k_cap, cutoff_sq, min_throughput,
+                        use_exp_approx, &a) == 0) {
     return (int)cudaErrorInvalidValue;
   }
   const PatchGrid g = patch::patch_grid(a);
@@ -349,8 +246,9 @@ using namespace gs2d;
 
 extern "C" {
 
-// Pixel rows per thread and threads per one-block-per-tile pass; the
-// wrapper checks shapes against these before launching.
+// Pixel rows of a patch and threads of a one-block-per-tile pass (which
+// set the pass height); the wrapper checks shapes against these before
+// launching.
 int gs2d_rows_per_thread() { return kRows; }
 int gs2d_max_threads() { return kMaxThreads; }
 
@@ -404,34 +302,32 @@ int gs2d_l2_window(const float* table, const int* ids, const int* count,
                     min_throughput, use_exp_approx, (cudaStream_t)stream);
 }
 
-// Kernel 3 and the segment sum. fin, gc and cin are (3, Hp, Wp), tin
-// (Hp, Wp); partial is (n_tiles, K, 9) and grads16 (16, n_pad), both zeroed
-// by the caller. Returns cudaGetLastError().
+// Kernel 3 and the patch sum. fin, gc and cin are (3, Hp, Wp), tin
+// (Hp, Wp); partial, grads16 and walked as in gs2d_l2_resident. Returns
+// cudaGetLastError().
 int gs2d_bwd_resident(const float* table, const int* ids, const int* count,
                       const float* fin, const float* gc, const float* cin,
                       const float* tin, float* partial, float* grads16,
-                      int n_splats, int n_pad, int height, int width,
-                      int tile_h, int tile_w, int n_tiles_x, int n_tiles_y,
-                      int k_cap, float cutoff_sq, float min_throughput,
-                      int use_exp_approx, void* stream) {
+                      int* walked, int n_splats, int n_pad, int height,
+                      int width, int tile_h, int tile_w, int n_tiles_x,
+                      int n_tiles_y, int k_cap, float cutoff_sq,
+                      float min_throughput, int use_exp_approx,
+                      void* stream) {
   walk::WalkArgs a;
-  const int threads =
-      resident_args(height, width, tile_h, tile_w, n_tiles_x, n_tiles_y,
-                    k_cap, cutoff_sq, min_throughput, use_exp_approx, &a);
-  if (threads == 0) return (int)cudaErrorInvalidValue;
-  const int n_tiles = n_tiles_x * n_tiles_y;
-  const size_t smem = walk::bwd_smem_bytes(k_cap, threads);
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (patch::patch_args(height, width, tile_h, tile_w, n_tiles_x,
+                        n_tiles_y, k_cap, cutoff_sq, min_throughput,
+                        use_exp_approx, &a) == 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const PatchGrid g = patch::patch_grid(a);
   cudaStream_t s = (cudaStream_t)stream;
-  bwd_resident_kernel<<<n_tiles, threads, smem, s>>>(
-      table, ids, count, fin, gc, cin, tin, partial, a.p, a.sub_h);
-  err = cudaGetLastError();
+  bwd_resident_kernel<<<patch::patch_blocks(a, g), kPatchWarps * 32, 0, s>>>(
+      table, ids, count, fin, gc, cin, tin, partial, walked, a.p, g);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_segment_sum(ids, count, partial, grads16, n_tiles, k_cap,
-                            n_splats, n_pad, s);
+  return patch::launch_patch_sum(ids, count, nullptr, 0, partial, grads16,
+                                 n_tiles_x * n_tiles_y, k_cap, g, n_splats,
+                                 n_pad, s);
 }
 
 // Kernel 2. color is (3, Hp, Wp), trans (Hp, Wp); walked is null or
@@ -443,9 +339,9 @@ int gs2d_fwd_resident(const float* table, const int* ids, const int* count,
                       float min_throughput, int use_exp_approx,
                       void* stream) {
   walk::WalkArgs a;
-  if (resident_args(height, width, tile_h, tile_w, n_tiles_x, n_tiles_y,
-                    k_cap, cutoff_sq, min_throughput, use_exp_approx,
-                    &a) == 0) {
+  if (patch::patch_args(height, width, tile_h, tile_w, n_tiles_x,
+                        n_tiles_y, k_cap, cutoff_sq, min_throughput,
+                        use_exp_approx, &a) == 0) {
     return (int)cudaErrorInvalidValue;
   }
   const PatchGrid g = patch::patch_grid(a);

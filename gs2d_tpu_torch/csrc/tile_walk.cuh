@@ -1,6 +1,9 @@
 // Chunk walk of one tile's contiguous run of pregathered pair rows: the
-// one-block-per-tile walk of the dense kernels 4-9 (render_dense.cu) and of
-// the MXU-form kernel 13 (render_mxu.cu).
+// one-block-per-tile walk of the dense forward kernels 6/7 and of the
+// backward reference gs2d_bwd_chunk (render_dense.cu: the backward that
+// kernels 8/9 had before their warp patches, kept unchanged as the in-call
+// reference of every warp-patch kernel), and of the MXU-form kernel 13
+// (render_mxu.cu).
 //
 // The dense layout stores a tile's index-ordered (tile, splat) pairs as a
 // run of 16-float rows starting at t * K (its (n_tiles, K, 16) tile_params).
@@ -18,7 +21,7 @@
 // splats inside a chunk. They are the TPU chunked kernels' exits; the
 // unchunked TPU kernels have none, which gives the same outputs. The
 // warp-patch kernels (patch_walk.cuh) take the pass geometry (walk_args,
-// kRows) and the cotangent load (load_cotangent, also kernel 3's) from here.
+// kRows) and the replays' cotangent load (load_cotangent) from here.
 #pragma once
 
 #include <cuda_runtime.h>

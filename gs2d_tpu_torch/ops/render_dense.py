@@ -5,13 +5,14 @@ whose resident table does not fit.
 
 The dense binning (``tiles.bin_splats`` without ``ids_only``) pregathers
 each tile's index-ordered list into (n_tiles, K, N_FIELDS) ``tile_params``,
-padded slots holding the benign pad row. The backward writes one 9-moment
-partial per (tile, slot) and a tile-order segment sum adds them onto the
-splat axis without atomics, so runs repeat bit for bit. The fused L2 step
-runs the resident kernel 1's warp patches over the tile_params (one partial
-per (tile, slot, pass, warp), its patch sum): the same pairs in the same
-order with the same sums, so it equals the chunk walk of kernels 6/7 and
-8/9 bit for bit, and a dense fit the resident fit.
+padded slots holding the benign pad row. The fused L2 step and the backward
+run the resident kernels' warp patches over the tile_params (kernel 1's
+step and kernel 3's replay): one 9-moment partial per (tile, slot, pass,
+warp), which a tile-order patch sum adds onto the splat axis without
+atomics, so runs repeat bit for bit. They walk the same pairs in the same
+order with the same sums as the one-block-per-tile chunk walk (kernels 6/7,
+then the chunk reference ``_bwd_chunk_cuda``), so they equal it bit for bit,
+and a dense fit the resident fit.
 
 Three kernels, each behind a wrapper that dispatches on the tensors'
 device:
@@ -28,6 +29,12 @@ launch the CUDA kernels of ``csrc/render_dense.cu`` for CUDA tensors
 tensors. Each Pallas pair differs only in how a TPU fits a list longer
 than 256 into SMEM; one CUDA kernel serves both members. Each wrapper adds
 one to ``launches[<name>]`` where it launches its kernel, and nowhere else.
+
+``_bwd_chunk_cuda`` launches the backward that kernels 8/9 had before
+their warp patches, kept unchanged (``csrc/render_dense.cu``
+gs2d_bwd_chunk) as the in-call reference of the warp-patch kernels in
+``chip_smoke.py`` and the card tests. It is no port of a TPU kernel and no
+fit path reaches it; it counts under ``launches["bwd_chunk"]``.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ from gs2d_tpu_torch.ops._build import check, library, on_card, stream
 from gs2d_tpu_torch.params import GaussianParams
 
 # Kernel launch counts since the last reset_launch_counts().
-launches = {"l2_dense": 0, "fwd_dense": 0, "bwd_dense": 0}
+launches = {"l2_dense": 0, "fwd_dense": 0, "bwd_dense": 0, "bwd_chunk": 0}
 
 # Tile shapes the CUDA kernels take: what tiles.tune_tile_height returns.
 CUDA_TILE_W = 128
@@ -116,9 +123,10 @@ def _fwd_dense_plain(tile_params, count, cfg: SplatConfig):
 
 def _bwd_dense_plain(tile_params, ids, count, fin, gc, cin, tin,
                      n_splats: int, cfg: SplatConfig):
-    """Plain twin of kernels 8/9 and the segment sum: (per-(tile, slot)
-    partials (n_tiles, K, 9), splat moments (9, n)). ``fin``, ``gc`` and
-    ``cin`` are (3, Hp, Wp), ``tin`` (Hp, Wp)."""
+    """Plain twin of kernels 8/9 (and of the chunk reference) and the
+    segment sum: (per-(tile, slot) partials (n_tiles, K, 9), splat moments
+    (9, n)). ``fin``, ``gc`` and ``cin`` are (3, Hp, Wp), ``tin``
+    (Hp, Wp)."""
     yy, xx, fy, fx, inside = rd.tile_coords(cfg, tile_params.device)
     gc_rgb, gf, ga = rd.cotangent_tiles(fin, gc, cin, cfg)
     n_tiles, k = ids.shape
@@ -184,10 +192,17 @@ def _check_inputs(cfg: SplatConfig, tile_params, count, ids=None,
 
 
 def _statics(cfg: SplatConfig, k: int, kc: int):
-    """The launch constants after the pointers and n_splats."""
+    """The chunk walk's launch constants after the pointers and n_splats."""
     return (cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
             cfg.n_tiles_y, k, kc, int(rd._sat_walk(cfg)), cfg.cutoff_sq,
             cfg.min_throughput, int(cfg.use_exp_approx))
+
+
+def _patch_statics(cfg: SplatConfig, k: int):
+    """The warp-patch kernels' launch constants after n_splats."""
+    return (cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
+            cfg.n_tiles_y, k, cfg.cutoff_sq, cfg.min_throughput,
+            int(cfg.use_exp_approx))
 
 
 def _fwd_dense_cuda(tile_params, count, cfg: SplatConfig):
@@ -205,7 +220,35 @@ def _fwd_dense_cuda(tile_params, count, cfg: SplatConfig):
 
 
 def _bwd_dense_cuda(tile_params, ids, count, fin, gc, cin, tin,
+                    n_splats: int, cfg: SplatConfig, partial=None,
+                    walked=None):
+    """Kernels 8/9 on warp patches and the patch sum: (per-patch partials
+    (n_tiles, K, patches per tile, 9), moments (9, n)); ``partial`` and
+    ``walked`` as in _l2_dense_cuda (``walked`` gets each patch's
+    survivors and the survivors its replay walked)."""
+    lib, k, _ = _check_inputs(
+        cfg, tile_params, count, ids,
+        (("fin", fin), ("gc", gc), ("cin", cin), ("tin", tin)))
+    dev = tile_params.device
+    partial = rr.patch_scratch(partial, cfg, k, dev)
+    grads9 = torch.empty((rd.N_MOMENTS, n_splats), dtype=torch.float32,
+                         device=dev)
+    err = lib.gs2d_bwd_dense(
+        tile_params.data_ptr(), ids.data_ptr(), count.data_ptr(),
+        fin.data_ptr(), gc.data_ptr(), cin.data_ptr(), tin.data_ptr(),
+        partial.data_ptr(), grads9.data_ptr(),
+        rr._walked_ptr(walked, cfg, dev), n_splats, *_patch_statics(cfg, k),
+        stream(tile_params))
+    check(err, "bwd_dense kernel launch")
+    launches["bwd_dense"] += 1
+    return partial, grads9
+
+
+def _bwd_chunk_cuda(tile_params, ids, count, fin, gc, cin, tin,
                     n_splats: int, cfg: SplatConfig):
+    """The chunk reference (gs2d_bwd_chunk) and the segment sum:
+    (per-(tile, slot) partials (n_tiles, K, 9), moments (9, n)), what
+    _bwd_dense_plain returns. For chip_smoke.py and the card tests only."""
     lib, k, kc = _check_inputs(
         cfg, tile_params, count, ids,
         (("fin", fin), ("gc", gc), ("cin", cin), ("tin", tin)))
@@ -214,13 +257,13 @@ def _bwd_dense_cuda(tile_params, ids, count, fin, gc, cin, tin,
                           dtype=torch.float32, device=dev)
     grads9 = torch.empty((rd.N_MOMENTS, n_splats), dtype=torch.float32,
                          device=dev)
-    err = lib.gs2d_bwd_dense(
+    err = lib.gs2d_bwd_chunk(
         tile_params.data_ptr(), ids.data_ptr(), count.data_ptr(),
         fin.data_ptr(), gc.data_ptr(), cin.data_ptr(), tin.data_ptr(),
         partial.data_ptr(), grads9.data_ptr(), n_splats,
         *_statics(cfg, k, kc), stream(tile_params))
-    check(err, "bwd_dense kernel launch")
-    launches["bwd_dense"] += 1
+    check(err, "bwd_chunk kernel launch")
+    launches["bwd_chunk"] += 1
     return partial, grads9
 
 
@@ -236,13 +279,7 @@ def _l2_dense_cuda(tile_params, ids, count, ref_chw, n_splats: int,
     lib, k, _ = _check_inputs(cfg, tile_params, count, ids,
                               (("ref_chw", ref),))
     dev = tile_params.device
-    shape = rr.patch_partial_shape(cfg, k)
-    if partial is None:
-        partial = torch.empty(shape, dtype=torch.float32, device=dev)
-    elif (tuple(partial.shape) != shape or partial.dtype != torch.float32
-          or not partial.is_contiguous() or partial.device != dev):
-        raise ValueError(f"partial: need contiguous float32 {shape} on "
-                         f"{dev}")
+    partial = rr.patch_scratch(partial, cfg, k, dev)
     color = torch.empty_like(ref)
     grads9 = torch.empty((rd.N_MOMENTS, n_splats), dtype=torch.float32,
                          device=dev)
@@ -250,9 +287,7 @@ def _l2_dense_cuda(tile_params, ids, count, ref_chw, n_splats: int,
         tile_params.data_ptr(), ids.data_ptr(), count.data_ptr(),
         ref.data_ptr(), color.data_ptr(), partial.data_ptr(),
         grads9.data_ptr(), rr._walked_ptr(walked, cfg, dev), n_splats,
-        cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
-        cfg.n_tiles_y, k, cfg.cutoff_sq, cfg.min_throughput,
-        int(cfg.use_exp_approx), stream(tile_params))
+        *_patch_statics(cfg, k), stream(tile_params))
     check(err, "l2_dense kernel launch")
     launches["l2_dense"] += 1
     return color, partial, grads9

@@ -21,13 +21,14 @@ launch the CUDA kernels of ``csrc/render_resident.cu`` for CUDA tensors
 for CPU tensors. Each wrapper adds one to ``launches[<name>]`` where it
 launches its kernel, and nowhere else.
 
-Kernels 1 and 2 run one warp per patch of 8 rows x 32 columns (the pixels
+The three kernels run one warp per patch of 8 rows x 32 columns (the pixels
 warp w of a one-block-per-tile pass owned), four patches a block, and each
 warp walks only the slots whose splat covers a pixel of its
 patch (or has a non-finite field): ``listed_cover_mask`` is that cull in
 plain PyTorch, for the tests and ``chip_smoke.py``. The cull and the warp's
 saturation exit skip only exact zeros, so the twins compute the kernels'
-function unchanged.
+function unchanged. Nothing is staged in shared memory, so no kernel bounds
+K.
 """
 
 from __future__ import annotations
@@ -42,7 +43,6 @@ from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.ops._build import check, library, on_card, stream
 from gs2d_tpu_torch.ops.numerics import trunc_to_int
 from gs2d_tpu_torch.params import GaussianParams
-from gs2d_tpu_torch.utils.hardware import resolve_budget
 
 # Kernel launch counts since the last reset_launch_counts().
 launches = {"l2_resident": 0, "fwd_resident": 0, "bwd_resident": 0}
@@ -76,7 +76,7 @@ def _n_pad(n_splats: int) -> int:
 
 
 def patches_per_tile(cfg: SplatConfig, rows: int) -> int:
-    """Warp patches of kernels 1 and 2 in a tile, each ``rows`` (the
+    """Warp patches of the resident kernels in a tile, each ``rows`` (the
     library's gs2d_rows_per_thread) x 32 pixels. Patch j is row group
     j // (tile_w / 32) and column group j % (tile_w / 32), which is warp w
     of pass p at j = p * (warps per pass) + w: the moments' sum order."""
@@ -194,18 +194,19 @@ def _l2_resident_plain(table, ids_s, count, ref_chw, n_splats: int,
 
 
 def patch_cover_mask(table, ids_s, count, cfg: SplatConfig, rows: int):
-    """The cull of kernels 1 and 2 in plain PyTorch: listed_cover_mask of
-    the table rows the tiles' id lists name."""
+    """The cull of kernels 1, 2, 3 and 12 in plain PyTorch:
+    listed_cover_mask of the table rows the tiles' id lists name."""
     return listed_cover_mask(table.reshape(-1, tl.N_FIELDS)[ids_s.long()],
                              count, cfg, rows)
 
 
 def listed_cover_mask(fields, count, cfg: SplatConfig, rows: int):
-    """The cull of the warp-patch kernels (1, 2, 10, 11) in plain PyTorch,
+    """The cull of the warp-patch kernels (1-5, 8-12) in plain PyTorch,
     from each tile's listed rows ``fields`` (n_tiles, K, N_FIELDS): the
-    resident table through the ids, or a flat binning's runs
-    (scripts/roofline.py::flat_listed_rows). Returns (n_tiles, patches per
-    tile, K) bool (patches as in patches_per_tile, ``rows`` high), set where
+    resident table through the ids, the dense tile_params, or a flat
+    binning's runs (scripts/roofline.py::flat_listed_rows). Returns
+    (n_tiles, patches per tile, K) bool (patches as in patches_per_tile,
+    ``rows`` high), set where
     slot k < count[t] of tile t lists a splat that covers a pixel of the
     warp's patch (some row inside the image and the splat's row walk whose
     render._row_interval meets the patch's columns inside the image:
@@ -255,25 +256,16 @@ def _bwd_resident_plain(table, ids_s, count, fin, gc, cin, tin,
 # CUDA launches.
 # ---------------------------------------------------------------------------
 
-# Kernel 3 reduces each slot's moments in rounds of this many slots,
-# one round per warp in shared memory (csrc/render_resident.cu kChunk).
-_REDUCE_SLOTS = 32
-
-
 def _pass_rows(lib, cfg: SplatConfig) -> int:
     """Pixel rows of one pass of a tile (walk_args' sub_h)."""
     return min(cfg.tile_h, lib.gs2d_max_threads() * lib.gs2d_rows_per_thread()
                // cfg.tile_w)
 
 
-def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int, *,
-                  stages_rows: bool):
+def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int):
     """Raise on what the kernels do not take: the tile shape (tile_w a
     multiple of 32; tiles taller than one pass of max_threads x rows pixels
-    are walked in passes of sub_h rows that must divide the tile), the
-    shared memory of the kernels that stage the K listed table rows
-    (``stages_rows``: the one-block-per-tile kernel 3, which also holds
-    the reduction rounds there) against the card's limit, and the
+    are walked in passes of sub_h rows that must divide the tile) and the
     tensors. Returns the library."""
     lib = library()
     rows, max_threads = lib.gs2d_rows_per_thread(), lib.gs2d_max_threads()
@@ -284,18 +276,6 @@ def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int, *,
             f"(tile_w a multiple of 32; passes of min(tile_h, "
             f"{max_threads * rows} // tile_w) rows, a multiple of {rows} "
             "that divides tile_h)")
-    if stages_rows:
-        table_bytes = 4 * k * tl.N_FIELDS
-        threads = cfg.tile_w * sub_h // rows
-        reduce_bytes = 4 * (threads // 32) * _REDUCE_SLOTS * rd.N_MOMENTS
-        limit = resolve_budget("smem_per_block",
-                               lib.gs2d_max_smem_per_block())
-        if table_bytes + reduce_bytes > limit:
-            raise ValueError(
-                f"K={k} needs {table_bytes + reduce_bytes} B of shared "
-                f"memory per block ({k} table rows x {4 * tl.N_FIELDS} B + "
-                f"{reduce_bytes} B of reduction rounds), more than the "
-                f"card's {limit} B")
     n_tiles = cfg.n_tiles_x * cfg.n_tiles_y
     for name, t, dtype, shape in (
             ("table", table, torch.float32, None),
@@ -315,8 +295,7 @@ def _check_l2_inputs(cfg: SplatConfig, table, ids_s, count, ref_chw,
                      n_splats: int):
     """_check_inputs for the fused L2 kernels (1 and 12), with the target
     and the table's row count. Returns the library."""
-    lib = _check_inputs(cfg, table, ids_s, count, ids_s.shape[1],
-                        stages_rows=False)
+    lib = _check_inputs(cfg, table, ids_s, count, ids_s.shape[1])
     hp, wp = cfg.padded_height, cfg.padded_width
     if (ref_chw.shape != (1, 3, hp, wp) or ref_chw.dtype != torch.float32
             or not ref_chw.is_contiguous() or ref_chw.device != table.device):
@@ -328,7 +307,7 @@ def _check_l2_inputs(cfg: SplatConfig, table, ids_s, count, ref_chw,
 
 
 def patch_rows() -> int:
-    """Pixel rows of a warp patch of kernels 1 and 2 (the library's)."""
+    """Pixel rows of a warp patch (the library's)."""
     return library().gs2d_rows_per_thread()
 
 
@@ -339,12 +318,13 @@ def patch_passes(cfg: SplatConfig) -> int:
 
 
 def patch_slot_sums(partial, count, n_pass: int):
-    """(n_tiles, K, 9) per-(tile, slot) sums of the warp-patch L2 kernels'
-    (n_tiles, K, patches per tile, 9) partials, formed as patch_sum_kernel
-    forms them (per pass a = 0 and the warps in index order, out = 0 and the
-    passes in order), 0 past each tile's count (the kernels never write
-    there). The slot partials of the one-block-per-tile chunk walk, bit for
-    bit; for chip_smoke.py and the tests, never on the main path."""
+    """(n_tiles, K, 9) per-(tile, slot) sums of the warp-patch kernels'
+    (n_tiles, K, patches per tile, 9) partials (kernels 1, 3, 4/5, 8/9),
+    formed as patch_sum_kernel forms them (per pass a = 0 and the warps in
+    index order, out = 0 and the passes in order), 0 past each tile's count
+    (the kernels never write there). The slot partials of the
+    one-block-per-tile chunk walk, bit for bit; for chip_smoke.py and the
+    tests, never on the main path."""
     n_tiles, k, n_patch, n_mom = partial.shape
     parts = partial.reshape(n_tiles, k, n_pass, n_patch // n_pass, n_mom)
     out = torch.zeros((n_tiles, k, n_mom), dtype=partial.dtype,
@@ -359,11 +339,25 @@ def patch_slot_sums(partial, count, n_pass: int):
 
 
 def patch_partial_shape(cfg: SplatConfig, k: int) -> Tuple[int, ...]:
-    """Kernel 1's per-patch moment partials: (n_tiles, K, patches per tile,
-    9). Its scratch is uninitialised: the kernel writes every entry its sum
-    reads (a culled or saturated slot's exact zero included)."""
+    """The per-patch moment partials of kernels 1, 3, 4/5, 8/9 and 12:
+    (n_tiles, K, patches per tile, 9). Their scratch is uninitialised: a
+    kernel writes every entry its sum reads (a culled or saturated slot's
+    exact zero included)."""
     return (cfg.n_tiles_x * cfg.n_tiles_y, k,
             patches_per_tile(cfg, patch_rows()), 9)
+
+
+def patch_scratch(partial, cfg: SplatConfig, k: int, dev):
+    """The partial scratch of a warp-patch launch: ``partial`` when given
+    (a test's NaN-filled buffer), checked, else torch.empty."""
+    shape = patch_partial_shape(cfg, k)
+    if partial is None:
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    if (tuple(partial.shape) != shape or partial.dtype != torch.float32
+            or not partial.is_contiguous() or partial.device != dev):
+        raise ValueError(f"partial: need contiguous float32 {shape} on "
+                         f"{dev}")
+    return partial
 
 
 def _walked_ptr(walked, cfg: SplatConfig, dev) -> int:
@@ -389,13 +383,7 @@ def _l2_patches(table, ids_s, count, ref_chw, n_splats: int,
     k = ids_s.shape[1]
     lib = _check_l2_inputs(cfg, table, ids_s, count, ref_chw, n_splats)
     dev = table.device
-    shape = patch_partial_shape(cfg, k)
-    if partial is None:
-        partial = torch.empty(shape, dtype=torch.float32, device=dev)
-    elif (tuple(partial.shape) != shape or partial.dtype != torch.float32
-          or not partial.is_contiguous() or partial.device != dev):
-        raise ValueError(f"partial: need contiguous float32 {shape} on "
-                         f"{dev}")
+    partial = patch_scratch(partial, cfg, k, dev)
     color = torch.empty((1, 3, cfg.padded_height, cfg.padded_width),
                         dtype=torch.float32, device=dev)
     grads16 = torch.zeros((rd.N_GRAD_FIELDS, _n_pad(n_splats)),
@@ -430,7 +418,7 @@ def _l2_resident_cuda(table, ids_s, count, ref_chw, n_splats: int,
 def _fwd_resident_cuda(table, ids_s, count, cfg: SplatConfig, walked=None):
     """Kernel 2; ``walked`` as in _l2_resident_cuda."""
     k = ids_s.shape[1]
-    lib = _check_inputs(cfg, table, ids_s, count, k, stages_rows=False)
+    lib = _check_inputs(cfg, table, ids_s, count, k)
     dev = table.device
     hp, wp = cfg.padded_height, cfg.padded_width
     color = torch.empty((1, 3, hp, wp), dtype=torch.float32, device=dev)
@@ -447,9 +435,13 @@ def _fwd_resident_cuda(table, ids_s, count, cfg: SplatConfig, walked=None):
 
 
 def _bwd_resident_cuda(table, ids_s, count, fin, gc, cin, tin,
-                       n_splats: int, cfg: SplatConfig):
+                       n_splats: int, cfg: SplatConfig, partial=None,
+                       walked=None):
+    """Kernel 3 and the patch sum: moments (16, n_pad). ``partial`` and
+    ``walked`` as in _l2_patches (``walked`` gets each patch's survivors
+    and the survivors its replay walked)."""
     k = ids_s.shape[1]
-    lib = _check_inputs(cfg, table, ids_s, count, k, stages_rows=True)
+    lib = _check_inputs(cfg, table, ids_s, count, k)
     hp, wp = cfg.padded_height, cfg.padded_width
     for name, t, shape in (("fin", fin, (3, hp, wp)), ("gc", gc, (3, hp, wp)),
                            ("cin", cin, (3, hp, wp)), ("tin", tin, (hp, wp))):
@@ -461,17 +453,16 @@ def _bwd_resident_cuda(table, ids_s, count, fin, gc, cin, tin,
         raise ValueError("table does not hold n_splats + 1 rows")
     dev = table.device
     n_pad = _n_pad(n_splats)
-    partial = torch.zeros((cfg.n_tiles_x * cfg.n_tiles_y, k, 9),
-                          dtype=torch.float32, device=dev)
+    partial = patch_scratch(partial, cfg, k, dev)
     grads16 = torch.zeros((rd.N_GRAD_FIELDS, n_pad), dtype=torch.float32,
                           device=dev)
     err = lib.gs2d_bwd_resident(
         table.data_ptr(), ids_s.data_ptr(), count.data_ptr(), fin.data_ptr(),
         gc.data_ptr(), cin.data_ptr(), tin.data_ptr(), partial.data_ptr(),
-        grads16.data_ptr(), n_splats, n_pad, cfg.height, cfg.width,
-        cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, cfg.n_tiles_y, k,
-        cfg.cutoff_sq, cfg.min_throughput, int(cfg.use_exp_approx),
-        stream(table))
+        grads16.data_ptr(), _walked_ptr(walked, cfg, dev), n_splats, n_pad,
+        cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
+        cfg.n_tiles_y, k, cfg.cutoff_sq, cfg.min_throughput,
+        int(cfg.use_exp_approx), stream(table))
     check(err, "bwd_resident kernel launch")
     launches["bwd_resident"] += 1
     return grads16

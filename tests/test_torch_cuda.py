@@ -215,12 +215,13 @@ def flat_and_dense(dev, seed, n, tile_h, kc, nan_splat=None):
                                   "300/64/16/sat", "carry", "nan"])
 def test_flat_kernels_equal_dense_bit_for_bit(dev, monkeypatch, case):
     """Kernels 10 and 11 on warp patches against the dense kernels 6/7 and
-    8/9, which keep the one-block-per-tile chunk walk over the same rows in
-    the same order: colour, T, the per-pair moments matched by (tile, slot)
-    and the (9, n) splat sums, bit for bit; kernel 11 repeats. The NaN case
-    (splat 40 at a NaN position in both layouts) holds where no 32-row pass
-    of its tiles saturates, the condition under which the chunk walk's
-    block-wide exits stop nowhere (render_flat.cu)."""
+    the chunk reference (the backward kernels 8/9 had before their warp
+    patches), which keep the one-block-per-tile chunk walk over the same
+    rows in the same order: colour, T, the per-pair moments matched by
+    (tile, slot) and the (9, n) splat sums, bit for bit; kernel 11 repeats.
+    The NaN case (splat 40 at a NaN position in both layouts) holds where
+    no 32-row pass of its tiles saturates, the condition under which the
+    chunk walk's block-wide exits stop nowhere (render_flat.cu)."""
     parts = case.split("/")
     if "sat" in parts:
         monkeypatch.setattr(rd, "SAT_WALK_THRESHOLD", 1)
@@ -244,7 +245,7 @@ def test_flat_kernels_equal_dense_bit_for_bit(dev, monkeypatch, case):
                                  mc, fields=fields)
     m_k2, g_k2 = rf._bwd_flat_cuda(rows, b.ids, b.start, b.count, *args, kc,
                                    mc, fields=fields)
-    part_d, g_d = rdn._bwd_dense_cuda(tp, bd.ids, bd.count, *args)
+    part_d, g_d = rdn._bwd_chunk_cuda(tp, bd.ids, bd.count, *args)
     torch.cuda.synchronize()
     k = torch.arange(tp.shape[1], device=dev)
     listed = k[None] < b.count[:, None]
@@ -388,6 +389,10 @@ def test_dense_kernels_match_plain(dev, monkeypatch, n, tile_h, k, sat):
     first = rdn._bwd_dense_cuda(*args)
     again = rdn._bwd_dense_cuda(*args)
     plain = rdn._bwd_dense_plain(*args)
+    first = (rr.patch_slot_sums(first[0], count, rr.patch_passes(cfg)),
+             first[1])
+    again = (rr.patch_slot_sums(again[0], count, rr.patch_passes(cfg)),
+             again[1])
     l2_k = rdn._l2_dense_cuda(tp, ids, count, ref, n, cfg)
     l2_k = (l2_k[0], rr.patch_slot_sums(l2_k[1], count, rr.patch_passes(cfg)),
             l2_k[2])
@@ -401,7 +406,8 @@ def test_dense_kernels_match_plain(dev, monkeypatch, n, tile_h, k, sat):
         torch.testing.assert_close(got, want, rtol=0, atol=atol)
     assert rdn.launches == {"fwd_dense": before["fwd_dense"] + 1,
                             "bwd_dense": before["bwd_dense"] + 2,
-                            "l2_dense": before["l2_dense"] + 1}
+                            "l2_dense": before["l2_dense"] + 1,
+                            "bwd_chunk": before["bwd_chunk"]}
 
 
 def test_dense_l2_equals_resident_l2_bit_for_bit(dev):
@@ -448,25 +454,26 @@ def test_resident_kernels_take_64_row_tiles(dev, n):
 
 
 def test_resident_kernels_refuse_too_much_shared_memory(dev):
-    """K = 4096 table rows need 256 KiB of shared memory in the
-    one-block-per-tile kernel 3: its wrapper raises with the numbers instead
-    of launching. The warp-patch kernels 1, 2 and 12 stage nothing in
-    shared memory and take that K."""
+    """K = 4096 table rows, which needed 256 KiB of shared memory in the
+    one-block-per-tile kernel 3 and were refused: the warp-patch kernels 1,
+    3 and 12 stage nothing in shared memory, take that K and match their
+    plain versions (the name is the test's history)."""
     cfg, table, ids, count, ref = inputs(dev, 4, 16, 32, k=4096)
     fin, trans = rr._fwd_resident_plain(table, ids, count, cfg)
     args = (table, ids, count, fin[0].contiguous(),
             random_cotangent(dev, cfg, 4), 0.5 * fin[0],
             (0.5 * trans[0]).contiguous(), 16, cfg)
-    with pytest.raises(ValueError, match="shared memory"):
-        rr._bwd_resident_cuda(*args)
+    m_k = rr._bwd_resident_cuda(*args)
+    m_p = rr._bwd_resident_plain(*args)
     c_k, g_k = rr._l2_resident_cuda(table, ids, count, ref, 16, cfg)
     c_w, g_w = full_width_window(table, ids, count, ref, 16, cfg)
     c_p, g_p = rr._l2_resident_plain(table, ids, count, ref, 16, cfg)
     torch.cuda.synchronize()
     assert torch.equal(c_w, c_k) and torch.equal(g_w, g_k)
     torch.testing.assert_close(c_k, c_p, rtol=0, atol=1e-6)
-    atol = 1e-4 * max(1.0, float(g_p.abs().max()))
-    torch.testing.assert_close(g_k, g_p, rtol=0, atol=atol)
+    for got, want in ((g_k, g_p), (m_k, m_p)):
+        atol = 1e-4 * max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
 
 
 def test_window_kernel_equals_resident_at_full_width(dev):
@@ -513,12 +520,13 @@ def assert_same_bits(got, want):
 
 def chain(tp, ids, count, ref, n, cfg):
     """The in-call reference of the warp-patch L2 kernels (chip_smoke.py's
-    chain): the dense kernels 6/7, then gC = C - ref, then 8/9, which keep
-    the one-block-per-tile chunk walk, over the rows tp (n_tiles, K, 16).
-    Returns (colour, T, slot partials, moments (9, n))."""
+    chain): the dense kernels 6/7, then gC = C - ref, then the chunk
+    reference (the backward kernels 8/9 had before their warp patches),
+    which keep the one-block-per-tile chunk walk, over the rows tp
+    (n_tiles, K, 16). Returns (colour, T, slot partials, moments (9, n))."""
     color, trans = rdn._fwd_dense_cuda(tp, count, cfg)
     cin, tin = rd.identity_carry(cfg, tp.device)
-    part, g9 = rdn._bwd_dense_cuda(tp, ids, count, color,
+    part, g9 = rdn._bwd_chunk_cuda(tp, ids, count, color,
                                    (color - ref[0]).contiguous(), cin, tin,
                                    n, cfg)
     return color, trans, part, g9
@@ -589,6 +597,115 @@ def test_dense_l2_equals_the_chunk_walk(dev, monkeypatch, n, tile_h, k, sat):
     assert torch.equal(c_d, c_ch) and torch.equal(g_d, g_ch)
     assert torch.equal(rr.patch_slot_sums(part_d, count, rr.patch_passes(cfg)),
                        part_ch)
+
+
+def replay_inputs(dev, case):
+    """Kernel 3's inputs for a case of test_replays_equal_the_chunk_walk:
+    (cfg, table, ids, count, planes (fin, gc, cin, tin)). The NaN case
+    replays from the identity carry, where the chunk walk has no exit."""
+    if case == "nan":
+        cfg, table, ids, count, _ = nan_splat_inputs(dev)
+    elif case == "opacity-1":
+        d, _ = population(5, 64, W, H, opacity=(1.0, 1.0))
+        d["pos"][:16] = np.floor(d["pos"][:16]) + 0.5
+        cfg = SplatConfig(width=W, height=H, n_splats=64, tile_h=32,
+                          max_splats_per_tile=64)
+        p = params_from_numpy({f: v.astype(np.float32)
+                               for f, v in d.items()}, dev)
+        b = tl.bin_splats(p, cfg, 64, ids_only=True)
+        table, ids, count = (rr.resident_table(p, cfg), rr._remap_ids(b, 64),
+                             b.count)
+    else:
+        n, tile_h = map(int, case.split("/"))
+        cfg, table, ids, count, _ = inputs(dev, n + tile_h, n, tile_h,
+                                           k=512 if tile_h == 64 else 128)
+    fin, trans = rr._fwd_resident_plain(table, ids, count, cfg)
+    if case == "nan":
+        cin, tin = rd.identity_carry(cfg, dev)
+    else:
+        cin, tin = 0.5 * fin[0], (0.5 * trans[0]).contiguous()
+    gc = random_cotangent(dev, cfg, cfg.n_splats)
+    return cfg, table, ids, count, (fin[0].contiguous(), gc, cin, tin)
+
+
+@pytest.mark.parametrize("case", ["130/32", "64/64", "300/64", "opacity-1",
+                                  "nan"])
+def test_replays_equal_the_chunk_walk(dev, case):
+    """Kernel 3 and kernels 8/9 (on the table rows the ids name) on warp
+    patches equal the chunk reference, the unchanged one-block-per-tile
+    backward, bit for bit from a carry-in under a random cotangent:
+    moments and 8/9's slot partials (equal NaN masks in the NaN case);
+    their survivors per patch are patch_cover_mask's."""
+    cfg, table, ids, count, planes = replay_inputs(dev, case)
+    n = cfg.n_splats
+    tp = gathered(table, ids)
+    part_ch, g_ch = rdn._bwd_chunk_cuda(tp, ids, count, *planes, n, cfg)
+    mask = rr.patch_cover_mask(table, ids, count, cfg, rr.patch_rows())
+    want = mask.sum(dim=-1).reshape(-1).to(torch.int32)
+    walked = [torch.full((want.numel(), 2), -1, dtype=torch.int32,
+                         device=dev) for _ in range(2)]
+    m_3 = rr._bwd_resident_cuda(table, ids, count, *planes, n, cfg,
+                                walked=walked[0])
+    part_d, g_d = rdn._bwd_dense_cuda(tp, ids, count, *planes, n, cfg,
+                                      walked=walked[1])
+    torch.cuda.synchronize()
+    assert_same_bits(m_3[:9, :n], g_ch)
+    assert_same_bits(g_d, g_ch)
+    assert_same_bits(rr.patch_slot_sums(part_d, count, rr.patch_passes(cfg)),
+                     part_ch)
+    for got in walked:
+        assert torch.equal(got[:, 0], want)
+    if case == "nan":
+        assert torch.isnan(g_ch).any() and torch.isfinite(g_ch).any()
+        # A poisoned patch walks every later slot, survivor or not.
+        assert bool((walked[0][:, 1] > walked[0][:, 0]).any())
+    else:
+        assert torch.isfinite(g_ch).all()
+        for got in walked:
+            assert bool((got[:, 1] <= got[:, 0]).all())
+
+
+def test_replay_partials_never_read_unwritten(dev):
+    """Kernels 3 and 8/9 leave their partial scratch unzeroed: a buffer
+    pre-filled with NaN gives the same moments bit for bit."""
+    cfg, table, ids, count, planes = replay_inputs(dev, "300/64")
+    n = cfg.n_splats
+    tp = gathered(table, ids)
+    shape = rr.patch_partial_shape(cfg, ids.shape[1])
+    m_a = rr._bwd_resident_cuda(table, ids, count, *planes, n, cfg,
+                                partial=torch.full(shape, float("nan"),
+                                                   device=dev))
+    m_b = rr._bwd_resident_cuda(table, ids, count, *planes, n, cfg)
+    _, g_a = rdn._bwd_dense_cuda(tp, ids, count, *planes, n, cfg,
+                                 partial=torch.full(shape, float("nan"),
+                                                    device=dev))
+    _, g_b = rdn._bwd_dense_cuda(tp, ids, count, *planes, n, cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(m_a).all() and torch.isfinite(g_a).all()
+    assert torch.equal(m_a, m_b) and torch.equal(g_a, g_b)
+
+
+def test_backward_entry_points_never_launch_the_chunk_reference(dev):
+    """backward_resident and backward_tiled launch kernels 3 and 8/9, once
+    each, and never the chunk reference."""
+    n = 130
+    cfg, table, ids, count, planes = replay_inputs(dev, "130/32")
+    b = tl.TileBinning(ids=torch.where(ids < n, ids, -1), count=count,
+                       n_dropped=torch.zeros((), dtype=torch.int32))
+    d, _ = population(n + 32, n, W, H)
+    p = params_from_numpy({f: v.astype(np.float32) for f, v in d.items()},
+                          dev)
+    bd = tl.bin_splats(p, cfg.replace(binning="dense"), 128)
+    fin = planes[0][:, :H, :W].permute(1, 2, 0)
+    g = planes[1][:, :H, :W].permute(1, 2, 0)
+    before_r, before_d = dict(rr.launches), dict(rdn.launches)
+    rr.backward_resident(b, table, fin, g, n, cfg)
+    rdn.backward_tiled(bd, fin, g, n, cfg, p)
+    torch.cuda.synchronize()
+    assert rr.launches == {**before_r,
+                           "bwd_resident": before_r["bwd_resident"] + 1}
+    assert rdn.launches == {**before_d,
+                            "bwd_dense": before_d["bwd_dense"] + 1}
 
 
 def test_patch_partials_never_read_unwritten(dev):
