@@ -1,13 +1,16 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build the CUDA kernels,
-hold each against its plain PyTorch version (the warp-patch kernels also
-against the one-block-per-tile chunk walk over the same pairs, bit for bit:
-the dense forward 6/7 and the chunk reference gs2d_bwd_chunk, the backward
-8/9 had before their warp patches, which no fit path reaches; the L2
-kernels 1, 4/5 and 12 against 6/7, then gC = C - ref, then the reference,
-kernel 2 against 6/7, the replays 3 and 8/9 against the reference under the
-same planes, kernels 10 and 11 against 6/7 and the reference, each with its
-survivors against the plain cull mask),
-then drive the fitting paths through them with the CLI and check their MSE
+hold each against its plain PyTorch version and every warp-patch kernel
+against the one-block-per-tile chunk walk over the same pairs, bit for bit
+(the references gs2d_fwd_chunk, gs2d_bwd_chunk and gs2d_l2_mxu_chunk: the
+designs the dense forward 6/7, the dense backward 8/9 and the MXU-form step
+13 had before their warp patches, which no path reaches; the L2 kernels 1,
+4/5 and 12 against the forward reference, then gC = C - ref, then the
+backward reference, kernels 2 and 6/7 against the forward reference, the
+replays 3 and 8/9 against the backward reference under the same planes,
+kernels 10 and 11 against both, kernel 13 against its own, each with its
+survivors against the plain cull mask), time them by their device time
+(torch.profiler's durations, the CUDA-event reading beside it), then drive
+the fitting paths through them with the CLI and check their MSE
 trajectories:
 
 - the default fit, resident layout (squirrel_cls_mini 268x213, 1024 splats,
@@ -26,7 +29,7 @@ trajectories:
   resident fit of the same population (kernel 1);
 - the default fit with ``--tile-h 64`` (kernels 1 and 2 on 64-row tiles);
 - the MXU-form entry point ``l2_render_and_grads_mxu`` at the default
-  fit's init (kernel 13);
+  fit's init (kernel 13, warp patches);
 - the measurement entry points, ``scripts.probe_mxu_moments.main`` (kernels
   15a-c: the moment reduction on the CUDA cores and on the tensor cores)
   and ``scripts.roofline.main`` (kernel 14, the float32 FMA ceiling, the
@@ -50,9 +53,13 @@ Prints one line per phase; the line before the last is the kernels' JSON
 report and the last is {"ok": true, "device": {...}}. A kernel's
 ``launches`` there is its launch count summed over the paths' logged runs
 (the fits, the MXU entry point's call, the two scripts, resume and
-recovery), each path counted from zero; ``bound_ms`` is the least time the
-card could take for the work of its timed call (see
-``gs2d_tpu_torch/scripts/roofline.py::bound``). Any failure raises
+recovery), each path counted from zero; ``ms`` is its device time a call
+at the main path's shapes; ``bound_ms`` is the least time the card could
+take for the work of its timed call (see
+``gs2d_tpu_torch/scripts/roofline.py::bound``). The report's
+"references" list the three chunk references the same way, each with
+``reference_of`` (the kernel held to it), no TPU kernel replaced and 0
+launches on every path. Any failure raises
 and the script exits non-zero without printing a result; without a CUDA
 GPU it exits 1 at once.
 """
@@ -73,8 +80,8 @@ import torch
 from gs2d_tpu_torch.scripts.roofline import (F32_PEAK, HBM_RATE, bound,
                                              flat_listed_rows, live_work,
                                              nbytes)
-from gs2d_tpu_torch.utils.profiling import (cuda_ms, device_trace,
-                                            timed_call)
+from gs2d_tpu_torch.utils.profiling import (cuda_ms, device_time,
+                                            device_trace, timed_call)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MINI = os.path.join(ROOT, "assets", "squirrel_cls_mini.npy")
@@ -167,6 +174,12 @@ MXU_GRAD_RTOL = 2e-3
 PROBE_TC_RTOL = 1e-5
 N_100K = 102400
 
+# Where the references' times stand in the times dicts: each beside the
+# kernel that replaced it, on the same inputs.
+FWD_CHUNK_TIMES = "fwd_chunk (reference), same rows (plain ms: 6/7's)"
+BWD_CHUNK_TIMES = "bwd_chunk (reference), same rows (plain ms: kernel 3's)"
+MXU_CHUNK_TIMES = "l2_mxu_chunk (reference), same inputs (plain ms: 13's)"
+
 
 T_START = time.perf_counter()
 
@@ -197,20 +210,52 @@ def population(seed: int, n: int, width: int, height: int,
     return {k: v.astype(np.float32) for k, v in d.items()}
 
 
+# The profiler's kernel time of a call against its graph-replay time: the
+# graph adds a microsecond or so between kernels, the clocks drift a little
+# between the two readings; a host-bound reading would be far outside.
+PROFILER_AGREES = (0.7, 1.1)
+
+
+def read_device_time(what: str, fn, reps: int = 20) -> dict:
+    """utils/profiling.py::device_time of ``fn``; fails where the
+    profiler's kernel time of a call disagrees with the graph replay's
+    (PROFILER_AGREES)."""
+    t = device_time(fn, reps)
+    if t["profiler"] is not None and not (
+            PROFILER_AGREES[0] <= t["profiler"] / t["device"]
+            <= PROFILER_AGREES[1]):
+        raise AssertionError(f"{what}: profiler {t['profiler']} ms against "
+                             f"the graph replay's {t['device']} ms")
+    return t
+
+
+def device_line(t: dict) -> str:
+    """A device_time reading: graph replay, profiler, CUDA events."""
+    prof = ("profiler window not read" if t["profiler"] is None else
+            f"profiler {t['profiler']:.4f} ms, {t['ops']:.0f} device "
+            f"operations a call")
+    return (f"{t['device']:.4f} ms device (graph replay; {prof}; CUDA events "
+            f"{t['events']:.4f} ms)")
+
+
 def timed_entry(kernel, plain_ms, kind, work, cfg, n_bytes):
-    """{ms, plain_ms, bound_ms, bound_by} of one kernel at one input;
-    ``plain_ms`` is the time of the compare's one call of the plain version
-    (timed_call: the plain walks are host-bound and slow, so each runs
-    once)."""
+    """{ms, device, plain_ms, bound_ms, bound_by} of one kernel at one
+    input: ``ms`` its device time a call (a CUDA-graph replay of its
+    launches, utils/profiling.py::device_time via read_device_time, 20
+    calls), ``device`` that reading whole (the profiler's kernel time and
+    the CUDA-event reading beside it); ``plain_ms`` is the time of the
+    compare's one call of the plain version (timed_call: the plain walks
+    are host-bound and slow, so each runs once)."""
     bound_ms, bound_by = bound(kind, work, cfg, n_bytes)
-    return {"ms": cuda_ms(kernel, 50), "plain_ms": plain_ms,
+    t = read_device_time(kind, kernel)
+    return {"ms": t["device"], "device": t, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "work": work}
 
 
 def log_times(times: dict, where: str, smi: str) -> None:
     for kk, t in times.items():
         w = t["work"]
-        log(f"  {kk} {where}: kernel {t['ms']:.4f} ms, plain "
+        log(f"  {kk} {where}: kernel {device_line(t['device'])}, plain "
             f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.6f} ms "
             f"({t['bound_by']}; live (pixel, pair) {w['pixels']}, (row, "
             f"pair) {w['rows']}, (column, pair) {w['columns']}), "
@@ -267,6 +312,21 @@ def same_bits(got, want) -> bool:
                 and torch.equal(got[~nan], want[~nan]))
 
 
+# The chunk references' largest |difference| from the kernels held to them
+# in this run, by reference (finite entries; the gates need 0 and equal NaN
+# masks), for the report line.
+REF_ERRS = {}
+
+
+def note_reference(name: str, got, want) -> None:
+    """Adds the largest |got - want| over each pair's finite entries to
+    REF_ERRS[name]."""
+    for g, w in zip(got, want):
+        fin = torch.isfinite(g) & torch.isfinite(w)
+        err = float((g[fin] - w[fin]).abs().max()) if bool(fin.any()) else 0.0
+        REF_ERRS[name] = max(REF_ERRS.get(name, 0.0), err)
+
+
 def full_width_window(table, ids, count, ref_chw, n, cfg):
     """The arguments of kernel 12 at W = n_pad, where it computes kernel 1's
     function with kernel 1's sums, on kernel 1's inputs."""
@@ -288,17 +348,17 @@ def gathered_rows(table, ids):
 
 
 def chain(tp, ids, count, ref_chw, n, cfg):
-    """The in-call reference of the L2 kernels 1, 4/5 and 12: the dense
-    kernels 6/7 and the chunk reference (the backward kernels 8/9 had before
-    their warp patches, never on a fit path), which keep the
-    one-block-per-tile chunk walk (tile_walk.cuh), over the rows tp
-    (n_tiles, K, 16): the forward, gC = C - ref, the replay from the
+    """The in-call reference of the warp-patch kernels: the chunk
+    references gs2d_fwd_chunk and gs2d_bwd_chunk (the forward 6/7 and the
+    backward 8/9 had before their warp patches, never on a fit path), which
+    keep the one-block-per-tile chunk walk (tile_walk.cuh), over the rows
+    tp (n_tiles, K, 16): the forward, gC = C - ref, the replay from the
     identity carry. Returns (colour (3, Hp, Wp), T (Hp, Wp), slot partials
     (n_tiles, K, 9), moments (9, n))."""
     from gs2d_tpu_torch.ops import render as rd
     from gs2d_tpu_torch.ops import render_dense as rdn
 
-    color, trans = rdn._fwd_dense_cuda(tp, count, cfg)
+    color, trans = rdn._fwd_chunk_cuda(tp, count, cfg)
     cin, tin = rd.identity_carry(cfg, tp.device)
     part, g9 = rdn._bwd_chunk_cuda(tp, ids, count, color,
                                    (color - ref_chw[0]).contiguous(), cin,
@@ -328,12 +388,16 @@ def vs_chain(name, table, ids, count, ref_chw, n, cfg) -> None:
     """Kernels 1, 4/5 (on the table rows the ids name) and 12 at W = n_pad
     against the chunk walk (chain) bit for bit: colour and moments (equal
     NaN masks where a splat is not finite), 4/5's slot partials, kernel
-    2's colour against kernel 1's and its T against the chain's."""
+    2's colour against kernel 1's and its T against the chain's, and
+    kernels 6/7 (on the same rows) against the chain's forward, colour and
+    T."""
+    from gs2d_tpu_torch.ops import render_dense as rdn
     from gs2d_tpu_torch.ops import render_resident as rr
     from gs2d_tpu_torch.ops import render_window as rw
 
     tp = gathered_rows(table, ids)
     c_ch, t_ch, _, g_ch = chain(tp, ids, count, ref_chw, n, cfg)
+    f_d, t_d = rdn._fwd_dense_cuda(tp, count, cfg)
     c_k, g_k = rr._l2_resident_cuda(table, ids, count, ref_chw, n, cfg)
     c_w, g_w = rw._l2_window_cuda(*full_width_window(table, ids, count,
                                                      ref_chw, n, cfg))
@@ -343,14 +407,18 @@ def vs_chain(name, table, ids, count, ref_chw, n, cfg) -> None:
             "kernel 12": same_bits(c_w[0], c_ch) and same_bits(g_w[:9, :n],
                                                                g_ch),
             "kernels 4/5": dense_vs_chain(tp, ids, count, ref_chw, n, cfg),
-            "kernel 2": same_bits(f_k, c_k) and same_bits(t_k[0], t_ch)}
+            "kernel 2": same_bits(f_k, c_k) and same_bits(t_k[0], t_ch),
+            "kernels 6/7": same_bits(f_d, c_ch) and same_bits(t_d, t_ch)}
     if not all(same.values()):
         raise AssertionError(f"{name}: differs from the chunk walk: {same}")
+    note_reference("fwd_chunk", (f_d, t_d), (c_ch, t_ch))
     log(f"  {name}: kernels 1, 4/5 and 12 (W = n_pad) equal the chunk walk "
-        f"(kernels 6/7, gC, then the chunk reference) bit for bit (colour, "
-        f"moments, 4/5's slot partials; NaN in "
-        f"{int(torch.isnan(g_ch).sum())} moments), "
-        "kernel 2's colour equals kernel 1's and its T the chain's")
+        f"(the forward reference, gC, then the backward reference) bit for "
+        f"bit (colour, moments, 4/5's slot partials; NaN in "
+        f"{int(torch.isnan(g_ch).sum())} moments), kernel 2's colour equals "
+        f"kernel 1's and its T the chain's, kernels 6/7 equal the forward "
+        f"reference (colour, T; NaN in {int(torch.isnan(t_ch).sum())} T "
+        f"values)")
 
 
 def patch_survivors(launches, want, dev) -> dict:
@@ -373,8 +441,8 @@ def patch_survivors(launches, want, dev) -> dict:
 
 
 def survivor_counts(table, ids, count, ref_chw, n, cfg, dev) -> str:
-    """Kernels 1, 2, 4/5 (on the gathered rows) and 12 (at W = n_pad):
-    their survivors per patch against the plain cull mask
+    """Kernels 1, 2, 4/5 and 6/7 (on the gathered rows) and 12 (at W =
+    n_pad): their survivors per patch against the plain cull mask
     (patch_cover_mask), patch by patch; returns the totals: (patch, slot)
     steps of the one-block-per-tile walk, survivors, and survivors walked
     before the saturation exit."""
@@ -393,6 +461,8 @@ def survivor_counts(table, ids, count, ref_chw, n, cfg, dev) -> str:
             table, ids, count, cfg, walked=w),
         "kernels 4/5": lambda w: rdn._l2_dense_cuda(
             tp, ids, count, ref_chw, n, cfg, walked=w),
+        "kernels 6/7": lambda w: rdn._fwd_dense_cuda(tp, count, cfg,
+                                                     walked=w),
         "kernel 12": lambda w: rw._l2_window_cuda(*window, walked=w)},
         want, dev)
     steps = int(count.sum()) * mask.shape[1]
@@ -475,9 +545,9 @@ def compare_case(name, params, ref, cfg, dev, timed: bool,
     fwd_bytes = base + nbytes(f_k, t_k)
     tp = gathered_rows(table, ids)
     return errs, {
-        "reference, kernels 6/7 then the chunk reference": timed_entry(
-            lambda: chain(tp, ids, b.count, ref_chw, n, cfg), l2_plain_ms,
-            "l2", work, cfg, l2_bytes),
+        "the chunk walk (forward reference, gC, backward reference)":
+            timed_entry(lambda: chain(tp, ids, b.count, ref_chw, n, cfg),
+                        l2_plain_ms, "l2", work, cfg, l2_bytes),
         "l2_resident": timed_entry(
             lambda: rr._l2_resident_cuda(table, ids, b.count, ref_chw, n,
                                          cfg),
@@ -490,9 +560,11 @@ def compare_case(name, params, ref, cfg, dev, timed: bool,
 
 def compare_nan_case(dev) -> None:
     """A population with one non-finite splat (splat 40's position NaN in
-    the table after binning): kernels 1, 2, 4/5 and 12 against the chunk
-    walk bit for bit, NaN masks included (vs_chain). The plain versions are
-    not compared: their outputs are NaN where the kernels' are."""
+    the table after binning): kernels 1, 2, 4/5, 6/7 and 12 against the
+    chunk walk bit for bit, NaN masks included (vs_chain); then 6/7 on a
+    population whose NaN reaches the forward (compare_nan_forward). The
+    plain versions are not compared: their outputs are NaN where the
+    kernels' are."""
     from gs2d_tpu_torch.config import SplatConfig
     from gs2d_tpu_torch.io.image import load_image
     from gs2d_tpu_torch.ops import render as rd
@@ -511,30 +583,27 @@ def compare_nan_case(dev) -> None:
     vs_chain("random N=130, splat 40 at a NaN position", table,
                   rr._remap_ids(b, 130), b.count, rd.pad_ref_chw(ref, cfg, dev),
                   130, cfg)
+    compare_nan_forward(dev)
 
 
 def kernel_split(fn, parts, reps: int = 10) -> dict:
     """Device ms of one launch of each kernel whose name holds one of
-    ``parts`` (torch.profiler over ``reps`` calls of ``fn``, after one; the
-    sum over the launches the trace holds, over their count, which is
-    logged as "seen"), and beside them "events", the CUDA-event ms of a
-    call of ``fn`` over ``reps`` untraced calls."""
-    from torch.autograd import DeviceType
-
-    fn()
-    _, event_ms = timed_call(fn, reps)
-    with tempfile.TemporaryDirectory() as tmp, device_trace(tmp) as prof:
-        for _ in range(reps):
-            fn()
+    ``parts`` (the profiler's kernels of utils/profiling.py::device_time
+    over ``reps`` calls of ``fn``: the sum over the launches the trace
+    holds, over their count, which is logged as "seen"), and beside them
+    "device", the device ms of a call, and "events", its CUDA-event ms
+    over ``reps`` untraced calls."""
+    t = read_device_time("split", fn, reps)
     total = dict.fromkeys(parts, 0.0)
-    seen = dict.fromkeys(parts, 0)
-    for ev in prof.key_averages():
-        part = next((x for x in parts if x in ev.key), None)
-        if ev.device_type == DeviceType.CUDA and part is not None:
-            total[part] += ev.self_device_time_total / 1e3
-            seen[part] += ev.count
-    return {**{x: total[x] / max(1, seen[x]) for x in parts},
-            "events": event_ms, "seen": min(seen.values())}
+    seen = dict.fromkeys(parts, 0.0)
+    for key, (ms, n) in t["kernels"].items():
+        part = next((x for x in parts if x in key), None)
+        if part is not None:
+            total[part] += ms
+            seen[part] += n
+    return {**{x: total[x] / max(1e-9, seen[x]) for x in parts},
+            "device": t["device"], "events": t["events"],
+            "seen": round(reps * min(seen.values()))}
 
 
 # Kernel 11's three kernels (csrc/render_flat.cu), for its time split.
@@ -544,14 +613,16 @@ BWD_FLAT_PARTS = ("bwd_flat_kernel", "flat_patch_sum_kernel",
 
 def flat_vs_dense(name, b, rows, bd, tp, fwd_out, bwd_out, bwd_planes, n,
                   cfg) -> None:
-    """Kernels 10 and 11 against the dense kernels 6/7 and the chunk
-    reference, which keep the one-block-per-tile chunk walk (tile_walk.cuh)
+    """Kernels 10 and 11 against the chunk references (the forward and the
+    backward), which keep the one-block-per-tile chunk walk (tile_walk.cuh)
     over the same rows in the same order: colour, T, the per-pair moments
     matched by (tile, slot) and the (9, n) splat sums equal bit for bit
-    (NaN masks included), and every row outside the runs is 0."""
+    (NaN masks included), and every row outside the runs is 0; kernels 6/7
+    on the dense rows equal the forward reference (colour, T)."""
     from gs2d_tpu_torch.ops import render_dense as rdn
 
-    c_d, t_d = rdn._fwd_dense_cuda(tp, bd.count, cfg)
+    c_d, t_d = rdn._fwd_chunk_cuda(tp, bd.count, cfg)
+    f_d, t_dd = rdn._fwd_dense_cuda(tp, bd.count, cfg)
     part_d, g_d = rdn._bwd_chunk_cuda(tp, bd.ids, bd.count, *bwd_planes, n,
                                       cfg)
     (c_k, t_k), (m_k, g_k) = fwd_out, bwd_out
@@ -563,14 +634,16 @@ def flat_vs_dense(name, b, rows, bd, tp, fwd_out, bwd_out, bwd_planes, n,
     same = {"colour": same_bits(c_k, c_d), "T": same_bits(t_k, t_d),
             "pair moments": same_bits(m_k[pair], part_d[listed]),
             "splat sums": same_bits(g_k, g_d),
-            "rows outside the runs 0": bool((m_k[outside] == 0).all())}
+            "rows outside the runs 0": bool((m_k[outside] == 0).all()),
+            "kernels 6/7": same_bits(f_d, c_d) and same_bits(t_dd, t_d)}
     if not all(same.values()):
-        raise AssertionError(f"{name}: kernels 10/11 differ from the dense "
-                             f"kernels 6/7 and the chunk reference: {same}")
-    log(f"  {name}: kernels 10 and 11 equal the dense kernels 6/7 and the "
-        f"chunk reference "
-        f"bit for bit (colour, T, {int(pair.numel())} pair moments, splat "
-        f"sums; NaN in {int(torch.isnan(g_k).sum())} splat moments)")
+        raise AssertionError(f"{name}: kernels 10/11 or 6/7 differ from the "
+                             f"chunk references: {same}")
+    note_reference("fwd_chunk", (f_d, t_dd), (c_d, t_d))
+    log(f"  {name}: kernels 10 and 11 equal the chunk references bit for "
+        f"bit (colour, T, {int(pair.numel())} pair moments, splat sums; NaN "
+        f"in {int(torch.isnan(g_k).sum())} splat moments), and kernels 6/7 "
+        f"on the dense rows the forward reference (colour, T)")
 
 
 def flat_survivors(b, rows, fwd_in, bwd_in, fields, cfg, dev) -> str:
@@ -719,8 +792,9 @@ def compare_flat_case(name, params, ref, cfg, dev, carry=None,
         f"{split['seen']} of 10 calls' launches seen): replay "
         f"{split[BWD_FLAT_PARTS[0]]:.4f}, patch sum "
         f"{split[BWD_FLAT_PARTS[1]]:.4f}, splat sum "
-        f"{split[BWD_FLAT_PARTS[2]]:.4f}; CUDA events {split['events']:.4f} "
-        f"ms a call; patch partials {scratch} = "
+        f"{split[BWD_FLAT_PARTS[2]]:.4f}; device {split['device']:.4f}, "
+        f"CUDA events {split['events']:.4f} ms a call; patch partials "
+        f"{scratch} = "
         f"{4 * np.prod(scratch) / 1e6:.1f} MB")
     return errs, times
 
@@ -943,6 +1017,7 @@ def compare_bwd_resident_case(name, params, ref, cfg, dev, inputs,
     if not same_bits(m_k[:9, :n], g_ch):
         raise AssertionError(f"{name}: kernel 3 differs from the chunk "
                              "reference")
+    note_reference("bwd_chunk", (m_k[:9, :n],), (g_ch,))
     mask = rr.patch_cover_mask(table, ids, count, cfg, rr.patch_rows())
     want = mask.sum(dim=-1).reshape(-1).to(torch.int32)
     walked = patch_survivors({
@@ -987,7 +1062,7 @@ def compare_bwd_resident_case(name, params, ref, cfg, dev, inputs,
         "bwd_dense, same rows (plain ms: kernel 3's)": timed_entry(
             lambda: rdn._bwd_dense_cuda(*dense_in), plain_ms, "bwd", work,
             cfg, dense_bytes),
-        "reference bwd_chunk, same rows (plain ms: kernel 3's)": timed_entry(
+        BWD_CHUNK_TIMES: timed_entry(
             lambda: rdn._bwd_chunk_cuda(*dense_in), plain_ms, "bwd", work,
             cfg, dense_bytes),
     }
@@ -998,13 +1073,15 @@ def compare_dense_case(name, params, ref, cfg, dev, carry=None,
     """The three dense kernels vs their plain versions on one population at
     cfg's K: the forward, the backward under ``g_color`` (3, Hp, Wp; the
     SSIM cotangent of the render when None) from ``carry`` (identity when
-    None), run twice and bit for bit, and the fused L2 step. The backward
-    and the L2 step are also held to the chunk walk bit for bit (the chunk
-    reference under the same planes; dense_vs_chain), and the backward's
-    survivors per patch to the plain cull mask (listed_cover_mask of the
-    tile_params). Returns ({kernel: max_abs_err}, {kernel: times} for the
-    kernels in ``timed``; a timed L2 step also gets its survivors and its
-    split logged)."""
+    None), run twice and bit for bit, and the fused L2 step. All three are
+    also held to the chunk walk bit for bit (the forward to the forward
+    reference; the backward to the backward reference under the same
+    planes; the L2 step to dense_vs_chain), and the forward's and the
+    backward's survivors per patch to the plain cull mask
+    (listed_cover_mask of the tile_params). Returns ({kernel: max_abs_err},
+    {kernel: times} for the kernels in ``timed``, a timed forward with the
+    forward reference's beside it; a timed L2 step also gets its survivors
+    and its split logged)."""
     from gs2d_tpu_torch.ops import render as rd
     from gs2d_tpu_torch.ops import render_dense as rdn
     from gs2d_tpu_torch.ops import render_resident as rr
@@ -1017,6 +1094,7 @@ def compare_dense_case(name, params, ref, cfg, dev, carry=None,
     tp, ids, count = b.tile_params, b.ids, b.count
     ref_chw = rd.pad_ref_chw(ref, cfg, dev)
     c_k, t_k = rdn._fwd_dense_cuda(tp, count, cfg)
+    c_ch, t_ch = rdn._fwd_chunk_cuda(tp, count, cfg)
     (c_p, t_p), fwd_plain_ms = timed_call(
         lambda: rdn._fwd_dense_plain(tp, count, cfg))
     if g_color is None:
@@ -1031,6 +1109,10 @@ def compare_dense_case(name, params, ref, cfg, dev, carry=None,
     want = mask.sum(dim=-1).reshape(-1).to(torch.int32)
     walked = patch_survivors({"kernels 8/9": lambda w: rdn._bwd_dense_cuda(
         *bwd_in, walked=w)}, want, dev)["kernels 8/9"]
+    walked_fwd = patch_survivors({
+        "kernels 6/7": lambda w: rdn._fwd_dense_cuda(tp, count, cfg,
+                                                     walked=w)},
+        want, dev)["kernels 6/7"]
     (m_p, g_p), bwd_plain_ms = timed_call(
         lambda: rdn._bwd_dense_plain(*bwd_in))
     l2_in = (tp, ids, count, ref_chw, n, cfg)
@@ -1045,6 +1127,9 @@ def compare_dense_case(name, params, ref, cfg, dev, carry=None,
         raise AssertionError(f"{name}: bwd_dense does not repeat bit for "
                              "bit")
     replayed = torch.equal(m_k, m_ch) and torch.equal(g_k, g_ch)
+    forward = same_bits(c_k, c_ch) and same_bits(t_k, t_ch)
+    note_reference("fwd_chunk", (c_k, t_k), (c_ch, t_ch))
+    note_reference("bwd_chunk", (m_k, g_k), (m_ch, g_ch))
     fwd_err = max(float((c_k - c_p).abs().max()),
                   float((t_k - t_p).abs().max()))
     l2_col = float((l2_k[0] - l2_p[0]).abs().max())
@@ -1056,7 +1141,9 @@ def compare_dense_case(name, params, ref, cfg, dev, carry=None,
     l2_err, l2_scale = grad_error(l2_k[2], l2_p[2], n, fields)
     log(f"  {name}: N={n} K={k} tile {cfg.tile_h}x{cfg.tile_w} "
         f"max_count={int(count.max())} sat_walk={rd._sat_walk(cfg)} | fwd "
-        f"err {fwd_err:.3g} | bwd: moment err/tol {ratios['bwd']:.3g}, grad "
+        f"err {fwd_err:.3g}, equals the forward reference bit for bit "
+        f"(colour, T): {forward}, walked {walked_fwd} | bwd: moment err/tol "
+        f"{ratios['bwd']:.3g}, grad "
         f"err {bwd_err:.3g} of {bwd_scale:.3g}, repeats bit for bit, equals "
         f"the chunk reference bit for bit (slot sums, moments): {replayed}; "
         f"(patch, slot) steps {int(count.sum()) * mask.shape[1]}, survivors "
@@ -1070,6 +1157,9 @@ def compare_dense_case(name, params, ref, cfg, dev, carry=None,
     if not chained:
         raise AssertionError(f"{name}: kernel 4/5 differs from the chunk "
                              "walk")
+    if not forward:
+        raise AssertionError(f"{name}: kernel 6/7 differs from the forward "
+                             "reference")
     if not replayed:
         raise AssertionError(f"{name}: kernel 8/9 differs from the chunk "
                              "reference")
@@ -1081,10 +1171,14 @@ def compare_dense_case(name, params, ref, cfg, dev, carry=None,
         dense_l2_report(name, *l2_in, dev, smi)
     work = live_work(tp, count, cfg)
     base = nbytes(tp, ids, count)
+    fwd_bytes = nbytes(tp, count, c_k, t_k)
     entries = {
         "fwd_dense": lambda: timed_entry(
             lambda: rdn._fwd_dense_cuda(tp, count, cfg), fwd_plain_ms, "fwd",
-            work, cfg, nbytes(tp, count, c_k, t_k)),
+            work, cfg, fwd_bytes),
+        FWD_CHUNK_TIMES: lambda: timed_entry(
+            lambda: rdn._fwd_chunk_cuda(tp, count, cfg), fwd_plain_ms, "fwd",
+            work, cfg, fwd_bytes),
         "bwd_dense": lambda: timed_entry(
             lambda: rdn._bwd_dense_cuda(*bwd_in), bwd_plain_ms, "bwd", work,
             cfg, base + nbytes(c_p, g_color, cin, tin, g_k)),
@@ -1092,6 +1186,8 @@ def compare_dense_case(name, params, ref, cfg, dev, carry=None,
             lambda: rdn._l2_dense_cuda(*l2_in), l2_plain_ms, "l2", work, cfg,
             base + nbytes(ref_chw, l2_k[0], l2_k[2])),
     }
+    if "fwd_dense" in timed:
+        timed = (*timed, FWD_CHUNK_TIMES)
     return errs, {kk: entries[kk]() for kk in timed}
 
 
@@ -1103,9 +1199,10 @@ L2_WINDOW_PARTS = ("l2_resident_kernel", "patch_sum_kernel")
 
 def log_split(what: str, split: dict, parts, smi: str) -> None:
     log(f"  {what} split (device ms a launch, torch.profiler, "
-        f"{split['seen']} of 10 calls' launches seen): patch kernel "
-        f"{split[parts[0]]:.4f}, patch sum {split[parts[1]]:.4f}; CUDA "
-        f"events {split['events']:.4f} ms a call [{smi}]")
+        f"{split['seen']} of 10 calls' launches seen): "
+        + ", ".join(f"{x} {split[x]:.4f}" for x in parts)
+        + f"; device {split['device']:.4f}, CUDA events "
+        f"{split['events']:.4f} ms a call [{smi}]")
 
 
 def dense_l2_report(name, tp, ids, count, ref_chw, n, cfg, dev,
@@ -1127,10 +1224,10 @@ def dense_l2_report(name, tp, ids, count, ref_chw, n, cfg, dev,
     split = kernel_split(lambda: rdn._l2_dense_cuda(tp, ids, count, ref_chw,
                                                     n, cfg), L2_DENSE_PARTS)
     log_split(f"kernels 4/5 at {name}", split, L2_DENSE_PARTS, smi)
-    log(f"  the chunk walk (6/7, gC, then the chunk reference) on the same "
-        f"inputs: "
-        f"{cuda_ms(lambda: chain(tp, ids, count, ref_chw, n, cfg), 20):.4f} "
-        f"ms [{smi}]")
+    t = read_device_time("chain", lambda: chain(tp, ids, count, ref_chw, n,
+                                                cfg), 20)
+    log(f"  the chunk walk (the forward reference, gC, then the backward "
+        f"reference) on the same inputs: {device_line(t)} [{smi}]")
 
 
 def compare_new(dev, smi: str):
@@ -1184,8 +1281,8 @@ def compare_new(dev, smi: str):
         f"pcg3d init (L2 path), K={cfg_l2.max_splats_per_tile}", p_init, ref,
         cfg_l2, dev, timed=("l2_dense",), smi=smi)
     add(e, t)
-    log_times({kk: times[kk] for kk in ("fwd_dense", "bwd_dense",
-                                        "l2_dense")},
+    log_times({kk: times[kk] for kk in ("fwd_dense", FWD_CHUNK_TIMES,
+                                        "bwd_dense", "l2_dense")},
               "at the default fit's init", smi)
     return errs, times
 
@@ -1380,20 +1477,101 @@ def compare_window(dev, smi: str):
     return err, times, cfg
 
 
+# Kernel 13's three kernels (csrc/render_mxu.cu, render_resident.cu), for
+# its time split.
+MXU_PARTS = ("l2_mxu_kernel", "mxu_combine_kernel", "segment_sum_kernel")
+
+
+def mxu_vs_chunk(name, args) -> tuple:
+    """Kernel 13 against its reference (gs2d_l2_mxu_chunk) on one input,
+    bit for bit: colour, per-(tile, slot) rows and gradients, NaN masks
+    included. Returns the reference's outputs."""
+    from gs2d_tpu_torch.ops import render_mxu as rm
+
+    got = rm._l2_mxu_cuda(*args)
+    want = rm._l2_mxu_chunk_cuda(*args)
+    torch.cuda.synchronize()
+    same = {what: same_bits(g, w) for what, g, w in
+            zip(("colour", "rows", "gradients"), got, want)}
+    if not all(same.values()):
+        raise AssertionError(f"{name}: kernel 13 differs from its "
+                             f"reference: {same}")
+    note_reference("l2_mxu_chunk", got, want)
+    log(f"  {name}: kernel 13 equals its reference (gs2d_l2_mxu_chunk) bit "
+        f"for bit (colour, rows, gradients; NaN in "
+        f"{int(torch.isnan(want[0]).sum())} colour values, "
+        f"{int(torch.isnan(want[2]).sum())} gradients)")
+    return want
+
+
+def nan_forward_args(dev):
+    """Kernel 13's arguments (6/7 take tile_params, count and cfg of them)
+    on the random N=130 population of compare_nan_case, dense binning at K
+    = 128, with a NaN position for the first splat of tile 0 whose row walk
+    meets the tile's rows: a NaN position's cover is column 0 of those
+    rows, where its alpha is NaN, so the forward's colour and T hold NaNs
+    (splat 40's cover misses column 0)."""
+    from gs2d_tpu_torch.config import SplatConfig
+    from gs2d_tpu_torch.io.image import load_image
+    from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.params import params_from_numpy
+
+    ref = load_image(MINI)
+    h, w = ref.shape[:2]
+    cfg = SplatConfig(width=w, height=h, n_splats=130, tile_h=32,
+                      max_splats_per_tile=128, binning="dense")
+    b = tl.bin_splats(params_from_numpy(population(3, 130, w, h), dev), cfg,
+                      128)
+    py, hh = b.tile_params[0, :, tl.FIELD_PY], b.tile_params[0, :, tl.FIELD_H]
+    meets = ((py - hh).trunc() <= cfg.tile_h - 1) & ((py + hh).trunc() >= 0)
+    slot = int(torch.nonzero(meets[: int(b.count[0])])[0, 0])
+    tp = b.tile_params.clone()
+    tp[b.ids == b.ids[0, slot], tl.FIELD_PX] = float("nan")
+    return (tp, b.ids, b.count, rd.pad_ref_chw(ref, cfg, dev), 130, cfg, 128)
+
+
+def compare_nan_forward(dev) -> None:
+    """Kernels 6/7 against the forward reference bit for bit on
+    nan_forward_args' population, equal NaN masks, NaNs in T required."""
+    from gs2d_tpu_torch.ops import render_dense as rdn
+
+    tp, _, count, _, _, cfg, _ = nan_forward_args(dev)
+    got = rdn._fwd_dense_cuda(tp, count, cfg)
+    want = rdn._fwd_chunk_cuda(tp, count, cfg)
+    torch.cuda.synchronize()
+    if not (same_bits(got[0], want[0]) and same_bits(got[1], want[1])):
+        raise AssertionError("NaN forward: kernels 6/7 differ from the "
+                             "forward reference")
+    if not (torch.isnan(want[1]).any() and torch.isfinite(want[1]).any()):
+        raise AssertionError("NaN forward: not the case it should be")
+    note_reference("fwd_chunk", got, want)
+    log(f"  random N=130, a tile-0 splat at a NaN position: kernels 6/7 "
+        f"equal the forward reference bit for bit (colour, T; NaN in "
+        f"{int(torch.isnan(want[0]).sum())} colour values, "
+        f"{int(torch.isnan(want[1]).sum())} T values)")
+
+
 def compare_mxu(dev, smi: str):
     """Kernel 13 at the default fit's init (268x213, 1024 splats, K = 512,
-    chunk 256) against its plain version and against kernel 4 (the dense
-    L2 kernel) on the same binning; timed. Returns (max error, times, the
-    binning's inputs for the entry-point run)."""
+    chunk 256) against its plain version, against kernel 4 (the dense L2
+    kernel) on the same binning and against its reference (mxu_vs_chunk),
+    its survivors per patch against the plain cull mask
+    (listed_cover_mask); kernel 13 and the reference timed, 13 split. The
+    reference gate also runs on 64-row tiles at the same init and on
+    nan_forward_args' population (NaNs in colour and gradients). Returns
+    (max error, times, the binning's inputs for the entry-point run)."""
     from gs2d_tpu_torch.config import SplatConfig
     from gs2d_tpu_torch.io.image import load_image
     from gs2d_tpu_torch.ops import render as rd
     from gs2d_tpu_torch.ops import render_dense as rdn
     from gs2d_tpu_torch.ops import render_mxu as rm
+    from gs2d_tpu_torch.ops import render_resident as rr
     from gs2d_tpu_torch.ops import tiles as tl
     from gs2d_tpu_torch.params import FIELDS, init_params
 
-    log("[compare] MXU-form kernel 13 vs plain PyTorch and kernel 4")
+    log("[compare] MXU-form kernel 13 vs plain PyTorch, kernel 4 and its "
+        "reference")
     ref = load_image(MINI)
     h, w = ref.shape[:2]
     cfg = SplatConfig(width=w, height=h, n_splats=1024)
@@ -1438,10 +1616,38 @@ def compare_mxu(dev, smi: str):
         raise AssertionError("l2_mxu disagrees with its plain version")
     if d_col > MXU_COLOR_ATOL or d_ratio > 1.0:
         raise AssertionError("l2_mxu disagrees with kernel 4")
+    mxu_vs_chunk(f"pcg3d init, 32-row tiles, K={k}", args)
+    cfg64 = tl.tune_tile_capacity(p, cfg.replace(
+        tile_h=64, max_splats_per_tile=None)).replace(binning="dense")
+    b64 = tl.bin_splats(p, cfg64, cfg64.max_splats_per_tile)
+    if int(b64.n_dropped):
+        raise AssertionError(f"mxu: binning dropped {int(b64.n_dropped)}")
+    mxu_vs_chunk(f"pcg3d init, 64-row tiles, K={cfg64.max_splats_per_tile}",
+                 (b64.tile_params, b64.ids, b64.count,
+                  rd.pad_ref_chw(ref, cfg64, dev), n, cfg64,
+                  min(kc, cfg64.max_splats_per_tile)))
+    want = mxu_vs_chunk("random N=130, a tile-0 splat at a NaN position, "
+                        "K=128", nan_forward_args(dev))
+    if not all(torch.isnan(x).any() and torch.isfinite(x).any()
+               for x in (want[0], want[2])):
+        raise AssertionError("mxu NaN case: not the case it should be")
+    mask = rr.listed_cover_mask(b.tile_params, b.count, cfg, rr.patch_rows())
+    want = mask.sum(dim=-1).reshape(-1).to(torch.int32)
+    walked = patch_survivors({"kernel 13": lambda wk: rm._l2_mxu_cuda(
+        *args, walked=wk)}, want, dev)["kernel 13"]
+    steps = int(b.count.sum()) * mask.shape[1]
+    log(f"  pcg3d init: (patch, slot) steps {steps}, survivors "
+        f"{int(want.sum())} (plain mask, equal patch by patch in kernel 13), "
+        f"walked before the saturation exit {walked}")
+    log_split("kernel 13 at the default init", kernel_split(
+        lambda: rm._l2_mxu_cuda(*args), MXU_PARTS), MXU_PARTS, smi)
     work = live_work(b.tile_params, b.count, cfg)
+    n_bytes = nbytes(b.tile_params, b.ids, b.count, ref_chw, c_k, g_k)
     times = {"l2_mxu": timed_entry(
-        lambda: rm._l2_mxu_cuda(*args), plain_ms, "mxu", work, cfg,
-        nbytes(b.tile_params, b.ids, b.count, ref_chw, c_k, g_k))}
+        lambda: rm._l2_mxu_cuda(*args), plain_ms, "mxu", work, cfg, n_bytes),
+        MXU_CHUNK_TIMES: timed_entry(
+            lambda: rm._l2_mxu_chunk_cuda(*args), plain_ms, "mxu", work, cfg,
+            n_bytes)}
     log_times(times, f"at the default fit's init (K={k}, kc={kc})", smi)
     return max(col_err, g_err), times, (b, ref_chw, n, cfg)
 
@@ -1776,11 +1982,12 @@ def median_ms(rates) -> float:
     return 1e3 / float(np.median(rates))
 
 
-def probe_entry(ms: float, plain_ms: float, flops: int, n_bytes: int):
-    """{ms, plain_ms, bound_ms, bound_by} of a probe kernel that does
-    ``flops`` float32 operations and writes ``n_bytes``."""
+def probe_entry(t: dict, plain_ms: float, flops: int, n_bytes: int):
+    """{ms, device, plain_ms, bound_ms, bound_by} of a probe kernel whose
+    device_time reading is ``t``, that does ``flops`` float32 operations
+    and writes ``n_bytes``."""
     t_ops, t_bytes = flops / F32_PEAK, n_bytes / HBM_RATE
-    return {"ms": ms, "plain_ms": plain_ms,
+    return {"ms": t["device"], "device": t, "plain_ms": plain_ms,
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -1807,16 +2014,18 @@ def compare_probes(dev, smi: str):
             raise AssertionError(f"fma_peak chains={chains}: err {err} > "
                                  f"{tol}")
         errs["fma_peak"] = max(errs.get("fma_peak", 0.0), err)
-        ms = cuda_ms(lambda: probes.fma_peak(chains, dev), 5)
+        t = read_device_time("fma_peak",
+                             lambda: probes.fma_peak(chains, dev), 5)
+        ms = t["device"]
         flops = probes.fma_peak_flops(chains, probes.FMA_INNER, got.numel())
         log(f"  fma_peak chains={chains}: sum {float(got[0, 0])!r}, err "
-            f"{err:.3g} (tol {tol:.3g}), {ms:.4f} ms, "
+            f"{err:.3g} (tol {tol:.3g}), {device_line(t)}, "
             f"{flops / ms / 1e9:.3f} TFLOP/s [{smi}]")
         if best is None or flops / ms > best[0]:
-            best = (flops / ms, chains, ms, flops, nbytes(got))
-    _, chains, ms, flops, out_bytes = best
+            best = (flops / ms, chains, t, flops, nbytes(got))
+    _, chains, t, flops, out_bytes = best
     times["fma_peak"] = probe_entry(
-        ms, cuda_ms(lambda: probes.fma_peak_plain(
+        t, cuda_ms(lambda: probes.fma_peak_plain(
             chains, probes.FMA_INNER, probes.FMA_GRID, probes.FMA_THREADS,
             dev), 3), flops, out_bytes)
     for kind, (name, fn, plain) in probes.MOMENT_PROBES.items():
@@ -1842,12 +2051,14 @@ def compare_probes(dev, smi: str):
                                      "version")
             errs[name] = max(errs.get(name, 0.0), float(err.max()))
         times[name] = probe_entry(
-            cuda_ms(lambda: fn(dev, n_k=probes.N_K, n_blocks=sms), 50),
+            read_device_time(name, lambda: fn(dev, n_k=probes.N_K,
+                                              n_blocks=sms)),
             cuda_ms(lambda: plain(probes.N_K, sms, dev), 1),
             sms * probes.moments_flops(kind, probes.N_K), nbytes(got))
     for kk, t in times.items():
-        log(f"  {kk}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.2f} ms, "
-            f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}), "
+        log(f"  {kk}: kernel {device_line(t['device'])}, plain "
+            f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}), "
             f"{t['bound_ms'] / t['ms']:.5f} of the bound [{smi}]")
     return errs, times
 
@@ -1882,10 +2093,15 @@ def probe_phase() -> dict:
                                  f"{r['share_published']} of the published "
                                  "ceiling")
     want = {"l2_resident": 1, "l2_dense": 2, "fwd_flat": 2, "bwd_flat": 2}
-    for kk, n in want.items():  # a first call, a warm-up, the timed calls
-        if launches[kk] != n * 12:
+    # A workload's first call, then device_time's at 10 reps: a warm-up, 10
+    # event-timed calls, one on a side stream, 10 captured, and 20 traced
+    # in each of one to three attempts at a profiler window.
+    per = (1 + 1 + 10 + 1 + 10 + 20, 1 + 1 + 10 + 1 + 10 + 3 * 20)
+    for kk, n in want.items():
+        if not n * per[0] <= launches[kk] <= n * per[1]:
             raise AssertionError(f"roofline: {kk} launched {launches[kk]} "
-                                 f"times, expected {n * 12}")
+                                 f"times, expected {n * per[0]} to "
+                                 f"{n * per[1]}")
     for kk in probes.launches:
         if not launches[kk]:
             raise AssertionError(f"{kk}: not launched by its script")
@@ -2132,6 +2348,18 @@ KERNELS = (
     ("moments_scratch_contraction", "gs2d_tpu_torch/csrc/probes.cu",
      "scripts/probe_mxu_moments.py:111"),
 )
+# The references: the designs kernels 6/7, 8/9 and 13 had before their
+# warp patches, kept unchanged to hold them bit for bit. They port no TPU
+# kernel and no path launches them: (counter, source, the kernel held to it,
+# the key of its time).
+REFERENCES = (
+    ("fwd_chunk", "gs2d_tpu_torch/csrc/render_dense.cu", "fwd_dense",
+     FWD_CHUNK_TIMES),
+    ("bwd_chunk", "gs2d_tpu_torch/csrc/render_dense.cu", "bwd_dense",
+     BWD_CHUNK_TIMES),
+    ("l2_mxu_chunk", "gs2d_tpu_torch/csrc/render_mxu.cu", "l2_mxu",
+     MXU_CHUNK_TIMES),
+)
 
 
 def main(argv) -> int:
@@ -2227,8 +2455,7 @@ def main(argv) -> int:
     log(f"  fma_peak compiled code (cuobjdump -sass), per chain count: "
         f"{probes.fma_sass_counts()}")
 
-    from gs2d_tpu_torch.ops import render_dense as rdn
-    chunk_launches = rdn.launches["bwd_chunk"]
+    compare_counts = read_counts()
 
     # ---- main paths: the CLI's fits -----------------------------------------
     total = {}
@@ -2342,22 +2569,34 @@ def main(argv) -> int:
     count(fit_1080p_phase(dev, smi))
     count(resume_phase())
     count(recovery_phase(dev))
-    if total.get("bwd_chunk"):
-        raise AssertionError("a fit path launched the chunk reference")
-    log(f"  the chunk reference (gs2d_bwd_chunk, not a port of a TPU kernel): "
-        f"{chunk_launches} launches in the compare phases, 0 on every path")
+    for kk, _, _, _ in REFERENCES:
+        if total.get(kk):
+            raise AssertionError(f"a path launched the reference {kk}")
+    log(f"  the references (gs2d_fwd_chunk, gs2d_bwd_chunk, "
+        f"gs2d_l2_mxu_chunk; no port of a TPU kernel): "
+        f"{ {kk: compare_counts[kk] for kk, _, _, _ in REFERENCES} } "
+        f"launches in the compare phases, 0 on every path")
     log("[done] every phase passed")
 
     for kk, _, _ in KERNELS:
         if not total.get(kk):
             raise AssertionError(f"{kk}: no launch on any path")
-    report = {"kernels": [
-        {"name": kk, "route": "cuda", "source": src, "replaces": rep,
-         "launches": total[kk], "max_abs_err": errs[kk],
-         "ms": times[kk]["ms"], "plain_ms": times[kk]["plain_ms"],
-         "bound_ms": times[kk]["bound_ms"],
-         "bound_by": times[kk]["bound_by"], "library_ms": None}
-        for kk, src, rep in KERNELS]}
+    def entry(kk, src, rep, t, err):
+        return {"name": kk, "route": "cuda", "source": src, "replaces": rep,
+                "launches": total.get(kk, 0), "max_abs_err": err,
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None}
+
+    # The references' max_abs_err is their largest difference from the
+    # kernel held to them (0: bit for bit), their plain_ms that kernel's
+    # plain version's.
+    report = {"kernels": [entry(kk, src, rep, times[kk], errs[kk])
+                          for kk, src, rep in KERNELS],
+              "references": [
+                  {**entry(kk, src, None, times[key], REF_ERRS[kk]),
+                   "reference_of": of}
+                  for kk, src, of, key in REFERENCES]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,6 +1,7 @@
 // Warp-patch walk of one tile's list, shared by the resident kernels 1, 2, 3
-// and 12 (render_resident.cu), the dense kernels 4/5 and 8/9
-// (render_dense.cu) and the flat kernels 10 and 11 (render_flat.cu).
+// and 12 (render_resident.cu), the dense kernels 4/5, 6/7 and 8/9
+// (render_dense.cu), the flat kernels 10 and 11 (render_flat.cu) and the
+// MXU-form kernel 13 (render_mxu.cu, its own steps on this walk).
 //
 // Each warp owns one patch, the 8 rows x 32 columns that warp w of a
 // one-block-per-tile pass owned (lane = column; tile_walk.cuh's pass), and a
@@ -32,9 +33,10 @@
 // later step), walking only the non-finite survivors after it; the replay
 // either takes that prefix from the forward (kernel 1, whose replay T
 // follows the forward's bit for bit) or finds its own on its replayed T
-// (kernels 3, 8/9 and 11, from a carry-in). So on finite inputs the patch
-// walk computes what the one-block-per-tile walk (tile_walk.cuh) computes,
-// bit for bit;
+// (kernels 3, 8/9 and 11, from a carry-in). The walks take their steps as
+// functors (fwd_walk, replay_walk), so kernel 13 walks its coefficient-form
+// steps the same way. So on finite inputs the patch walk computes what the
+// one-block-per-tile walk (tile_walk.cuh) computes, bit for bit;
 // where a splat or a carry is not finite it gives the NaNs of that walk
 // without its saturation exits.
 #pragma once
@@ -244,23 +246,18 @@ __device__ __forceinline__ void fwd_patch_step(
   }
 }
 
-// The forward composite of the patch over the n listed slots of its tile,
-// (cr, cg, cb, T) carried in registers (T starting at 1 inside the image,
-// 0 on padding), walking the survivors of each 32-slot cull in list order.
-// The full walk stops after the survivor at which no pixel of the patch
-// keeps T >= min_throughput; after it only the non-finite survivors are
-// walked. Returns that prefix's length (the replay's); survivors and walked
-// get the survivors' count and how many were walked.
-template <class Run>
-__device__ __forceinline__ int fwd_patch(
-    const Run& run, int n, const Patch& c, const RenderArgs& p,
-    float (&cr)[kRows], float (&cg)[kRows], float (&cb)[kRows],
-    float (&T)[kRows], int& survivors, int& walked) {
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    cr[r] = cg[r] = cb[r] = 0.0f;
-    T[r] = (c.y0 + r < p.height && c.xx < p.width) ? 1.0f : 0.0f;
-  }
+// The forward walk of the patch over the n listed slots of its tile: the
+// survivors of each 32-slot cull in list order, each broadcast from its
+// lane to the warp and handed to step, which updates the patch's carries
+// (T among them). The full walk stops after the survivor at which no pixel
+// of the patch keeps T >= min_throughput; after it only the non-finite
+// survivors are walked. Returns that prefix's length (the replay's);
+// survivors and walked get the survivors' count and how many were walked.
+template <class Run, class Step>
+__device__ __forceinline__ int fwd_walk(const Run& run, int n, const Patch& c,
+                                        const RenderArgs& p,
+                                        const float (&T)[kRows], Step&& step,
+                                        int& survivors, int& walked) {
   int n_full = -1;  // set at the saturation exit
   survivors = walked = 0;
   for (int k0 = 0; k0 < n; k0 += 32) {
@@ -272,7 +269,7 @@ __device__ __forceinline__ int fwd_patch(
     while (todo) {
       const int src = __ffs(todo) - 1;
       todo &= todo - 1;
-      fwd_patch_step(broadcast(sl, src), c, p, cr, cg, cb, T);
+      step(broadcast(sl, src));
       ++walked;
       if (n_full >= 0) continue;
       if (saturated(T, p)) {
@@ -282,6 +279,52 @@ __device__ __forceinline__ int fwd_patch(
     }
   }
   return n_full >= 0 ? n_full : walked;
+}
+
+// The forward composite of the patch over the n listed slots of its tile
+// (fwd_walk of fwd_patch_step), (cr, cg, cb, T) carried in registers (T
+// starting at 1 inside the image, 0 on padding). Returns fwd_walk's prefix.
+template <class Run>
+__device__ __forceinline__ int fwd_patch(
+    const Run& run, int n, const Patch& c, const RenderArgs& p,
+    float (&cr)[kRows], float (&cg)[kRows], float (&cb)[kRows],
+    float (&T)[kRows], int& survivors, int& walked) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    cr[r] = cg[r] = cb[r] = 0.0f;
+    T[r] = (c.y0 + r < p.height && c.xx < p.width) ? 1.0f : 0.0f;
+  }
+  return fwd_walk(
+      run, n, c, p, T,
+      [&](const Slot& b) { fwd_patch_step(b, c, p, cr, cg, cb, T); },
+      survivors, walked);
+}
+
+// The forward of kernels 2 and 6/7: fwd_patch, its (C, T) written to color
+// (3, Hp, Wp) and trans (Hp, Wp), and the patch's (survivors, walked) to
+// walked when set.
+template <class Run>
+__device__ __forceinline__ void fwd_patch_out(const Run& run, int n,
+                                              const Patch& c,
+                                              const RenderArgs& p,
+                                              const PatchGrid& g,
+                                              float* __restrict__ color,
+                                              float* __restrict__ trans,
+                                              int* __restrict__ walked) {
+  float cr[kRows], cg[kRows], cb[kRows], T[kRows];
+  int n_survivors, n_walked;
+  fwd_patch(run, n, c, p, cr, cg, cb, T, n_survivors, n_walked);
+  const size_t wp = (size_t)p.n_tiles_x * p.tile_w;
+  const size_t plane = (size_t)p.n_tiles_y * p.tile_h * wp;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const size_t i = (size_t)(c.y0 + r) * wp + c.xx;
+    color[i] = cr[r];
+    color[plane + i] = cg[r];
+    color[2 * plane + i] = cb[r];
+    trans[i] = T[r];
+  }
+  record_walk(walked, c, g, n_survivors, n_walked);
 }
 
 // Whether a pixel of the warp holds a non-finite value of x: once a replay
@@ -327,25 +370,24 @@ __device__ __forceinline__ void bwd_patch_step(
   }
 }
 
-// The replay of the patch from the carry (ga, T) under the cotangent (gc,
-// gf), writing every listed slot's partial (slot k's at part + k *
-// slot_stride): the first n_full survivors and the non-finite ones after
-// them, and an exact zero for every other slot. kOwnExit: n_full is not
-// known in advance (no forward ran) and is set after the survivor at which
-// no pixel of the patch keeps T >= min_throughput on the replay's own T.
-// Once the warp is poisoned, every later slot is walked, as the unculled
-// walk does. survivors and walked get the survivors' count and the steps
-// walked.
-template <bool kOwnExit, class Run>
-__device__ __forceinline__ void bwd_patch(
+// The replay walk of the patch over the n listed slots of its tile, writing
+// every listed slot's kWidth-float partial (slot k's at part + k *
+// slot_stride): step(b, dst) replays the broadcast slot b and writes its
+// warp sum to dst. The first n_full survivors and the non-finite ones after
+// them are walked, and an exact zero is written for every other slot.
+// kOwnExit: n_full is not known in advance (no forward ran) and is set after
+// the survivor at which saturated_now() first holds. Once the warp is
+// poisoned (bad: a replay input or carry of a pixel is not finite at the
+// start; poisoned(): a carry became so in a step), every later slot is
+// walked, as the unculled walk does. survivors and walked get the survivors' count and
+// the steps walked.
+template <bool kOwnExit, int kWidth, class Run, class Step, class Poisoned,
+          class Saturated>
+__device__ __forceinline__ void replay_walk(
     const Run& run, int n, int n_full, const Patch& c, const RenderArgs& p,
-    const float (&gc_r)[kRows], const float (&gc_g)[kRows],
-    const float (&gc_b)[kRows], const float (&gf)[kRows], float (&ga)[kRows],
-    float (&T)[kRows], float* __restrict__ part, size_t slot_stride,
-    int& survivors, int& walked) {
-  bool bad = any_nonfinite(gc_r) || any_nonfinite(gc_g) ||
-             any_nonfinite(gc_b) || any_nonfinite(gf) || any_nonfinite(ga) ||
-             any_nonfinite(T);
+    bool bad, Step&& step, Poisoned&& poisoned, Saturated&& saturated_now,
+    float* __restrict__ part, size_t slot_stride, int& survivors,
+    int& walked) {
   if (kOwnExit) n_full = INT_MAX;
   survivors = walked = 0;
   int j = 0;  // survivors met so far
@@ -362,18 +404,17 @@ __device__ __forceinline__ void bwd_patch(
         todo &= todo - 1;
         float* dst = part + (size_t)(k0 + src) * slot_stride;
         if (j++ >= n_full && !((nonfin >> src) & 1u)) {
-          if (c.lane < kMoments) dst[c.lane] = 0.0f;
+          if (c.lane < kWidth) dst[c.lane] = 0.0f;
           continue;
         }
-        bwd_patch_step(broadcast(sl, src), c, p, gc_r, gc_g, gc_b, gf, ga, T,
-                       dst);
+        step(broadcast(sl, src), dst);
         ++walked;
-        if (any_nonfinite(ga) || any_nonfinite(T)) {
+        if (poisoned()) {
           bad = true;
           full = listed & ~((2u << src) - 1u);  // the slots after src
           break;
         }
-        if (kOwnExit && j < n_full && saturated(T, p)) n_full = j;
+        if (kOwnExit && j < n_full && saturated_now()) n_full = j;
       }
     }
     // A culled slot before the unculled walk is an exact zero.
@@ -381,34 +422,57 @@ __device__ __forceinline__ void bwd_patch(
                       !((full >> c.lane) & 1u);
     if (zero) {
 #pragma unroll
-      for (int f = 0; f < kMoments; ++f) {
+      for (int f = 0; f < kWidth; ++f) {
         part[(size_t)(k0 + c.lane) * slot_stride + f] = 0.0f;
       }
     }
     while (full) {
       const int src = __ffs(full) - 1;
       full &= full - 1;
-      bwd_patch_step(broadcast(sl, src), c, p, gc_r, gc_g, gc_b, gf, ga, T,
-                     part + (size_t)(k0 + src) * slot_stride);
+      step(broadcast(sl, src), part + (size_t)(k0 + src) * slot_stride);
       ++walked;
     }
   }
 }
 
-// The per-patch partials of kernels 1, 3, 4/5, 8/9 and 12: (n_tiles,
-// p.k_cap, n_pass, warps per pass, 9). Slot k's partial of patch c lies at
-// patch_partial(...) + k * slot_stride(g).
-__device__ __forceinline__ size_t slot_stride(const PatchGrid& g) {
-  return (size_t)g.n_pass * g.ngrp * g.ncg * kMoments;
+// The replay of the patch from the carry (ga, T) under the cotangent (gc,
+// gf) (replay_walk of bwd_patch_step), poisoned once a pixel's cotangent or
+// carry is not finite; kOwnExit finds the exit on the replay's own T.
+template <bool kOwnExit, class Run>
+__device__ __forceinline__ void bwd_patch(
+    const Run& run, int n, int n_full, const Patch& c, const RenderArgs& p,
+    const float (&gc_r)[kRows], const float (&gc_g)[kRows],
+    const float (&gc_b)[kRows], const float (&gf)[kRows], float (&ga)[kRows],
+    float (&T)[kRows], float* __restrict__ part, size_t slot_stride,
+    int& survivors, int& walked) {
+  const bool bad = any_nonfinite(gc_r) || any_nonfinite(gc_g) ||
+                   any_nonfinite(gc_b) || any_nonfinite(gf) ||
+                   any_nonfinite(ga) || any_nonfinite(T);
+  replay_walk<kOwnExit, kMoments>(
+      run, n, n_full, c, p, bad,
+      [&](const Slot& b, float* dst) {
+        bwd_patch_step(b, c, p, gc_r, gc_g, gc_b, gf, ga, T, dst);
+      },
+      [&] { return any_nonfinite(ga) || any_nonfinite(T); },
+      [&] { return saturated(T, p); }, part, slot_stride, survivors, walked);
+}
+
+// The per-patch partials of kernels 1, 3, 4/5, 8/9, 12 (width 9) and 13
+// (width 10): (n_tiles, p.k_cap, n_pass, warps per pass, width). Slot k's
+// partial of patch c lies at patch_partial(...) + k * slot_stride(g).
+__device__ __forceinline__ size_t slot_stride(const PatchGrid& g,
+                                              int width = kMoments) {
+  return (size_t)g.n_pass * g.ngrp * g.ncg * width;
 }
 
 __device__ __forceinline__ float* patch_partial(float* partial,
                                                 const Patch& c,
                                                 const PatchGrid& g,
-                                                const RenderArgs& p) {
+                                                const RenderArgs& p,
+                                                int width = kMoments) {
   return partial + ((size_t)c.tile * p.k_cap * g.n_pass + c.pass) *
-                       (g.ngrp * g.ncg) * kMoments +
-         c.warp * kMoments;
+                       (g.ngrp * g.ncg) * width +
+         c.warp * width;
 }
 
 // The fused L2 step of one patch (kernels 1, 4/5 and 12) over the n listed

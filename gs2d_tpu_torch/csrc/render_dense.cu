@@ -16,11 +16,12 @@
 //   per-warp cull and saturation exit) over the tile_params (DenseRun):
 //   composite, form the cotangent gC = C - ref in registers, replay, one
 //   9-moment partial per (tile, slot, pass, warp), an exact zero where the
-//   walk skips, then kernel 1's patch sum. Colour and moments equal the
-//   chunk walk's below (6/7, then gC, then gs2d_bwd_chunk) bit for bit.
+//   walk skips, then kernel 1's patch sum.
 // Kernels 6/7, gs2d_fwd_dense: the forward composite (C, T). Replaces
 //   render_pallas.py::_forward_kernel (:597) and ::_fwd_chunked_kernel
-//   (:576).
+//   (:576). Kernel 2's warp patches over the tile_params (patch_walk.cuh's
+//   fwd_patch over DenseRun: the exact per-warp cull, the per-warp
+//   saturation exit, T 0 on padding as the chunk walk starts it).
 // Kernels 8/9, gs2d_bwd_dense: the backward replay from a carry-in prefix
 //   (C_in, T_in) under any upstream cotangent. Replaces
 //   render_pallas.py::_backward_kernel (:728) and ::_bwd_chunked_kernel
@@ -28,16 +29,16 @@
 //   replay_patch over DenseRun: an exact per-warp cull, its own saturation
 //   exit on the replayed T), one 9-moment partial per (tile, slot, pass,
 //   warp), then the patch sum.
-// 6/7 keep the chunk walk of tile_walk.cuh (one block per tile, chunks of
-// kc <= 256 rows in shared memory, register carries, the exits
-// bitwise-neutral).
 //
-// gs2d_bwd_chunk, a reference only: the chunk walk's backward (bwd_pass,
-// then the per-(tile, slot) segment sum), the design that kernels 8/9 had
-// before they moved onto warp patches, kept unchanged. It is not a port of
-// a TPU kernel and no fit path reaches it: 6/7, then gC, then it are the
-// in-call reference (chip_smoke.py::chain) of the warp-patch kernels 1, 2,
-// 3, 4/5, 8/9, 10, 11 and 12.
+// gs2d_fwd_chunk and gs2d_bwd_chunk, references only: the chunk walk of
+// tile_walk.cuh (one block per tile, chunks of kc <= 256 rows in shared
+// memory, register carries, the exits bitwise-neutral), the designs that
+// kernels 6/7 and 8/9 had before they moved onto warp patches, kept
+// unchanged. They port no TPU kernel and no fit path reaches them: the
+// forward, then gC, then the backward reference are the in-call reference
+// (chip_smoke.py::chain) of the warp-patch kernels 1-12, which equal them
+// bit for bit (on finite inputs; where a splat or a carry is not finite the
+// patch walk gives the NaNs of the chunk walk without its exits).
 //
 // No G-cache: the TPU's (K, 32, 128) cache of the masked Gaussian term does
 // not fit a block, so the backward re-derives coverage (the alpha_cache=False
@@ -46,8 +47,8 @@
 // a dense fit repeats the resident fit's numbers. What bounds them on the
 // card: about 58 f32 operations per (pixel, pair) forward and 81 backward
 // (counted in chip_smoke.py) against 64 bytes of row per pair, so they are
-// compute and latency bound; the one block per tile of 6/7 leaves most SMs
-// idle at the default 21-tile image (ROADMAP.md queue 1b).
+// compute and latency bound; the launches' host cost outweighs both on
+// every fit step (ROADMAP.md, CUDA graphs).
 
 #include <cuda_runtime.h>
 
@@ -60,8 +61,10 @@ namespace dense {
 using walk::kRows;
 using walk::WalkArgs;
 
+// The forward reference (gs2d_fwd_chunk): the chunk walk kernels 6/7 had
+// before their warp patches, unchanged.
 __global__ void __launch_bounds__(walk::kMaxThreads)
-fwd_dense_kernel(const float* __restrict__ rows, const int* __restrict__ count,
+fwd_chunk_kernel(const float* __restrict__ rows, const int* __restrict__ count,
                  float* __restrict__ color, float* __restrict__ trans,
                  WalkArgs a) {
   extern __shared__ float4 smem4[];
@@ -125,6 +128,18 @@ l2_dense_kernel(const float* __restrict__ rows, const int* __restrict__ count,
                   ref, color, partial, walked);
 }
 
+// Kernels 6/7 on warp patches (kernel 2's forward over DenseRun): color is
+// (3, Hp, Wp), trans (Hp, Wp); walked as in l2_dense_kernel.
+__global__ void __launch_bounds__(patch::kPatchWarps * 32)
+fwd_dense_kernel(const float* __restrict__ rows, const int* __restrict__ count,
+                 float* __restrict__ color, float* __restrict__ trans,
+                 int* __restrict__ walked, RenderArgs p, patch::PatchGrid g) {
+  const patch::Patch c = patch::patch_of(p, g);
+  if (!c.active) return;
+  patch::fwd_patch_out(patch::DenseRun{rows, p.k_cap}, count[c.tile], c, p,
+                       g, color, trans, walked);
+}
+
 // Kernels 8/9 on warp patches: partial and walked as in l2_dense_kernel.
 __global__ void __launch_bounds__(patch::kPatchWarps * 32)
 bwd_dense_kernel(const float* __restrict__ rows, const int* __restrict__ count,
@@ -159,8 +174,32 @@ using gs2d::walk::WalkArgs;
 extern "C" {
 
 // Kernels 6/7. rows is (n_tiles, K, 16), count (n_tiles,); color is
-// (3, Hp, Wp), trans (Hp, Wp). Returns cudaGetLastError().
+// (3, Hp, Wp), trans (Hp, Wp); walked is null or (patches, 2). Returns
+// cudaGetLastError().
 int gs2d_fwd_dense(const float* rows, const int* count, float* color,
+                   float* trans, int* walked, int height, int width,
+                   int tile_h, int tile_w, int n_tiles_x, int n_tiles_y,
+                   int k_cap, float cutoff_sq, float min_throughput,
+                   int use_exp_approx, void* stream) {
+  WalkArgs a;
+  if (gs2d::patch::patch_args(height, width, tile_h, tile_w, n_tiles_x,
+                              n_tiles_y, k_cap, cutoff_sq, min_throughput,
+                              use_exp_approx, &a) == 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const gs2d::patch::PatchGrid g = gs2d::patch::patch_grid(a);
+  gs2d::dense::fwd_dense_kernel<<<gs2d::patch::patch_blocks(a, g),
+                                  gs2d::patch::kPatchWarps * 32, 0,
+                                  (cudaStream_t)stream>>>(rows, count, color,
+                                                          trans, walked, a.p,
+                                                          g);
+  return (int)cudaGetLastError();
+}
+
+// The forward reference (fwd_chunk_kernel), with the arguments kernels
+// 6/7 took before their warp patches: color (3, Hp, Wp), trans (Hp, Wp),
+// chunks of kc rows. Returns cudaGetLastError().
+int gs2d_fwd_chunk(const float* rows, const int* count, float* color,
                    float* trans, int height, int width, int tile_h,
                    int tile_w, int n_tiles_x, int n_tiles_y, int k_cap,
                    int kc, int sat_walk, float cutoff_sq,
@@ -172,10 +211,10 @@ int gs2d_fwd_dense(const float* rows, const int* count, float* color,
   if (threads == 0) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)kc * gs2d::kFields;
   cudaError_t err = cudaFuncSetAttribute(
-      gs2d::dense::fwd_dense_kernel,
+      gs2d::dense::fwd_chunk_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  gs2d::dense::fwd_dense_kernel<<<n_tiles_x * n_tiles_y, threads, smem,
+  gs2d::dense::fwd_chunk_kernel<<<n_tiles_x * n_tiles_y, threads, smem,
                                   (cudaStream_t)stream>>>(rows, count, color,
                                                           trans, a);
   return (int)cudaGetLastError();

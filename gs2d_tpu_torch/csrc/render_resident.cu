@@ -117,21 +117,8 @@ fwd_resident_kernel(const float* __restrict__ table,
                     RenderArgs p, PatchGrid g) {
   const Patch c = patch::patch_of(p, g);
   if (!c.active) return;
-  float cr[kRows], cg[kRows], cb[kRows], T[kRows];
-  int n_survivors, n_walked;
-  patch::fwd_patch(TableRun{table, ids, p.k_cap}, count[c.tile], c, p, cr,
-                   cg, cb, T, n_survivors, n_walked);
-  const size_t wp = (size_t)p.n_tiles_x * p.tile_w;
-  const size_t plane = (size_t)p.n_tiles_y * p.tile_h * wp;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const size_t i = (size_t)(c.y0 + r) * wp + c.xx;
-    color[i] = cr[r];
-    color[plane + i] = cg[r];
-    color[2 * plane + i] = cb[r];
-    trans[i] = T[r];
-  }
-  patch::record_walk(walked, c, g, n_survivors, n_walked);
+  patch::fwd_patch_out(TableRun{table, ids, p.k_cap}, count[c.tile], c, p, g,
+                       color, trans, walked);
 }
 
 // Splat-axis expansion of (n_tiles, K, 9) per-(tile, slot) partials (the

@@ -1,9 +1,9 @@
 // Chunk walk of one tile's contiguous run of pregathered pair rows: the
-// one-block-per-tile walk of the dense forward kernels 6/7 and of the
-// backward reference gs2d_bwd_chunk (render_dense.cu: the backward that
-// kernels 8/9 had before their warp patches, kept unchanged as the in-call
-// reference of every warp-patch kernel), and of the MXU-form kernel 13
-// (render_mxu.cu).
+// one-block-per-tile walk of the references gs2d_fwd_chunk and
+// gs2d_bwd_chunk (render_dense.cu: the forward and the backward that
+// kernels 6/7 and 8/9 had before their warp patches, kept unchanged as the
+// in-call reference of every warp-patch kernel) and gs2d_l2_mxu_chunk
+// (render_mxu.cu: kernel 13's, kept unchanged as its reference).
 //
 // The dense layout stores a tile's index-ordered (tile, splat) pairs as a
 // run of 16-float rows starting at t * K (its (n_tiles, K, 16) tile_params).

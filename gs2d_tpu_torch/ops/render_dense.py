@@ -5,14 +5,15 @@ whose resident table does not fit.
 
 The dense binning (``tiles.bin_splats`` without ``ids_only``) pregathers
 each tile's index-ordered list into (n_tiles, K, N_FIELDS) ``tile_params``,
-padded slots holding the benign pad row. The fused L2 step and the backward
-run the resident kernels' warp patches over the tile_params (kernel 1's
-step and kernel 3's replay): one 9-moment partial per (tile, slot, pass,
-warp), which a tile-order patch sum adds onto the splat axis without
-atomics, so runs repeat bit for bit. They walk the same pairs in the same
-order with the same sums as the one-block-per-tile chunk walk (kernels 6/7,
-then the chunk reference ``_bwd_chunk_cuda``), so they equal it bit for bit,
-and a dense fit the resident fit.
+padded slots holding the benign pad row. The three kernels run the
+resident kernels' warp patches over the tile_params (kernel 1's step,
+kernel 2's forward and kernel 3's replay); the L2 step and the replay write
+one 9-moment partial per (tile, slot, pass, warp), which a tile-order patch
+sum adds onto the splat axis without atomics, so runs repeat bit for bit.
+They walk the same pairs in the same order with the same sums as the
+one-block-per-tile chunk walk (the references ``_fwd_chunk_cuda`` and
+``_bwd_chunk_cuda``), so they equal it bit for bit, and a dense fit the
+resident fit.
 
 Three kernels, each behind a wrapper that dispatches on the tensors'
 device:
@@ -30,11 +31,12 @@ tensors. Each Pallas pair differs only in how a TPU fits a list longer
 than 256 into SMEM; one CUDA kernel serves both members. Each wrapper adds
 one to ``launches[<name>]`` where it launches its kernel, and nowhere else.
 
-``_bwd_chunk_cuda`` launches the backward that kernels 8/9 had before
-their warp patches, kept unchanged (``csrc/render_dense.cu``
-gs2d_bwd_chunk) as the in-call reference of the warp-patch kernels in
-``chip_smoke.py`` and the card tests. It is no port of a TPU kernel and no
-fit path reaches it; it counts under ``launches["bwd_chunk"]``.
+``_fwd_chunk_cuda`` and ``_bwd_chunk_cuda`` launch the forward and the
+backward that kernels 6/7 and 8/9 had before their warp patches, kept
+unchanged (``csrc/render_dense.cu`` gs2d_fwd_chunk, gs2d_bwd_chunk) as the
+in-call reference of the warp-patch kernels in ``chip_smoke.py`` and the
+card tests. They port no TPU kernel and no fit path reaches them; they
+count under ``launches["fwd_chunk"]`` and ``launches["bwd_chunk"]``.
 """
 
 from __future__ import annotations
@@ -51,12 +53,14 @@ from gs2d_tpu_torch.ops._build import check, library, on_card, stream
 from gs2d_tpu_torch.params import GaussianParams
 
 # Kernel launch counts since the last reset_launch_counts().
-launches = {"l2_dense": 0, "fwd_dense": 0, "bwd_dense": 0, "bwd_chunk": 0}
+launches = {"l2_dense": 0, "fwd_dense": 0, "bwd_dense": 0, "fwd_chunk": 0,
+            "bwd_chunk": 0}
 
 # Tile shapes the CUDA kernels take: what tiles.tune_tile_height returns.
 CUDA_TILE_W = 128
 CUDA_TILE_HS = (32, 64)
-# Rows a kernel stages into shared memory per round (the TPU chunk).
+# The TPU chunk: the L2 entry point's dispatch, and the rows the chunk
+# references stage into shared memory per round.
 CHUNK = 256
 
 
@@ -192,31 +196,55 @@ def _check_inputs(cfg: SplatConfig, tile_params, count, ids=None,
 
 
 def _statics(cfg: SplatConfig, k: int, kc: int):
-    """The chunk walk's launch constants after the pointers and n_splats."""
+    """The chunk references' launch constants after the pointers and
+    n_splats."""
     return (cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
             cfg.n_tiles_y, k, kc, int(rd._sat_walk(cfg)), cfg.cutoff_sq,
             cfg.min_throughput, int(cfg.use_exp_approx))
 
 
 def _patch_statics(cfg: SplatConfig, k: int):
-    """The warp-patch kernels' launch constants after n_splats."""
+    """The warp-patch kernels' launch constants after the pointers and
+    n_splats."""
     return (cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
             cfg.n_tiles_y, k, cfg.cutoff_sq, cfg.min_throughput,
             int(cfg.use_exp_approx))
 
 
-def _fwd_dense_cuda(tile_params, count, cfg: SplatConfig):
-    lib, k, kc = _check_inputs(cfg, tile_params, count)
-    hp, wp = cfg.padded_height, cfg.padded_width
-    dev = tile_params.device
-    color = torch.empty((3, hp, wp), dtype=torch.float32, device=dev)
-    trans = torch.empty((hp, wp), dtype=torch.float32, device=dev)
+def _fwd_dense_cuda(tile_params, count, cfg: SplatConfig, walked=None):
+    """Kernels 6/7 on warp patches: (color (3, Hp, Wp), T (Hp, Wp));
+    ``walked`` gets each patch's survivors and the survivors walked
+    (render_resident._walked_ptr)."""
+    lib, k, _ = _check_inputs(cfg, tile_params, count)
+    color, trans = _fwd_planes(cfg, tile_params.device)
     err = lib.gs2d_fwd_dense(
         tile_params.data_ptr(), count.data_ptr(), color.data_ptr(),
-        trans.data_ptr(), *_statics(cfg, k, kc), stream(tile_params))
+        trans.data_ptr(), rr._walked_ptr(walked, cfg, tile_params.device),
+        *_patch_statics(cfg, k), stream(tile_params))
     check(err, "fwd_dense kernel launch")
     launches["fwd_dense"] += 1
     return color, trans
+
+
+def _fwd_chunk_cuda(tile_params, count, cfg: SplatConfig):
+    """The forward reference (gs2d_fwd_chunk, the chunk walk 6/7 had before
+    their warp patches): (color (3, Hp, Wp), T (Hp, Wp)). For chip_smoke.py
+    and the card tests only."""
+    lib, k, kc = _check_inputs(cfg, tile_params, count)
+    color, trans = _fwd_planes(cfg, tile_params.device)
+    err = lib.gs2d_fwd_chunk(
+        tile_params.data_ptr(), count.data_ptr(), color.data_ptr(),
+        trans.data_ptr(), *_statics(cfg, k, kc), stream(tile_params))
+    check(err, "fwd_chunk kernel launch")
+    launches["fwd_chunk"] += 1
+    return color, trans
+
+
+def _fwd_planes(cfg: SplatConfig, dev):
+    """The forward's outputs, uninitialised: (3, Hp, Wp) and (Hp, Wp)."""
+    hp, wp = cfg.padded_height, cfg.padded_width
+    return (torch.empty((3, hp, wp), dtype=torch.float32, device=dev),
+            torch.empty((hp, wp), dtype=torch.float32, device=dev))
 
 
 def _bwd_dense_cuda(tile_params, ids, count, fin, gc, cin, tin,

@@ -12,9 +12,14 @@ itself is not bit-equal to the direct form's, and gs2d_tpu holds the MXU
 step at colour atol 5e-5 and gradients 2e-3 * max(1, |g|) against the scan
 path.
 
-``l2_render_and_grads_mxu`` launches kernel 13 (``csrc/render_mxu.cu``) for
-CUDA tensors, adding one to ``launches["l2_mxu"]``, and runs the plain
-twin ``_l2_mxu_plain`` for CPU tensors. The plain twin evaluates D2's terms
+``l2_render_and_grads_mxu`` launches kernel 13 (``csrc/render_mxu.cu``: the
+warp patches of the other L2 kernels, one 10-sum partial per (tile, slot,
+pass, warp), then a patch sum and combine) for CUDA tensors, adding one to
+``launches["l2_mxu"]``, and runs the plain twin ``_l2_mxu_plain`` for CPU
+tensors. ``_l2_mxu_chunk_cuda`` launches the one-block-per-tile chunk walk
+kernel 13 had before its warp patches, kept unchanged as its reference for
+``chip_smoke.py`` and the card tests (``launches["l2_mxu_chunk"]``; no path
+reaches it); the two are equal bit for bit. The plain twin evaluates D2's terms
 and the combine in the kernel's float32 order (D2 grouped as ((c_xx x'^2 +
 c_x x') + c_0) + ((c_yy y'^2 + c_y y') + c_xy x'y'), which cancels with the
 least rounding of the groupings tried); its pixel sums are taken in another
@@ -30,6 +35,7 @@ import torch
 from gs2d_tpu_torch.config import SplatConfig
 from gs2d_tpu_torch.ops import render as rd
 from gs2d_tpu_torch.ops import render_dense as rdn
+from gs2d_tpu_torch.ops import render_resident as rr
 from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.ops._build import check, library, on_card, stream
 from gs2d_tpu_torch.ops.numerics import exp_ref, trunc_to_int
@@ -37,10 +43,10 @@ from gs2d_tpu_torch.params import GaussianParams
 from gs2d_tpu_torch.utils.hardware import resolve_budget
 
 # Kernel launch counts since the last reset_launch_counts().
-launches = {"l2_mxu": 0}
+launches = {"l2_mxu": 0, "l2_mxu_chunk": 0}
 
-# Per-slot pixel sums the kernel keeps between passes: the six moments of
-# q, the three sums of w * gC and sum q / op.
+# Per-slot pixel sums: the six moments of q, the three sums of w * gC and
+# sum q / op; and the D2 coefficients the chunk reference stages.
 N_SUMS = 10
 N_COEFS = 6
 
@@ -82,9 +88,11 @@ def _coefs(r, cx, cy):
             a * ex * ex + 2.0 * b * ex * ey + d * ey * ey)
 
 
-def _alpha(r, coef, basis, coords, cfg: SplatConfig):
-    """Coverage-masked alpha of each tile's slot row ``r`` over its pixels
-    (n_tiles, tile_h, tile_w), D2 from the coefficient form."""
+def _cover(r, coords, cfg: SplatConfig):
+    """Coverage of each tile's slot row ``r`` over its pixels (n_tiles,
+    tile_h, tile_w): the exact trunc row and column interval of the direct
+    form, inside the image (kernel 4's masks; the warp-patch cull of
+    kernel 13 decides on the same bits)."""
     yy, xx, fy, _, _ = coords
     f = lambda i: r[:, i, None, None]
     px, py, a, b, d = (f(tl.FIELD_PX), f(tl.FIELD_PY), f(tl.FIELD_A),
@@ -103,8 +111,15 @@ def _alpha(r, coef, basis, coords, cfg: SplatConfig):
     r1 = qc / kq
     beg_x = trunc_to_int(px + torch.minimum(r0, r1))
     end_x = trunc_to_int(px + torch.maximum(r0, r1))
-    cover = row_ok & q_ok & (xx >= beg_x) & (xx <= end_x) \
+    return row_ok & q_ok & (xx >= beg_x) & (xx <= end_x) \
         & (yy < cfg.height) & (xx < cfg.width)
+
+
+def _alpha(r, coef, basis, coords, cfg: SplatConfig):
+    """Coverage-masked alpha of each tile's slot row ``r`` over its pixels
+    (n_tiles, tile_h, tile_w), D2 from the coefficient form."""
+    cover = _cover(r, coords, cfg)
+    f = lambda i: r[:, i, None, None]
     bxx, bxy, byy, xp, yp = basis
     c_xx, c_xy, c_yy, c_x, c_y, c_0 = coef
     d2 = ((c_xx * bxx + c_x * xp) + c_0) + ((c_yy * byy + c_y * yp)
@@ -148,7 +163,7 @@ def _l2_mxu_plain(tile_params, ids, count, ref_chw, n_splats: int,
     (9, n)). Every tile walks its list in lockstep; a chunk whose tile has
     no pixel left at T >= min_throughput contributes exactly zero, so no
     chunk is skipped here."""
-    del kc  # the chunking only bounds the kernel's shared memory
+    del kc  # the chunking only bounds the chunk reference's shared memory
     dev = tile_params.device
     coords = rd.tile_coords(cfg, dev)
     cx, cy, xp, yp = _tile_centres(cfg, dev)
@@ -221,7 +236,39 @@ def _l2_mxu_plain(tile_params, ids, count, ref_chw, n_splats: int,
 # ---------------------------------------------------------------------------
 
 def _l2_mxu_cuda(tile_params, ids, count, ref_chw, n_splats: int,
-                 cfg: SplatConfig, kc: int):
+                 cfg: SplatConfig, kc: int, partial=None, walked=None):
+    """Kernel 13 on warp patches, its patch sum and combine, and the
+    segment sum: (color (3, Hp, Wp), per-(tile, slot) gradient rows
+    (n_tiles, K, 9), splat gradients (9, n)). ``partial`` replaces the
+    uninitialised (n_tiles, K, patches per tile, 10) scratch (a test's
+    NaN-filled buffer); ``walked`` gets each patch's survivors and the
+    survivors its forward walked (render_resident._walked_ptr)."""
+    del kc  # nothing is staged in shared memory
+    ref = ref_chw[0]
+    lib, k, _ = rdn._check_inputs(cfg, tile_params, count, ids,
+                                  (("ref_chw", ref),))
+    dev = tile_params.device
+    partial = rr.patch_scratch(partial, cfg, k, dev, N_SUMS)
+    color = torch.empty_like(ref)
+    rows = torch.empty((ids.shape[0], k, rd.N_MOMENTS), dtype=torch.float32,
+                       device=dev)
+    grads9 = torch.empty((rd.N_MOMENTS, n_splats), dtype=torch.float32,
+                         device=dev)
+    err = lib.gs2d_l2_mxu(
+        tile_params.data_ptr(), ids.data_ptr(), count.data_ptr(),
+        ref.data_ptr(), color.data_ptr(), partial.data_ptr(), rows.data_ptr(),
+        grads9.data_ptr(), rr._walked_ptr(walked, cfg, dev), n_splats,
+        *rdn._patch_statics(cfg, k), stream(tile_params))
+    check(err, "l2_mxu kernel launch")
+    launches["l2_mxu"] += 1
+    return color, rows, grads9
+
+
+def _l2_mxu_chunk_cuda(tile_params, ids, count, ref_chw, n_splats: int,
+                       cfg: SplatConfig, kc: int):
+    """The reference (gs2d_l2_mxu_chunk, kernel 13's chunk walk before its
+    warp patches) and the segment sum: what _l2_mxu_cuda returns. For
+    chip_smoke.py and the card tests only."""
     ref = ref_chw[0]
     _, k, _ = rdn._check_inputs(cfg, tile_params, count, ids,
                                 (("ref_chw", ref),))
@@ -244,14 +291,14 @@ def _l2_mxu_cuda(tile_params, ids, count, ref_chw, n_splats: int,
                        device=dev)
     grads9 = torch.empty((rd.N_MOMENTS, n_splats), dtype=torch.float32,
                          device=dev)
-    err = lib.gs2d_l2_mxu(
+    err = lib.gs2d_l2_mxu_chunk(
         tile_params.data_ptr(), ids.data_ptr(), count.data_ptr(),
         ref.data_ptr(), color.data_ptr(), mom.data_ptr(), rows.data_ptr(),
         grads9.data_ptr(), n_splats, cfg.height, cfg.width, cfg.tile_h,
         cfg.tile_w, cfg.n_tiles_x, cfg.n_tiles_y, k, kc, cfg.cutoff_sq,
         cfg.min_throughput, int(cfg.use_exp_approx), stream(tile_params))
-    check(err, "l2_mxu kernel launch")
-    launches["l2_mxu"] += 1
+    check(err, "l2_mxu_chunk kernel launch")
+    launches["l2_mxu_chunk"] += 1
     return color, rows, grads9
 
 

@@ -338,19 +338,21 @@ def patch_slot_sums(partial, count, n_pass: int):
     return torch.where(listed[..., None], out, torch.zeros_like(out))
 
 
-def patch_partial_shape(cfg: SplatConfig, k: int) -> Tuple[int, ...]:
-    """The per-patch moment partials of kernels 1, 3, 4/5, 8/9 and 12:
-    (n_tiles, K, patches per tile, 9). Their scratch is uninitialised: a
-    kernel writes every entry its sum reads (a culled or saturated slot's
-    exact zero included)."""
+def patch_partial_shape(cfg: SplatConfig, k: int,
+                        width: int = rd.N_MOMENTS) -> Tuple[int, ...]:
+    """The per-patch partials of kernels 1, 3, 4/5, 8/9 and 12 (``width``
+    9) and 13 (10 sums): (n_tiles, K, patches per tile, width). Their
+    scratch is uninitialised: a kernel writes every entry its sum reads (a
+    culled or saturated slot's exact zero included)."""
     return (cfg.n_tiles_x * cfg.n_tiles_y, k,
-            patches_per_tile(cfg, patch_rows()), 9)
+            patches_per_tile(cfg, patch_rows()), width)
 
 
-def patch_scratch(partial, cfg: SplatConfig, k: int, dev):
+def patch_scratch(partial, cfg: SplatConfig, k: int, dev,
+                  width: int = rd.N_MOMENTS):
     """The partial scratch of a warp-patch launch: ``partial`` when given
     (a test's NaN-filled buffer), checked, else torch.empty."""
-    shape = patch_partial_shape(cfg, k)
+    shape = patch_partial_shape(cfg, k, width)
     if partial is None:
         return torch.empty(shape, dtype=torch.float32, device=dev)
     if (tuple(partial.shape) != shape or partial.dtype != torch.float32

@@ -280,7 +280,7 @@ def bin_splats(
 # gs2d_tpu's tile-height policy (gs2d_tpu/ops/tiles.py:462-531), copied so
 # both packages pick the same tiles; its breakpoints were measured on a TPU
 # and say nothing about the card. A Hopper tile shape is a later, measured
-# change (ROADMAP.md queue 1b).
+# change (ROADMAP.md queue 2, "8x8 patches, and smaller tiles").
 PRODUCTION_TILE_H = 32
 DEEP_TILE_H = 64
 DEEP_TILE_THRESHOLD = 2500.0  # mean (splat, tile) pairs per 32-row tile

@@ -16,11 +16,12 @@ nothing folds), ``ops/probes.py``:
   mxu2  -- the loop only stores z planes into shared memory; one batched
            contraction per 8 planes on the tensor cores afterwards.
 
-Each is timed with CUDA events for one block (the TPU probe's shape: one
-core, K = 512, 200 reps) and for one block per SM, and prints us a call and
-ns per splat-tile reduction. Numbers are structural ceilings, not end to
-end: the winner would still need wiring into the real backward. A kernel
-that fails to build or launch raises. ``--device cpu`` rehearses with the
+Each is timed by its device time (``scripts/roofline.py::time_ms``) for one
+block (the TPU probe's shape: one core, K = 512, 200 reps) and for one
+block per SM, and prints us a call and ns per splat-tile reduction.
+Numbers are structural ceilings, not end to end: the winner would still
+need wiring into the real backward. A kernel that fails to build or launch
+raises. ``--device cpu`` rehearses with the
 plain PyTorch versions (host times, labelled so); a caller in Python may
 pass ``main`` fewer steps and reps (the tests do).
 """

@@ -4,19 +4,20 @@ counterpart of ``scripts/roofline.py``).
     python -m gs2d_tpu_torch.scripts.roofline [--device cuda]
 
 1. HBM bandwidth ceiling, measured: ``y = x + 1`` over a 256 MB float32
-   array (reads + writes = 2 x size), CUDA events.
+   array (reads + writes = 2 x size), its device time.
 2. float32 FMA ceiling, measured: kernel 14 (``ops/probes.py::fma_peak``),
    independent FMA chains in registers, swept over the chains per thread;
    the best rate in TFMA/s (1 FMA = 2 FLOP).
 3. For each workload (the two assets at 1k resident, 1k dense, 10k dense and
    10k flat, and a synthetic 1080p target at 100k flat): binning at the
-   pcg3d init, then the L2 step's kernels timed with CUDA events (kernel 1,
-   kernel 4/5, or kernels 10 + 11): pair-steps (one splat listed in one
-   tile), kernel ms, pair-steps/s, and the share of both ceilings, the
-   published one (NVIDIA's data sheet for the H100 SXM: 67 TFLOP/s float32
-   outside the tensor cores, 3.35 TB/s) and the measured one. The share is
-   bound / kernel time, the bound being the least time the card could take
-   for the work these inputs need (``bound``).
+   pcg3d init, then the L2 step's kernels timed by their device time
+   (kernel 1, kernel 4/5, or kernels 10 + 11; ``time_ms``): pair-steps
+   (one splat listed in one tile), kernel ms, pair-steps/s, and the share
+   of both ceilings, the published one (NVIDIA's data sheet for the H100
+   SXM: 67 TFLOP/s float32 outside the tensor cores, 3.35 TB/s) and the
+   measured one. The share is bound / kernel time, the bound being the
+   least time the card could take for the work these inputs need
+   (``bound``).
 
 The operation model is the port's own (``chip_smoke.py`` reports its bounds
 with the same ``live_work`` and ``bound``). Operations are counted from
@@ -49,8 +50,8 @@ x' products 4 and the ten sums over columns 10; per image pixel gC 3.
 
 The live counts come from the plain composite of the run's inputs. gs2d_tpu's
 ``workload_scan_diff`` (two ``lax.scan`` programs subtracted) has no
-counterpart: CUDA events time a kernel directly (ROADMAP.md, "Deliberately
-not ported").
+counterpart: the profiler's device durations time a kernel directly
+(ROADMAP.md, "Deliberately not ported").
 
 ``--device cpu`` rehearses the accounting with the kernels' plain PyTorch
 versions: host times, labelled so, and no ceilings. The plain walks take
@@ -148,12 +149,13 @@ def flat_listed_rows(b, device):
 
 
 def time_ms(fn, reps: int, device) -> float:
-    """Mean ms of ``fn``: CUDA events on the card, the host clock on the
-    CPU (a rehearsal, not a device time)."""
+    """Mean ms of ``fn``: on the card its device time (torch.profiler's
+    kernel durations, utils/profiling.py::device_time), on the CPU the host
+    clock (a rehearsal, not a device time)."""
     if device.type == "cuda":
-        from gs2d_tpu_torch.utils.profiling import cuda_ms
+        from gs2d_tpu_torch.utils.profiling import device_time
 
-        return cuda_ms(fn, reps)
+        return device_time(fn, reps)["device"]
     fn()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -163,7 +165,7 @@ def time_ms(fn, reps: int, device) -> float:
 
 def measure_hbm_bw(device, reps: int = 32) -> float:
     """GB/s of a big elementwise pass, y = x + 1 over 256 MB of float32
-    (read + write), from CUDA events."""
+    (read + write), from its device time."""
     import torch
 
     n = 256 * 1024 * 1024 // 4

@@ -4,7 +4,10 @@
 - ``sync``: wait for the device a tensor lies on (nothing on the CPU)
 - ``PhaseTimer``: wall-clock phase timing with device sync, so numbers mean
   what they say under asynchronous launches
-- ``timed_call``, ``cuda_ms``: device time of a call from CUDA events
+- ``timed_call``, ``cuda_ms``: time of a call from CUDA events (device
+  time only while the launches queue faster than the device runs them)
+- ``device_time``: device time of a call from a CUDA-graph replay, beside
+  the CUDA-event reading and torch.profiler's kernel durations
 - ``ThroughputCounter``: iterations/s, pixels/s, Gaussians/s and
   (splat, pixel)-pairs/s from workload constants
 - ``JsonlLogger``: append-only metrics log, one JSON object per line
@@ -89,8 +92,8 @@ class PhaseTimer:
 
 
 def timed_call(fn, reps: int = 1):
-    """(the last result of ``fn``, mean device time in ms of ``reps``
-    back-to-back calls on the current CUDA device), from CUDA events."""
+    """(the last result of ``fn``, mean ms of ``reps`` back-to-back calls
+    on the current CUDA device between two CUDA events)."""
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -103,10 +106,97 @@ def timed_call(fn, reps: int = 1):
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time (ms) of ``fn`` over ``reps`` back-to-back calls
-    (``timed_call``), after one warm-up call."""
+    """Mean ms of ``fn`` over ``reps`` back-to-back calls between two CUDA
+    events (``timed_call``), after one warm-up call. Where a call's host
+    work (checks, allocation, launches) outlasts its kernels, this is host
+    time: ``device_time`` reads the device's own."""
     fn()
     return timed_call(fn, reps)[1]
+
+
+# The marker kernel that brackets a traced window (torch.cuda._sleep's), and
+# how long it spins (GPU clock cycles).
+_MARKER = "spin_kernel"
+_MARKER_CYCLES = 100000
+
+
+def _traced_kernels(fn, reps: int, attempts: int = 3):
+    """{name: (ms a call, launches a call)} of the device operations of
+    ``reps`` calls of ``fn``, from torch.profiler: the calls run between two
+    marker kernels, after a first round that the tracer may see only in
+    part, and the operations that ran on the device between the markers are
+    summed. None when no attempt saw both markers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda._sleep(_MARKER_CYCLES)
+            for _ in range(reps):
+                fn()
+            torch.cuda._sleep(_MARKER_CYCLES)
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        marks = sorted(e.time_range.start for e in ops if _MARKER in e.name)
+        if len(marks) != 2:
+            continue
+        first = next(e for e in ops if e.time_range.start == marks[0])
+        lo, hi = first.time_range.end, marks[1]
+        seen = {}
+        for e in ops:
+            if lo <= e.time_range.start and e.time_range.end <= hi:
+                us, n = seen.get(e.name, (0.0, 0))
+                seen[e.name] = (us + e.time_range.end - e.time_range.start,
+                                n + 1)
+        return {name: (us / 1e3 / reps, n / reps)
+                for name, (us, n) in seen.items()}
+    return None
+
+
+def device_time(fn, reps: int = 10) -> dict:
+    """The time of a call of ``fn`` on the current CUDA device, read three
+    ways after one warm-up call, in ms a call:
+
+    - "device": the device's own time for the call's work. min(reps, 10)
+      calls captured in one CUDA graph (after one call on a side stream),
+      the graph's replays timed with CUDA events over about ``reps`` calls:
+      the call's kernels back to back, with the graph's gaps of a
+      microsecond or so between them, and none of the host's time;
+    - "events": ``reps`` calls between two CUDA events, which measure the
+      host where its launches queue slower than the device runs them;
+    - "profiler": the sum of torch.profiler's durations of the call's
+      device operations over ``reps`` calls (_traced_kernels), with
+      "kernels" {name: (ms a call, launches a call)} and "ops" the
+      operations a call; None, with "kernels" empty, where the tracer
+      missed a marker in every attempt.
+
+    ``fn`` must not read device data on the host (a graph captures no
+    synchronisation)."""
+    fn()
+    _, events = timed_call(fn, reps)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    per_graph = min(reps, 10)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    _, replay_ms = timed_call(graph.replay, max(1, reps // per_graph))
+    del graph
+    kernels = _traced_kernels(fn, reps)
+    return {"device": replay_ms / per_graph, "events": events,
+            "profiler": (None if kernels is None
+                         else sum(ms for ms, _ in kernels.values())),
+            "ops": (None if kernels is None
+                    else sum(n for _, n in kernels.values())),
+            "kernels": kernels or {}}
 
 
 class ThroughputCounter:

@@ -23,6 +23,7 @@ from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.ops import tiles_flat as tlf
 from gs2d_tpu_torch.params import params_from_numpy
 from gs2d_tpu_torch.scripts.roofline import flat_listed_rows
+from gs2d_tpu_torch.utils.profiling import device_time
 
 pytestmark = pytest.mark.cuda
 
@@ -407,6 +408,7 @@ def test_dense_kernels_match_plain(dev, monkeypatch, n, tile_h, k, sat):
     assert rdn.launches == {"fwd_dense": before["fwd_dense"] + 1,
                             "bwd_dense": before["bwd_dense"] + 2,
                             "l2_dense": before["l2_dense"] + 1,
+                            "fwd_chunk": before["fwd_chunk"],
                             "bwd_chunk": before["bwd_chunk"]}
 
 
@@ -520,11 +522,11 @@ def assert_same_bits(got, want):
 
 def chain(tp, ids, count, ref, n, cfg):
     """The in-call reference of the warp-patch L2 kernels (chip_smoke.py's
-    chain): the dense kernels 6/7, then gC = C - ref, then the chunk
-    reference (the backward kernels 8/9 had before their warp patches),
+    chain): the forward reference, then gC = C - ref, then the backward
+    reference (the kernels 6/7 and 8/9 had before their warp patches),
     which keep the one-block-per-tile chunk walk, over the rows tp
     (n_tiles, K, 16). Returns (colour, T, slot partials, moments (9, n))."""
-    color, trans = rdn._fwd_dense_cuda(tp, count, cfg)
+    color, trans = rdn._fwd_chunk_cuda(tp, count, cfg)
     cin, tin = rd.identity_carry(cfg, tp.device)
     part, g9 = rdn._bwd_chunk_cuda(tp, ids, count, color,
                                    (color - ref[0]).contiguous(), cin, tin,
@@ -537,13 +539,10 @@ def gathered(table, ids):
     return table.reshape(-1, tl.N_FIELDS)[ids.long()].contiguous()
 
 
-@pytest.mark.parametrize("case", ["130/32", "64/64", "300/64", "opacity-1",
-                                  "nan"])
-def test_patch_kernels_equal_one_block_per_tile(dev, case):
-    """Kernels 1, 12 (at W = n_pad) and 4/5 (on the table rows the ids
-    name) on warp patches equal the one-block-per-tile chunk walk (chain)
-    bit for bit: colour, moments, 4/5's slot partials; kernel 2's colour
-    equals kernel 1's and its T the chain's."""
+def patch_case(dev, case):
+    """(cfg, table, ids, count, ref) of a case of the warp-patch tests:
+    "n/tile_h" random populations, opacity-1 splats centred on pixel
+    centres, and 130 random splats with a NaN position at splat 40."""
     if case == "nan":
         cfg, table, ids, count, ref = nan_splat_inputs(dev)
     elif case == "opacity-1":
@@ -561,6 +560,17 @@ def test_patch_kernels_equal_one_block_per_tile(dev, case):
         n, tile_h = map(int, case.split("/"))
         cfg, table, ids, count, ref = inputs(dev, n + tile_h, n, tile_h,
                                              k=512 if tile_h == 64 else 128)
+    return cfg, table, ids, count, ref
+
+
+@pytest.mark.parametrize("case", ["130/32", "64/64", "300/64", "opacity-1",
+                                  "nan"])
+def test_patch_kernels_equal_one_block_per_tile(dev, case):
+    """Kernels 1, 12 (at W = n_pad) and 4/5 (on the table rows the ids
+    name) on warp patches equal the one-block-per-tile chunk walk (chain)
+    bit for bit: colour, moments, 4/5's slot partials; kernel 2's colour
+    equals kernel 1's and its T the chain's."""
+    cfg, table, ids, count, ref = patch_case(dev, case)
     n = cfg.n_splats
     tp = gathered(table, ids)
     c_ch, t_ch, part_ch, g_ch = chain(tp, ids, count, ref, n, cfg)
@@ -818,6 +828,151 @@ def test_mxu_kernel_matches_plain_and_dense(dev, n, tile_h, k, kc):
         torch.testing.assert_close(
             getattr(g_mxu, f), want, rtol=0,
             atol=2e-3 * max(1.0, float(want.abs().max())))
+
+
+def survivor_buffer(cfg, dev):
+    """A (patches, 2) int32 buffer for a kernel's survivor counts, -1
+    filled."""
+    n = cfg.n_tiles_x * cfg.n_tiles_y * rr.patches_per_tile(
+        cfg, rr.patch_rows())
+    return torch.full((n, 2), -1, dtype=torch.int32, device=dev)
+
+
+def cull_counts(tp, count, cfg):
+    """Survivors per patch of the plain cull mask of the rows tp."""
+    mask = rr.listed_cover_mask(tp, count, cfg, rr.patch_rows())
+    return mask.sum(dim=-1).reshape(-1).to(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["130/32", "64/64", "300/64", "opacity-1",
+                                  "nan"])
+def test_dense_forward_equals_the_forward_reference(dev, case):
+    """Kernels 6/7 on warp patches (on the table rows the ids name) equal
+    the forward reference, the chunk walk they had before, bit for bit:
+    colour and T, equal NaN masks in the NaN case; their survivors per
+    patch are the plain cull mask's; on finite inputs they match the plain
+    version."""
+    cfg, table, ids, count, _ = patch_case(dev, case)
+    tp = gathered(table, ids)
+    walked = survivor_buffer(cfg, dev)
+    c_k, t_k = rdn._fwd_dense_cuda(tp, count, cfg, walked=walked)
+    c_r, t_r = rdn._fwd_chunk_cuda(tp, count, cfg)
+    torch.cuda.synchronize()
+    assert_same_bits(c_k, c_r)
+    assert_same_bits(t_k, t_r)
+    assert torch.equal(walked[:, 0], cull_counts(tp, count, cfg))
+    if case == "nan":
+        assert torch.isnan(t_r).any() and torch.isfinite(t_r).any()
+        return
+    assert bool((walked[:, 1] <= walked[:, 0]).all())
+    c_p, t_p = rdn._fwd_dense_plain(tp, count, cfg)
+    torch.testing.assert_close(c_k, c_p, rtol=0, atol=1e-6)
+    torch.testing.assert_close(t_k, t_p, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,tile_h,k,sat", [
+    (200, 32, 256, False), (300, 32, 512, True), (300, 64, 512, True)])
+def test_dense_forward_equals_the_reference_on_dense_binnings(
+        dev, monkeypatch, n, tile_h, k, sat):
+    """Kernels 6/7 on a dense binning equal the forward reference over the
+    same tile_params bit for bit (the chunked member's saturating walk
+    forced where ``sat``)."""
+    if sat:
+        monkeypatch.setattr(rd, "SAT_WALK_THRESHOLD", 1)
+    cfg, b, _ = dense_inputs(dev, n + tile_h + 1, n, tile_h, k)
+    c_k, t_k = rdn._fwd_dense_cuda(b.tile_params, b.count, cfg)
+    c_r, t_r = rdn._fwd_chunk_cuda(b.tile_params, b.count, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(c_k, c_r) and torch.equal(t_k, t_r)
+
+
+def mxu_case(dev, case):
+    """Kernel 13's arguments for a case of the MXU card tests: "n/tile_h/k"
+    random dense binnings (chunk min(256, K)), and 130 random splats at K =
+    128 with splat 40's position NaN in the tile_params."""
+    if case == "nan":
+        cfg, b, ref = dense_inputs(dev, 77, 130, 32, 128)
+        tp = b.tile_params.clone()
+        tp[b.ids == 40, tl.FIELD_PX] = float("nan")
+        return (tp, b.ids, b.count, ref, 130, cfg, 128)
+    n, tile_h, k = map(int, case.split("/"))
+    cfg, b, ref = dense_inputs(dev, n + k + 2, n, tile_h, k)
+    return (b.tile_params, b.ids, b.count, ref, n, cfg, min(256, k))
+
+
+@pytest.mark.parametrize("case", ["200/32/256", "300/64/512", "300/32/1024",
+                                  "nan"])
+def test_mxu_kernel_equals_its_reference(dev, case):
+    """Kernel 13 on warp patches equals its reference, the chunk walk it
+    had before, bit for bit: colour, per-(tile, slot) rows and gradients,
+    equal NaN masks in the NaN case; its survivors per patch are the plain
+    cull mask's."""
+    args = mxu_case(dev, case)
+    tp, _, count, _, _, cfg, _ = args
+    walked = survivor_buffer(cfg, dev)
+    before = dict(rm.launches)
+    got = rm._l2_mxu_cuda(*args, walked=walked)
+    want = rm._l2_mxu_chunk_cuda(*args)
+    torch.cuda.synchronize()
+    assert rm.launches == {"l2_mxu": before["l2_mxu"] + 1,
+                           "l2_mxu_chunk": before["l2_mxu_chunk"] + 1}
+    for g, w in zip(got, want):
+        assert_same_bits(g, w)
+    assert torch.equal(walked[:, 0], cull_counts(tp, count, cfg))
+    if case == "nan":
+        assert torch.isnan(want[2]).any() and torch.isfinite(want[2]).any()
+    else:
+        assert all(torch.isfinite(w).all() for w in want)
+
+
+def test_mxu_partials_never_read_unwritten(dev):
+    """Kernel 13 leaves its partial scratch unzeroed: a buffer pre-filled
+    with NaN gives the same colour, rows and gradients bit for bit."""
+    args = mxu_case(dev, "300/64/512")
+    tp, _, _, _, _, cfg, _ = args
+    filled = torch.full(rr.patch_partial_shape(cfg, tp.shape[1],
+                                               rm.N_SUMS),
+                        float("nan"), device=dev)
+    a = rm._l2_mxu_cuda(*args, partial=filled)
+    b = rm._l2_mxu_cuda(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.isfinite(x).all()
+        assert torch.equal(x, y)
+
+
+def test_forward_and_mxu_entry_points_never_launch_the_references(dev):
+    """forward_tiled and l2_render_and_grads_mxu launch kernels 6/7 and 13,
+    once each, and never the chunk references."""
+    cfg, b, ref = dense_inputs(dev, 5, 200, 32, 256)
+    before_d, before_m = dict(rdn.launches), dict(rm.launches)
+    rdn.forward_tiled(b, cfg)
+    rm.l2_render_and_grads_mxu(b, ref, 200, cfg)
+    torch.cuda.synchronize()
+    assert rdn.launches == {**before_d,
+                            "fwd_dense": before_d["fwd_dense"] + 1}
+    assert rm.launches == {**before_m, "l2_mxu": before_m["l2_mxu"] + 1}
+
+
+def test_device_time_is_the_kernels_time(dev):
+    """utils/profiling.py::device_time: its graph-replay reading agrees
+    with the profiler's kernel durations. On kernel 14 at its scripts' grid
+    (one launch of about half a millisecond a call) the profiler sees that
+    kernel alone, once a call, and agrees with the graph replay within 5%;
+    on short launches (kernels 6/7 on a small binning, where the host's
+    time between launches can exceed the kernel's) they still agree, and
+    the event reading, which holds the host's gaps (and a card's clocks
+    still rising at its first calls), is at least the device time."""
+    t = device_time(lambda: probes.fma_peak(16, dev), 5)
+    assert t["ops"] == 1 and "fma_peak" in next(iter(t["kernels"]))
+    assert 0.95 <= t["profiler"] / t["device"] <= 1.05
+    assert t["events"] >= 0.95 * t["device"]
+    cfg, b, _ = dense_inputs(dev, 5, 200, 32, 256)
+    t = device_time(lambda: rdn._fwd_dense_cuda(b.tile_params, b.count,
+                                                cfg), 20)
+    assert t["ops"] == 1
+    assert 0.8 <= t["profiler"] / t["device"] <= 1.05
+    assert t["events"] >= 0.95 * t["device"]
 
 
 @pytest.mark.parametrize("chains", [1, 2, 4, 8, 16, 32])

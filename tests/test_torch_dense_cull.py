@@ -7,6 +7,13 @@ plain PyTorch, on the CPU.
   cover of ``ops/render.py::_splat_terms`` gathered over each warp's 8 x 32
   pixels, at tile heights 32 and 64; a splat with a NaN position is kept in
   every patch.
+- An emulation of the forward walk of kernels 6/7 (``patch_walk.cuh::
+  fwd_patch`` over ``DenseRun``: a patch walks slot k where the cull keeps
+  it, before its saturation exit or where the row is not finite; T starts
+  at 1 inside the image, 0 on padding; a skipped step keeps the carry)
+  gives ``render_dense._fwd_dense_plain``'s colour and T bit for bit at
+  tile heights 32 and 64, on random, opacity-1 and opaque populations and
+  with a NaN splat (equal NaN masks).
 - An emulation of kernel 12's window-aware patch sum (splat i takes its
   partials only from the tiles t with bases[t] <= i < bases[t] + W, in tile
   order, each slot summed over its (pass, warp) parts as
@@ -25,13 +32,15 @@ import torch
 from gs2d_tpu_torch.config import SplatConfig
 from gs2d_tpu_torch.io.image import synthetic_target
 from gs2d_tpu_torch.ops import render as rd
+from gs2d_tpu_torch.ops import render_dense as rdn
 from gs2d_tpu_torch.ops import render_resident as rr
 from gs2d_tpu_torch.ops import render_window as rw
 from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.params import params_from_numpy
 from gs2d_tpu_torch.train.loop import init_train_state
 from gs2d_tpu_torch.train.reorder import reorder_state
-from tests.test_torch_flat_cull import H, ROWS, W, any_cover, population
+from tests.test_torch_flat_cull import (H, ROWS, W, any_cover, patch_pixels,
+                                        patch_saturated, population)
 
 torch.set_num_threads(1)
 
@@ -71,6 +80,60 @@ def test_dense_nan_position_is_kept_in_every_patch(tile_h):
     assert bool(mask.permute(0, 2, 1)[slot].all())
     others = ~slot[:, None, :].expand_as(mask)
     assert torch.equal(mask[others], finite[others])
+
+
+# ---- the forward walk of kernels 6/7, emulated ------------------------------
+
+def fwd_emulated(tp, count, cfg):
+    """Kernels 6/7's walk over the dense rows, every tile's list in
+    lockstep: (colour (3, Hp, Wp), T (Hp, Wp), walked steps per patch)."""
+    yy, xx, fy, fx, inside = rd.tile_coords(cfg, "cpu")
+    keep = rr.listed_cover_mask(tp, count, cfg, ROWS)
+    bad = ~torch.isfinite(tp[..., : tl.FIELD_OP + 1]).all(dim=-1)
+    exited = torch.zeros(keep.shape[:2], dtype=torch.bool)
+    walked = torch.zeros(keep.shape[:2], dtype=torch.int64)
+    zero = torch.zeros_like(fx)
+    carry = (zero, zero, zero, inside.to(torch.float32))
+    for k in range(int(count.max())):
+        walk = keep[..., k] & (~exited | bad[:, k, None])
+        new = rd._fwd_one(tp[:, k], fx, fy, xx, yy, inside, cfg, carry)
+        px = patch_pixels(walk, cfg)
+        carry = tuple(torch.where(px, x, y) for x, y in zip(new, carry))
+        walked += walk
+        exited |= walk & patch_saturated(carry[3], cfg)
+    cr, cg, cb, T = carry
+    return (rd.from_tiles(torch.stack([cr, cg, cb]), cfg),
+            rd.from_tiles(T[None], cfg)[0], walked)
+
+
+def same_bits(got, want):
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)
+                and torch.equal(got[~nan], want[~nan]))
+
+
+@pytest.mark.parametrize("kind,tile_h", [
+    ("random", 32), ("opacity-1", 32), ("opaque", 32), ("random", 64),
+    ("opaque", 64), ("nan", 32), ("nan", 64)])
+def test_forward_patch_walk_is_the_plain_forward(kind, tile_h):
+    cfg, b = dense("random" if kind == "nan" else kind, tile_h + 23, 170,
+                   tile_h)
+    tp = b.tile_params
+    if kind == "nan":
+        tp = tp.clone()
+        tp[b.ids == 17, tl.FIELD_PX] = float("nan")
+    c_p, t_p = rdn._fwd_dense_plain(tp, b.count, cfg)
+    c_e, t_e, walked = fwd_emulated(tp, b.count, cfg)
+    assert same_bits(c_e, c_p) and same_bits(t_e, t_p)
+    keep = rr.listed_cover_mask(tp, b.count, cfg, ROWS)
+    steps = int(b.count.sum()) * keep.shape[1]
+    assert int(walked.sum()) <= int(keep.sum()) < steps
+    if kind == "nan":
+        assert torch.isnan(t_p).any() and torch.isfinite(t_p).any()
+    else:
+        assert torch.isfinite(c_p).all() and torch.isfinite(t_p).all()
+    if kind == "opaque":  # the exit itself cuts walked survivors
+        assert int(walked.sum()) < int(keep.sum())
 
 
 # ---- kernel 12's window-aware patch sum, emulated ---------------------------
