@@ -41,7 +41,16 @@ trajectories:
   MSEs must equal the uninterrupted fit's bit for bit;
 - ``train.loop.fit_with_recovery`` with an injected fault (exactly one
   recovery, the learning rate halved; kernels 2 and 3 under the modular L2
-  step), then the CLI's ``--recover`` without a fault.
+  step), then the CLI's ``--recover`` without a fault;
+- the scanned fits (``--scan-chunk 50``: one train step captured as a CUDA
+  graph and replayed, ``train/graphs.py``): the default, dense, resident
+  SSIM and window fits, the default and 10k fits with ``--rebin-margin 2``
+  (lazy rebinning, the rebin choice under a CUDA conditional node) and the
+  1080p fit with it, each beside its eager twin (bit for bit over 200
+  steps but at 1080p, where no pair may drop), ``--rebin-margin -1``,
+  ``--opacity-cull``, and the scanned default fit resumed at 100; one
+  table puts each scanned fit's it/s, ms a step, device-busy ms,
+  operations and idle share beside its eager twin's.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profiles   # only the fused L2 steps' profiles
@@ -1683,8 +1692,8 @@ def window_fit_phase(dev, smi: str, runs: int = 2):
     statics tuned beforehand, as the CLI does). Gates: the two MSE
     trajectories are equal bit for bit up to the first step with an
     escaped pair, and iterations 0, 1 and 9 are gs2d_tpu's scan path's.
-    Returns (window launches, resident launches, the window fit's median
-    ms a step)."""
+    Returns (window launches, resident launches, the window fit's timed
+    it/s, its {iter: mse})."""
     from gs2d_tpu_torch.ops import render_window as rw
     from gs2d_tpu_torch.ops import tiles as tl
     from gs2d_tpu_torch.train.loop import fit
@@ -1744,8 +1753,8 @@ def window_fit_phase(dev, smi: str, runs: int = 2):
             f"sync): it/s {', '.join(f'{r:.2f}' for r in rates)}; median "
             f"{float(np.median(rates)):.2f} = {median_ms(rates):.3f} "
             f"ms/step [{smi}]")
-        step_ms[binning] = median_ms(rates)
-    return launches_w, launches_r, step_ms["window"]
+        step_ms[binning] = rates
+    return launches_w, launches_r, step_ms["window"], mse
 
 
 def run_cli(argv) -> str:
@@ -1767,24 +1776,18 @@ def check_mse(mse: dict, it: int, want: float, rtol: float) -> None:
         raise AssertionError(f"MSE @ {it + 1} off the reference")
 
 
-def kernel_modules() -> tuple:
-    from gs2d_tpu_torch.ops import probes
-    from gs2d_tpu_torch.ops import render_dense as rdn
-    from gs2d_tpu_torch.ops import render_flat as rf
-    from gs2d_tpu_torch.ops import render_mxu as rm
-    from gs2d_tpu_torch.ops import render_resident as rr
-    from gs2d_tpu_torch.ops import render_window as rw
-
-    return rr, rf, rdn, rw, rm, probes
-
-
 def reset_counts() -> None:
-    for mod in kernel_modules():
-        mod.reset_launch_counts()
+    from gs2d_tpu_torch.train.graphs import launch_counters
+
+    for counts in launch_counters():
+        for kk in counts:
+            counts[kk] = 0
 
 
 def read_counts() -> dict:
-    return {k: v for mod in kernel_modules() for k, v in mod.launches.items()}
+    from gs2d_tpu_torch.train.graphs import launch_counters
+
+    return {k: v for counts in launch_counters() for k, v in counts.items()}
 
 
 def read_metrics(out: str) -> list:
@@ -1792,11 +1795,13 @@ def read_metrics(out: str) -> list:
             open(os.path.join(out, "metrics.jsonl")).read().splitlines()]
 
 
-def logged_fit(argv, out=None, iters: int = 200, no_drops=False) -> tuple:
+def logged_fit(argv, out=None, iters: int = 200, no_drops=False,
+               details=False) -> tuple:
     """One CLI fit of ``iters`` iterations logged at every step, the launch
     counts set to 0 just before it and read just after, into ``out`` (a
     temporary directory when None); ``no_drops`` fails it on an overflow
-    warning. Returns (launches, {iter: mse})."""
+    warning. Returns (launches, {iter: mse}), and with ``details`` also
+    the run's metrics records and printed output."""
     with contextlib.ExitStack() as stack:
         if out is None:
             out = stack.enter_context(tempfile.TemporaryDirectory())
@@ -1809,15 +1814,19 @@ def logged_fit(argv, out=None, iters: int = 200, no_drops=False) -> tuple:
         mse = {r["iter"]: r["mse"] for r in recs if "iter" in r}
         done = [r for r in recs if r.get("event") == "done"][0]
         png = os.path.getsize(os.path.join(out, "render_final.png"))
+    sync = "once a block" if "--scan-chunk" in argv else "every step"
     log(f"  launches: { {k: v for k, v in launches.items() if v} }; "
-        f"render_final.png {png} bytes; logged run (sync every step): "
+        f"render_final.png {png} bytes; logged run (sync {sync}): "
         f"{done['iters_per_s']:.1f} it/s")
     warnings = [x for x in printed.splitlines() if x.startswith("WARNING")]
-    log(f"  overflow warnings: {warnings if warnings else 'none'}")
+    log(f"  warnings: {warnings if warnings else 'none'}")
     if len(mse) != iters or not all(np.isfinite(list(mse.values()))):
         raise AssertionError("trajectory incomplete or non-finite")
-    if warnings and no_drops:
-        raise AssertionError(f"pairs dropped to a capacity cap: {warnings}")
+    drops = [x for x in warnings if "capacity overflow" in x]
+    if drops and no_drops:
+        raise AssertionError(f"pairs dropped to a capacity cap: {drops}")
+    if details:
+        return launches, mse, recs, printed
     return launches, mse
 
 
@@ -1832,7 +1841,8 @@ def fit_phase(image: str, splats: int, smi: str, extra=(),
             "cuda", *extra]
     log(f"[fit] python -m gs2d_tpu_torch.fit {os.path.basename(image)} "
         f"{' '.join(argv[1:])}")
-    launches, mse = logged_fit(argv, no_drops=no_drops)
+    launches, mse, recs, printed = logged_fit(argv, no_drops=no_drops,
+                                              details=True)
     rates = []
     for i in range(runs):
         with contextlib.ExitStack() as stack:
@@ -1845,7 +1855,28 @@ def fit_phase(image: str, splats: int, smi: str, extra=(),
         f"{', '.join(f'{r:.2f}' for r in rates)}; median {med:.2f} "
         f"(quartiles {q1:.2f}-{q3:.2f}) = {1e3 / med:.3f} ms/step "
         f"[{smi}]")
+    if "--scan-chunk" in extra:
+        return launches, mse, rates, scan_summary(recs, printed, smi)
     return launches, mse, rates
+
+
+def scan_summary(recs, printed, smi: str) -> dict:
+    """What a scanned CLI fit's logged run says of itself: the rebins of
+    its 200 steps, its capture line and its steady ms a step (the replays
+    of blocks 2-4: record times are block ends, so the first block's
+    tuning, warm-up and capture stay out)."""
+    steps = {r["iter"]: r for r in recs if "iter" in r}
+    capture = [x for x in printed.splitlines()
+               if x.startswith("captured the train step")]
+    if len(capture) != 1:
+        raise AssertionError(f"scanned fit: capture lines {capture}")
+    steady = 1e3 * (steps[199]["elapsed_s"] - steps[49]["elapsed_s"]) / 150
+    out = {"rebins": sum(r["rebinned"] for r in steps.values()),
+           "capture": capture[0], "steady_ms": steady}
+    log(f"  {capture[0]} [{smi}]")
+    log(f"  rebins in 200 steps: {out['rebins']}; steady {steady:.4f} "
+        f"ms/step over steps 50-199 (logged run) [{smi}]")
+    return out
 
 
 def expect_launches(path: str, launches: dict, want: dict) -> None:
@@ -1865,24 +1896,17 @@ def same_trajectory(a: dict, b: dict) -> bool:
     return all(a[i] == b[i] for i in range(200))
 
 
-def step_profile(step, state, ref_in, step_ms: float, steps: int = 10) -> str:
-    """Device time per step by kernel over a steady window of ``step`` from
-    ``state``, from utils.profiling.device_trace; the idle share is taken against
-    ``step_ms``, the step time of an unprofiled run."""
+def device_profile(run, steps: int) -> dict:
+    """{"busy": device ms a step, "ops": device kernels and copies a step,
+    "rows": [(ms a step, count a step, name)] largest first} of ``steps``
+    steps that ``run()`` launches, from utils.profiling.device_trace."""
     from torch.autograd import DeviceType
 
-    for _ in range(5):
-        state, _ = step(state, ref_in)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp, device_trace(tmp) as prof:
-        for _ in range(steps):
-            state, _ = step(state, ref_in)
+        run()
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    rows = []
-    total = 0.0
-    launches = 0
+    rows, total, launches = [], 0.0, 0
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue  # host-side ops; their kernels are listed themselves
@@ -1891,16 +1915,44 @@ def step_profile(step, state, ref_in, step_ms: float, steps: int = 10) -> str:
         total += dt
         launches += ev.count
     rows.sort(reverse=True)
-    lines = [f"  device busy {total:.4f} ms/step over {steps} steps, "
-             f"{launches / steps:.0f} device kernels and copies a step; "
+    return {"busy": total, "ops": launches / steps, "rows": rows}
+
+
+def profile_lines(prof: dict, step_ms: float, steps: int, wall_ms=None) -> str:
+    """A device_profile as log lines, the idle share taken against
+    ``step_ms``, the step time of an unprofiled run."""
+    wall = "" if wall_ms is None else \
+        f" (profiled step wall {wall_ms:.3f} ms)"
+    lines = [f"  device busy {prof['busy']:.4f} ms/step over {steps} steps, "
+             f"{prof['ops']:.0f} device kernels and copies a step; "
              f"unprofiled step {step_ms:.4f} ms, idle share "
-             f"{max(0.0, 1 - total / step_ms):.3f} (profiled step wall "
-             f"{wall_ms:.3f} ms)"]
+             f"{max(0.0, 1 - prof['busy'] / step_ms):.3f}{wall}"]
     lines += [f"    {ms:.4f} ms/step x{cnt}: {key[:70]}"
-              for ms, cnt, key in rows[:8]]
-    if not rows:
+              for ms, cnt, key in prof["rows"][:8]]
+    if not prof["rows"]:
         lines.append("    profiler saw no device time")
     return "\n".join(lines)
+
+
+def step_profile(step, state, ref_in, step_ms: float, steps: int = 10):
+    """Device time per step by kernel over a steady window of ``step`` from
+    ``state`` (device_profile); the idle share is taken against
+    ``step_ms``, the step time of an unprofiled run. Returns (log lines,
+    the device_profile with "idle")."""
+    for _ in range(5):
+        state, _ = step(state, ref_in)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    def run():
+        s = state
+        for _ in range(steps):
+            s, _ = step(s, ref_in)
+
+    prof = device_profile(run, steps)
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    prof["idle"] = max(0.0, 1 - prof["busy"] / step_ms)
+    return profile_lines(prof, step_ms, steps, wall_ms), prof
 
 
 def fused_cells(dev) -> dict:
@@ -1958,10 +2010,11 @@ def fused_cells(dev) -> dict:
     return out
 
 
-def profile_cell(cells: dict, prefix: str, step_ms=None) -> None:
+def profile_cell(cells: dict, prefix: str, step_ms=None) -> dict:
     """Logs the step profile of the cell whose label starts with
     ``prefix``, against ``step_ms`` (the timed fits' step), or, when None,
-    against 50 unprofiled steps of the same step function timed here."""
+    against 50 unprofiled steps of the same step function timed here.
+    Returns the device_profile with "idle" and "step_ms"."""
     label = next(k for k in cells if k.startswith(prefix))
     step, state, ref_chw = cells[label]
     if step_ms is None:
@@ -1975,7 +2028,9 @@ def profile_cell(cells: dict, prefix: str, step_ms=None) -> None:
         torch.cuda.synchronize()
         step_ms = 1e3 * (time.perf_counter() - t0) / 50
     log(f"[profile] {label}, 10 steps")
-    log(step_profile(step, state, ref_chw, step_ms))
+    text, prof = step_profile(step, state, ref_chw, step_ms)
+    log(text)
+    return {**prof, "step_ms": step_ms}
 
 
 def median_ms(rates) -> float:
@@ -2115,7 +2170,9 @@ def fit_1080p_phase(dev, smi: str) -> dict:
     (flat), 200 iterations, one logged run and one timed run; then kernels
     10 and 11 against their plain versions at this init. Gates: the launch
     counts, no dropped pair, finite parameters (the final checkpoint), the
-    kernels' agreement. Returns the logged run's counts."""
+    kernels' agreement. The same fit scanned (--scan-chunk 50
+    --rebin-margin 2) under the same gates. Returns the logged runs' summed
+    counts and {"1080p/100k flat": (eager numbers, scanned numbers)}."""
     from gs2d_tpu_torch.config import SplatConfig
     from gs2d_tpu_torch.io.checkpoint import Checkpointer
     from gs2d_tpu_torch.io.image import synthetic_target
@@ -2124,48 +2181,74 @@ def fit_1080p_phase(dev, smi: str) -> dict:
     from gs2d_tpu_torch.ops import tiles as tl
     from gs2d_tpu_torch.params import FIELDS, init_params
     from gs2d_tpu_torch.train.loop import (init_train_state,
+                                           make_fit_scan_fused,
                                            make_train_step_fused)
 
     ref = synthetic_target(1080, 1920)
+    cfg = SplatConfig(width=1920, height=1080, n_splats=N_100K)
     with tempfile.TemporaryDirectory() as tmp:
         image = os.path.join(tmp, "synthetic_1080p.npy")
         np.save(image, ref)
-        out = os.path.join(tmp, "timed")
-        launches, mse, rates = fit_phase(
-            image, N_100K, smi, ["--checkpoint-every", "200"], runs=1,
-            no_drops=True, keep=out)
-        expect_launches("1080p flat fit", launches,
-                        {"fwd_flat": 201, "bwd_flat": 200})
-        log(f"  MSE-255 @ 1 / 50 / 200: {mse[0]:.4f} / {mse[49]:.4f} / "
-            f"{mse[199]:.4f} (no reference trajectory at this size)")
-        cfg = SplatConfig(width=1920, height=1080, n_splats=N_100K)
-        step, state = Checkpointer(os.path.join(
-            out, "checkpoints")).restore_latest(init_train_state(cfg, dev))
-    if step != 200:
-        raise AssertionError(f"1080p fit: latest checkpoint {step}")
-    require_finite("1080p fit", **{f: getattr(state.params, f)
-                                   for f in FIELDS})
-    log("  checkpoint step_200.npz: all parameters finite")
+        runs = {}
+        for name, extra in (("eager", []), ("scanned", LAZY)):
+            out = os.path.join(tmp, name)
+            launches, mse, rates, *summary = fit_phase(
+                image, N_100K, smi, ["--checkpoint-every", "200", *extra],
+                runs=1, no_drops=True, keep=out)
+            expect_launches(f"1080p flat fit ({name})", launches,
+                            {"fwd_flat": 201, "bwd_flat": 200})
+            log(f"  MSE-255 @ 1 / 50 / 200: {mse[0]:.4f} / {mse[49]:.4f} / "
+                f"{mse[199]:.4f} (no reference trajectory at this size)")
+            step, state = Checkpointer(os.path.join(
+                out, "checkpoints")).restore_latest(
+                    init_train_state(cfg, dev))
+            if step != 200:
+                raise AssertionError(f"1080p fit: latest checkpoint {step}")
+            require_finite("1080p fit", **{f: getattr(state.params, f)
+                                           for f in FIELDS})
+            log("  checkpoint step_200.npz: all parameters finite")
+            runs[name] = (launches, mse, rates, *summary)
+    launches = {k: runs["eager"][0][k] + runs["scanned"][0][k]
+                for k in runs["eager"][0]}
+    same = sum(runs["eager"][1][i] == runs["scanned"][1][i]
+               for i in range(200))
+    log(f"  the scanned lazy fit's MSEs equal the eager fit's at {same} of "
+        "200 iterations (no gate at this size)")
     p_init = init_params(cfg, dev)
     cfg = tl.tune_tile_height(cfg, p_init)
     _, times = compare_flat_case("pcg3d init 102400 on 1920x1080", p_init,
                                  ref, cfg, dev, timed=True)
     log_times(times, "at the 1080p/100k init", smi)
     log("[profile] flat L2 train step at 1080p/100k, 10 steps")
-    log(step_profile(make_train_step_fused(rf.tune_flat_config(p_init, cfg)),
-                     init_train_state(cfg, dev), rd.pad_ref_chw(ref, cfg, dev),
-                     median_ms(rates)))
-    return launches
+    rates = runs["eager"][2]
+    text, prof = step_profile(
+        make_train_step_fused(rf.tune_flat_config(p_init, cfg)),
+        init_train_state(cfg, dev), rd.pad_ref_chw(ref, cfg, dev),
+        median_ms(rates))
+    log(text)
+    lazy = rf.tune_flat_config(p_init, cfg.replace(rebin_margin=2.0))
+    log("[profile] scanned flat L2 train step at 1080p/100k, --rebin-margin "
+        "2, 10 replays")
+    scan = runs["scanned"][3]
+    scan["prof"] = replay_profile(make_fit_scan_fused(lazy),
+                                  init_train_state(cfg, dev),
+                                  rd.pad_ref_chw(ref, lazy, dev),
+                                  scan["steady_ms"])
+    return launches, {"1080p/100k flat": (
+        {**prof, "step_ms": median_ms(rates), "rates": rates},
+        {**scan, "rates": runs["scanned"][2]})}
 
 
-def resume_phase() -> dict:
-    """The default fit for 200 iterations with --checkpoint-every 100;
-    then 100 iterations into a second directory and --resume for the other
-    100. The resumed fit's MSEs at iterations 100-199 must equal the
-    uninterrupted fit's bit for bit. Returns the summed counts."""
-    log("[resume] the default fit, uninterrupted and resumed at 100")
+def resume_phase(extra=()) -> dict:
+    """The default fit (with ``extra`` flags) for 200 iterations with
+    --checkpoint-every 100; then 100 iterations into a second directory and
+    --resume for the other 100. The resumed fit's MSEs at iterations
+    100-199 must equal the uninterrupted fit's bit for bit. Returns the
+    summed counts."""
+    log(f"[resume] the default fit{''.join(' ' + a for a in extra)}, "
+        "uninterrupted and resumed at 100")
     base = [MINI, "--splats", "1024", "--device", "cuda",
-            "--checkpoint-every", "100"]
+            "--checkpoint-every", "100", *extra]
     total = {}
 
     def add(launches, n):
@@ -2276,6 +2359,262 @@ def recovery_phase(dev) -> dict:
                     {"fwd_resident": 61, "bwd_resident": 60})
     for kk, v in launches.items():
         total[kk] = total.get(kk, 0) + v
+    return total
+
+
+# The scanned fits' flags: blocks of 50 steps without the host, and
+# bench.py's lazy rebinning contract.
+SCAN = ["--scan-chunk", "50"]
+LAZY = SCAN + ["--rebin-margin", "2"]
+
+
+def replay_profile(fit_k, state, ref, steady_ms: float,
+                   steps: int = 10) -> dict:
+    """device_profile of ``steps`` replays of the step ``fit_k`` captures
+    (one call of ``steps`` from ``state`` captures it, then the statics are
+    reloaded at ``state``), the idle share against ``steady_ms``."""
+    from gs2d_tpu_torch.train.loop import state_leaves
+
+    fit_k(state, ref, steps)
+    g = fit_k.graph
+    g.load(state_leaves(state), ref)
+
+    def run():
+        for _ in range(steps):
+            g.graph.replay()
+
+    prof = device_profile(run, steps)
+    prof["idle"] = max(0.0, 1 - prof["busy"] / steady_ms)
+    log(profile_lines(prof, steady_ms, steps))
+    return prof
+
+
+def cached_and_rebin_steps(fit_k, state, ref) -> None:
+    """One replay of a captured lazy step on a fresh cache (the tripwire
+    holds) and one after every splat moved 8 px since it was binned (it
+    fails and the conditional node runs the binning), each profiled. The
+    cached ids are overwritten with a sentinel (-7, a padding id to the
+    kernels) before each replay. Gates: the rebinned flags; the sentinel
+    survives the cached step, so the binning did not run, and the rebin
+    step leaves the binning of the moved splats, so it ran."""
+    from gs2d_tpu_torch.train.loop import state_leaves
+
+    g = fit_k.graph
+    for name, moved in (("cached step", 0.0), ("rebin step", 8.0)):
+        g.load(state_leaves(state), ref)
+        g.leaves[0].add_(moved)  # pos
+        want = g.make_cache(g.leaves)[0] if moved else None
+        g.cache[0].fill_(-7)
+        prof = device_profile(g.graph.replay, 1)
+        flag = int(g.aux["rebinned"][0])
+        sorts = [k for _, _, k in prof["rows"] if "sort" in k.lower()]
+        log(f"  {name}: {prof['ops']:.0f} device operations, busy "
+            f"{prof['busy']:.4f} ms, rebinned {flag}, sort/search kernels "
+            f"the profiler named {len(sorts)}")
+        ran = not bool((g.cache[0] == -7).all())
+        if flag != (moved > 0) or ran != (moved > 0) or (
+                moved and not torch.equal(g.cache[0], want)):
+            raise AssertionError(f"{name}: rebinned {flag}, binning ran "
+                                 f"{ran}")
+
+
+def scan_cells(dev) -> dict:
+    """The scanned fitters of the fits, tuned as the CLI tunes them:
+    {label: (fit_k, initial state, target as the step takes it)}."""
+    from gs2d_tpu_torch.config import SplatConfig
+    from gs2d_tpu_torch.io.image import load_image
+    from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.ops import render_flat as rf
+    from gs2d_tpu_torch.ops import render_window as rw
+    from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.train.loop import (init_train_state, make_fit_scan,
+                                           make_fit_scan_fused)
+
+    cells = {}
+    for label, image, n, kw in (
+            ("default", MINI, 1024, {}),
+            ("default, --rebin-margin 2", MINI, 1024, {"rebin_margin": 2.0}),
+            ("10k, --rebin-margin 2", FULL, N_10K, {"rebin_margin": 2.0}),
+            ("dense default", MINI, 1024, {"binning": "dense"}),
+            ("resident SSIM", MINI, 1024, {})):
+        ref = load_image(image)
+        cfg = SplatConfig(width=ref.shape[1], height=ref.shape[0],
+                          n_splats=n, **kw)
+        state = init_train_state(cfg, dev)
+        cfg = tl.tune_tile_height(cfg, state.params)
+        if label == "resident SSIM":  # the CLI keeps the default K here
+            cells[label] = (make_fit_scan(cfg, float(SSIM)), state,
+                            torch.as_tensor(ref, dtype=torch.float32,
+                                            device=dev))
+            continue
+        cfg = rf.tune_flat_config(state.params, cfg) if rf.use_flat(cfg) \
+            else tl.tune_tile_capacity(state.params, cfg)
+        cells[label] = (make_fit_scan_fused(cfg), state,
+                        rd.pad_ref_chw(ref, cfg, dev))
+    state, cfg, full = window_population(dev)
+    cfg = rw.tune_window(state.params,
+                         tl.tune_tile_capacity(state.params, cfg))
+    cells["window"] = (make_fit_scan_fused(cfg), state,
+                       rd.pad_ref_chw(full, cfg, dev))
+    return cells
+
+
+def scan_phase(dev, smi: str, eager_mse: dict, eager: dict,
+               pair_1080p: dict) -> dict:
+    """The scanned fits (--scan-chunk 50: one train step captured as a CUDA
+    graph and replayed, train/graphs.py) beside their eager twins:
+
+    - the default, dense, resident SSIM and window fits, and the default
+      and 10k fits with --rebin-margin 2 (lazy rebinning under a
+      conditional node), each equal to its eager fit bit for bit over 200
+      steps, with the eager fits' gates and launch counts (one a replay);
+    - --rebin-margin -1 at the default and 10k inits (the margin it picks);
+    - --opacity-cull on the default fit, with and without a margin: finite,
+      the pair counts with and without the cull printed;
+    - the scanned default fit checkpointed and resumed at 100 (resume_phase);
+    - the replays' device profile (busy ms, operations, idle share), a
+      cached and a rebin step of the lazy default fit, and one table of
+      every scanned fit beside its eager twin.
+
+    Returns the summed launch counts of the phase's logged runs."""
+    from gs2d_tpu_torch.config import SplatConfig
+    from gs2d_tpu_torch.io.image import load_image
+    from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.params import init_params
+    from gs2d_tpu_torch.train.loop import fit
+
+    t_phase = time.perf_counter()
+    total, scanned = {}, {}
+
+    def count(launches):
+        for kk, v in launches.items():
+            total[kk] = total.get(kk, 0) + v
+
+    def same_as_eager(name, mse, key):
+        same = sum(mse[i] == eager_mse[key][i] for i in range(200))
+        log(f"  equals the eager {key} fit's MSEs bit for bit at {same} of "
+            "200 iterations")
+        if same != 200:
+            raise AssertionError(f"scanned {name} fit differs from its eager "
+                                 "twin")
+
+    for name, image, n, extra, want, key in (
+            ("default", MINI, 1024, SCAN,
+             {"l2_resident": 200, "fwd_resident": 1}, "default"),
+            ("default, --rebin-margin 2", MINI, 1024, LAZY,
+             {"l2_resident": 200, "fwd_resident": 1}, "default"),
+            ("10k, --rebin-margin 2", FULL, N_10K, LAZY,
+             {"fwd_flat": 201, "bwd_flat": 200}, "10k"),
+            ("dense default", MINI, 1024, ["--binning", "dense", *SCAN],
+             {"l2_dense": 200, "fwd_dense": 1}, "dense"),
+            ("resident SSIM", MINI, 1024, ["--ssim", SSIM, *SCAN],
+             {"fwd_resident": 201, "bwd_resident": 200}, "ssim")):
+        launches, mse, rates, summary = fit_phase(image, n, smi, extra,
+                                                  runs=2)
+        expect_launches(f"scanned {name} fit", launches, want)
+        count(launches)
+        same_as_eager(name, mse, key)
+        scanned[name] = {**summary, "rates": rates}
+        if key == "default":
+            check_trajectory(mse, {it: (v, TRAJECTORY_RTOL)
+                                   for it, v in TRAJECTORY.items()})
+            check_trajectory(mse, TRAJECTORY_JAX)
+        elif key == "10k":
+            check_trajectory(mse, TRAJECTORY_10K)
+
+    state, cfg, full = window_population(dev)
+    log("[scan] train.loop.fit, binning window, scan_chunk 50, 200 "
+        "iterations")
+    lines = []
+    reset_counts()
+    _, hist = fit(full, cfg, 200, dev, state=state, log_every=1,
+                  log_fn=lines.append, scan_chunk=50)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expect_launches("scanned window fit", launches, {"l2_window": 200})
+    count(launches)
+    same_as_eager("window", {r["iter"]: r["mse"] for r in hist}, "window")
+    elapsed = {r["iter"]: r["elapsed_s"] for r in hist}
+    rates = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(full, cfg, 200, dev, state=state, log_fn=None, scan_chunk=50)
+        torch.cuda.synchronize()
+        rates.append(200 / (time.perf_counter() - t0))
+    capture = [x for x in lines if x.startswith("captured")][0]
+    scanned["window"] = {
+        "rates": rates, "rebins": 0, "capture": capture,
+        "steady_ms": 1e3 * (elapsed[199] - elapsed[49]) / 150}
+    log(f"  {capture}; steady {scanned['window']['steady_ms']:.4f} ms/step "
+        f"over steps 50-199; timed it/s "
+        f"{', '.join(f'{r:.2f}' for r in rates)} [{smi}]")
+
+    log("[scan] --rebin-margin -1 (auto) at the default and 10k inits")
+    for image, n in ((MINI, 1024), (FULL, N_10K)):
+        launches, _, _, printed = logged_fit(
+            [image, "--splats", str(n), "--iters", "50", "--device", "cuda",
+             "--rebin-margin", "-1", *SCAN], iters=50, details=True)
+        count(launches)
+        picked = [x for x in printed.splitlines() if x.startswith(
+            "rebin margin")]
+        log(f"  {os.path.basename(image)}, {n} splats: {picked}")
+        if len(picked) != 1:
+            raise AssertionError("auto margin not reported")
+
+    log("[scan] --opacity-cull (1/256) on the default fit, scanned, with "
+        "and without --rebin-margin 2")
+    for extra in (SCAN, LAZY):
+        launches, mse = logged_fit([MINI, "--splats", "1024", "--iters",
+                                    "200", "--device", "cuda",
+                                    "--opacity-cull", *extra])
+        count(launches)
+        log(f"  {' '.join(extra)}: MSE-255 @ 50 / 200: {mse[49]:.4f} / "
+            f"{mse[199]:.4f} (eager, no cull: {eager_mse['default'][49]:.4f} "
+            f"/ {eager_mse['default'][199]:.4f}; lossy by design, no gate)")
+    mini = load_image(MINI)
+    cfg = SplatConfig(width=mini.shape[1], height=mini.shape[0],
+                      n_splats=1024, tile_h=32)
+    p = init_params(cfg, dev)
+    pairs = [int(tl.bin_splats(p, cfg.replace(opacity_cull_alpha=a), 1,
+                               counts_only=True).sum()) for a in (0.0, 1 / 256)]
+    log(f"  pairs at the init: {pairs[0]} without the cull, {pairs[1]} with "
+        "it (every opacity is 1.0 and stays so without --optimize-opacity, "
+        "so the cull removes none)")
+
+    count(resume_phase(SCAN))
+
+    cells = scan_cells(dev)
+    for label, (fit_k, state, ref) in cells.items():
+        log(f"[profile] scanned {label} fit's step, 10 replays")
+        scanned[label]["prof"] = replay_profile(
+            fit_k, state, ref, scanned[label]["steady_ms"])
+        if label == "default, --rebin-margin 2":
+            cached_and_rebin_steps(fit_k, state, ref)
+    del cells
+
+    log(f"[scan] scanned fits beside their eager twins [{smi}] (it/s: the "
+        "CLI's timed runs, tuning excluded, a scanned run's capture "
+        "included; ms/step: the eager runs' median, the scanned logged "
+        "run's steps 50-199; busy ms, operations and idle share a step: "
+        "torch.profiler over 10 eager steps or 10 replays)")
+    pairs = [("default", eager["default"]),
+             ("default, --rebin-margin 2", eager["default"]),
+             ("10k, --rebin-margin 2", eager["10k"]),
+             ("dense default", eager["dense"]), ("window", eager["window"]),
+             ("resident SSIM", eager["ssim"])]
+    pairs += [(k, e) for k, (e, _) in pair_1080p.items()]
+    scanned.update({k: sc for k, (_, sc) in pair_1080p.items()})
+    for name, e in pairs:
+        sc = scanned[name]
+        log(f"  {name}: eager {float(np.median(e['rates'])):.2f} it/s, "
+            f"{e['step_ms']:.4f} ms/step, busy {e['busy']:.4f} ms, "
+            f"{e['ops']:.0f} ops, idle {e['idle']:.3f} | scanned "
+            f"{float(np.median(sc['rates'])):.2f} it/s, "
+            f"{sc['steady_ms']:.4f} ms/step, busy {sc['prof']['busy']:.4f} "
+            f"ms, {sc['prof']['ops']:.0f} ops, idle "
+            f"{sc['prof']['idle']:.3f}, {sc['rebins']} rebins in 200 steps")
+    log(f"  the scanned phase took {time.perf_counter() - t_phase:.1f}s")
     return total
 
 
@@ -2464,6 +2803,8 @@ def main(argv) -> int:
         for kk, v in launches.items():
             total[kk] = total.get(kk, 0) + v
 
+    # The eager fits' MSEs and step numbers, for their scanned twins.
+    eager_mse, eager = {}, {}
     launches, mse_l2, rates = fit_phase(MINI, 1024, smi, runs=2)
     expect_launches("resident L2 fit", launches,
                     {"l2_resident": 200, "fwd_resident": 1})
@@ -2472,7 +2813,9 @@ def main(argv) -> int:
                               for it, want in TRAJECTORY.items()})
     check_trajectory(mse_l2, TRAJECTORY_JAX)
     cells = fused_cells(dev)
-    profile_cell(cells, "resident L2 train step", median_ms(rates))
+    eager_mse["default"] = mse_l2
+    eager["default"] = {**profile_cell(cells, "resident L2 train step",
+                                       median_ms(rates)), "rates": rates}
 
     dense = ["--binning", "dense"]
     launches, mse, rates = fit_phase(FULL, N_10K, smi, runs=2)
@@ -2481,7 +2824,9 @@ def main(argv) -> int:
     count(launches)
     check_trajectory(mse, TRAJECTORY_10K)
     log(f"  MSE-255 @ 200: {mse[199]:.4f} (no gate)")
-    profile_cell(cells, "flat L2 train step", median_ms(rates))
+    eager_mse["10k"] = mse
+    eager["10k"] = {**profile_cell(cells, "flat L2 train step",
+                                   median_ms(rates)), "rates": rates}
     launches, mse_dense, rates = fit_phase(FULL, N_10K, smi, dense, runs=1)
     expect_launches("10k dense L2 fit", launches,
                     {"l2_dense": 200, "fwd_dense": 1})
@@ -2510,8 +2855,10 @@ def main(argv) -> int:
         raise AssertionError("the resident SSIM fit does not repeat bit for "
                              "bit")
     log("  repeats bit for bit (200 of 200 MSEs equal)")
-    profile_cell(cells, "modular SSIM train step (resident)",
-                 median_ms(rates))
+    eager_mse["ssim"] = mse_ssim
+    eager["ssim"] = {**profile_cell(cells,
+                                    "modular SSIM train step (resident)",
+                                    median_ms(rates)), "rates": rates}
 
     launches, mse, rates = fit_phase(MINI, 1024, smi, dense, runs=2)
     expect_launches("dense L2 fit", launches,
@@ -2524,7 +2871,10 @@ def main(argv) -> int:
     if not same_trajectory(mse, mse_l2):
         raise AssertionError("the dense L2 fit differs from the resident one")
     log("  equals the resident L2 trajectory bit for bit (200 of 200 MSEs)")
-    profile_cell(cells, "dense L2 train step, default fit", median_ms(rates))
+    eager_mse["dense"] = mse
+    eager["dense"] = {**profile_cell(cells, "dense L2 train step, default "
+                                     "fit", median_ms(rates)),
+                      "rates": rates}
 
     launches, mse, rates = fit_phase(MINI, 1024, smi, dense + ssim,
                                      runs=2)
@@ -2548,10 +2898,11 @@ def main(argv) -> int:
     check_trajectory(mse, TRAJECTORY_SSIM_10K)
     log(f"  MSE-255 @ 200: {mse[199]:.4f} (no gate)")
 
-    *window_launches, window_ms = window_fit_phase(dev, smi)
+    *window_launches, rates, eager_mse["window"] = window_fit_phase(dev, smi)
     for launches in window_launches:
         count(launches)
-    profile_cell(cells, "window L2 train step", window_ms)
+    eager["window"] = {**profile_cell(cells, "window L2 train step",
+                                      median_ms(rates)), "rates": rates}
 
     log("[fit] the default fit on 64-row tiles, logged")
     launches, mse = logged_fit([MINI, "--splats", "1024", "--iters", "200",
@@ -2566,8 +2917,10 @@ def main(argv) -> int:
 
     count(mxu_entry_phase(mxu_inputs))
     count(probe_phase())
-    count(fit_1080p_phase(dev, smi))
+    launches, pair_1080p = fit_1080p_phase(dev, smi)
+    count(launches)
     count(resume_phase())
+    count(scan_phase(dev, smi, eager_mse, eager, pair_1080p))
     count(recovery_phase(dev))
     for kk, _, _, _ in REFERENCES:
         if total.get(kk):

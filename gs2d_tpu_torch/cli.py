@@ -12,6 +12,8 @@ Usage:
       --iters 200 --ssim 0.2 --binning dense --out runs/torch_fit_ssim
   python -m gs2d_tpu_torch.fit assets/squirrel_cls_mini.npy --iters 200 \
       --checkpoint-every 100 --out runs/torch_fit_ck    # then --resume
+  python -m gs2d_tpu_torch.fit assets/squirrel_cls_mini.npy --splats 1024 \
+      --iters 200 --scan-chunk 50 --rebin-margin 2 --out runs/torch_scan
 
 Fits through the layout gs2d_tpu would pick (``--binning auto``: resident
 for small populations, flat above 4096 splats, dense for small populations
@@ -32,7 +34,15 @@ one and exits 2 when there is none. ``--recover`` fits through
 ``train.loop.fit_with_recovery``: on non-finite parameters it restores the
 newest checkpoint and halves the learning rate instead of aborting.
 ``--save-render-every N`` dumps ``render_<iter>.png`` at every N-th
-iteration. ``--device`` defaults
+iteration. ``--scan-chunk N`` runs the iterations in blocks of N steps
+without the host (on the card, one train step captured as a CUDA graph and
+replayed; on the CPU the same step in a Python loop), logging and
+checkpointing at block ends. ``--rebin-margin M`` bins with M pixels of
+footprint slack and, in scanned resident and flat fits, rebuilds the
+binning only on steps where a splat escaped it (-1 picks M from the
+measured pair inflation). ``--opacity-cull [ALPHA]`` bins only the pairs
+where a splat's alpha can reach ALPHA (1/256 for the bare flag; lossy by
+design, off by default). ``--device`` defaults
 to ``cuda`` and exits 2 when no GPU is visible; ``--device cpu`` runs the
 kernels' plain PyTorch versions. Flags of ``gs2d_tpu.cli`` for features
 this port does not have yet are not accepted (argparse exits 2), so
@@ -88,6 +98,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--reorder-every", type=int, default=0,
                    help="re-sort splats along the Morton curve every N "
                         "iterations (changes the compositing order)")
+    p.add_argument("--scan-chunk", type=int, default=0,
+                   help="run iterations in blocks of this many steps without "
+                        "the host (a CUDA graph of the step replayed on the "
+                        "card; 0 = one host dispatch per iteration)")
+    p.add_argument("--rebin-margin", type=float, default=0.0,
+                   help="lazy rebinning: bin with this many pixels of "
+                        "footprint slack and reuse the binning across "
+                        "scanned steps until a splat escapes it (resident "
+                        "or flat layout + --scan-chunk only; 0 = rebin every "
+                        "step; -1 = auto from measured pair inflation)")
+    p.add_argument("--opacity-cull", type=float, default=0.0,
+                   nargs="?", const=1.0 / 256.0, metavar="ALPHA",
+                   help="opacity-adaptive footprint culling: skip "
+                        "(splat, tile) pairs whose every pixel alpha "
+                        "would fall below ALPHA (bare flag = 1/256, the "
+                        "reference's early-out constant). Lossy by < "
+                        "ALPHA/pixel/pair; pays on trained or reset "
+                        "opacities (op < 0.35)")
     p.add_argument("--ssim", type=float, default=0.0, metavar="LAMBDA",
                    help="mix lambda*(1-SSIM) into the objective (0 = pure "
                         "L2, the reference objective); runs on the modular "
@@ -101,7 +129,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for flag in ("reorder_every", "checkpoint_every", "save_render_every"):
+    for flag in ("reorder_every", "checkpoint_every", "save_render_every",
+                 "scan_chunk"):
         if getattr(args, flag) < 0:
             parser.error(f"--{flag.replace('_', '-')} must be >= 0")
 
@@ -136,6 +165,9 @@ def main(argv=None) -> int:
         use_exp_approx=not args.exact_exp,
         max_splats_per_tile=args.max_per_tile or None,
         binning=args.binning,
+        # The modular (SSIM) path rebins every step, as in gs2d_tpu.
+        rebin_margin=0.0 if args.ssim else args.rebin_margin,
+        opacity_cull_alpha=args.opacity_cull,
     )
     state = init_train_state(cfg, device)  # the init ignores the tiling
     if args.tile_h:
@@ -144,6 +176,10 @@ def main(argv=None) -> int:
         # The deterministic init lets the policy measure the pair depth.
         cfg = tl.tune_tile_height(cfg, state.params)
     layout = rd.resolve_binning(cfg)  # "auto" depends on the tile grid
+    if cfg.rebin_margin < 0:
+        # Before the capacities below are sized for the margin.
+        cfg = tl.tune_rebin_margin(state.params, cfg)
+        print(f"rebin margin {cfg.rebin_margin} (auto)")
     # Binning statics are tuned here rather than inside fit() so the final
     # render below uses the fit's config. The SSIM path keeps the default
     # per-tile capacity, as gs2d_tpu's does.
@@ -219,7 +255,8 @@ def main(argv=None) -> int:
                        log_every=args.log_every, log_fn=print,
                        checkpoint_every=args.checkpoint_every,
                        checkpoint_fn=on_ckpt if args.checkpoint_every else None,
-                       ssim_lambda=args.ssim, iter_offset=done)
+                       scan_chunk=args.scan_chunk, ssim_lambda=args.ssim,
+                       iter_offset=done)
         hist += h
         done += n
         if done < end and args.reorder_every \

@@ -25,9 +25,10 @@ import numpy as np
 import torch
 
 from gs2d_tpu_torch.config import SplatConfig
-from gs2d_tpu_torch.params import FIELDS, GaussianParams
-from gs2d_tpu_torch.train.adam import AdamState
+from gs2d_tpu_torch.params import FIELDS
 from gs2d_tpu_torch.train.loop import TrainState
+from gs2d_tpu_torch.train.loop import state_from_leaves as _from_leaves
+from gs2d_tpu_torch.train.loop import state_leaves as _leaves
 
 # The leaves of gs2d_tpu's TrainState in jax.tree.flatten order: params,
 # then opt.m, opt.v (each in FIELDS order), beta1t, beta2t (0-d float32),
@@ -36,21 +37,6 @@ LEAF_ORDER = tuple(
     [("params", f) for f in FIELDS] + [("opt.m", f) for f in FIELDS]
     + [("opt.v", f) for f in FIELDS]
     + [("opt", "beta1t"), ("opt", "beta2t"), ("opt", "step")])
-
-
-def _leaves(state: TrainState) -> list:
-    groups = {"params": state.params, "opt.m": state.opt.m,
-              "opt.v": state.opt.v, "opt": state.opt}
-    return [getattr(groups[g], f) for g, f in LEAF_ORDER]
-
-
-def _from_leaves(leaves: list) -> TrainState:
-    n = len(FIELDS)
-    params, m, v = (GaussianParams(**dict(zip(FIELDS, leaves[i * n:(i + 1) * n])))
-                    for i in range(3))
-    beta1t, beta2t, step = leaves[3 * n:]
-    return TrainState(params=params, opt=AdamState(
-        m=m, v=v, beta1t=beta1t, beta2t=beta2t, step=step))
 
 
 def save_npz(path: str, state: TrainState,

@@ -37,7 +37,7 @@ _F = ctypes.c_float
 
 # C entry points and their argument types (csrc/render_resident.cu,
 # csrc/render_flat.cu, csrc/render_dense.cu, csrc/render_mxu.cu,
-# csrc/probes.cu).
+# csrc/probes.cu, csrc/graph_cond.cu).
 SIGNATURES = {
     "gs2d_l2_resident": [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P],
     "gs2d_fwd_resident": [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P],
@@ -63,6 +63,9 @@ SIGNATURES = {
     "gs2d_moments_tensor_cores": [_P, _I, _I, _P],
     "gs2d_moments_scratch_contraction": [_P, _I, _I, _P],
     "gs2d_contraction_smem_bytes": [_I],
+    "gs2d_graph_if": [_P, _P, _P],
+    "gs2d_cudart_build_version": [],
+    "gs2d_cudart_version": [],
 }
 
 

@@ -6,6 +6,8 @@
   (reference main.cpp:49-83)
 - ``solve_quadratic``: cancellation-safe quadratic roots (main.cpp:171-185)
 - ``sign_of``: branchless sign with sign(0) = +1 (main.cpp:34-37)
+- ``log_f32``: the float32 natural log the JAX package computes on a CPU,
+  operation for operation (the opacity cull's per-splat cutoff)
 
 PyTorch's ``uint32`` supports few operations, so the hashes run in ``int64``
 holding values in [0, 2^32) and reduce every product and sum mod 2^32. A
@@ -14,6 +16,8 @@ one factor into 16-bit halves; every intermediate stays below 2^49.
 """
 
 from __future__ import annotations
+
+import struct
 
 import torch
 
@@ -112,3 +116,62 @@ def trunc_to_int(x: torch.Tensor) -> torch.Tensor:
     t = torch.trunc(x).clamp(-2147483648.0, 2147483648.0)
     t = torch.where(torch.isnan(t), torch.zeros_like(t), t)
     return t.to(torch.int64).clamp(max=2147483647).to(torch.int32)
+
+
+def _f32_const(bits: int) -> float:
+    """The float32 whose bit pattern is ``bits``, as a Python float."""
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
+
+
+# Cephes' single-precision log (as Eigen's plog_float, which XLA's CPU
+# backend emits for jnp.log): sqrt(1/2), the polynomial's nine coefficients
+# and the two parts of ln 2, each the float32 of its bit pattern.
+_LOG_SQRTHF = _f32_const(0x3F3504F3)
+_LOG_P = [_f32_const(b) for b in (
+    0x3D9021BB, 0xBDEBD1B8, 0x3DEF251A, 0xBDFE5D4F, 0x3E11E9BF, 0xBE2AAE50,
+    0x3E4CCEAC, 0xBE7FFFFC, 0x3EAAAAAA)]
+_LOG_Q1 = _f32_const(0xB95E8083)
+_LOG_Q2 = _f32_const(0x3F318000)
+_FLT_MIN = _f32_const(0x00800000)
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """float32 a * b + c as a fused multiply-add: the product is exact in
+    float64; the sum rounds to float64 and then to float32, which differs
+    from one rounding only where the float64 sum falls on a float32
+    midpoint."""
+    d = torch.float64
+    return (a.to(d) * b + c.to(d) if torch.is_tensor(c) else
+            a.to(d) * b + c).to(torch.float32)
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """Natural log of a float32 tensor, bit for bit the JAX package's
+    ``jnp.log`` on a CPU (Cephes' polynomial in the order XLA's CPU backend
+    evaluates it, with the multiply-adds it fuses), on any device. The
+    libraries' own logs (torch's, CUDA's) differ from it in the last place
+    for a few percent of inputs. 0 and subnormals (read as zero, as XLA's
+    CPU code does) -> -inf, +inf -> +inf, x < 0 and NaN -> NaN."""
+    i32 = torch.int32
+    xc = torch.where(x <= _FLT_MIN, torch.full_like(x, _FLT_MIN), x)
+    bits = xc.view(i32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & -2139095041) | 1056964608).view(torch.float32)
+    small = m < _LOG_SQRTHF
+    zero = torch.zeros_like(m)
+    x1 = (m - 1.0) + torch.where(small, m, zero)
+    e = e - torch.where(small, torch.ones_like(m), zero)
+    x2 = x1 * x1
+    x3 = x2 * x1
+    p = _LOG_P
+    y = _fma(_fma(x1, p[0], p[1]), x1, p[2])
+    y1 = _fma(_fma(x1, p[3], p[4]), x1, p[5])
+    y2 = _fma(_fma(x1, p[6], p[7]), x1, p[8])
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, e * _LOG_Q1)
+    r = _fma(e, _LOG_Q2, _fma(x2, -0.5, x1) + y)
+    r = torch.where(x <= 0.0, torch.full_like(r, float("nan")), r)
+    r = torch.where(torch.isnan(x), x, r)
+    r = torch.where(x == float("inf"), x, r)
+    return torch.where(x.abs() < _FLT_MIN, torch.full_like(r, float("-inf")),
+                       r)

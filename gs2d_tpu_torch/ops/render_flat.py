@@ -66,12 +66,16 @@ def use_flat(cfg: SplatConfig) -> bool:
 def tune_flat_config(p: GaussianParams, cfg: SplatConfig,
                      margin: float = 1.5, n_bands: int = 1) -> SplatConfig:
     """Fill cfg.flat_capacity / flat_max_chunks from the measured tile
-    counts of ``p`` (gs2d_tpu.ops.render_pallas_flat.tune_flat_config)."""
+    counts of ``p`` (gs2d_tpu.ops.render_pallas_flat.tune_flat_config).
+    Under lazy rebinning (cfg.rebin_margin > 0) it first sizes the
+    tripwire's slot grid (max_tiles_per_splat, which the flat expansion
+    itself does not cap: tiles.pairs_covered_by rebins on every step once a
+    splat outgrows it) and measures the margined footprints."""
     if cfg.rebin_margin > 0:
-        raise NotImplementedError(
-            "lazy rebinning (rebin_margin) is not ported yet (ROADMAP.md)")
+        cfg = tl.tune_max_tiles_per_splat(p, cfg)
     m, mc = tlf.tune_flat_capacity(p, cfg, kc=cfg.flat_chunk, margin=margin,
-                                   n_bands=n_bands)
+                                   n_bands=n_bands,
+                                   bin_margin=cfg.rebin_margin)
     return cfg.replace(flat_capacity=m, flat_max_chunks=mc)
 
 

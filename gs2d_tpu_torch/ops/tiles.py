@@ -14,8 +14,12 @@ segment-stitching loop that the wider key makes unnecessary); run bounds
 come from ``searchsorted``, so nothing synchronizes with the device.
 Capacity overflow is counted in ``n_dropped``, never silently dropped.
 
-Lazy rebinning (``margin > 0``) and opacity-adaptive culling
-(``opacity_cull_alpha > 0``) are later slices and raise here.
+Lazy rebinning bins with ``margin`` pixels of footprint slack, a superset of
+the exact pairs that stays valid while every splat drifts less than the
+margin; ``pairs_covered_by`` is the exact test of that. Opacity-adaptive
+culling (``cfg.opacity_cull_alpha > 0``) shrinks each splat's binned
+footprint to where its alpha can reach the threshold (a per-splat
+Mahalanobis cutoff ``k2``).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch
 
 from gs2d_tpu_torch.config import SplatConfig
 from gs2d_tpu_torch.ops import geometry
-from gs2d_tpu_torch.ops.numerics import trunc_to_int
+from gs2d_tpu_torch.ops.numerics import log_f32, trunc_to_int
 from gs2d_tpu_torch.params import GaussianParams
 from gs2d_tpu_torch.utils.hardware import warn_if_untuned
 
@@ -64,12 +68,6 @@ class TileBinning(NamedTuple):
     tile_params: Optional[torch.Tensor] = None
 
 
-def _not_in_slice(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1, lazy rebinning / "
-        "opacity culling)")
-
-
 def packed_fields(p: GaussianParams, bounds: float = 3.0) -> torch.Tensor:
     """(N_FIELDS, N) packed per-splat scalars shared by the kernels.
 
@@ -92,7 +90,7 @@ def packed_fields(p: GaussianParams, bounds: float = 3.0) -> torch.Tensor:
     f[FIELD_SY] = p.sy
     f[FIELD_COS] = torch.cos(p.rot)
     f[FIELD_SIN] = torch.sin(p.rot)
-    f[FIELD_VALID] = 1.0
+    f[FIELD_VALID].fill_(1.0)  # a fill kernel: no copy from the host
     return f
 
 
@@ -100,8 +98,11 @@ def pad_row(device) -> torch.Tensor:
     """The benign (N_FIELDS,) padding row: opacity 0, unit scales and
     inverse covariance (no 0/0 in any formula), h = -1 (covers no row)."""
     pad = torch.zeros((N_FIELDS,), dtype=torch.float32, device=device)
-    pad[[FIELD_A, FIELD_D, FIELD_SX, FIELD_SY, FIELD_COS]] = 1.0
-    pad[FIELD_H] = -1.0
+    # Fill kernels: an assigned scalar or index list would be copied from
+    # the host, which a CUDA graph of the step cannot capture.
+    for field in (FIELD_A, FIELD_D, FIELD_SX, FIELD_SY, FIELD_COS):
+        pad[field].fill_(1.0)
+    pad[FIELD_H].fill_(-1.0)
     return pad
 
 
@@ -123,18 +124,36 @@ def splat_tile_bbox(p: GaussianParams, cfg: SplatConfig):
 
 def _bbox_and_quad(p: GaussianParams, cfg: SplatConfig, margin: float = 0.0):
     """Per-splat clamped tile bbox (tx0, tx1, ty0, ty1, offscreen) plus the
-    inverse-covariance quadratic (px, py, a, b, d) it was derived from.
+    inverse-covariance quadratic (px, py, a, b, d, k2) it was derived from.
 
     Uses the exact covariance bbox half-extents (main.cpp:488-489) with the
-    rasterizer's trunc semantics."""
-    if margin > 0:
-        _not_in_slice("binning margin")
-    if cfg.opacity_cull_alpha > 0.0:
-        _not_in_slice("opacity_cull_alpha")
+    rasterizer's trunc semantics, widened by ``margin`` pixels (the
+    lazy-rebinning slack). ``k2`` is the per-splat Mahalanobis cutoff: None
+    (cfg.cutoff_sq) unless cfg.opacity_cull_alpha > 0, where it is
+    min(cutoff_sq, 2 ln(op * headroom / alpha)), headroom 2 under a margin
+    (a cached binning survives opacity growth up to 2x) and 1 otherwise;
+    the half-extents shrink with sqrt(k2), and a splat with k2 <= 0 bins no
+    tile. The float32 operations are gs2d_tpu.ops.tiles._bbox_and_quad's,
+    in its order."""
     s11, s12, s22 = geometry.cov_of(p.sx, p.sy, p.rot)
     a, b, d, det = geometry.inv_cov_of(s11, s12, s22)
     hy = geometry.bbox_half_height(a, det, cfg.splat_bounds)
     hx = geometry.bbox_half_width(d, det, cfg.splat_bounds)
+    k2 = None
+    if cfg.opacity_cull_alpha > 0.0:
+        headroom = 2.0 if margin > 0 else 1.0
+        k2 = torch.minimum(
+            torch.full_like(p.opacity, _f32(cfg.cutoff_sq)),
+            2.0 * log_f32(torch.clamp(p.opacity, min=_f32(1e-30))
+                          * _f32(headroom / cfg.opacity_cull_alpha)))
+        # The half-extents are linear in the cutoff radius sqrt(k2).
+        shrink = torch.sqrt(torch.clamp(k2, min=0.0)) \
+            / _f32(cfg.splat_bounds)
+        hy = hy * shrink
+        hx = hx * shrink
+    if margin:
+        hy = hy + margin
+        hx = hx + margin
     px, py = p.pos[:, 0], p.pos[:, 1]
     x0 = trunc_to_int(px - hx)
     x1 = trunc_to_int(px + hx)
@@ -150,7 +169,9 @@ def _bbox_and_quad(p: GaussianParams, cfg: SplatConfig, margin: float = 0.0):
     ty0 = tile_of(y0, cfg.tile_h, cfg.n_tiles_y)
     ty1 = tile_of(y1, cfg.tile_h, cfg.n_tiles_y)
     offscreen = (x1 < 0) | (x0 >= cfg.width) | (y1 < 0) | (y0 >= cfg.height)
-    return (tx0, tx1, ty0, ty1, offscreen), (px, py, a, b, d)
+    if k2 is not None:
+        offscreen = offscreen | (k2 <= 0.0)
+    return (tx0, tx1, ty0, ty1, offscreen), (px, py, a, b, d, k2)
 
 
 # Fp slack of the conservative ellipse-rect test (gs2d_tpu/ops/tiles.py).
@@ -163,17 +184,23 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def tile_may_touch(px, py, a, b, d, tx, tyg, cfg: SplatConfig):
+def _col(v):
+    """A per-splat column (None, the default k2, passes through)."""
+    return None if v is None else v[:, None]
+
+
+def tile_may_touch(px, py, a, b, d, tx, tyg, cfg: SplatConfig,
+                   margin: float = 0.0, k2=None):
     """Conservative per-(splat, tile) test: can the splat's Mahalanobis
     ellipse reach any pixel the kernels would walk on tile (tyg, tx)?
 
     The exact ellipse-vs-rect minimum of gs2d_tpu.ops.tiles.tile_may_touch
     (see its docstring for the derivation), in the same float32 operation
-    order, without the margin and per-splat cutoff of later slices. Inputs
-    broadcast elementwise; returns a bool tensor."""
+    order. ``margin`` widens the tile rect by that many pixels on every
+    side (subtracted last, as gs2d_tpu does); ``k2`` (broadcasting with the
+    other inputs) replaces cfg.cutoff_sq per splat. Inputs broadcast
+    elementwise; returns a bool tensor."""
     tw, th = cfg.tile_w, cfg.tile_h
-    # float32(k2) + float32(abs margin), rounded once in float32 as jnp does.
-    limit = _f32(np.float32(cfg.cutoff_sq) + np.float32(CULL_ABS_MARGIN))
     rel = _f32(CULL_REL_MARGIN)
     x_edge = (tx * tw).to(torch.float32)
     y_edge = (tyg * th).to(torch.float32)
@@ -181,6 +208,9 @@ def tile_may_touch(px, py, a, b, d, tx, tyg, cfg: SplatConfig):
     rx1 = x_edge + float(tw) - px
     ry0 = y_edge + 0.5 - py
     ry1 = y_edge + float(th) - 0.5 - py
+    if margin:
+        m = _f32(margin)
+        rx0, rx1, ry0, ry1 = rx0 - m, rx1 + m, ry0 - m, ry1 + m
 
     def clip(v, lo, hi):
         return torch.minimum(torch.maximum(v, lo), hi)
@@ -201,7 +231,59 @@ def tile_may_touch(px, py, a, b, d, tx, tyg, cfg: SplatConfig):
     healthy = (torch.isfinite(px) & torch.isfinite(py) & torch.isfinite(b)
                & (a > 0.0) & (d > 0.0)
                & torch.isfinite(a) & torch.isfinite(d))
+    if k2 is None:
+        # float32(k2) + float32(abs margin), rounded once in float32.
+        limit = _f32(np.float32(cfg.cutoff_sq) + np.float32(CULL_ABS_MARGIN))
+    else:
+        limit = k2 + _f32(CULL_ABS_MARGIN)
     return (~healthy) | center_inside | (qmin <= limit)
+
+
+def _slot_grid(tx0, tx1, ty0, ty1, offscreen, cap: int):
+    """The (N, cap) slot grid of a bbox expansion, row-major over each
+    splat's tile bbox: (tile x, tile y, live slot, untruncated count)."""
+    w_t = tx1 - tx0 + 1
+    count_full = torch.where(offscreen, torch.zeros_like(w_t),
+                             w_t * (ty1 - ty0 + 1))
+    count = count_full.clamp(max=cap)
+    slot = torch.arange(cap, dtype=torch.int32, device=tx0.device)
+    w1 = w_t.clamp(min=1)[:, None]
+    local_y = torch.div(slot[None, :], w1, rounding_mode="floor")
+    local_x = slot[None, :] - local_y * w1
+    live = slot[None, :] < count[:, None]
+    return tx0[:, None] + local_x, ty0[:, None] + local_y, live, count_full
+
+
+def pairs_covered_by(p_now: GaussianParams, snap: GaussianParams,
+                     cfg: SplatConfig, margin: float) -> torch.Tensor:
+    """Is the exact current pair set still covered by the binning built
+    from ``snap`` with ``margin`` px of slack? (the lazy-rebinning
+    tripwire, gs2d_tpu.ops.tiles.pairs_covered_by)
+
+    Enumerates the exact (margin 0) pairs of ``p_now`` on the
+    (N, max_tiles_per_splat) slot grid and tests each live pair for
+    membership in the margined footprint ``bin_splats(snap, margin=...)``
+    listed: inside snap's widened tile bbox and passing snap's widened
+    ellipse-rect test. Returns a 0-d bool tensor, True while the cached
+    lists hold every exact pair; any current bbox truncation (count >
+    max_tiles_per_splat) returns False, forcing a rebin whose n_dropped
+    reports the overflow."""
+    cap = cfg.max_tiles_per_splat
+    (tx0, tx1, ty0, ty1, off), (px, py, a, b, d, qk2) = \
+        _bbox_and_quad(p_now, cfg)
+    txg, tyg, live, count_full = _slot_grid(tx0, tx1, ty0, ty1, off, cap)
+    if cfg.exact_cull:
+        live = live & tile_may_touch(
+            px[:, None], py[:, None], a[:, None], b[:, None], d[:, None],
+            txg, tyg, cfg, k2=_col(qk2))
+    (mtx0, mtx1, mty0, mty1, moff), (bpx, bpy, ba, bb, bd, bk2) = \
+        _bbox_and_quad(snap, cfg, margin)
+    inb = (txg >= mtx0[:, None]) & (txg <= mtx1[:, None]) \
+        & (tyg >= mty0[:, None]) & (tyg <= mty1[:, None]) & ~moff[:, None]
+    member = inb & tile_may_touch(
+        bpx[:, None], bpy[:, None], ba[:, None], bb[:, None], bd[:, None],
+        txg, tyg, cfg, margin, k2=_col(bk2))
+    return (~live | member).all() & (count_full <= cap).all()
 
 
 def bin_splats(
@@ -220,32 +302,24 @@ def bin_splats(
     ``counts_only`` returns just the *untruncated* per-tile counts
     (n_tiles,) int32, for tuning the capacity. ``ids_only`` skips the
     pregathered (n_tiles, K, N_FIELDS) ``tile_params`` of the dense layout
-    (``pregather_rows`` of the ids)."""
+    (``pregather_rows`` of the ids). ``margin`` widens every footprint
+    (bbox and cull rect) by that many pixels: a superset of the exact
+    pairs, whose extra pairs cover no pixel, for lazy rebinning."""
     n = p.n
     dev = p.device
     n_tiles = cfg.n_tiles_y * cfg.n_tiles_x
     cap = max_tiles_per_splat or cfg.max_tiles_per_splat
-    (tx0, tx1, ty0, ty1, offscreen), (px, py, qa, qb, qd) = \
+    (tx0, tx1, ty0, ty1, offscreen), (px, py, qa, qb, qd, qk2) = \
         _bbox_and_quad(p, cfg, margin)
-    w_t = tx1 - tx0 + 1
-    h_t = ty1 - ty0 + 1
-    count_full = torch.where(offscreen, torch.zeros_like(w_t), w_t * h_t)
-    count = count_full.clamp(max=cap)
-    dropped_bbox = (count_full - count).sum()
-
-    slot = torch.arange(cap, dtype=torch.int32, device=dev)
-    w1 = w_t.clamp(min=1)[:, None]
-    local_y = torch.div(slot[None, :], w1, rounding_mode="floor")
-    local_x = slot[None, :] - local_y * w1
-    txg = tx0[:, None] + local_x
-    tyg = ty0[:, None] + local_y
-    live = slot[None, :] < count[:, None]
+    txg, tyg, live, count_full = _slot_grid(tx0, tx1, ty0, ty1, offscreen,
+                                            cap)
+    dropped_bbox = (count_full - count_full.clamp(max=cap)).sum()
     if cfg.exact_cull:
         # Drop bbox tiles the ellipse provably cannot touch: exact removals,
         # not capacity drops, so n_dropped is unaffected.
         live = live & tile_may_touch(
             px[:, None], py[:, None], qa[:, None], qb[:, None], qd[:, None],
-            txg, tyg, cfg)
+            txg, tyg, cfg, margin, k2=_col(qk2))
 
     # One int64 key per (splat, slot): tile in the high part, splat id in
     # the low part; dead slots get the key of the virtual tile n_tiles and
@@ -315,7 +389,8 @@ def tune_tile_height(cfg: SplatConfig,
 
 def tune_max_tiles_per_splat(p: GaussianParams, cfg: SplatConfig,
                              margin: float = 2.0) -> SplatConfig:
-    """Size the per-splat tile cap from the *measured* bbox coverage: the
+    """Size the per-splat tile cap from the *measured* bbox coverage (the
+    footprints widened by cfg.rebin_margin, which the lazy cache bins): the
     largest per-splat tile count times ``margin``, rounded up to a power of
     two (at least 4) and clamped to the whole grid."""
     tx0, tx1, ty0, ty1, offscreen = _bbox_and_quad(
@@ -326,6 +401,21 @@ def tune_max_tiles_per_splat(p: GaussianParams, cfg: SplatConfig,
     cap = 1 << max(2, (max(1, int(m * margin)) - 1).bit_length())
     return cfg.replace(max_tiles_per_splat=min(
         cap, cfg.n_tiles_x * cfg.n_tiles_y))
+
+
+def tune_rebin_margin(p: GaussianParams, cfg: SplatConfig,
+                      candidates: tuple = (2.0, 1.0),
+                      max_inflation: float = 0.30) -> SplatConfig:
+    """Pick the lazy-rebinning slack from the measured pair inflation
+    (gs2d_tpu.ops.tiles.tune_rebin_margin; the CLI's --rebin-margin -1):
+    the largest candidate whose total pair count stays within
+    ``max_inflation`` of the exact one, else 0 (rebin every step)."""
+    base = int(bin_splats(p, cfg, 1, counts_only=True).sum())
+    for m in sorted(candidates, reverse=True):
+        n = int(bin_splats(p, cfg, 1, counts_only=True, margin=m).sum())
+        if base == 0 or n <= base * (1.0 + max_inflation):
+            return cfg.replace(rebin_margin=float(m))
+    return cfg.replace(rebin_margin=0.0)
 
 
 def tune_tile_capacity(p: GaussianParams, cfg: SplatConfig,

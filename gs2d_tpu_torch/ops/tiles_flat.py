@@ -17,8 +17,9 @@ Construction is an exact-count expansion (each splat owns exactly w*h rows:
 one cumsum of run starts, one row gather of the per-splat values) followed
 by one stable sort on the tile id alone, so stability gives the
 (tile, splat) order. Every overflow (expansion, chunk cap, capacity cap) is
-counted in ``n_dropped``. Banded binning and footprint margins (lazy
-rebinning) are later slices and raise.
+counted in ``n_dropped``. ``margin`` and the opacity cull's per-splat
+cutoff widen and shrink the footprints as ``tiles.bin_splats`` does.
+Banded binning (tile-axis sharding) is a later slice and raises.
 """
 
 from __future__ import annotations
@@ -45,8 +46,8 @@ class FlatBinning(NamedTuple):
 
 def _not_in_slice(what: str):
     raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1: banded binning for "
-        "tile sharding, lazy rebinning)")
+        f"{what} is not ported yet (ROADMAP.md queue 1, parallel/ on "
+        "torch.distributed: banded binning for tile sharding)")
 
 
 def flat_capacity(counts, kc: int) -> int:
@@ -60,7 +61,10 @@ def tune_flat_capacity(p: GaussianParams, cfg: SplatConfig, kc: int = 256,
                        bin_margin: float = 0.0) -> tuple[int, int]:
     """Measure tile counts and pick (M rows, max chunks per tile) with
     ``margin`` headroom, as gs2d_tpu.ops.tiles_flat.tune_flat_capacity.
-    Counts drift during fitting; overflow surfaces in n_dropped."""
+    ``bin_margin`` measures the footprints with that many pixels of slack:
+    a lazily rebinned fit bins the margined superset, so its capacity is
+    sized for it. Counts drift during fitting; overflow surfaces in
+    n_dropped."""
     if n_bands != 1:
         _not_in_slice("banded binning (n_bands > 1)")
     counts = tl.bin_splats(p, cfg, 1, counts_only=True,
@@ -92,7 +96,9 @@ def bin_splats_flat(
     ``max_chunks`` caps one tile's run at max_chunks*kc entries. Overflow
     of either is counted in n_dropped; the expansion is exact, with no
     per-splat tile cap. ``ids_only`` returns a (1, N_FIELDS) placeholder
-    for ``rows``."""
+    for ``rows`` (the lazy-rebinning cache pregathers them every step).
+    ``margin`` widens every footprint by that many pixels, as in
+    ``tiles.bin_splats``."""
     if band_rows is not None or band_row0 != 0:
         _not_in_slice("banded binning")
     if m_cap % kc:
@@ -104,7 +110,7 @@ def bin_splats_flat(
     n_tiles = cfg.n_tiles_y * cfg.n_tiles_x
 
     # --- exact-count pair expansion -----------------------------------------
-    (tx0, tx1, ty0, ty1, offscreen), (qpx, qpy, qa, qb, qd) = \
+    (tx0, tx1, ty0, ty1, offscreen), (qpx, qpy, qa, qb, qd, qk2) = \
         tl._bbox_and_quad(p, cfg, margin)
     w_t = (tx1 - tx0 + 1).to(i32)
     cnt = torch.where(offscreen, 0, w_t * (ty1 - ty0 + 1)).to(i32)
@@ -122,6 +128,8 @@ def bin_splats_flat(
     chans = [starts, w_t, ty0.to(i32), tx0.to(i32)]
     if cfg.exact_cull:
         chans += [bits(qpx), bits(qpy), bits(qa), bits(qb), bits(qd)]
+        if qk2 is not None:
+            chans.append(bits(qk2))
     ch = torch.stack(chans, dim=1)[owner]             # one (E, C) row gather
 
     rank = e - ch[:, 0]
@@ -132,8 +140,9 @@ def bin_splats_flat(
     tile_e = ty_e * cfg.n_tiles_x + tx_e
     if cfg.exact_cull:
         fc = lambda i: ch[:, i].view(torch.float32)
-        live_e = live_e & tl.tile_may_touch(fc(4), fc(5), fc(6), fc(7),
-                                            fc(8), tx_e, ty_e, cfg)
+        live_e = live_e & tl.tile_may_touch(
+            fc(4), fc(5), fc(6), fc(7), fc(8), tx_e, ty_e, cfg, margin,
+            k2=fc(9) if qk2 is not None else None)
     tile_e = torch.where(live_e, tile_e, n_tiles)     # dead rows sort last
     splat_e = torch.where(live_e, owner.to(i32), -1)
 

@@ -56,13 +56,15 @@ def adam_update(params: GaussianParams, grads: GaussianParams,
     one_b2 = float(np.float32(1.0) - b2)
     b1, b2 = float(b1), float(b2)
     dev = params.device
-    lr = torch.tensor(cfg.learning_rate, dtype=torch.float32, device=dev)
+    # torch.full, not torch.tensor: fill kernels, where torch.tensor copies
+    # from the host, which a CUDA graph of the step cannot capture.
+    lr = torch.full((), cfg.learning_rate, dtype=torch.float32, device=dev)
     if cfg.lr_decay_iters > 0:
         # lr * (lr_final/lr)^(min(t, T)/T), from the step counter.
         frac = torch.clamp(state.step.to(torch.float32)
                            / np.float32(cfg.lr_decay_iters), max=1.0)
-        ratio = torch.tensor(cfg.lr_final / cfg.learning_rate,
-                             dtype=torch.float32, device=dev)
+        ratio = torch.full((), cfg.lr_final / cfg.learning_rate,
+                           dtype=torch.float32, device=dev)
         lr = lr * torch.pow(ratio, frac)
     eps = float(np.float32(cfg.adam_eps))
     beta1t = state.beta1t * b1

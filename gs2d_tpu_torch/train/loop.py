@@ -1,22 +1,28 @@
 """The fitting loop (the counterpart of ``gs2d_tpu/train/loop.py``, resident,
 flat, dense and window layouts): one train step = binning + the layout's
-L2 kernels + moments_to_grads + Adam + metrics, driven by a host loop. The
-SSIM objective, and ``fit_with_recovery``, take the modular step instead:
-the differentiable render (forward kernel, backward kernel under
-autograd's cotangent), the loss head, ``torch.autograd.grad``, then the
-same Adam and metrics.
+L2 kernels + moments_to_grads + Adam + metrics. The SSIM objective, and
+``fit_with_recovery``, take the modular step instead: the differentiable
+render (forward kernel, backward kernel under autograd's cotangent), the
+loss head, ``torch.autograd.grad``, then the same Adam and metrics.
 
-PyTorch runs eagerly, so the JAX package's ``jit``/``lax.scan`` have no
-counterpart here: steps run in a Python loop and stay queued on the device
-between log points (CUDA graphs over the step are a later change). The
-reference's NaN abort (main.cpp:752-785) is an ``all_finite`` flag per step
-that ``fit`` checks where it logs and before each checkpoint, raising
-``FloatingPointError``.
+``fit`` drives the steps from a Python loop, or, with ``scan_chunk`` > 1,
+in blocks of steps without the host (``_fit_scanned`` over
+``make_fit_scan_fused`` / ``make_fit_scan``, the counterparts of gs2d_tpu's
+``lax.scan`` fitters): on the card a block replays one step captured as a
+CUDA graph (``train/graphs.py``), on the CPU the same step body runs in a
+Python loop. With ``cfg.rebin_margin`` > 0 the scanned resident and flat
+steps rebin lazily: they keep a margined binning and rebuild it only on
+steps where the exact tripwire ``tiles.pairs_covered_by`` finds a pair
+outside it, a choice made on the device. The reference's NaN abort
+(main.cpp:752-785) is an ``all_finite`` flag per step that ``fit`` checks
+where it logs (each block, when scanned) and before each checkpoint,
+raising ``FloatingPointError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import NamedTuple, Optional
 
@@ -29,7 +35,9 @@ from gs2d_tpu_torch.ops import render_flat as rf
 from gs2d_tpu_torch.ops import render_resident as rr
 from gs2d_tpu_torch.ops import render_window as rw
 from gs2d_tpu_torch.ops import tiles as tl
+from gs2d_tpu_torch.ops import tiles_flat as tlf
 from gs2d_tpu_torch.params import FIELDS, GaussianParams, init_params
+from gs2d_tpu_torch.train import graphs
 from gs2d_tpu_torch.train.adam import AdamState, adam_update, init_adam_state
 from gs2d_tpu_torch.train.metrics import mse_255, psnr_from_mse
 from gs2d_tpu_torch.train.ssim import conv_flags, mixed_loss
@@ -48,11 +56,33 @@ def init_train_state(cfg: SplatConfig, device) -> TrainState:
     return TrainState(params=params, opt=init_adam_state(params))
 
 
+def state_leaves(state: TrainState) -> list:
+    """The 21 tensors of a TrainState in gs2d_tpu's pytree order: params,
+    Adam's m and v (FIELDS order each), beta1t, beta2t, step."""
+    opt = state.opt
+    return ([getattr(p, f) for p in (state.params, opt.m, opt.v)
+             for f in FIELDS] + [opt.beta1t, opt.beta2t, opt.step])
+
+
+def state_from_leaves(leaves) -> TrainState:
+    """The inverse of ``state_leaves``."""
+    n = len(FIELDS)
+    params, m, v = (GaussianParams(**dict(zip(FIELDS, leaves[i * n:
+                                                             (i + 1) * n])))
+                    for i in range(3))
+    beta1t, beta2t, step = leaves[3 * n:]
+    return TrainState(params=params, opt=AdamState(
+        m=m, v=v, beta1t=beta1t, beta2t=beta2t, step=step))
+
+
 class StepAux(NamedTuple):
     mse: torch.Tensor         # 0-255-scale MSE of the pre-update render
     psnr: torch.Tensor
     all_finite: torch.Tensor  # NaN tripwire flag
     n_dropped: torch.Tensor   # splat-tile pairs lost to capacity caps
+    # 1 when the step rebuilt the cached binning (lazy rebinning); 0 on
+    # cache hits and on the steps that keep no cache.
+    rebinned: torch.Tensor = 0
 
 
 # Flat capacity above which gs2d_tpu splits the train step into separately
@@ -61,7 +91,7 @@ SPLIT_STEP_ROWS = 6 * 1024 * 1024
 
 
 def _tail(state: TrainState, grads: GaussianParams, color, ref,
-          n_dropped, cfg: SplatConfig):
+          n_dropped, cfg: SplatConfig, rebinned=0):
     """Adam, the NaN tripwire flag and the metrics of the pre-update render
     ``color`` against the (H, W, 3) target ``ref``."""
     params, opt = adam_update(state.params, grads, state.opt, cfg)
@@ -70,26 +100,46 @@ def _tail(state: TrainState, grads: GaussianParams, color, ref,
     mse = mse_255(color, ref)
     return TrainState(params=params, opt=opt), StepAux(
         mse=mse, psnr=psnr_from_mse(mse), all_finite=finite,
-        n_dropped=n_dropped)
+        n_dropped=n_dropped, rebinned=rebinned)
+
+
+def _needs_split(cfg: SplatConfig) -> bool:
+    return rf.use_flat(cfg) and (cfg.flat_capacity or 0) > SPLIT_STEP_ROWS
 
 
 def make_train_step_fused(cfg: SplatConfig):
     """Single-device train step through the layout's L2 kernels: the
     resident, flat, dense and window branches of gs2d_tpu's
-    ``_fused_step_body``,
-    binning every step. Returns ``step(state, ref_chw) -> (state,
-    StepAux)``; the target must be pre-padded with ``render.pad_ref_chw``.
-    Raises for a layout not ported yet and for flat capacities of the split
-    step."""
-    if cfg.rebin_margin != 0:
-        raise NotImplementedError(
-            "lazy rebinning (rebin_margin) is not ported yet (ROADMAP.md)")
-    layout = rd.resolve_binning(cfg)
-    if layout == "flat" and (cfg.flat_capacity or 0) > SPLIT_STEP_ROWS:
+    ``_fused_step_body``, binning every step (at margin 0 whatever
+    cfg.rebin_margin says: only the scanned fit keeps a lazy cache).
+    Returns ``step(state, ref_chw) -> (state, StepAux)``; the target must
+    be pre-padded with ``render.pad_ref_chw``. Raises for flat capacities
+    of the split step."""
+    if _needs_split(cfg):
         raise NotImplementedError(
             f"flat capacity {cfg.flat_capacity} > SPLIT_STEP_ROWS "
             f"({SPLIT_STEP_ROWS}): the split step of the 1080p/1M workloads "
-            "is not ported yet (ROADMAP.md queue 1 item 8)")
+            "is not ported yet (ROADMAP.md queue 1, the large flat "
+            "configurations)")
+    return _fused_step_body(cfg)
+
+
+def _fused_step_body(cfg: SplatConfig):
+    """gs2d_tpu's ``_fused_step_body``: ``one_step(state, ref_chw)``, and
+    for the resident and flat layouts under cfg.rebin_margin > 0 the lazy
+    cache as ``one_step.make_bin_cache(params) -> cache`` and
+    ``one_step.cached(state, ref_chw, cache, rebin) -> (state, aux)``.
+
+    A cache is a list of tensors: the margined binning's ids, (flat: start,)
+    count and n_dropped, then the six parameter tensors it was built from
+    (the snapshot the tripwire measures drift against). ``cached`` calls
+    ``rebin(pred, params)`` once with the 0-d bool "some exact pair escaped
+    the cache, or the cache dropped pairs"; after the call the cache list
+    holds ``make_bin_cache(params)`` where pred held and is unchanged
+    elsewhere (the Python loop rebins if pred, the CUDA graph under a
+    conditional node). The resident table, or the flat rows, are gathered
+    from the live params every step."""
+    layout = rd.resolve_binning(cfg)
     k = rd._max_per_tile(cfg)
 
     def one_step(state: TrainState, ref_chw: torch.Tensor):
@@ -108,7 +158,128 @@ def make_train_step_fused(cfg: SplatConfig):
         ref_crop = ref_chw[0].permute(1, 2, 0)[: cfg.height, : cfg.width]
         return _tail(state, grads, color, ref_crop, n_dropped, cfg)
 
+    if not (cfg.rebin_margin > 0 and layout in ("flat", "resident")):
+        return one_step
+    flat = layout == "flat"
+    n_bin = 4 if flat else 3  # binning tensors before the snapshot
+
+    def make_bin_cache(params: GaussianParams) -> list:
+        if flat:
+            b = tlf.bin_splats_flat(
+                params, cfg, cfg.flat_capacity, kc=cfg.flat_chunk,
+                max_chunks=cfg.flat_max_chunks, ids_only=True,
+                margin=cfg.rebin_margin)
+            head = [b.ids, b.start, b.count, b.n_dropped]
+        else:
+            b = tl.bin_splats(params, cfg, k, ids_only=True,
+                              margin=cfg.rebin_margin)
+            head = [b.ids, b.count, b.n_dropped]
+        return head + [getattr(params, f) for f in FIELDS]
+
+    def cached(state: TrainState, ref_chw: torch.Tensor, cache: list,
+               rebin):
+        snap = GaussianParams(**dict(zip(FIELDS, cache[n_bin:])))
+        covered = tl.pairs_covered_by(state.params, snap, cfg,
+                                      cfg.rebin_margin) \
+            & (cache[n_bin - 1] == 0)
+        rebin(~covered, state.params)
+        if flat:
+            ids, start, count, n_dropped = cache[:n_bin]
+            binning = tlf.FlatBinning(
+                ids=ids, rows=tlf.pregather_rows(ids, state.params, cfg),
+                start=start, count=count, n_dropped=n_dropped)
+            color, grads = rf.l2_render_and_grads_flat(
+                binning, ref_chw, cfg.n_splats, cfg, cfg.flat_chunk,
+                cfg.flat_max_chunks, state.params)
+        else:
+            ids, count, n_dropped = cache[:n_bin]
+            binning = tl.TileBinning(ids=ids, count=count,
+                                     n_dropped=n_dropped)
+            color, grads = rr.l2_render_and_grads_resident(
+                binning, rr.resident_table(state.params, cfg), ref_chw,
+                cfg.n_splats, cfg)
+        ref_crop = ref_chw[0].permute(1, 2, 0)[: cfg.height, : cfg.width]
+        return _tail(state, grads, color, ref_crop, n_dropped, cfg,
+                     rebinned=(~covered).to(torch.int32))
+
+    one_step.make_bin_cache = make_bin_cache
+    one_step.cached = cached
     return one_step
+
+
+def _cache_of_leaves(make_cache, leaves):
+    return make_cache(state_from_leaves(leaves).params)
+
+
+class ScanFitter:
+    """``fit_k(state, ref, n_iters) -> (state, StepAux of (n_iters,)
+    tensors)``: ``n_iters`` steps of ``one_step`` (or of the lazy ``cached``
+    step, binned afresh from the incoming params at the start of each call,
+    as each gs2d_tpu scan starts). CUDA states replay one captured step
+    (graphs.StepGraph, captured at the first call and again when a call
+    asks for more steps than its aux buffers hold; ``graph`` is the
+    latest); CPU states run the same step body in a Python loop. A class,
+    not a closure: a closure that names itself is a reference cycle, which
+    the garbage collector may free, graph and all, in the middle of a later
+    capture, where CUDA forbids destroying a graph."""
+
+    def __init__(self, one_step, cached=None, make_cache=None):
+        self.one_step, self.cached, self.make_cache = \
+            one_step, cached, make_cache
+        self.graph = None
+
+    def _on_leaves(self, leaves, ref, cache, rebin):
+        state = state_from_leaves(leaves)
+        if self.cached is None:
+            new, aux = self.one_step(state, ref)
+        else:
+            new, aux = self.cached(state, ref, cache, rebin)
+        return state_leaves(new), aux
+
+    def __call__(self, state: TrainState, ref: torch.Tensor, n_iters: int):
+        leaves = state_leaves(state)
+        if leaves[0].is_cuda:
+            if self.graph is None or n_iters > self.graph.n_max:
+                self.graph = graphs.StepGraph(
+                    self._on_leaves,
+                    None if self.make_cache is None else
+                    functools.partial(_cache_of_leaves, self.make_cache),
+                    leaves, ref, n_iters, StepAux._fields)
+            new, aux = self.graph.run(leaves, ref, n_iters)
+            return state_from_leaves(new), StepAux(**aux)
+        make_cache = self.make_cache
+        cache = [] if make_cache is None else make_cache(state.params)
+
+        def rebin(pred, params):
+            if bool(pred):
+                cache[:] = make_cache(params)
+
+        auxes = []
+        for _ in range(n_iters):
+            leaves, aux = self._on_leaves(leaves, ref, cache, rebin)
+            auxes.append(aux)
+        return state_from_leaves(leaves), StepAux(*(
+            torch.stack([torch.as_tensor(getattr(a, f), dtype=(
+                torch.int32 if f == "rebinned" else None)) for a in auxes])
+            for f in StepAux._fields))
+
+
+def make_fit_scan_fused(cfg: SplatConfig):
+    """gs2d_tpu's ``make_fit_scan_fused``: ``fit_k(state, ref_chw, n_iters)
+    -> (state, StepAux of (n_iters,) tensors)`` over the fused L2 step, with
+    the lazy cache where cfg.rebin_margin > 0 on the resident and flat
+    layouts (see ``ScanFitter``). ``ref_chw`` is padded
+    (``render.pad_ref_chw``)."""
+    one_step = make_train_step_fused(cfg)
+    return ScanFitter(one_step, getattr(one_step, "cached", None),
+                      getattr(one_step, "make_bin_cache", None))
+
+
+def make_fit_scan(cfg: SplatConfig, ssim_lambda: float = 0.0):
+    """gs2d_tpu's ``make_fit_scan``: ``fit_k(state, ref, n_iters)`` over the
+    modular step (``make_train_step``; ``ref`` the unpadded (H, W, 3)
+    target)."""
+    return ScanFitter(make_train_step(cfg, ssim_lambda))
 
 
 def make_train_step(cfg: SplatConfig, ssim_lambda: float = 0.0):
@@ -161,7 +332,8 @@ def fit(
     """The host loop of a fit (main.cpp:334-851 minus the GUI).
 
     ``ref`` is the (H, W, 3) target. Unset binning statics are tuned from
-    the population first, as gs2d_tpu's fit does: the flat capacity
+    the population first, as gs2d_tpu's fit does: ``cfg.rebin_margin`` < 0
+    picks the margin (tiles.tune_rebin_margin), then the flat capacity
     (render_flat.tune_flat_config) for the flat layout, the per-tile
     capacity (tiles.tune_tile_capacity) for the others, then the window
     width (render_window.tune_window) for the window layout. ``iter_offset``
@@ -173,18 +345,18 @@ def fit(
     hard-code the L2 cotangent), the fit takes the modular step
     (make_train_step) and, as gs2d_tpu does, tunes no per-tile capacity and
     zeroes ``rebin_margin``; the flat statics are still tuned, since its
-    render needs them. ``checkpoint_fn(state, it)`` is called after every
+    render needs them. ``scan_chunk`` > 1 runs the iterations in blocks of
+    that many steps without the host (``_fit_scanned``: history and
+    checkpoints at block granularity, lazy rebinning under a margin); it
+    is ignored, with a message, where the flat capacity needs gs2d_tpu's
+    split step. ``checkpoint_fn(state, it)`` is called after every
     ``checkpoint_every``-th step with the block-relative count of steps
     done, if the state is finite; a non-finite state raises
     ``FloatingPointError`` there instead, or with ``raise_on_nonfinite`` =
     False is logged and not saved. ``raise_on_nonfinite`` = False leaves
-    the NaN tripwire to the caller (StepAux.all_finite). ``scan_chunk`` > 1 is a later slice and
-    raises. Returns (state, history), history being the logged steps' dicts
-    (iteration, MSE, PSNR, the step's n_dropped, seconds)."""
-    if scan_chunk and scan_chunk > 1:
-        raise NotImplementedError(
-            "scan_chunk > 1 has no counterpart yet (CUDA graphs over the "
-            "step loop, ROADMAP.md)")
+    the NaN tripwire to the caller (StepAux.all_finite). Returns (state,
+    history), history being the logged steps' dicts (iteration, MSE, PSNR,
+    the step's n_dropped, seconds; scanned fits add ``rebinned``)."""
     device = torch.device(device)
     if state is None:
         state = init_train_state(cfg, device)
@@ -192,6 +364,10 @@ def fit(
         use_fused = False
     if not use_fused and cfg.rebin_margin != 0:
         cfg = cfg.replace(rebin_margin=0.0)  # the modular path rebins eagerly
+    if cfg.rebin_margin < 0:
+        # -1 = auto: the slack from the measured pair inflation, before the
+        # capacities are sized for it.
+        cfg = tl.tune_rebin_margin(state.params, cfg)
     if rf.use_flat(cfg):
         if cfg.flat_capacity is None or cfg.flat_max_chunks is None:
             cfg = rf.tune_flat_config(state.params, cfg)
@@ -201,11 +377,23 @@ def fit(
             and cfg.window_width is None):
         cfg = rw.tune_window(state.params, cfg)
     if use_fused:
-        step_fn = make_train_step_fused(cfg)
         ref_in = rd.pad_ref_chw(ref, cfg, device)
     else:
-        step_fn = make_train_step(cfg, ssim_lambda)
         ref_in = torch.as_tensor(ref, dtype=torch.float32, device=device)
+    if use_fused and scan_chunk and scan_chunk > 1 and _needs_split(cfg):
+        # gs2d_tpu's rule: at these step times dispatch overhead is noise.
+        if log_fn:
+            log_fn("scan_chunk ignored: flat capacity exceeds the "
+                   "single-program memory budget (split steps)")
+        scan_chunk = 0
+    if scan_chunk and scan_chunk > 1:
+        return _fit_scanned(
+            ref_in, cfg, iterations, state, scan_chunk, use_fused=use_fused,
+            ssim_lambda=ssim_lambda, log_every=log_every, log_fn=log_fn,
+            checkpoint_every=checkpoint_every, checkpoint_fn=checkpoint_fn,
+            raise_on_nonfinite=raise_on_nonfinite, iter_offset=iter_offset)
+    step_fn = make_train_step_fused(cfg) if use_fused \
+        else make_train_step(cfg, ssim_lambda)
 
     history = []
     t0 = time.perf_counter()
@@ -240,19 +428,107 @@ def fit(
                        f"{rec['psnr']:.2f} dB")
         if checkpoint_every and checkpoint_fn \
                 and (it + 1) % checkpoint_every == 0:
-            # One sync per checkpoint: a non-finite state is never saved, so
-            # fit_with_recovery never restores one.
-            if bool(aux.all_finite):
-                checkpoint_fn(state, it + 1)
-            elif raise_on_nonfinite:
-                raise FloatingPointError(
-                    f"non-finite splat parameters at iteration "
-                    f"{it + iter_offset}: checkpoint {it + 1} not saved")
-            elif log_fn:
-                log_fn(f"WARNING: non-finite splat parameters at iteration "
-                       f"{it + iter_offset}: checkpoint {it + 1} not saved")
+            _checkpoint(state, bool(aux.all_finite), it + 1, it + iter_offset,
+                        checkpoint_fn, raise_on_nonfinite, log_fn)
     if aux is not None:
         check(aux, iterations - 1 + iter_offset)
+    return state, history
+
+
+def _checkpoint(state, finite: bool, done: int, it: int, checkpoint_fn,
+                raise_on_nonfinite: bool, log_fn) -> None:
+    """Save ``state`` after ``done`` steps of this call unless it is not
+    finite: a non-finite state is never saved, so fit_with_recovery never
+    restores one (one sync per checkpoint)."""
+    if finite:
+        checkpoint_fn(state, done)
+    elif raise_on_nonfinite:
+        raise FloatingPointError(
+            f"non-finite splat parameters at iteration {it}: checkpoint "
+            f"{done} not saved")
+    elif log_fn:
+        log_fn(f"WARNING: non-finite splat parameters at iteration {it}: "
+               f"checkpoint {done} not saved")
+
+
+def _fit_scanned(ref, cfg: SplatConfig, iterations: int, state: TrainState,
+                 scan_chunk: int, *, use_fused: bool, ssim_lambda: float,
+                 log_every: int, log_fn, checkpoint_every: int,
+                 checkpoint_fn, raise_on_nonfinite: bool,
+                 iter_offset: int = 0):
+    """fit()'s body for scan_chunk > 1 (gs2d_tpu's ``_fit_scanned``): blocks
+    of ``scan_chunk`` steps (the last one shorter where the chunk does not
+    divide ``iterations``), each one call of the scanned fitter. ``ref`` is
+    padded (fused) or not (modular). The block's aux is read once after
+    it, so history records (global iteration numbers) carry the block's
+    end time; the non-finite abort names the block's first bad iteration;
+    checkpoints fall where ``done % checkpoint_every == 0`` at a block end.
+    The first block logs what capturing the step cost on the card."""
+    fit_k = make_fit_scan_fused(cfg) if use_fused \
+        else make_fit_scan(cfg, ssim_lambda)
+    history = []
+    t0 = time.perf_counter()
+    warned_drop = warned_rebin = False
+    done = 0
+    while done < iterations:
+        n = min(scan_chunk, iterations - done)
+        graph = fit_k.graph
+        state, auxes = fit_k(state, ref, n)
+        if fit_k.graph is not graph and log_fn:
+            c = fit_k.graph.capture
+            log_fn(f"captured the train step as a CUDA graph in "
+                   f"{c.capture_s:.3f}s (warm-up step {c.warmup_s:.3f}s)")
+        block = {f: getattr(auxes, f).cpu() for f in StepAux._fields}
+        elapsed = time.perf_counter() - t0
+        finite = block["all_finite"]
+        if raise_on_nonfinite and not bool(finite.all()):
+            bad = int(torch.argmin(finite.to(torch.int32)))
+            raise FloatingPointError(
+                f"non-finite splat parameters at iteration "
+                f"{done + bad + iter_offset} "
+                "(reference aborts here, main.cpp:752-785)")
+        dropped = block["n_dropped"]
+        if not warned_drop and bool((dropped > 0).any()):
+            warned_drop = True
+            first = int(torch.argmax((dropped > 0).to(torch.int32)))
+            if log_fn:
+                log_fn(f"WARNING: binning capacity overflow at iteration "
+                       f"{done + first + iter_offset}: "
+                       f"{int(dropped.sum())} splat-tile pairs dropped in "
+                       "this block; raise max_splats_per_tile / "
+                       "max_tiles_per_splat")
+        rebins = int(block["rebinned"].sum())
+        if not warned_rebin and cfg.rebin_margin > 0 and n >= 8 \
+                and rebins == n:
+            # Every step rebinned: the tripwire never validates (a footprint
+            # outgrew the slot grid, or the margined binning drops pairs),
+            # which costs more than rebin_margin=0. Never wrong, so a
+            # warning, as in gs2d_tpu.
+            warned_rebin = True
+            if log_fn:
+                log_fn("WARNING: lazy rebinning rebinned on every step of "
+                       f"this {n}-step block (cache never validates); "
+                       "re-tune binning (tune_flat_config / "
+                       "tune_tile_capacity) or set rebin_margin=0")
+        for j in range(n):
+            it = done + j
+            if log_every and (it % log_every == 0 or it == iterations - 1):
+                rec = {"iter": it + iter_offset,
+                       "mse": float(block["mse"][j]),
+                       "psnr": float(block["psnr"][j]),
+                       "n_dropped": int(dropped[j]),
+                       "rebinned": int(block["rebinned"][j]),
+                       "elapsed_s": elapsed}
+                history.append(rec)
+                if log_fn:
+                    log_fn(f"{rec['iter']} itr, mse {rec['mse']:.4f}, psnr "
+                           f"{rec['psnr']:.2f} dB")
+        done += n
+        if checkpoint_every and checkpoint_fn \
+                and done % checkpoint_every == 0:
+            _checkpoint(state, bool(finite[-1]), done,
+                        done - 1 + iter_offset, checkpoint_fn,
+                        raise_on_nonfinite, log_fn)
     return state, history
 
 

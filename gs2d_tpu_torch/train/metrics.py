@@ -15,8 +15,11 @@ def mse_255(color: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 def psnr_from_mse(mse: torch.Tensor) -> torch.Tensor:
     """PSNR in dB from the 0-255-scale MSE."""
+    # torch.full, not torch.tensor: a fill kernel, where torch.tensor copies
+    # from the host, which a CUDA graph of the step cannot capture.
     return 10.0 * torch.log10(
-        torch.tensor(255.0 * 255.0, dtype=mse.dtype, device=mse.device) / mse)
+        torch.full((), 255.0 * 255.0, dtype=mse.dtype, device=mse.device)
+        / mse)
 
 
 def psnr(color: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:

@@ -43,12 +43,19 @@ def _gauss_kernel_np(window: int, sigma: float):
     return k / np.sum(k)
 
 
+@functools.lru_cache(maxsize=8)
+def _gauss_kernel(window: int, sigma: float, device) -> torch.Tensor:
+    """The taps on ``device``, copied from the host once: a CUDA graph of
+    the step captures no host-to-device copy."""
+    return torch.from_numpy(_gauss_kernel_np(window, sigma)).to(device)
+
+
 def _blur(img: torch.Tensor, window: int, sigma: float) -> torch.Tensor:
     """Separable depthwise Gaussian blur of an (H, W, C) image with zero
     "SAME" padding (odd ``window``)."""
     if window % 2 == 0:
         raise ValueError(f"window {window} must be odd")
-    k = torch.from_numpy(_gauss_kernel_np(window, sigma)).to(img.device)
+    k = _gauss_kernel(window, sigma, img.device)
     c = img.shape[-1]
     x = img.permute(2, 0, 1)[None]                       # (1, C, H, W)
     kv = k.view(1, 1, window, 1).repeat(c, 1, 1, 1)

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the scanned fit's captured step (a CUDA graph, lazy rebinning under a
+conditional node) against the eager step.
 
 Every test is marked ``cuda`` and skips where no GPU is visible (a CUDA
 kernel has no CPU mode). This file imports neither jax nor gs2d_tpu, so it
@@ -1028,3 +1030,76 @@ def test_scratch_contraction_refuses_what_it_cannot_hold(dev):
         probes.moments_scratch_contraction(dev, n_k=60)   # not batches of 8
     with pytest.raises(ValueError):
         probes.moments_scratch_contraction(dev, n_k=4096)  # shared memory
+
+
+def _scan_case(dev, binning, margin):
+    from gs2d_tpu_torch.io.image import synthetic_target
+    from gs2d_tpu_torch.train import loop
+
+    cfg = SplatConfig(width=W, height=H, n_splats=64, tile_h=32,
+                      binning=binning, rebin_margin=margin,
+                      learning_rate=0.5)
+    state = loop.init_train_state(cfg, dev)
+    cfg = (rf.tune_flat_config(state.params, cfg) if binning == "flat"
+           else tl.tune_tile_capacity(state.params, cfg))
+    return cfg, state, rd.pad_ref_chw(synthetic_target(H, W), cfg, dev)
+
+
+def _eager(cfg, state, ref, n):
+    from gs2d_tpu_torch.train import loop
+
+    step, mse = loop.make_train_step_fused(cfg), []
+    for _ in range(n):
+        state, aux = step(state, ref)
+        mse.append(aux.mse)
+    return state, torch.stack(mse)
+
+
+@pytest.mark.parametrize("binning", ["resident", "flat"])
+@pytest.mark.parametrize("margin", [0.0, 2.0, 0.25])
+def test_captured_fit_equals_eager(dev, binning, margin):
+    """12 steps replayed from one captured step (lazy rebinning under a
+    conditional node where margin > 0) equal 12 eager steps bit for bit;
+    the launch counts grow by one per kernel and replay, not by the
+    warm-up or the capture."""
+    from gs2d_tpu_torch.train import loop
+
+    cfg, state, ref = _scan_case(dev, binning, margin)
+    s_e, mse_e = _eager(cfg, state, ref, 12)
+    counts = rf.launches if binning == "flat" else rr.launches
+    before = dict(counts)
+    fit_k = loop.make_fit_scan_fused(cfg)
+    s_g, aux = fit_k(state, ref, 12)
+    torch.cuda.synchronize()
+    assert torch.equal(aux.mse, mse_e)
+    for a, b in zip(loop.state_leaves(s_g), loop.state_leaves(s_e)):
+        assert torch.equal(a, b)
+    grown = {k: counts[k] - before[k] for k in counts}
+    want = ({"fwd_flat": 12, "bwd_flat": 12} if binning == "flat"
+            else {"l2_resident": 12, "fwd_resident": 0, "bwd_resident": 0})
+    assert grown == want
+    if margin == 0.25:
+        assert 0 < int(aux.rebinned.sum()) < 12
+    if margin == 0.0:
+        assert int(aux.rebinned.sum()) == 0
+
+
+def test_capture_on_a_side_stream(dev):
+    """A block captured and replayed while the caller is on a non-default
+    stream, then a shorter block through the same graph, equal the eager
+    steps bit for bit."""
+    from gs2d_tpu_torch.train import loop
+
+    cfg, state, ref = _scan_case(dev, "resident", 2.0)
+    _, mse_e = _eager(cfg, state, ref, 12)
+    fit_k = loop.make_fit_scan_fused(cfg)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        s1, a1 = fit_k(state, ref, 8)
+        s2, a2 = fit_k(s1, ref, 4)
+        got = torch.cat([a1.mse, a2.mse])
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert fit_k.graph.n_max == 8
+    assert torch.equal(got, mse_e)

@@ -259,11 +259,7 @@ def test_flat_later_slices_raise(rng):
     with pytest.raises(NotImplementedError):
         ttlf.bin_splats_flat(tp, cfg_t, 64, kc=8, band_rows=1)
     with pytest.raises(NotImplementedError):
-        ttlf.bin_splats_flat(tp, cfg_t, 64, kc=8, margin=2.0)
-    with pytest.raises(NotImplementedError):
         ttlf.tune_flat_capacity(tp, cfg_t, kc=8, n_bands=2)
-    with pytest.raises(NotImplementedError):
-        trf.tune_flat_config(tp, cfg_t.replace(rebin_margin=2.0))
     with pytest.raises(ValueError):
         trf.l2_step_flat(tp, trd.pad_ref_chw(np.zeros((H, W, 3)), cfg_t),
                          cfg_t)  # statics unset

@@ -119,15 +119,6 @@ def test_offscreen_and_negative_floor(rng):
     assert {0, 1, 4, 5} <= ids
 
 
-def test_later_slices_raise(rng):
-    _, cfg_t, _, tp = case(rng, 16, 8)
-    with pytest.raises(NotImplementedError):
-        ttl.bin_splats(tp, cfg_t, 16, ids_only=True, margin=2.0)
-    with pytest.raises(NotImplementedError):
-        ttl.bin_splats(tp, cfg_t.replace(opacity_cull_alpha=1 / 256), 16,
-                       ids_only=True)
-
-
 def test_dense_pregather(rng):
     """Without ids_only the binning pregathers each listed splat's packed
     row into tile_params; padded slots hold the benign pad row."""

@@ -111,18 +111,6 @@ def test_fit_nan_tripwire():
                   log_every=1, log_fn=None)
 
 
-@pytest.mark.parametrize("kw,cfg_kw", [
-    (dict(scan_chunk=4), {}),
-    ({}, dict(rebin_margin=2.0)), ({}, dict(opacity_cull_alpha=1 / 256)),
-])
-def test_fit_refuses_later_slices(kw, cfg_kw):
-    cfg = SplatConfig(width=W, height=H, **{"n_splats": 16, "tile_h": 8,
-                                            "max_splats_per_tile": 16,
-                                            **cfg_kw})
-    with pytest.raises(NotImplementedError):
-        tloop.fit(synthetic_target(H, W), cfg, 1, "cpu", **kw)
-
-
 def test_fit_window_layout_on_cpu():
     """fit with binning="window" tunes K and the window width itself and
     trains through the window step: its MSE trajectory equals the resident
@@ -157,9 +145,8 @@ def test_cli_cuda_without_gpu_exits_2(tmp_path, capsys):
     assert "no CUDA GPU" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "1,2,2"], ["--scan-chunk", "4"],
-                                  ["--densify-every", "4"],
-                                  ["--rebin-margin", "2"]])
+@pytest.mark.parametrize("argv", [["--mesh", "1,2,2"],
+                                  ["--densify-every", "4"]])
 def test_cli_rejects_flags_of_later_slices(tmp_path, argv):
     with pytest.raises(SystemExit) as e:
         cli.main([MINI, "--device", "cpu", "--out", str(tmp_path), *argv])
