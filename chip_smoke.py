@@ -50,7 +50,14 @@ trajectories:
   steps but at 1080p, where no pair may drop), ``--rebin-margin -1``,
   ``--opacity-cull``, and the scanned default fit resumed at 100; one
   table puts each scanned fit's it/s, ms a step, device-busy ms,
-  operations and idle share beside its eager twin's.
+  operations and idle share beside its eager twin's;
+- adaptive density control (``train/densify.py``): the default fit with
+  ``--optimize-opacity --densify-every 100 --opacity-reset-every 200``,
+  400 iterations, eager and scanned (bit for bit), the 10k fit with
+  ``--densify-every 100``, 300 iterations, and the modular route
+  (``--ssim 0.2 --densify-every 100``), each held to its fit without
+  densify; densify on the card against the CPU bit for bit, and the
+  scanned default step with and without the densify signal.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profiles   # only the fused L2 steps' profiles
@@ -2618,6 +2625,236 @@ def scan_phase(dev, smi: str, eager_mse: dict, eager: dict,
     return total
 
 
+ADAPTIVE = ["--optimize-opacity", "--densify-every", "100",
+            "--opacity-reset-every", "200"]
+# The scanned default step's device operations before the densify signal
+# existed (PERF.md section 5): a step built without it must run these.
+SCANNED_DEFAULT_OPS = 563
+
+
+def check_drops(name: str, recs, printed, every: int = 0) -> None:
+    """No pair dropped without a report: a fit whose steps dropped pairs
+    printed an overflow warning, and with ``every`` (fit_adaptive's
+    windows) one a window that dropped any, the final window included."""
+    drops = {r["iter"]: r["n_dropped"] for r in recs if "iter" in r}
+    warned = [x for x in printed.splitlines() if "capacity overflow" in x]
+    windows = sorted({it // every for it, d in drops.items() if d}) \
+        if every else []
+    log(f"  {name}: {sum(drops.values())} pairs dropped in the logged steps, "
+        f"windows that dropped any {windows}, overflow warnings "
+        f"{len(warned)}")
+    if sum(drops.values()) and not warned or len(warned) < len(windows):
+        raise AssertionError(f"{name}: pairs dropped without a report")
+
+
+def live_counts(printed) -> list:
+    return [x.split(":")[1].strip() for x in printed.splitlines()
+            if x.startswith("densify/prune at iter")]
+
+
+def improves(name: str, mse: dict, plain: dict, last: int,
+             twin: str = "") -> None:
+    """Every step before the first densify (at 100) equals the fit without
+    densify, and the last MSE is at most 1.02 x its (gs2d_tpu's
+    test_fit_adaptive_refills_and_improves rule)."""
+    same = sum(mse[i] == plain[i] for i in range(100))
+    ratio = mse[last] / plain[last]
+    log(f"  {name}: steps 0-99 equal the fit without densify {twin} at "
+        f"{same} of 100; MSE-255 @ {last + 1}: {mse[last]:.4f} against "
+        f"{plain[last]:.4f} without densify (x{ratio:.4f}, at most x1.02)")
+    if same != 100 or ratio > 1.02:
+        raise AssertionError(f"{name}: {same} of 100 equal, x{ratio:.4f}")
+
+
+def adaptive_phase(dev, smi: str, ssim_mse: dict) -> dict:
+    """Adaptive density control (train/densify.py) through the CLI and on
+    the card:
+
+    - the default fit with --optimize-opacity --densify-every 100
+      --opacity-reset-every 200, 400 iterations (fit_adaptive), eager and
+      --scan-chunk 50 (the signal summed in the captured step): equal bit
+      for bit, the live count after every window, one capture per cfg;
+      its first 100 steps equal the fit without densify, and its last MSE
+      is at most 1.02x that of the same fit without densify, which keeps
+      the opacity resets (fit_adaptive with a densify that prunes and
+      fills nothing; the fit without either is logged beside it);
+    - the 10k flat fit with --densify-every 100, 300 iterations, beside
+      the same fit without densify (the same gates);
+    - the modular route (--ssim 0.2 --densify-every 100, 200 iterations):
+      gs2d_tpu's note line, densify at 100, beside the SSIM fit without it
+      (``ssim_mse``);
+    - no pair dropped without a report, on each of them;
+    - densify_and_prune on the card against the CPU bit for bit, after 100
+      scanned steps of the default fit (and with every fourth splat made
+      transparent, so that it prunes and refills), and its device time;
+    - the scanned default step's device busy ms and operations with and
+      without the signal (without: SCANNED_DEFAULT_OPS operations).
+
+    Returns the summed launch counts of the phase's logged runs."""
+    from gs2d_tpu_torch.config import SplatConfig
+    from gs2d_tpu_torch.io.image import load_image
+    from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.train.densify import (DensifyConfig,
+                                              densify_and_prune,
+                                              fit_adaptive, n_live)
+    from gs2d_tpu_torch.train.loop import (init_train_state,
+                                           make_fit_scan_fused, state_leaves,
+                                           state_from_leaves)
+
+    t_phase = time.perf_counter()
+    total = {}
+
+    def count(launches):
+        for kk, v in launches.items():
+            total[kk] = total.get(kk, 0) + v
+
+    base = [MINI, "--splats", "1024", "--device", "cuda"]
+    mini = load_image(MINI)
+    runs = {}
+    for name, extra in (("eager", []), ("scanned", SCAN)):
+        argv = base + ["--iters", "400", *ADAPTIVE, *extra]
+        log(f"[adaptive] python -m gs2d_tpu_torch.fit {' '.join(argv)}")
+        t0 = time.perf_counter()
+        launches, mse, recs, printed = logged_fit(argv, iters=400,
+                                                  details=True)
+        log(f"  {time.perf_counter() - t0:.2f}s with tuning (and capture) "
+            f"[{smi}]")
+        expect_launches(f"adaptive default fit ({name})", launches,
+                        {"l2_resident": 400, "fwd_resident": 1})
+        count(launches)
+        check_drops(f"{name} fit", recs, printed, every=100)
+        runs[name] = (mse, printed)
+        log(f"  live splats after each densify: {live_counts(printed)}")
+    (mse_e, out_e), (mse_s, out_s) = runs["eager"], runs["scanned"]
+    same = sum(mse_s[i] == mse_e[i] for i in range(400))
+    captures = len([x for x in out_s.splitlines()
+                    if x.startswith("captured the train step")])
+    cfgs = 1 + len([x for x in out_s.splitlines() if "re-tuning" in x])
+    log(f"  scanned equals eager bit for bit at {same} of 400 MSEs; "
+        f"{captures} captures of the train step for {cfgs} cfgs")
+    if same != 400 or live_counts(out_s) != live_counts(out_e) \
+            or captures != cfgs:
+        raise AssertionError("the scanned adaptive fit differs from the "
+                             "eager one, or captured more than once a cfg")
+    launches, plain = logged_fit(base + ["--iters", "400",
+                                         "--optimize-opacity", *SCAN],
+                                 iters=400)
+    count(launches)
+    log(f"  against the fit without densify and without the opacity reset: "
+        f"MSE-255 @ 400 x{mse_e[399] / plain[399]:.4f} (the reset's cost; "
+        "no gate)")
+    # The same fit without densify keeps the reset schedule: fit_adaptive
+    # with a densify that prunes and fills nothing.
+    cfg = SplatConfig(width=mini.shape[1], height=mini.shape[0],
+                      n_splats=1024, optimize_opacity=True)
+    state = init_train_state(cfg, dev)
+    cfg = tl.tune_tile_capacity(state.params, tl.tune_tile_height(
+        cfg, state.params))
+    reset_counts()
+    _, hist = fit_adaptive(mini, cfg, 400, 100, dev, state=state,
+                           dcfg=DensifyConfig(prune_opacity=-np.inf,
+                                              prune_min_scale=-np.inf,
+                                              max_fraction=0.0),
+                           scan_chunk=50, log_every=1, log_fn=None,
+                           opacity_reset_every=200)
+    torch.cuda.synchronize()
+    count(read_counts())
+    improves("default fit", mse_e, {r["iter"]: r["mse"] for r in hist
+                                    if "iter" in r}, 399,
+             "with the same opacity resets")
+
+    argv = [FULL, "--splats", str(N_10K), "--iters", "300", "--device",
+            "cuda"]
+    log(f"[adaptive] python -m gs2d_tpu_torch.fit {' '.join(argv)} "
+        "--densify-every 100, and without it")
+    launches, mse, recs, printed = logged_fit(
+        argv + ["--densify-every", "100"], iters=300, details=True)
+    expect_launches("adaptive 10k fit", launches,
+                    {"fwd_flat": 301, "bwd_flat": 300})
+    count(launches)
+    check_drops("10k fit", recs, printed, every=100)
+    log(f"  live splats after each densify: {live_counts(printed)}")
+    launches, plain = logged_fit(argv, iters=300)
+    count(launches)
+    improves("10k fit", mse, plain, 299)
+
+    argv = base + ["--iters", "200", "--ssim", SSIM, "--densify-every",
+                   "100"]
+    log(f"[adaptive] python -m gs2d_tpu_torch.fit {' '.join(argv)} "
+        "(the modular route)")
+    launches, mse, recs, printed = logged_fit(argv, details=True)
+    # One more forward and backward: the L2 gradient at the densify.
+    expect_launches("modular densify fit", launches,
+                    {"fwd_resident": 202, "bwd_resident": 201})
+    count(launches)
+    check_drops("modular fit", recs, printed)
+    lines = printed.splitlines()
+    if not lines[0].startswith("note: --densify-every with --ssim") or [
+            x for x in lines if x.startswith("densify/")] != [
+            "densify/prune at iter 100"]:
+        raise AssertionError("modular route: note or densify line missing")
+    log(f"  {lines[0]}; densify/prune at iter 100")
+    improves("modular SSIM fit", mse, ssim_mse, 199)
+
+    log("[adaptive] densify_and_prune on the card and on the CPU, after 100 "
+        "scanned steps of the default fit with --optimize-opacity")
+    state = init_train_state(cfg, dev)
+    ref_p = rd.pad_ref_chw(mini, cfg, dev)
+    state, aux = make_fit_scan_fused(cfg, True)(state, ref_p, 100)
+    signal = aux.pos_grad_mag
+    faded = state_from_leaves([t.clone() for t in state_leaves(state)])
+    faded.params.opacity[::4] = 0.1
+    for name, st in (("as fitted", state), ("every 4th splat at opacity "
+                                            "0.1", faded)):
+        card = densify_and_prune(st, signal, cfg, seed=100)
+        cpu = densify_and_prune(state_from_leaves(
+            [t.cpu() for t in state_leaves(st)]), signal.cpu(), cfg,
+            seed=100)
+        same = all(torch.equal(a.cpu(), b) for a, b in
+                   zip(state_leaves(card), state_leaves(cpu)))
+        moved = int((card.params.pos != st.params.pos).any(1).sum())
+        log(f"  {name}: card equals CPU bit for bit: {same}; live "
+            f"{int(n_live(st.params))} -> {int(n_live(card.params))}, "
+            f"{moved} positions changed")
+        if not same:
+            raise AssertionError(f"densify on the card differs ({name})")
+    t = device_time(lambda: densify_and_prune(faded, signal, cfg, seed=100),
+                    reps=20)
+    log(f"  densify_and_prune, 1024 splats: {device_line(t)} [{smi}] (many "
+        "small operations: the replay holds the gaps between them, so no "
+        "profiler agreement gate)")
+
+    log("[adaptive] the scanned default step (margin 0) with and without "
+        "the densify signal, 10 replays each")
+    # scan_cells' default cell: tuned on the init, as the CLI tunes it.
+    cfg0 = SplatConfig(width=mini.shape[1], height=mini.shape[0],
+                       n_splats=1024)
+    init = init_train_state(cfg0, dev)
+    cfg0 = tl.tune_tile_capacity(init.params, tl.tune_tile_height(
+        cfg0, init.params))
+    ref0 = rd.pad_ref_chw(mini, cfg0, dev)
+    for on in (False, True):
+        # Captured for blocks of 10, as replay_profile captures scan_cells'.
+        fit_k = make_fit_scan_fused(cfg0, on)
+        fit_k(init, ref0, 10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fit_k(init, ref0, 10)
+        torch.cuda.synchronize()
+        steady = 1e3 * (time.perf_counter() - t0) / 50
+        log(f"  with_grad_mag={on}: 5 blocks of 10 replays {steady:.4f} "
+            f"ms/step [{smi}]")
+        prof = replay_profile(fit_k, init, ref0, steady)
+        if not on and round(prof["ops"]) != SCANNED_DEFAULT_OPS:
+            raise AssertionError(f"the scanned default step runs "
+                                 f"{prof['ops']} operations, not "
+                                 f"{SCANNED_DEFAULT_OPS}")
+    log(f"  the adaptive phase took {time.perf_counter() - t_phase:.1f}s")
+    return total
+
+
 def backward_dump(dev, out: str, other=None) -> int:
     """Kernel 3 and kernels 8/9 (on the table rows kernel 3's ids name) of
     the package beside this script, on every population of backward_cases
@@ -2921,6 +3158,7 @@ def main(argv) -> int:
     count(launches)
     count(resume_phase())
     count(scan_phase(dev, smi, eager_mse, eager, pair_1080p))
+    count(adaptive_phase(dev, smi, eager_mse["ssim"]))
     count(recovery_phase(dev))
     for kk, _, _, _ in REFERENCES:
         if total.get(kk):

@@ -14,6 +14,9 @@ Usage:
       --checkpoint-every 100 --out runs/torch_fit_ck    # then --resume
   python -m gs2d_tpu_torch.fit assets/squirrel_cls_mini.npy --splats 1024 \
       --iters 200 --scan-chunk 50 --rebin-margin 2 --out runs/torch_scan
+  python -m gs2d_tpu_torch.fit assets/squirrel_cls_mini.npy --iters 400 \
+      --optimize-opacity --densify-every 100 --opacity-reset-every 200 \
+      --scan-chunk 50 --out runs/torch_adaptive
 
 Fits through the layout gs2d_tpu would pick (``--binning auto``: resident
 for small populations, flat above 4096 splats, dense for small populations
@@ -42,7 +45,15 @@ footprint slack and, in scanned resident and flat fits, rebuilds the
 binning only on steps where a splat escaped it (-1 picks M from the
 measured pair inflation). ``--opacity-cull [ALPHA]`` bins only the pairs
 where a splat's alpha can reach ALPHA (1/256 for the bare flag; lossy by
-design, off by default). ``--device`` defaults
+design, off by default). ``--densify-every N`` prunes, clones and splits
+every N iterations, on one of gs2d_tpu's two routes: by default
+``train.densify.fit_adaptive``, which sums |dL/d pos| inside the fused
+train step (``--opacity-reset-every M`` caps opacities at 0.3 there
+whenever a window crosses a multiple of M, with ``--optimize-opacity``);
+with ``--ssim`` or ``--checkpoint-every`` the block route of ``fit`` calls,
+which densifies at block boundaries on the |dL/d pos| of one L2 gradient
+through ``production_render`` (gs2d_tpu takes it from its scan renderer,
+which the port does not have). ``--device`` defaults
 to ``cuda`` and exits 2 when no GPU is visible; ``--device cpu`` runs the
 kernels' plain PyTorch versions. Flags of ``gs2d_tpu.cli`` for features
 this port does not have yet are not accepted (argparse exits 2), so
@@ -95,6 +106,13 @@ def build_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="tile binning layout (auto picks by population size "
                         "as gs2d_tpu does)")
+    p.add_argument("--densify-every", type=int, default=0,
+                   help="run densify/prune every N iterations (0 = off)")
+    p.add_argument("--opacity-reset-every", type=int, default=0,
+                   help="cap opacities at 0.3 and zero their Adam moments "
+                        "every N iterations (3DGS floater control; needs "
+                        "--optimize-opacity and --densify-every, and not "
+                        "the modular route of --ssim / --checkpoint-every)")
     p.add_argument("--reorder-every", type=int, default=0,
                    help="re-sort splats along the Morton curve every N "
                         "iterations (changes the compositing order)")
@@ -130,9 +148,29 @@ def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     for flag in ("reorder_every", "checkpoint_every", "save_render_every",
-                 "scan_chunk"):
+                 "scan_chunk", "densify_every", "opacity_reset_every"):
         if getattr(args, flag) < 0:
             parser.error(f"--{flag.replace('_', '-')} must be >= 0")
+    # gs2d_tpu's routes: fit_adaptive, or the block route where the flags
+    # fit_adaptive cannot honour ask for fit's modular blocks.
+    modular = bool(args.densify_every and (args.ssim or args.checkpoint_every))
+    adaptive = bool(args.densify_every) and not modular
+    # The flags each route would ignore in gs2d_tpu are refused here.
+    if args.opacity_reset_every:
+        if not args.densify_every:
+            parser.error("--opacity-reset-every needs --densify-every")
+        if not args.optimize_opacity:
+            parser.error("--opacity-reset-every needs --optimize-opacity "
+                         "(opacity is frozen without it)")
+        if modular:
+            parser.error("--opacity-reset-every is not applied on the "
+                         "modular densify route (--ssim / --checkpoint-every)")
+    if args.densify_every and args.recover:
+        parser.error("--recover fits without densify: drop --densify-every")
+    if adaptive and args.save_render_every:
+        parser.error("--save-render-every is not applied on the fit_adaptive "
+                     "route of --densify-every (add --checkpoint-every for "
+                     "the modular route)")
 
     import torch
 
@@ -150,6 +188,8 @@ def main(argv=None) -> int:
     from gs2d_tpu_torch.ops import render_flat as rf
     from gs2d_tpu_torch.ops import render_resident as rr
     from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.train.densify import (densify_and_prune,
+                                              fit_adaptive, l2_grad_mag)
     from gs2d_tpu_torch.train.loop import (fit, fit_with_recovery,
                                            init_train_state)
     from gs2d_tpu_torch.train.reorder import reorder_state
@@ -243,10 +283,25 @@ def main(argv=None) -> int:
         # is the global iteration across blocks and resume.
         ck.save(done + it, st, cfg)
 
-    # Renders are dumped and splats reordered at block boundaries, so every
-    # N-iteration cadence bounds the block size.
+    if adaptive:
+        # The densify signal is summed on the device inside the train step.
+        state, h = fit_adaptive(
+            ref, cfg, args.iters, args.densify_every, device, state=state,
+            scan_chunk=args.scan_chunk, log_every=args.log_every,
+            log_fn=print, reorder_every=args.reorder_every,
+            opacity_reset_every=args.opacity_reset_every,
+            iter_offset=start_iter)
+        hist += h
+        done = end
+    elif modular:
+        # fit_adaptive takes the fused L2 objective and no checkpoint hook.
+        print("note: --densify-every with --ssim/--checkpoint-every uses "
+              "the modular (non-fused) block path")
+    # Renders are dumped, splats densified and reordered at block
+    # boundaries, so every N-iteration cadence bounds the block size.
     block = args.iters
-    for every in (args.reorder_every, args.save_render_every):
+    for every in (args.densify_every, args.reorder_every,
+                  args.save_render_every):
         if every:
             block = min(block, every)
     while done < end:
@@ -259,6 +314,12 @@ def main(argv=None) -> int:
                        iter_offset=done)
         hist += h
         done += n
+        if done < end and args.densify_every \
+                and done % args.densify_every == 0:
+            ref_t = torch.as_tensor(ref, dtype=torch.float32, device=device)
+            state = densify_and_prune(
+                state, l2_grad_mag(state.params, ref_t, cfg), cfg, seed=done)
+            print(f"densify/prune at iter {done}")
         if done < end and args.reorder_every \
                 and done % args.reorder_every == 0:
             state = reorder_state(state, cfg)

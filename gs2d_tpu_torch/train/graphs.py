@@ -11,7 +11,10 @@ step body runs in a Python loop (``loop.make_fit_scan_fused``).
   them, and ends by copying the new state into them.
 - Each replay writes its StepAux into (n_max,) buffers at a device-side
   index that the graph advances, so one graph serves every block length up
-  to ``n_max`` and the host reads the block's aux once.
+  to ``n_max`` and the host reads the block's aux once. A summed field
+  (the (N,) densify signal) is not kept a step: the replays add it into
+  one static accumulator, which each block starts from zero (a fill on the
+  device) or from a sum it continues.
 - The rebin choice stays on the device, as ``lax.cond`` keeps it in
   gs2d_tpu. PyTorch's own conditional capture of ``torch.cond``
   (``torch._higher_order_ops.cudagraph_conditional_nodes``) is missing
@@ -88,10 +91,13 @@ class StepGraph:
     ``leaves``; afterwards ``cache`` holds ``make_cache(leaves)`` where the
     predicate held and its old values elsewhere. ``make_cache(leaves)``
     returns the cache's tensors from the state's leaves (the fresh binning
-    of the params). ``aux_fields`` names the aux fields to keep."""
+    of the params). ``aux_fields`` names the aux fields to keep a step,
+    ``summed`` (or None) the tensor field to sum over the replays into
+    ``total``."""
 
     def __init__(self, step: Callable, make_cache: Optional[Callable],
-                 leaves, ref: torch.Tensor, n_max: int, aux_fields):
+                 leaves, ref: torch.Tensor, n_max: int, aux_fields,
+                 summed: Optional[str] = None):
         if not leaves[0].is_cuda:
             raise ValueError("StepGraph captures CUDA tensors only")
         self.n_max = n_max
@@ -105,6 +111,8 @@ class StepGraph:
         self.index = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.aux_fields = aux_fields
         self.aux = None
+        self.summed = summed
+        self.total = None
         self.body_graph = None
         before = _read_counts()
         t0 = time.perf_counter()
@@ -170,30 +178,46 @@ class StepGraph:
                 self.aux[f].index_copy_(0, self.index, v.reshape(1))
             elif not torch.cuda.is_current_stream_capturing():
                 self.aux[f].fill_(v)  # a constant, written at warm-up
+        if self.summed is not None:
+            v = getattr(aux, self.summed)
+            if self.total is None:
+                self.total = torch.zeros_like(v)  # allocated at warm-up
+            self.total.add_(v)
         self.index.add_(1)
 
-    def load(self, leaves, ref: torch.Tensor) -> None:
+    def load(self, leaves, ref: torch.Tensor,
+             total: Optional[torch.Tensor] = None) -> None:
         """Copy a state and target into the statics, bin the params afresh
         into the cache (each block starts from a fresh binning, as each
-        gs2d_tpu scan does) and rewind the aux index."""
+        gs2d_tpu scan does), rewind the aux index and start the summed
+        field from zero (a fill on the device, no copy from the host) or
+        from ``total``."""
         for dst, src in zip(self.leaves, leaves):
             dst.copy_(src)
         self.ref.copy_(ref)
         if self.make_cache is not None:
             self._refresh_cache()
         self.index.zero_()
+        if self.total is not None:
+            if total is None:
+                self.total.zero_()
+            else:
+                self.total.copy_(total)
 
-    def run(self, leaves, ref: torch.Tensor, n: int):
-        """``n`` replays from ``leaves``: (new leaves, {field: (n,) aux}),
-        copies that later runs do not overwrite."""
+    def run(self, leaves, ref: torch.Tensor, n: int,
+            total: Optional[torch.Tensor] = None):
+        """``n`` replays from ``leaves`` (the summed field from ``total``,
+        or zero): (new leaves, {field: (n,) aux}, the sum or None), copies
+        that later runs do not overwrite."""
         if not 0 < n <= self.n_max:
             raise ValueError(f"{n} steps: the graph's aux buffers hold "
                              f"1 to {self.n_max}")
-        self.load(leaves, ref)
+        self.load(leaves, ref, total)
         for _ in range(n):
             self.graph.replay()
         for live, per in zip(launch_counters(), self.per_replay):
             for k, v in per.items():
                 live[k] += n * v
         return ([t.clone() for t in self.leaves],
-                {f: b[:n].clone() for f, b in self.aux.items()})
+                {f: b[:n].clone() for f, b in self.aux.items()},
+                None if self.total is None else self.total.clone())

@@ -80,9 +80,16 @@ class StepAux(NamedTuple):
     psnr: torch.Tensor
     all_finite: torch.Tensor  # NaN tripwire flag
     n_dropped: torch.Tensor   # splat-tile pairs lost to capacity caps
+    # (N,) |dL/d pos| of this step, the densify signal (a scanned fitter's
+    # aux holds its sum instead); 0 when the step was built without it.
+    pos_grad_mag: torch.Tensor = 0
     # 1 when the step rebuilt the cached binning (lazy rebinning); 0 on
     # cache hits and on the steps that keep no cache.
     rebinned: torch.Tensor = 0
+
+
+# The fields a scanned fitter keeps for every step of a block.
+STEP_FIELDS = tuple(f for f in StepAux._fields if f != "pos_grad_mag")
 
 
 # Flat capacity above which gs2d_tpu splits the train step into separately
@@ -90,30 +97,74 @@ class StepAux(NamedTuple):
 SPLIT_STEP_ROWS = 6 * 1024 * 1024
 
 
+def _fma_rn(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """float32 fma(y, y, x*x): y*y + x*x with one rounding. PyTorch has no
+    fused multiply-add on every device, so: the sum in float64 (y*y is
+    exact there), its rounding error by TwoSum, the float64 sum rounded
+    to odd, then to float32, which rounds as the fused sum does."""
+    c = (x * x).double()
+    yy = y.double() * y.double()
+    s = yy + c
+    b = s - yy
+    err = (yy - (s - b)) + (c - b)
+    bits = s.view(torch.int64)
+    odd = (err != 0) & ((bits & 1) == 0) & torch.isfinite(s)
+    bits = bits + (odd * torch.sign(err)).to(torch.int64)
+    return bits.view(torch.float64).to(torch.float32)
+
+
+def _sqrt_rn(a: torch.Tensor) -> torch.Tensor:
+    """The float32 square root rounded to nearest. PyTorch's CPU sqrt can
+    miss it by an ulp, so the float64 root rounded to float32 is moved to
+    the neighbour whose rounding interval holds sqrt(a): the midpoints
+    have 25 bits, so their squares are exact in float64 (and no root of a
+    float32 falls on a midpoint)."""
+    r = torch.sqrt(a.double()).to(torch.float32)
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    dn = torch.nextafter(r, torch.zeros_like(r))
+    hi = (r.double() + up.double()) * 0.5
+    lo = (r.double() + dn.double()) * 0.5
+    ad = a.double()
+    return torch.where(hi * hi < ad, up, torch.where(lo * lo > ad, dn, r))
+
+
+def grad_mag(g_pos: torch.Tensor) -> torch.Tensor:
+    """(N,) |dL/d pos| from the (N, 2) position gradient (x, y): gs2d_tpu's
+    ``jnp.linalg.norm(grads.pos, axis=-1)``, which XLA compiles on the CPU
+    to sqrt(fma(y, y, x*x)); bit for bit that on the CPU and the card
+    (tests/test_torch_densify.py), since the densify ranking depends on
+    these bits. (XLA's CPU flushes subnormal squares, below 1e-19, to
+    zero; this keeps them.)"""
+    return _sqrt_rn(_fma_rn(g_pos[:, 0], g_pos[:, 1]))
+
+
 def _tail(state: TrainState, grads: GaussianParams, color, ref,
-          n_dropped, cfg: SplatConfig, rebinned=0):
+          n_dropped, cfg: SplatConfig, rebinned=0, with_grad_mag=False):
     """Adam, the NaN tripwire flag and the metrics of the pre-update render
-    ``color`` against the (H, W, 3) target ``ref``."""
+    ``color`` against the (H, W, 3) target ``ref``; ``with_grad_mag`` adds
+    the densify signal ``grad_mag(grads.pos)``."""
+    gmag = grad_mag(grads.pos) if with_grad_mag else 0
     params, opt = adam_update(state.params, grads, state.opt, cfg)
     finite = torch.stack([torch.isfinite(getattr(params, f)).all()
                           for f in FIELDS]).all()
     mse = mse_255(color, ref)
     return TrainState(params=params, opt=opt), StepAux(
         mse=mse, psnr=psnr_from_mse(mse), all_finite=finite,
-        n_dropped=n_dropped, rebinned=rebinned)
+        n_dropped=n_dropped, pos_grad_mag=gmag, rebinned=rebinned)
 
 
 def _needs_split(cfg: SplatConfig) -> bool:
     return rf.use_flat(cfg) and (cfg.flat_capacity or 0) > SPLIT_STEP_ROWS
 
 
-def make_train_step_fused(cfg: SplatConfig):
+def make_train_step_fused(cfg: SplatConfig, with_grad_mag: bool = False):
     """Single-device train step through the layout's L2 kernels: the
     resident, flat, dense and window branches of gs2d_tpu's
     ``_fused_step_body``, binning every step (at margin 0 whatever
     cfg.rebin_margin says: only the scanned fit keeps a lazy cache).
     Returns ``step(state, ref_chw) -> (state, StepAux)``; the target must
-    be pre-padded with ``render.pad_ref_chw``. Raises for flat capacities
+    be pre-padded with ``render.pad_ref_chw``. ``with_grad_mag`` adds the
+    (N,) densify signal |dL/d pos| to the aux. Raises for flat capacities
     of the split step."""
     if _needs_split(cfg):
         raise NotImplementedError(
@@ -121,11 +172,12 @@ def make_train_step_fused(cfg: SplatConfig):
             f"({SPLIT_STEP_ROWS}): the split step of the 1080p/1M workloads "
             "is not ported yet (ROADMAP.md queue 1, the large flat "
             "configurations)")
-    return _fused_step_body(cfg)
+    return _fused_step_body(cfg, with_grad_mag)
 
 
-def _fused_step_body(cfg: SplatConfig):
-    """gs2d_tpu's ``_fused_step_body``: ``one_step(state, ref_chw)``, and
+def _fused_step_body(cfg: SplatConfig, with_grad_mag: bool = False):
+    """gs2d_tpu's ``_fused_step_body``: ``one_step(state, ref_chw)`` (its
+    aux with the densify signal where ``with_grad_mag``), and
     for the resident and flat layouts under cfg.rebin_margin > 0 the lazy
     cache as ``one_step.make_bin_cache(params) -> cache`` and
     ``one_step.cached(state, ref_chw, cache, rebin) -> (state, aux)``.
@@ -156,7 +208,8 @@ def _fused_step_body(cfg: SplatConfig):
             color, grads, n_dropped = rdn.l2_step_dense(
                 state.params, ref_chw, cfg, k)
         ref_crop = ref_chw[0].permute(1, 2, 0)[: cfg.height, : cfg.width]
-        return _tail(state, grads, color, ref_crop, n_dropped, cfg)
+        return _tail(state, grads, color, ref_crop, n_dropped, cfg,
+                     with_grad_mag=with_grad_mag)
 
     if not (cfg.rebin_margin > 0 and layout in ("flat", "resident")):
         return one_step
@@ -200,7 +253,8 @@ def _fused_step_body(cfg: SplatConfig):
                 cfg.n_splats, cfg)
         ref_crop = ref_chw[0].permute(1, 2, 0)[: cfg.height, : cfg.width]
         return _tail(state, grads, color, ref_crop, n_dropped, cfg,
-                     rebinned=(~covered).to(torch.int32))
+                     rebinned=(~covered).to(torch.int32),
+                     with_grad_mag=with_grad_mag)
 
     one_step.make_bin_cache = make_bin_cache
     one_step.cached = cached
@@ -218,15 +272,23 @@ class ScanFitter:
     as each gs2d_tpu scan starts). CUDA states replay one captured step
     (graphs.StepGraph, captured at the first call and again when a call
     asks for more steps than its aux buffers hold; ``graph`` is the
-    latest); CPU states run the same step body in a Python loop. A class,
-    not a closure: a closure that names itself is a reference cycle, which
-    the garbage collector may free, graph and all, in the middle of a later
-    capture, where CUDA forbids destroying a graph."""
+    latest, ``captures`` counts them); CPU states run the same step body
+    in a Python loop. With ``with_grad_mag`` the steps' (N,) densify
+    signals are summed, as gs2d_tpu sums them in the scan carry, and the
+    aux's ``pos_grad_mag`` is that sum: from zero, or continuing the sum
+    ``grad_mag_sum`` a caller passes (the blocks of one densify window), so
+    that blocks sum in the order of single steps. A class, not a closure:
+    a closure that names itself is a reference cycle, which the garbage
+    collector may free, graph and all, in the middle of a later capture,
+    where CUDA forbids destroying a graph."""
 
-    def __init__(self, one_step, cached=None, make_cache=None):
+    def __init__(self, one_step, cached=None, make_cache=None,
+                 with_grad_mag: bool = False):
         self.one_step, self.cached, self.make_cache = \
             one_step, cached, make_cache
+        self.with_grad_mag = with_grad_mag
         self.graph = None
+        self.captures = 0
 
     def _on_leaves(self, leaves, ref, cache, rebin):
         state = state_from_leaves(leaves)
@@ -236,16 +298,22 @@ class ScanFitter:
             new, aux = self.cached(state, ref, cache, rebin)
         return state_leaves(new), aux
 
-    def __call__(self, state: TrainState, ref: torch.Tensor, n_iters: int):
+    def __call__(self, state: TrainState, ref: torch.Tensor, n_iters: int,
+                 grad_mag_sum: Optional[torch.Tensor] = None):
         leaves = state_leaves(state)
+        summed = "pos_grad_mag" if self.with_grad_mag else None
         if leaves[0].is_cuda:
             if self.graph is None or n_iters > self.graph.n_max:
                 self.graph = graphs.StepGraph(
                     self._on_leaves,
                     None if self.make_cache is None else
                     functools.partial(_cache_of_leaves, self.make_cache),
-                    leaves, ref, n_iters, StepAux._fields)
-            new, aux = self.graph.run(leaves, ref, n_iters)
+                    leaves, ref, n_iters, STEP_FIELDS, summed)
+                self.captures += 1
+            new, aux, total = self.graph.run(leaves, ref, n_iters,
+                                              grad_mag_sum)
+            if summed:
+                aux[summed] = total
             return state_from_leaves(new), StepAux(**aux)
         make_cache = self.make_cache
         cache = [] if make_cache is None else make_cache(state.params)
@@ -255,24 +323,33 @@ class ScanFitter:
                 cache[:] = make_cache(params)
 
         auxes = []
+        total = None
+        if summed:
+            total = torch.zeros_like(state.params.sx) \
+                if grad_mag_sum is None else grad_mag_sum.clone()
         for _ in range(n_iters):
             leaves, aux = self._on_leaves(leaves, ref, cache, rebin)
+            if summed:
+                total.add_(aux.pos_grad_mag)
             auxes.append(aux)
-        return state_from_leaves(leaves), StepAux(*(
-            torch.stack([torch.as_tensor(getattr(a, f), dtype=(
+        return state_from_leaves(leaves), StepAux(
+            **{f: torch.stack([torch.as_tensor(getattr(a, f), dtype=(
                 torch.int32 if f == "rebinned" else None)) for a in auxes])
-            for f in StepAux._fields))
+               for f in STEP_FIELDS},
+            **({} if total is None else {"pos_grad_mag": total}))
 
 
-def make_fit_scan_fused(cfg: SplatConfig):
+def make_fit_scan_fused(cfg: SplatConfig, with_grad_mag: bool = False):
     """gs2d_tpu's ``make_fit_scan_fused``: ``fit_k(state, ref_chw, n_iters)
     -> (state, StepAux of (n_iters,) tensors)`` over the fused L2 step, with
     the lazy cache where cfg.rebin_margin > 0 on the resident and flat
     layouts (see ``ScanFitter``). ``ref_chw`` is padded
-    (``render.pad_ref_chw``)."""
-    one_step = make_train_step_fused(cfg)
+    (``render.pad_ref_chw``). With ``with_grad_mag`` the aux's
+    ``pos_grad_mag`` is the (N,) sum of the block's densify signals."""
+    one_step = make_train_step_fused(cfg, with_grad_mag)
     return ScanFitter(one_step, getattr(one_step, "cached", None),
-                      getattr(one_step, "make_bin_cache", None))
+                      getattr(one_step, "make_bin_cache", None),
+                      with_grad_mag)
 
 
 def make_fit_scan(cfg: SplatConfig, ssim_lambda: float = 0.0):
@@ -478,7 +555,7 @@ def _fit_scanned(ref, cfg: SplatConfig, iterations: int, state: TrainState,
             c = fit_k.graph.capture
             log_fn(f"captured the train step as a CUDA graph in "
                    f"{c.capture_s:.3f}s (warm-up step {c.warmup_s:.3f}s)")
-        block = {f: getattr(auxes, f).cpu() for f in StepAux._fields}
+        block = {f: getattr(auxes, f).cpu() for f in STEP_FIELDS}
         elapsed = time.perf_counter() - t0
         finite = block["all_finite"]
         if raise_on_nonfinite and not bool(finite.all()):

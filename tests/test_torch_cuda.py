@@ -1103,3 +1103,113 @@ def test_capture_on_a_side_stream(dev):
     torch.cuda.synchronize()
     assert fit_k.graph.n_max == 8
     assert torch.equal(got, mse_e)
+
+
+def _densify_inputs(seed, n, signal):
+    """A seeded population with dead slots, degenerate, transparent and
+    big splats, positive Adam moments, and a signal ("random", "ties" or
+    "zero"), as numpy."""
+    from gs2d_tpu_torch.params import DEAD_POS
+
+    d, _ = population(seed, n, W, H, opacity=(0.1, 1.0))
+    rng = np.random.default_rng(seed + 1)
+    p = {f: v.astype(np.float32) for f, v in d.items()}
+    p["sx"][: n // 4] = rng.uniform(24.5, 60.0, n // 4)
+    p["sx"][n // 4: n // 4 + 5] = p["sy"][n // 4: n // 4 + 5] = 1.0
+    p["opacity"][n // 4 + 5: n // 4 + 10] = 0.1
+    p["pos"][-6:] = DEAD_POS
+    p["opacity"][-6:] = 0.0
+    opt = {k: {f: rng.uniform(0.1, 1.0, v.shape).astype(np.float32)
+               for f, v in p.items()} for k in ("m", "v")}
+    opt.update(beta1t=np.float32(0.5), beta2t=np.float32(0.9),
+               step=np.int32(7))
+    g = {"random": rng.exponential(1.0, n),
+         "ties": rng.integers(0, 4, n).astype(np.float64),
+         "zero": np.zeros(n)}[signal].astype(np.float32)
+    return p, opt, g
+
+
+@pytest.mark.parametrize("signal", ["random", "ties", "zero"])
+@pytest.mark.parametrize("optimize_opacity", [True, False])
+def test_densify_on_the_card_equals_the_cpu(dev, signal, optimize_opacity):
+    """densify_and_prune and opacity_reset on CUDA tensors give the CPU's
+    state bit for bit (stable sorts, gathers and permutation scatters),
+    and loop.grad_mag the CPU's signal."""
+    from gs2d_tpu_torch.train import adam, densify, loop
+
+    p, opt, g = _densify_inputs(3, 96, signal)
+    cfg = SplatConfig(width=W, height=H, n_splats=96,
+                      optimize_opacity=optimize_opacity)
+    out = {}
+    for d in ("cpu", dev):
+        st = loop.TrainState(params=params_from_numpy(p, d),
+                             opt=adam.adam_state_from_numpy(opt, d))
+        st = densify.densify_and_prune(st, torch.as_tensor(g).to(d), cfg,
+                                       seed=300)
+        st = densify.opacity_reset(st, cfg)
+        out[str(d)] = [t.cpu() for t in loop.state_leaves(st)]
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        assert torch.equal(a, b)
+    rng = np.random.default_rng(4)
+    gp = torch.as_tensor((rng.uniform(-1, 1, (4096, 2)) * 10.0 ** rng.uniform(
+        -15, 15, (4096, 1))).astype(np.float32))
+    assert torch.equal(loop.grad_mag(gp), loop.grad_mag(gp.to(dev)).cpu())
+
+
+@pytest.mark.parametrize("binning", ["resident", "flat"])
+@pytest.mark.parametrize("margin", [0.0, 2.0])
+def test_captured_signal_sum_equals_eager(dev, binning, margin):
+    """The captured step's accumulator after 5 replays, then 7 more that
+    continue its sum, equals the sum of 12 eager signals bit for bit, and
+    the states and MSEs equal the eager steps'; one capture."""
+    from gs2d_tpu_torch.train import loop
+
+    cfg, state, ref = _scan_case(dev, binning, margin)
+    step = loop.make_train_step_fused(cfg, True)
+    s_e, acc, mse = state, torch.zeros((64,), device=dev), []
+    for _ in range(12):
+        s_e, aux = step(s_e, ref)
+        acc = acc + aux.pos_grad_mag
+        mse.append(aux.mse)
+    fit_k = loop.make_fit_scan_fused(cfg, True)
+    s1, a1 = fit_k(state, ref, 5)
+    s2, a2 = fit_k(s1, ref, 7, grad_mag_sum=a1.pos_grad_mag)
+    torch.cuda.synchronize()
+    assert fit_k.captures == 2  # n_max 5, then 7
+    assert torch.equal(a2.pos_grad_mag, acc)
+    assert torch.equal(torch.cat([a1.mse, a2.mse]), torch.stack(mse))
+    for a, b in zip(loop.state_leaves(s2), loop.state_leaves(s_e)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("margin", [0.0, 2.0])
+def test_adaptive_fit_on_the_card(dev, margin):
+    """fit_adaptive scanned (blocks of 3 in windows of 8) equals the eager
+    fit bit for bit on the card, densifying into dead slots (splits and
+    clones), with one capture for its one cfg."""
+    from gs2d_tpu_torch.io.image import synthetic_target
+    from gs2d_tpu_torch.params import DEAD_POS
+    from gs2d_tpu_torch.train import densify, loop
+
+    cfg = SplatConfig(width=W, height=H, n_splats=40, tile_h=32,
+                      rebin_margin=margin, init_scale_min=18.0,
+                      init_scale_max=30.0)
+    runs = []
+    for chunk in (0, 3):
+        state = loop.init_train_state(cfg, dev)
+        state.params.pos[:10] = DEAD_POS
+        state.params.opacity[:10] = 0.0
+        lines = []
+        s, hist = densify.fit_adaptive(
+            synthetic_target(H, W), cfg, 24, 8, dev, state=state,
+            scan_chunk=chunk, log_every=1, log_fn=lines.append)
+        runs.append((s, hist, lines))
+    (s_e, h_e, _), (s_s, h_s, lines) = runs
+    assert [r["mse"] for r in h_s if "iter" in r] == \
+        [r["mse"] for r in h_e if "iter" in r]
+    live = [r["n_live"] for r in h_s if r.get("event") == "densify"]
+    assert live == [r["n_live"] for r in h_e if r.get("event") == "densify"]
+    assert live == [40, 40]  # the ten dead slots refilled at once
+    assert len([x for x in lines if x.startswith("captured")]) == 1
+    for a, b in zip(loop.state_leaves(s_s), loop.state_leaves(s_e)):
+        assert torch.equal(a, b)

@@ -146,7 +146,7 @@ def test_cli_cuda_without_gpu_exits_2(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [["--mesh", "1,2,2"],
-                                  ["--densify-every", "4"]])
+                                  ["--renderer", "pallas"]])
 def test_cli_rejects_flags_of_later_slices(tmp_path, argv):
     with pytest.raises(SystemExit) as e:
         cli.main([MINI, "--device", "cpu", "--out", str(tmp_path), *argv])
