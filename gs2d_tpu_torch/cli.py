@@ -1,7 +1,8 @@
 """Command-line fitting app of the PyTorch port (the counterpart of
 ``gs2d_tpu/cli.py`` for the resident, flat and dense fitting paths, L2 or
 the SSIM mix, with Morton reordering between fit blocks, checkpoints with
-resume, recovery from non-finite parameters and mid-fit render dumps).
+resume, recovery from non-finite parameters and mid-fit render dumps, and
+several images fitted at once).
 
 Usage:
   python -m gs2d_tpu_torch.fit assets/squirrel_cls_mini.npy --splats 1024 \
@@ -17,6 +18,8 @@ Usage:
   python -m gs2d_tpu_torch.fit assets/squirrel_cls_mini.npy --iters 400 \
       --optimize-opacity --densify-every 100 --opacity-reset-every 200 \
       --scan-chunk 50 --out runs/torch_adaptive
+  python -m gs2d_tpu_torch.fit a.npy b.npy --splats 1024 --iters 200 \
+      --scan-chunk 50 --out runs/torch_batch
 
 Fits through the layout gs2d_tpu would pick (``--binning auto``: resident
 for small populations, flat above 4096 splats, dense for small populations
@@ -53,7 +56,11 @@ whenever a window crosses a multiple of M, with ``--optimize-opacity``);
 with ``--ssim`` or ``--checkpoint-every`` the block route of ``fit`` calls,
 which densifies at block boundaries on the |dL/d pos| of one L2 gradient
 through ``production_render`` (gs2d_tpu takes it from its scan renderer,
-which the port does not have). ``--device`` defaults
+which the port does not have). Several images (of one size) fit one
+population each through gs2d_tpu's batch route (``_fit_batch``:
+``fit_batched``, eager or scanned, or ``fit_adaptive_batched`` with
+``--densify-every``), writing ``render_final_<i>.png``; the flags that
+route would ignore exit 2. ``--device`` defaults
 to ``cuda`` and exits 2 when no GPU is visible; ``--device cpu`` runs the
 kernels' plain PyTorch versions. Flags of ``gs2d_tpu.cli`` for features
 this port does not have yet are not accepted (argparse exits 2), so
@@ -71,8 +78,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gs2d_tpu_torch.fit",
         description="Fit 2D Gaussian splats to a target image (PyTorch/CUDA).")
-    p.add_argument("image", help="target image (.npy uint8 (H, W, 3), or a "
-                                 "file PIL can decode)")
+    p.add_argument("image", nargs="+",
+                   help="target image (.npy uint8 (H, W, 3), or a file PIL "
+                        "can decode); more than one runs the batched fit, "
+                        "one population per image (equal sizes only)")
     p.add_argument("--splats", type=int, default=1024,
                    help="population size (reference default 1024)")
     p.add_argument("--iters", type=int, default=1000)
@@ -144,6 +153,52 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+# Flags gs2d_tpu's batch route refuses (gs2d_tpu/cli.py:129-136; --mesh is
+# not a flag of the port). Every other flag of the port applies to it.
+BATCH_REFUSED = ("resume", "recover", "checkpoint_every", "ssim",
+                 "reorder_every", "save_render_every")
+
+
+def _fit_batch(args, cfg, refs, device, logger, dump_render) -> int:
+    """The several-image fit (gs2d_tpu's ``_fit_batch``, cli.py:108-205):
+    one population per image, the binning statics tuned on the shared
+    init. With ``--densify-every`` ``train.densify.fit_adaptive_batched``,
+    else ``train.loop.fit_batched`` (scanned with ``--scan-chunk`` > 1,
+    else eager). Unlike gs2d_tpu it reports the pairs dropped to capacity
+    caps and renders ``render_final_<i>.png`` with the fit's tuned cfg."""
+    import torch
+
+    from gs2d_tpu_torch.train.densify import fit_adaptive_batched
+    from gs2d_tpu_torch.train.loop import fit_batched, state_index
+
+    t0 = time.perf_counter()
+    if args.densify_every:
+        state, hist, cfg = fit_adaptive_batched(
+            refs, cfg, args.iters, args.densify_every, device,
+            scan_chunk=max(args.scan_chunk, 1), log_every=args.log_every,
+            opacity_reset_every=args.opacity_reset_every)
+    else:
+        state, hist = fit_batched(refs, cfg, args.iters, device,
+                                  scan_chunk=args.scan_chunk,
+                                  log_every=args.log_every)
+    for rec in hist:
+        logger.log(**rec)
+    dropped = sum(rec.get("window_drops", 0) for rec in hist)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    total = time.perf_counter() - t0
+    rate = args.iters / max(total, 1e-9)
+    print(f"fit {len(refs)} images x {args.iters} iters in {total:.2f}s "
+          f"({rate:.1f} batched iters/s); {dropped} splat-tile pairs "
+          "dropped")
+    logger.log(event="done", seconds=total, iters_per_s=rate,
+               n_dropped=dropped)
+    for i in range(len(refs)):
+        dump_render(state_index(state, i).params,
+                    f"render_final_{i:02d}.png", cfg)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -151,6 +206,13 @@ def main(argv=None) -> int:
                  "scan_chunk", "densify_every", "opacity_reset_every"):
         if getattr(args, flag) < 0:
             parser.error(f"--{flag.replace('_', '-')} must be >= 0")
+    batch = len(args.image) > 1
+    if batch:
+        # gs2d_tpu's batch route refuses what it would ignore (cli.py:129-136).
+        for flag in BATCH_REFUSED:
+            if getattr(args, flag):
+                parser.error(f"--{flag.replace('_', '-')} is not supported "
+                             "with several images (the batched fit)")
     # gs2d_tpu's routes: fit_adaptive, or the block route where the flags
     # fit_adaptive cannot honour ask for fit's modular blocks.
     modular = bool(args.densify_every and (args.ssim or args.checkpoint_every))
@@ -195,7 +257,11 @@ def main(argv=None) -> int:
     from gs2d_tpu_torch.train.reorder import reorder_state
     from gs2d_tpu_torch.utils.profiling import JsonlLogger, ThroughputCounter
 
-    ref = load_image(args.image)
+    refs = [load_image(path) for path in args.image]
+    if any(r.shape != refs[0].shape for r in refs):
+        print("error: multi-image batch fitting requires equal dimensions")
+        return 2
+    ref = refs[0]
     h, w = ref.shape[:2]
     cfg = SplatConfig(
         width=w, height=h, n_splats=args.splats,
@@ -228,7 +294,7 @@ def main(argv=None) -> int:
     elif cfg.max_splats_per_tile is None and not args.ssim:
         cfg = tl.tune_tile_capacity(state.params, cfg)
 
-    def dump_render(params, name: str) -> None:
+    def dump_render(params, name: str, cfg=cfg) -> None:
         """The layout's forward kernel with the fit's config, as a PNG."""
         if layout == "flat":
             color, n_dropped = rf.render_flat(params, cfg)
@@ -244,6 +310,12 @@ def main(argv=None) -> int:
         save_image(os.path.join(args.out, name), color.cpu().numpy())
 
     os.makedirs(args.out, exist_ok=True)
+    if batch:
+        logger = JsonlLogger(os.path.join(args.out, "metrics.jsonl"))
+        try:
+            return _fit_batch(args, cfg, refs, device, logger, dump_render)
+        finally:
+            logger.close()
     ck_dir = os.path.join(args.out, "checkpoints")
     ck = Checkpointer(ck_dir) \
         if (args.checkpoint_every or args.resume or args.recover) else None

@@ -17,8 +17,9 @@ single-image): prune, clone/split, the periodic opacity reset, and
 Every decision is a stable sort, a gather or a scatter over permutations,
 so the decisions are integer-equal to gs2d_tpu's and the new state is
 bitwise its on the same inputs, on the CPU and on the card alike
-(``tests/test_torch_densify.py``). The batched functions of gs2d_tpu
-(``densify_and_prune_batched``, ``fit_adaptive_batched``) are not ported.
+(``tests/test_torch_densify.py``). ``densify_and_prune_batched`` and
+``fit_adaptive_batched`` do the same for several images, each with its own
+population (``tests/test_torch_batched.py``).
 """
 
 from __future__ import annotations
@@ -36,9 +37,13 @@ from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.ops.numerics import pcg3d_unit
 from gs2d_tpu_torch.params import DEAD_POS, FIELDS, GaussianParams
 from gs2d_tpu_torch.train.adam import AdamState
-from gs2d_tpu_torch.train.loop import (STEP_FIELDS, TrainState, grad_mag,
-                                       init_train_state, make_fit_scan_fused,
-                                       make_train_step_fused)
+from gs2d_tpu_torch.train.loop import (STEP_FIELDS, TrainState, _needs_split,
+                                       grad_mag, init_batched_state,
+                                       init_train_state,
+                                       make_fit_scan_batched,
+                                       make_fit_scan_fused,
+                                       make_train_step_fused, run_batched,
+                                       stack_states, state_index)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,6 +159,18 @@ def densify_and_prune(state: TrainState, pos_grad_mag: torch.Tensor,
         beta2t=opt.beta2t, step=opt.step))
 
 
+def densify_and_prune_batched(state: TrainState, pos_grad_mag: torch.Tensor,
+                              cfg: SplatConfig,
+                              dcfg: DensifyConfig = DensifyConfig(),
+                              seed: int = 0) -> TrainState:
+    """``densify_and_prune`` on every image of a batched (B, N, ...) state
+    with its row of the (B, N) signal and the same ``seed`` for every
+    image, as gs2d_tpu's ``vmap`` gives (densify.py:158-166)."""
+    return stack_states([
+        densify_and_prune(state_index(state, i), pos_grad_mag[i], cfg, dcfg,
+                          seed) for i in range(pos_grad_mag.shape[0])])
+
+
 def opacity_reset(state: TrainState, cfg: SplatConfig,
                   value: float = 0.3) -> TrainState:
     """Periodic opacity reset (the 3DGS floater-control schedule): caps
@@ -192,6 +209,18 @@ def _retune(params: GaussianParams, cfg: SplatConfig) -> SplatConfig:
     return tl.tune_tile_capacity(params, cfg)
 
 
+def _retune_batched(params: GaussianParams, cfg: SplatConfig) -> SplatConfig:
+    """Statics shared by a batch: each image's tuned, the max over images
+    (gs2d_tpu's ``retune`` in fit_adaptive_batched, densify.py:211-227)."""
+    tuned = [_retune(GaussianParams(**{f: getattr(params, f)[i]
+                                       for f in FIELDS}), cfg)
+             for i in range(params.pos.shape[0])]
+    keep = ("flat_capacity", "flat_max_chunks") if rf.use_flat(cfg) \
+        else ("max_splats_per_tile",)
+    return cfg.replace(**{f: max(getattr(t, f) for t in tuned)
+                          for f in keep + ("max_tiles_per_splat",)})
+
+
 def fit_adaptive(
     ref,
     cfg: SplatConfig,
@@ -215,7 +244,9 @@ def fit_adaptive(
     steps on the device (``with_grad_mag``: eagerly into one (N,) tensor,
     or, with ``scan_chunk`` > 1, inside the captured step's accumulator,
     which carries from block to block of a window, so the scanned fit
-    equals the eager one bit for bit). Between windows, on the same
+    equals the eager one bit for bit; as in ``fit``, ``scan_chunk`` is
+    ignored, with its message, for flat capacities above SPLIT_STEP_ROWS,
+    so nothing of that size is captured). Between windows, on the same
     tensors: ``densify_and_prune`` (seed: the steps done in this call), the
     opacity reset when the window crossed a multiple of
     ``opacity_reset_every`` (with cfg.optimize_opacity), and the Morton
@@ -260,12 +291,17 @@ def fit_adaptive(
     done = 0
     while done < iterations:
         window = min(densify_every, iterations - done)
+        # fit's rule: a capacity above SPLIT_STEP_ROWS is never captured.
+        scan = scanned and not _needs_split(cfg)
         if cfg not in fitters:
-            fitters[cfg] = make_fit_scan_fused(cfg, True) if scanned \
+            if scanned and not scan and log_fn:
+                log_fn("scan_chunk ignored: flat capacity exceeds the "
+                       "single-program memory budget (split steps)")
+            fitters[cfg] = make_fit_scan_fused(cfg, True) if scan \
                 else make_train_step_fused(cfg, True)
         fit_k = fitters[cfg]
         drops = torch.zeros((), dtype=torch.int64, device=device)
-        if scanned:
+        if scan:
             accum, w_done = None, 0
             while w_done < window:
                 n = min(scan_chunk, window - w_done)
@@ -328,3 +364,95 @@ def fit_adaptive(
             cfg = _retune(state.params, cfg)
             refp = rd.pad_ref_chw(ref, cfg, device)
     return state, history
+
+
+def fit_adaptive_batched(
+    refs,
+    cfg: SplatConfig,
+    iterations: int,
+    densify_every: int,
+    device,
+    state: TrainState | None = None,
+    dcfg: DensifyConfig = DensifyConfig(),
+    scan_chunk: int = 50,
+    log_every: int = 0,
+    log_fn=print,
+    opacity_reset_every: int = 0,
+    opacity_reset_value: float = 0.3,
+):
+    """Adaptive density on several images at once (gs2d_tpu's
+    ``fit_adaptive_batched``, densify.py:169-282; BASELINE.json configs[4]
+    on one card): B equal-sized targets ``refs``, each with its own
+    population in a batched (B, N, ...) state (``init_batched_state`` when
+    None), fitted in blocks of ``scan_chunk`` steps (at least 1) by
+    ``make_fit_scan_batched`` with the densify signal, which continues
+    each image's sum from block to block so that every window sums in step
+    order; the blocks log and check through ``loop.run_batched``. Between
+    windows: ``densify_and_prune_batched`` (seed: the steps done), the
+    opacity reset when the window crossed a multiple of
+    ``opacity_reset_every`` (with cfg.optimize_opacity). The binning
+    statics are shared, so tuning takes the max over images; a window that
+    dropped pairs is reported, the final one included (gs2d_tpu skips it),
+    and re-tunes before the next. Each cfg keeps one fitter, so one
+    capture. ``densify_every`` < 1 is refused. Image i equals
+    ``fit_adaptive`` on image i with the same statics, bit for bit.
+
+    Returns (state, history, cfg): ``run_batched``'s records a logged
+    step, a ``{"event": "densify", ...}`` record a densify (the live count
+    of each image, the window's dropped pairs), one ``{"event": "end",
+    ...}`` record with the final window's dropped pairs, and the cfg of
+    the last window (its statics re-tuned where a window overflowed)."""
+    if densify_every < 1:
+        raise ValueError(f"densify_every must be >= 1 (got {densify_every})")
+    device = torch.device(device)
+    b = len(refs)
+    if state is None:
+        state = init_batched_state(cfg, b, device)
+    if (rf.use_flat(cfg) and cfg.flat_capacity is None) or (
+            not rf.use_flat(cfg) and cfg.max_splats_per_tile is None):
+        cfg = _retune_batched(state.params, cfg)
+
+    def pad_refs(cfg):
+        return torch.stack([rd.pad_ref_chw(r, cfg, device) for r in refs])
+
+    refsp = pad_refs(cfg)
+    fitters = {}  # cfg -> its batched fitter (one capture)
+    history = []
+    t0 = time.perf_counter()
+    done = 0
+    while done < iterations:
+        window = min(densify_every, iterations - done)
+        if cfg not in fitters:
+            fitters[cfg] = make_fit_scan_batched(cfg, True)
+        state, accum, drops = run_batched(
+            fitters[cfg], state, refsp, done, window, max(1, scan_chunk),
+            iterations, history, t0, log_every=log_every, log_fn=log_fn)
+        prev = done
+        done += window
+        if done >= iterations:
+            history.append({"event": "end", "at": done,
+                            "window_drops": drops})
+            if drops > 0 and log_fn:
+                log_fn(f"WARNING: binning capacity overflow: {drops} "
+                       f"splat-tile pairs dropped in the final window, "
+                       f"ending at {done}")
+            break
+        state = densify_and_prune_batched(state, accum, cfg, dcfg, seed=done)
+        if opacity_reset_every and cfg.optimize_opacity and \
+                done // opacity_reset_every > prev // opacity_reset_every:
+            state = opacity_reset(state, cfg, opacity_reset_value)
+        live = [int(n_live(state_index(state, i).params)) for i in range(b)]
+        history.append({"event": "densify", "at": done, "n_live": live,
+                        "window_drops": drops})
+        if log_fn:
+            log_fn(f"densify/prune at iter {done}: "
+                   f"{', '.join(map(str, live))} of {cfg.n_splats} splats "
+                   "live")
+        if drops > 0:
+            if log_fn:
+                log_fn(f"WARNING: binning capacity overflow: {drops} "
+                       f"splat-tile pairs dropped in the window ending at "
+                       f"{done}; re-tuning capacities")
+            cfg = _retune_batched(state.params, cfg)
+            refsp = pad_refs(cfg)
+    return state, history, cfg

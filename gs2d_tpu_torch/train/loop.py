@@ -17,6 +17,19 @@ outside it, a choice made on the device. The reference's NaN abort
 (main.cpp:752-785) is an ``all_finite`` flag per step that ``fit`` checks
 where it logs (each block, when scanned) and before each checkpoint,
 raising ``FloatingPointError``.
+
+Flat capacities above ``SPLIT_STEP_ROWS`` (the 1080p/1M and 4K/4M fits)
+run the same step as every other capacity. gs2d_tpu splits it there into
+two programs, binning then kernels and Adam, so that the binner's sort
+temporaries and the kernels' M-row buffers never share one XLA allocation
+plan; here every temporary of the binner is freed before kernel 11
+allocates, so the split has no counterpart. What stays of it is gs2d_tpu's
+rule that such a step is never captured: ``fit`` and ``fit_adaptive``
+ignore ``scan_chunk`` for it and the batched fitters refuse it.
+Several images fit at once through ``make_batched_train_step_fused`` and
+``make_fit_scan_batched``, gs2d_tpu's ``lax.map`` over a batched (B, N,
+...) state: the images run one after another through the one-image step
+(on the card, one captured step loaded with each image in turn).
 """
 
 from __future__ import annotations
@@ -26,6 +39,7 @@ import functools
 import time
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from gs2d_tpu_torch.config import SplatConfig
@@ -73,6 +87,32 @@ def state_from_leaves(leaves) -> TrainState:
     beta1t, beta2t, step = leaves[3 * n:]
     return TrainState(params=params, opt=AdamState(
         m=m, v=v, beta1t=beta1t, beta2t=beta2t, step=step))
+
+
+def state_from_numpy(leaves, device) -> TrainState:
+    """gs2d_tpu's TrainState as numpy (``[np.asarray(x) for x in
+    jax.tree.leaves(state)]``, its 21 leaves in pytree order) as the port's,
+    for one image (N, ...) or a batch (B, N, ...) alike."""
+    return state_from_leaves([
+        torch.from_numpy(np.array(x)).to(device) for x in leaves])
+
+
+def state_index(state: TrainState, i: int) -> TrainState:
+    """Image ``i`` of a batched (B, N, ...) state, as views."""
+    return state_from_leaves([t[i] for t in state_leaves(state)])
+
+
+def stack_states(states) -> TrainState:
+    """The batched (B, N, ...) state of one-image states (fresh memory)."""
+    return state_from_leaves([torch.stack(ts) for ts in
+                              zip(*map(state_leaves, states))])
+
+
+def init_batched_state(cfg: SplatConfig, batch: int, device) -> TrainState:
+    """The one-image init, once per image (gs2d_tpu's, parallel/sharded.py:
+    78-87): every leaf (B, N, ...), each image in its own memory, never an
+    expanded view (Adam updates the leaves in place)."""
+    return stack_states([init_train_state(cfg, device)] * batch)
 
 
 class StepAux(NamedTuple):
@@ -164,14 +204,9 @@ def make_train_step_fused(cfg: SplatConfig, with_grad_mag: bool = False):
     cfg.rebin_margin says: only the scanned fit keeps a lazy cache).
     Returns ``step(state, ref_chw) -> (state, StepAux)``; the target must
     be pre-padded with ``render.pad_ref_chw``. ``with_grad_mag`` adds the
-    (N,) densify signal |dL/d pos| to the aux. Raises for flat capacities
-    of the split step."""
-    if _needs_split(cfg):
-        raise NotImplementedError(
-            f"flat capacity {cfg.flat_capacity} > SPLIT_STEP_ROWS "
-            f"({SPLIT_STEP_ROWS}): the split step of the 1080p/1M workloads "
-            "is not ported yet (ROADMAP.md queue 1, the large flat "
-            "configurations)")
+    (N,) densify signal |dL/d pos| to the aux. The same step serves flat
+    capacities above SPLIT_STEP_ROWS, where gs2d_tpu splits it (see the
+    module docstring)."""
     return _fused_step_body(cfg, with_grad_mag)
 
 
@@ -345,8 +380,9 @@ def make_fit_scan_fused(cfg: SplatConfig, with_grad_mag: bool = False):
     the lazy cache where cfg.rebin_margin > 0 on the resident and flat
     layouts (see ``ScanFitter``). ``ref_chw`` is padded
     (``render.pad_ref_chw``). With ``with_grad_mag`` the aux's
-    ``pos_grad_mag`` is the (N,) sum of the block's densify signals."""
-    one_step = make_train_step_fused(cfg, with_grad_mag)
+    ``pos_grad_mag`` is the (N,) sum of the block's densify signals. Its
+    callers keep capacities above SPLIT_STEP_ROWS out of it."""
+    one_step = _fused_step_body(cfg, with_grad_mag)
     return ScanFitter(one_step, getattr(one_step, "cached", None),
                       getattr(one_step, "make_bin_cache", None),
                       with_grad_mag)
@@ -425,8 +461,8 @@ def fit(
     render needs them. ``scan_chunk`` > 1 runs the iterations in blocks of
     that many steps without the host (``_fit_scanned``: history and
     checkpoints at block granularity, lazy rebinning under a margin); it
-    is ignored, with a message, where the flat capacity needs gs2d_tpu's
-    split step. ``checkpoint_fn(state, it)`` is called after every
+    is ignored, with a message, for flat capacities above SPLIT_STEP_ROWS
+    (gs2d_tpu's split step). ``checkpoint_fn(state, it)`` is called after every
     ``checkpoint_every``-th step with the block-relative count of steps
     done, if the state is finite; a non-finite state raises
     ``FloatingPointError`` there instead, or with ``raise_on_nonfinite`` =
@@ -664,3 +700,207 @@ def fit_with_recovery(
                        f"{done}, lr backed off to {cfg.learning_rate}")
     checkpointer.save(iterations, state, cfg)
     return state, history, recoveries
+
+
+# --- several images: gs2d_tpu's lax.map over the batch -----------------------
+
+def _refuse_split(cfg: SplatConfig) -> None:
+    if _needs_split(cfg):
+        raise ValueError(
+            f"flat capacity {cfg.flat_capacity} exceeds the single-program "
+            f"budget (SPLIT_STEP_ROWS={SPLIT_STEP_ROWS}); batch fitting at "
+            "this scale should run the images separately")
+
+
+def _batched_aux(auxes, with_grad_mag: bool = False) -> StepAux:
+    """One StepAux of per-image ones (each field (...) -> (..., B)):
+    ``all_finite`` one flag over every image, broadcast; ``n_dropped``
+    summed; ``rebinned`` the max; ``pos_grad_mag`` stacked (B, N)."""
+    field = lambda f: torch.stack([torch.as_tensor(getattr(a, f))
+                                   for a in auxes], dim=-1)
+    mse = field("mse")
+    return StepAux(
+        mse=mse, psnr=field("psnr"),
+        all_finite=field("all_finite").all(dim=-1, keepdim=True).expand(
+            mse.shape),
+        n_dropped=field("n_dropped").sum(dim=-1).to(torch.int32),
+        pos_grad_mag=(torch.stack([a.pos_grad_mag for a in auxes])
+                      if with_grad_mag else 0),
+        rebinned=field("rebinned").amax(dim=-1).to(torch.int32))
+
+
+def make_batched_train_step_fused(cfg: SplatConfig):
+    """gs2d_tpu's ``make_batched_train_step_fused`` (loop.py:675-725): the
+    fused step body of one image run over the images in turn (its
+    ``lax.map``), on a batched (B, N, ...) state (``parallel.sharded.
+    init_batched_state``) and (B, 1, 3, Hp, Wp) padded targets. Each image
+    owns its own population; the binning statics are shared (flat: tuned
+    on the shared init; an image that outgrows them reports n_dropped).
+    Every layout is supported. Returns ``step(state, refs_chw) -> (state,
+    StepAux)`` with ``mse`` and ``psnr`` of shape (B,), ``all_finite`` one
+    flag over every image broadcast to (B,), ``n_dropped`` summed. Image i
+    equals the one-image step on image i bit for bit. Raises for flat
+    capacities above SPLIT_STEP_ROWS, as gs2d_tpu does."""
+    _refuse_split(cfg)
+    one_step = _fused_step_body(cfg)
+
+    def step(state: TrainState, refs_chw: torch.Tensor):
+        outs = [one_step(state_index(state, i), refs_chw[i])
+                for i in range(refs_chw.shape[0])]
+        return stack_states([o[0] for o in outs]), _batched_aux(
+            [o[1] for o in outs])
+
+    return step
+
+
+class BatchedScanFitter:
+    """``fit_k(state, refs_chw, n_iters, grad_mag_sum=None) -> (state,
+    StepAux)``: ``n_iters`` steps of every image of a batched state, one
+    image after another through one ``ScanFitter`` (``fitter``): on the
+    card one captured step, into whose static buffers each image's leaves,
+    target and freshly binned lazy cache are loaded before its replays, so
+    one capture serves every image and nothing of one image's block
+    outlives it. The aux: ``mse`` and ``psnr`` (n_iters, B), ``all_finite``
+    (n_iters, B), ``n_dropped`` (n_iters,) summed over the images,
+    ``rebinned`` (n_iters,) their max, and with ``with_grad_mag``
+    ``pos_grad_mag`` (B, N), each image's sum continuing its row of
+    ``grad_mag_sum``."""
+
+    def __init__(self, fitter: ScanFitter):
+        self.fitter = fitter
+
+    @property
+    def graph(self):
+        return self.fitter.graph
+
+    @property
+    def captures(self) -> int:
+        return self.fitter.captures
+
+    def __call__(self, state: TrainState, refs_chw: torch.Tensor,
+                 n_iters: int, grad_mag_sum: Optional[torch.Tensor] = None):
+        outs = [self.fitter(state_index(state, i), refs_chw[i], n_iters,
+                            None if grad_mag_sum is None
+                            else grad_mag_sum[i])
+                for i in range(refs_chw.shape[0])]
+        return stack_states([o[0] for o in outs]), _batched_aux(
+            [o[1] for o in outs], self.fitter.with_grad_mag)
+
+
+def make_fit_scan_batched(cfg: SplatConfig, with_grad_mag: bool = False):
+    """gs2d_tpu's ``make_fit_scan_batched`` (loop.py:728-792): blocks of
+    the fused step over a batch of images (``BatchedScanFitter``), with a
+    lazy cache per image where cfg.rebin_margin > 0, binned afresh from
+    each image's params at the start of every call as gs2d_tpu's scan
+    does. gs2d_tpu runs the images one after another too; a batch axis in
+    the kernels' grid is not built. Raises for flat capacities above
+    SPLIT_STEP_ROWS."""
+    _refuse_split(cfg)
+    return BatchedScanFitter(make_fit_scan_fused(cfg, with_grad_mag))
+
+
+class _BatchedEagerBlocks:
+    """The batched eager step behind ``BatchedScanFitter``'s call (no
+    graph, no signal): ``n_iters`` steps, their auxes stacked (n_iters,
+    ...) for the caller to read once."""
+
+    graph = None
+
+    def __init__(self, cfg: SplatConfig):
+        self.step = make_batched_train_step_fused(cfg)
+
+    def __call__(self, state: TrainState, refs_chw: torch.Tensor,
+                 n_iters: int, grad_mag_sum=None):
+        auxes = []
+        for _ in range(n_iters):
+            state, aux = self.step(state, refs_chw)
+            auxes.append(aux)
+        return state, StepAux(**{
+            f: torch.stack([torch.as_tensor(getattr(a, f)) for a in auxes])
+            for f in STEP_FIELDS}, pos_grad_mag=0)
+
+
+def run_batched(fit_k, state: TrainState, refs_chw: torch.Tensor, first: int,
+                n: int, chunk: int, iterations: int, history: list,
+                t0: float, grad_mag_sum=None, log_every: int = 0,
+                log_fn=print):
+    """Steps ``first`` .. ``first + n - 1`` of a batched fit of
+    ``iterations`` steps, in blocks of ``chunk`` through ``fit_k`` (a
+    ``BatchedScanFitter``, whose signal sum carries from block to block
+    in ``grad_mag_sum``). Each block logs the capture it made, raises
+    ``FloatingPointError`` at its first non-finite step (the reference's
+    abort, main.cpp:752-785), and appends to ``history`` (and prints) a
+    record for each step at a multiple of ``log_every`` and the last: the
+    images' MSEs and PSNRs, the pairs dropped over the images,
+    ``rebinned`` and the seconds since ``t0``. Returns (state,
+    grad_mag_sum, the pairs dropped in these steps)."""
+    drops, done = 0, 0
+    while done < n:
+        k = min(chunk, n - done)
+        graph = fit_k.graph
+        state, auxes = fit_k(state, refs_chw, k, grad_mag_sum=grad_mag_sum)
+        if fit_k.graph is not graph and log_fn:
+            c = fit_k.graph.capture
+            log_fn(f"captured the train step as a CUDA graph in "
+                   f"{c.capture_s:.3f}s (warm-up step {c.warmup_s:.3f}s)")
+        if torch.is_tensor(auxes.pos_grad_mag):  # a fitter with the signal
+            grad_mag_sum = auxes.pos_grad_mag
+        block = {f: getattr(auxes, f).cpu() for f in STEP_FIELDS}
+        at = first + done
+        finite = block["all_finite"].reshape(k, -1).all(dim=-1)
+        if not bool(finite.all()):
+            bad = int(torch.argmin(finite.to(torch.int32)))
+            raise FloatingPointError(
+                f"non-finite splat parameters at iteration {at + bad} "
+                "(reference aborts here, main.cpp:752-785)")
+        drops += int(block["n_dropped"].sum())
+        for j in range(k if log_every else 0):
+            it = at + j
+            if it % log_every and it != iterations - 1:
+                continue
+            rec = {"iter": it, "mse": block["mse"][j].tolist(),
+                   "psnr": block["psnr"][j].tolist(),
+                   "n_dropped": int(block["n_dropped"][j]),
+                   "rebinned": int(block["rebinned"][j]),
+                   "elapsed_s": time.perf_counter() - t0}
+            history.append(rec)
+            if log_fn:
+                log_fn(f"{it} itr, mse " + " ".join(
+                    f"{x:.4f}" for x in rec["mse"]))
+        done += k
+    return state, grad_mag_sum, drops
+
+
+def fit_batched(refs, cfg: SplatConfig, iterations: int, device,
+                state: Optional[TrainState] = None, scan_chunk: int = 0,
+                log_every: int = 0, log_fn=print):
+    """Several images at once without density control (the fit of
+    gs2d_tpu's ``cli._fit_batch`` without ``--densify-every``,
+    cli.py:108-205): B equal-sized (H, W, 3) targets ``refs``, one
+    population each (``init_batched_state`` when None), at cfg's binning
+    statics, which must be set (tuned on the shared init). With
+    ``scan_chunk`` > 1, blocks of that many steps through
+    ``make_fit_scan_batched`` (one capture); else the batched eager step,
+    read once every ``log_every`` steps (50 without logging). Logs and
+    checks through ``run_batched``; an overflow is reported once, at the
+    end. Returns (state, history): ``run_batched``'s records and one
+    ``{"event": "end", ...}`` record with the pairs dropped over the fit
+    (``window_drops``: the fit is one window)."""
+    device = torch.device(device)
+    if state is None:
+        state = init_batched_state(cfg, len(refs), device)
+    refs_chw = torch.stack([rd.pad_ref_chw(r, cfg, device) for r in refs])
+    scanned = scan_chunk > 1
+    fit_k = make_fit_scan_batched(cfg) if scanned \
+        else _BatchedEagerBlocks(cfg)
+    history = []
+    state, _, drops = run_batched(
+        fit_k, state, refs_chw, 0, iterations,
+        scan_chunk if scanned else (log_every or 50), iterations, history,
+        time.perf_counter(), log_every=log_every, log_fn=log_fn)
+    if drops and log_fn:
+        log_fn(f"WARNING: binning capacity overflow: {drops} splat-tile "
+               "pairs dropped over the fit; raise max_splats_per_tile / "
+               "max_tiles_per_splat")
+    history.append({"event": "end", "at": iterations, "window_drops": drops})
+    return state, history

@@ -1213,3 +1213,107 @@ def test_adaptive_fit_on_the_card(dev, margin):
     assert len([x for x in lines if x.startswith("captured")]) == 1
     for a, b in zip(loop.state_leaves(s_s), loop.state_leaves(s_e)):
         assert torch.equal(a, b)
+
+
+def _batch_case(dev, binning, margin):
+    """Two images (synthetic targets of seeds 0 and 2) on _scan_case's
+    config, the second population shifted, as a batched state."""
+    from gs2d_tpu_torch.io.image import synthetic_target
+    from gs2d_tpu_torch.parallel.sharded import init_batched_state
+
+    cfg, _, _ = _scan_case(dev, binning, margin)
+    state = init_batched_state(cfg, 2, dev)
+    state.params.pos[1] += 1.5
+    refs = torch.stack([rd.pad_ref_chw(synthetic_target(H, W, seed=s), cfg,
+                                       dev) for s in (0, 2)])
+    return cfg, state, refs
+
+
+@pytest.mark.parametrize("binning,margin", [("resident", 0.0),
+                                            ("resident", 2.0),
+                                            ("flat", 2.0)])
+def test_batched_scan_equals_batched_eager(dev, binning, margin):
+    """Two images through one captured step (each loaded into its static
+    buffers in turn), a block of 4 then one of 2 continuing the signal's
+    sum, equal 6 batched eager steps bit for bit, with one capture; the
+    images in the order (1, 0) give the same bits swapped, so nothing of
+    one image's block (its lazy cache, its signal sum) reaches the
+    next."""
+    from gs2d_tpu_torch.train import loop
+
+    cfg, state, refs = _batch_case(dev, binning, margin)
+    s_e, mse_e = state, []
+    step = loop.make_batched_train_step_fused(cfg)
+    for _ in range(6):
+        s_e, aux = step(s_e, refs)
+        mse_e.append(aux.mse)
+    fit_k = loop.make_fit_scan_batched(cfg, True)
+
+    def scanned(st, refs):
+        s1, a1 = fit_k(st, refs, 4)
+        s2, a2 = fit_k(s1, refs, 2, grad_mag_sum=a1.pos_grad_mag)
+        return s2, torch.cat([a1.mse, a2.mse]), a2.pos_grad_mag
+
+    s_s, mse_s, g_s = scanned(state, refs)
+    swap = [1, 0]
+    s_w, mse_w, g_w = scanned(loop.state_from_leaves(
+        [t[swap] for t in loop.state_leaves(state)]), refs[swap])
+    torch.cuda.synchronize()
+    assert fit_k.captures == 1
+    assert torch.equal(mse_s, torch.stack(mse_e))
+    for a, b, c in zip(loop.state_leaves(s_s), loop.state_leaves(s_e),
+                       loop.state_leaves(s_w)):
+        assert torch.equal(a, b) and torch.equal(c, a[swap])
+    assert torch.equal(mse_w, mse_s[:, swap]) and torch.equal(g_w, g_s[swap])
+
+
+def test_split_step_equals_fused_on_the_card(dev, monkeypatch):
+    """With SPLIT_STEP_ROWS at 0 the flat cfg is above the split
+    threshold; three of its steps equal three fused steps bit for bit (the
+    signal too)."""
+    from gs2d_tpu_torch.train import loop
+
+    cfg, state, ref = _scan_case(dev, "flat", 0.0)
+    monkeypatch.setattr(loop, "SPLIT_STEP_ROWS", 0)
+    assert loop._needs_split(cfg)
+    split = loop.make_train_step_fused(cfg, True)
+    fused = loop._fused_step_body(cfg, True)
+    s_a = s_b = state
+    for _ in range(3):
+        s_a, a = split(s_a, ref)
+        s_b, b = fused(s_b, ref)
+        assert torch.equal(a.mse, b.mse)
+        assert torch.equal(a.pos_grad_mag, b.pos_grad_mag)
+    for x, y in zip(loop.state_leaves(s_a), loop.state_leaves(s_b)):
+        assert torch.equal(x, y)
+
+
+def test_batched_adaptive_fit_on_the_card(dev):
+    """fit_adaptive_batched (blocks of 3 in windows of 8, densifying into
+    dead slots) equals fit_adaptive on each image bit for bit, with one
+    capture for its one cfg."""
+    from gs2d_tpu_torch.io.image import synthetic_target
+    from gs2d_tpu_torch.params import DEAD_POS
+    from gs2d_tpu_torch.parallel.sharded import init_batched_state
+    from gs2d_tpu_torch.train import densify, loop
+
+    cfg = SplatConfig(width=W, height=H, n_splats=40, tile_h=32,
+                      init_scale_min=18.0, init_scale_max=30.0)
+    refs = [synthetic_target(H, W, seed=s) for s in (0, 2)]
+    state = init_batched_state(cfg, 2, dev)
+    state.params.pos[:, :10] = DEAD_POS
+    state.params.opacity[:, :10] = 0.0
+    lines = []
+    s_b, h_b, _ = densify.fit_adaptive_batched(
+        refs, cfg, 24, 8, dev, state=state, scan_chunk=3, log_every=1,
+        log_fn=lines.append)
+    assert len([x for x in lines if x.startswith("captured")]) == 1
+    for i in range(2):
+        s_i, h_i = densify.fit_adaptive(
+            refs[i], cfg, 24, 8, dev, state=loop.state_index(state, i),
+            scan_chunk=3, log_every=1, log_fn=None)
+        assert [r["mse"] for r in h_i if "iter" in r] == \
+            [r["mse"][i] for r in h_b if "iter" in r]
+        for a, b in zip(loop.state_leaves(loop.state_index(s_b, i)),
+                        loop.state_leaves(s_i)):
+            assert torch.equal(a, b)

@@ -247,11 +247,18 @@ def test_five_step_flat_fit_matches_jax():
 
 
 def test_split_step_capacity_refused():
+    """Above SPLIT_STEP_ROWS the one-image step is built as at every other
+    capacity (tests/test_torch_split.py holds it against gs2d_tpu's split
+    step), and the batched steps refuse the capacity, as gs2d_tpu's do."""
     cfg = SplatConfig(width=W, height=H, n_splats=64, binning="flat",
                       flat_capacity=tloop.SPLIT_STEP_ROWS + 256,
                       flat_max_chunks=4)
-    with pytest.raises(NotImplementedError):
-        tloop.make_train_step_fused(cfg)
+    assert tloop._needs_split(cfg)
+    assert callable(tloop.make_train_step_fused(cfg))
+    with pytest.raises(ValueError, match="SPLIT_STEP_ROWS"):
+        tloop.make_batched_train_step_fused(cfg)
+    with pytest.raises(ValueError, match="SPLIT_STEP_ROWS"):
+        tloop.make_fit_scan_batched(cfg)
 
 
 def test_flat_later_slices_raise(rng):

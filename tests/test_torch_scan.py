@@ -144,18 +144,19 @@ def test_scan_warns_when_every_step_rebins():
     assert len(warn) == 1 and "8-step block" in warn[0]
 
 
-def test_scan_chunk_ignored_for_the_split_step():
-    """Where the flat capacity needs gs2d_tpu's split step, scan_chunk is
-    ignored with its message, and the split step (not ported) raises."""
-    cfg = SplatConfig(width=64, height=48, n_splats=64, binning="flat",
-                      flat_capacity=tloop.SPLIT_STEP_ROWS + 256,
-                      flat_max_chunks=4)
+def test_scan_chunk_ignored_for_the_split_step(monkeypatch):
+    """Where the flat capacity needs gs2d_tpu's split step (every flat
+    capacity, with SPLIT_STEP_ROWS at 0), scan_chunk is ignored with its
+    message and the fit runs the split step from the eager loop."""
+    monkeypatch.setattr(tloop, "SPLIT_STEP_ROWS", 0)
+    cfg = SplatConfig(width=64, height=48, n_splats=64, binning="flat")
     logs = []
-    with pytest.raises(NotImplementedError):
-        tloop.fit(synthetic_target(48, 64), cfg, 2, "cpu", log_fn=logs.append,
-                  scan_chunk=4)
-    assert logs == ["scan_chunk ignored: flat capacity exceeds the "
-                    "single-program memory budget (split steps)"]
+    _, hist = tloop.fit(synthetic_target(48, 64), cfg, 2, "cpu",
+                        log_every=1, log_fn=logs.append, scan_chunk=4)
+    assert logs[0] == ("scan_chunk ignored: flat capacity exceeds the "
+                       "single-program memory budget (split steps)")
+    assert [r["iter"] for r in hist] == [0, 1]
+    assert "rebinned" not in hist[0]  # the eager loop's records
 
 
 def _metrics(out):
