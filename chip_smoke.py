@@ -64,6 +64,16 @@ trajectories:
   scanned batch equal to the eager one, one capture), and the 10k fit with
   ``--densify-every 100`` on two images, each equal to its one-image
   ``fit_adaptive``;
+- the mesh, ``parallel/`` on ``torch.distributed`` (``mesh_phase``): the
+  band offsets of kernels 1-11 (each band's forward equal to the unbanded
+  rows bit for bit on 2 and 4 bands, the bands' gradients summed against
+  the unbanded step, the last band's kernels against their plain
+  versions), splat shards in one process (the forward per shard, the
+  ordered fold, the carry-fed backward per shard) against the unsharded
+  kernels, ``fit_sharded`` on a world of one NCCL rank equal to
+  ``train.loop.fit`` bit for bit, the CLI's ``--mesh 1,1,1`` fits (default
+  eager and scanned, 10k flat) beside their one-image twins, resume at
+  100, and, with two or more cards, two-rank NCCL clusters;
 - the large flat configurations (``large_phase``): the step above the
   split threshold against the fused one at 10k, then through
   ``train.loop.fit`` the 1080p fit with 1 Mi splats (``BASELINE.json``
@@ -75,6 +85,7 @@ trajectories:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profiles   # only the fused L2 steps' profiles
+    python3 chip_smoke.py --mesh       # only the mesh phase
     python3 chip_smoke.py --backward-dump OUT.pt [OTHER.pt]
         # kernels 3 and 8/9 on kernel 3's compare populations, saved; held
         # bit for bit to OTHER.pt, the dump of another checkout's kernels
@@ -3060,6 +3071,682 @@ def batched_phase(dev, smi: str, mse_l2: dict) -> dict:
     return total
 
 
+# ---- the mesh: parallel/ on torch.distributed --------------------------------
+
+MESH_TILES = (2, 4)                              # tile axes of the band checks
+MESH_SHARDS = ((1, 1, 2), (1, 1, 4), (1, 2, 2))  # (data, tile, splat) meshes
+# Splat shards against the unsharded kernels (both at min_throughput 0): the
+# MSE within the JAX tests' rtol 1e-3 (tests/test_sharding.py), and the
+# parameters after Adam within their atol / rtol: at lr 0.05 pos and color
+# (atol 2e-2, rtol 1e-4), at lr 1e-4 every field (atol 1e-4, rtol 1e-7).
+SHARD_MSE_RTOL = 1e-3
+SHARD_PARAM_TOLS = {0.05: (("pos", "color"), 2e-2, 1e-4),
+                    1e-4: (None, 1e-4, 1e-7)}
+# The splat shards' first-step gradient may be at most this many times as
+# far from the float64 gradient as the unsharded kernel's is (field by
+# field, floor GRAD_RTOL): the two are float32 evaluations of the same
+# sums in different orders.
+SHARD_F64_FACTOR = 2.0
+# The --mesh 1,1,1 fit's MSEs against the one-image fit's: the mesh sums the
+# squared error over bands (gs2d_tpu's sum * 255^2 / n), the one-image fit
+# takes the mean of ((C - ref) * 255)^2, an ulp apart.
+MESH_MSE_RTOL = 1e-6
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The kernel wrappers of the resident, dense and flat layouts run their
+    plain PyTorch versions on the card's tensors (no launch is counted)."""
+    from gs2d_tpu_torch.ops import render_dense as rdn
+    from gs2d_tpu_torch.ops import render_flat as rf
+    from gs2d_tpu_torch.ops import render_resident as rr
+
+    mods = (rr, rdn, rf)
+    saved = [m.on_card for m in mods]
+    for m in mods:
+        m.on_card = lambda t: False
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m.on_card = f
+
+
+def band_bin(p, cfg, layout: str, band):
+    """The layout's binning of the whole grid (band None) or of the band
+    (row0, rows); no pair may drop."""
+    from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.ops import tiles_flat as tlf
+
+    kw = {} if band is None else dict(band_row0=band[0], band_rows=band[1])
+    if layout == "flat":
+        b = tlf.bin_splats_flat(p, cfg, cfg.flat_capacity, kc=cfg.flat_chunk,
+                                max_chunks=cfg.flat_max_chunks, **kw)
+    else:
+        b = tl.bin_splats(p, cfg, cfg.max_splats_per_tile,
+                          ids_only=layout == "resident", **kw)
+    if int(b.n_dropped):
+        raise AssertionError(f"{layout} band {band}: pairs dropped")
+    return b
+
+
+def band_calls(layout: str, b, p, cfg, band):
+    """The layout's forward (kernels 2, 6/7, 10), L2 step (1, 4/5, 10 + 11)
+    and carry-fed backward (3, 8/9, 11) wrappers on binning ``b`` under
+    ``band`` = (row0, rows), or the whole grid."""
+    from gs2d_tpu_torch.ops import render_dense as rdn
+    from gs2d_tpu_torch.ops import render_flat as rf
+    from gs2d_tpu_torch.ops import render_resident as rr
+
+    kw = {} if band is None else dict(band_row0=band[0], band_rows=band[1])
+    n, kc, mc = p.n, cfg.flat_chunk, cfg.flat_max_chunks
+    table = rr.resident_table(p, cfg) if layout == "resident" else None
+
+    def fwd():
+        if layout == "flat":
+            return rf.forward_flat(b, cfg, kc, mc, **kw)
+        if layout == "resident":
+            return rr.forward_resident(b, table, n, cfg, crop=False, **kw)
+        return rdn.forward_tiled(b, cfg, crop=False, **kw)
+
+    def l2(ref_chw):
+        if layout == "flat":
+            return rf.l2_render_and_grads_flat(b, ref_chw, n, cfg, kc, mc, p,
+                                               **kw)
+        if layout == "resident":
+            return rr.l2_render_and_grads_resident(b, table, ref_chw, n, cfg,
+                                                   **kw)
+        return rdn.l2_render_and_grads(b, ref_chw, n, cfg, p, **kw)
+
+    def bwd(fin, gc, carry):
+        if layout == "flat":
+            return rf.backward_flat(b, fin, gc, n, cfg, kc, mc, p,
+                                    carry_in=carry, **kw)
+        if layout == "resident":
+            return rr.backward_resident(b, table, fin, gc, n, cfg,
+                                        carry_in=carry, **kw)
+        return rdn.backward_tiled(b, fin, gc, n, cfg, p, carry_in=carry,
+                                  **kw)
+
+    return fwd, l2, bwd
+
+
+def grads_ratio(got, want) -> float:
+    """The largest |got - want| over GRAD_RTOL * max(1, |want| max) of any
+    gradient field (1 is the gate)."""
+    from gs2d_tpu_torch.params import FIELDS
+
+    return max(float((getattr(got, f) - getattr(want, f)).abs().max())
+               / (GRAD_RTOL * max(1.0, float(getattr(want, f).abs().max())))
+               for f in FIELDS)
+
+
+def mesh_cases(dev) -> list:
+    """(label, layout, cfg, params, padded target (3, Hp, Wp)) at the main
+    paths' inits: the default fit's (resident and dense) and the 10k
+    fit's (flat), with the tile heights the CLI picks."""
+    from gs2d_tpu_torch.config import SplatConfig
+    from gs2d_tpu_torch.io.image import load_image
+    from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.params import init_params
+
+    out = []
+    for label, image, n, layouts in (("default", MINI, 1024,
+                                      ("resident", "dense")),
+                                     ("10k", FULL, N_10K, ("flat",))):
+        ref = load_image(image)
+        cfg = SplatConfig(width=ref.shape[1], height=ref.shape[0],
+                          n_splats=n)
+        p = init_params(cfg, dev)
+        cfg = tl.tune_tile_height(cfg, p)
+        for layout in layouts:
+            out.append((label, layout, cfg.replace(binning=layout), p, ref))
+    return out
+
+
+def padded_chw(ref, cfg, dev):
+    from gs2d_tpu_torch.ops import render as rd
+
+    return rd.pad_ref_chw(ref, cfg, dev)[0]
+
+
+def banded_kernels(dev, cases) -> None:
+    """Each case on tile axes of 2 and 4 bands (the grid rounded to whole
+    bands, the binning statics tuned a band): every band's forward equals
+    the unbanded kernel's rows bit for bit; the bands' L2 gradients summed
+    in band order agree with the unbanded step's (GRAD_RTOL); on the last
+    band (the image's bottom and the padding rows under it) the banded
+    forward, L2 step and carry-fed backward equal their plain versions
+    under the same band arguments (COLOR_ATOL, GRAD_RTOL)."""
+    from gs2d_tpu_torch.ops import render_flat as rf
+    from gs2d_tpu_torch.params import FIELDS, GaussianParams
+    from gs2d_tpu_torch.parallel.mesh import virtual_mesh
+    from gs2d_tpu_torch.parallel.sharded import prepare_config
+
+    for label, layout, cfg0, p, ref in cases:
+        for n_bands in MESH_TILES:
+            cfg = prepare_config(cfg0, virtual_mesh(1, n_bands, 1, dev), p)
+            cfg_full = cfg if layout != "flat" else rf.tune_flat_config(
+                p, cfg.replace(flat_capacity=None, flat_max_chunks=None))
+            ref_chw = padded_chw(ref, cfg, dev)
+            fwd, l2, _ = band_calls(layout, band_bin(p, cfg_full, layout,
+                                                     None), p, cfg_full, None)
+            c_full, t_full = fwd()
+            _, g_full = l2(ref_chw[None].contiguous())
+            gen = torch.Generator(dev).manual_seed(n_bands)
+            gc = torch.randn(c_full.shape, generator=gen, device=dev)
+            carry = (0.5 * c_full, 0.5 * t_full)
+            rows = cfg.n_tiles_y // n_bands
+            bh = rows * cfg.tile_h
+            total, plain = None, {}
+            for i in range(n_bands):
+                band = (i * rows, rows)
+                sl = slice(i * bh, (i + 1) * bh)
+                b = band_bin(p, cfg, layout, band)
+                fwd, l2, bwd = band_calls(layout, b, p, cfg, band)
+                c_k, t_k = fwd()
+                if not (torch.equal(c_k, c_full[sl])
+                        and torch.equal(t_k, t_full[sl])):
+                    raise AssertionError(f"{label} {layout}: band {i} of "
+                                         f"{n_bands} differs from the rows")
+                ref_b = ref_chw[None, :, sl].contiguous()
+                col_k, g_k = l2(ref_b)
+                total = g_k if total is None else GaussianParams(**{
+                    f: getattr(total, f) + getattr(g_k, f) for f in FIELDS})
+                if i < n_bands - 1:
+                    continue
+                bwd_in = (c_full[sl], gc[sl].contiguous(),
+                          (carry[0][sl], carry[1][sl].contiguous()))
+                gb_k = bwd(*bwd_in)
+                with plain_versions():
+                    c_p, t_p = fwd()
+                    col_p, g_p = l2(ref_b)
+                    gb_p = bwd(*bwd_in)
+                plain = {
+                    "colour": max(float((c_k - c_p).abs().max()),
+                                  float((t_k - t_p).abs().max()),
+                                  float((col_k - col_p).abs().max())),
+                    "l2": grads_ratio(g_k, g_p),
+                    "backward": grads_ratio(gb_k, gb_p)}
+            summed = grads_ratio(total, g_full)
+            log(f"  {label} {layout}, {n_bands} bands of {rows} tile rows "
+                f"(grid {cfg.n_tiles_y}x{cfg.n_tiles_x}): forward rows bit "
+                f"for bit; band sums / GRAD_RTOL {summed:.3e}; last band vs "
+                f"plain: colour {plain['colour']:.2e} (COLOR_ATOL "
+                f"{COLOR_ATOL}), L2 / GRAD_RTOL {plain['l2']:.3e}, "
+                f"carry-fed backward / GRAD_RTOL {plain['backward']:.3e}")
+            if summed > 1 or plain["colour"] > COLOR_ATOL \
+                    or plain["l2"] > 1 or plain["backward"] > 1:
+                raise AssertionError(f"{label} {layout}: banded kernels off")
+
+
+def f64_gradients(p, cfg, ref, dev):
+    """The first L2 step's parameter gradients at min_throughput 0 with every
+    sum in float64: the plain dense walk (render_dense._l2_dense_plain) on
+    the float32 binning's rows cast to float64, coverage decided on the
+    float32 rows as the kernels decide it. The reference of every layout's
+    float32 step at this init."""
+    from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.ops import render_dense as rdn
+    from gs2d_tpu_torch.ops import tiles as tl
+
+    cfg = tl.tune_tile_capacity(p, cfg.replace(
+        binning="dense", max_splats_per_tile=None, min_throughput=0.0))
+    b = band_bin(p, cfg, "dense", None)
+    ref64 = padded_chw(ref, cfg, dev).double()[None]
+    _, _, g9 = rdn._l2_dense_plain(rdn._tile_params(b).double(), b.ids,
+                                   b.count, ref64, p.n, cfg)
+    return rd.moments_to_grads(rd.unpack_moments(g9, p.n),
+                               rdn._fields_of(p, cfg))
+
+
+def f64_fit(p, cfg0, ref, dev, steps: int = 3):
+    """``steps`` steps of the fit at min_throughput 0 from ``p`` with the
+    float64 gradients (``f64_gradients`` at the parameters rounded to
+    float32, which the binning takes) and Adam in float64: the parameters
+    the float32 fits are held to."""
+    from gs2d_tpu_torch.train.adam import adam_update, init_adam_state
+
+    params = p.map(lambda x: x.double())
+    opt = init_adam_state(params)
+    for _ in range(steps):
+        g = f64_gradients(params.map(lambda x: x.float()), cfg0, ref, dev)
+        params, opt = adam_update(params, g, opt, cfg0)
+    return params
+
+
+def shard_items(p, ref_chw, plan, mesh, dtype=torch.float32) -> dict:
+    """{coord: (its slice of the splats, its band of the padded target)}:
+    the band step's inputs on a virtual mesh."""
+    n_local = p.n // mesh.shape["splat"]
+    ref_img = ref_chw.permute(1, 2, 0).to(dtype)
+    return {c: (p.map(lambda x: x[c[2] * n_local: (c[2] + 1) * n_local]),
+                ref_img[c[1] * plan.band_h:
+                        (c[1] + 1) * plan.band_h].contiguous())
+            for c in mesh.coords}
+
+
+def shard_grads(out: dict, mesh):
+    """The whole population's gradients and colour from a band step's
+    {coord: (band colour, grads, n_dropped)}."""
+    from gs2d_tpu_torch.params import FIELDS, GaussianParams
+
+    fin = torch.cat([out[(0, t, 0)][0] for t in range(mesh.shape["tile"])])
+    return fin, GaussianParams(**{f: torch.cat(
+        [getattr(out[(0, 0, s)][1], f) for s in range(mesh.shape["splat"])])
+        for f in FIELDS})
+
+
+def sharded_f64(p, cfg0, ref, mesh, dev):
+    """The splat shards' first step in float64 (the plain dense versions
+    on the shards' binnings with their rows cast to float64, the fold and
+    the tile-axis sum in float64): the shards' arithmetic without
+    float32's rounding."""
+    from gs2d_tpu_torch.parallel import sharded as tsh
+
+    cfg = tsh.prepare_config(cfg0.replace(
+        binning="dense", max_splats_per_tile=None), mesh, p)
+    plan = tsh._plan(cfg, mesh, "fold", "pallas", 0, 0.0)
+    items = shard_items(p, padded_chw(ref, cfg, dev), plan, mesh,
+                        torch.float64)
+    prebuilt = {}
+    for c, (pc, _) in items.items():
+        b = tsh._bin_band(pc, plan, tsh._band_r0(plan, c))
+        prebuilt[c] = b._replace(tile_params=b.tile_params.double())
+    with plain_versions():
+        out = tsh._pallas_band_step(mesh.comm, items, plan,
+                                    prebuilt=prebuilt)
+    return shard_grads(out, mesh)[1]
+
+
+def sharded_kernels(dev, cases) -> None:
+    """Splat shards in one process, on (1, 1, 2), (1, 1, 4) and (1, 2, 2),
+    at the default and the 10k inits, all at min_throughput 0 (the
+    sharded step's). For each mesh, the first step of
+    ``_pallas_band_step`` on a virtual mesh (the forward kernels 2, 6/7,
+    10 per shard, the plain ordered fold, the carry-fed backward 3, 8/9,
+    11 per shard, the tile-axis sum):
+
+    - against itself through the kernels' plain versions (the same fold):
+      colour within COLOR_ATOL, gradients within GRAD_RTOL;
+    - in float64 (``sharded_f64``) against the unsharded step in float64
+      (``f64_gradients``) within GRAD_RTOL: the shards' arithmetic is the
+      unsharded step's;
+    - against the unsharded L2 kernels in float32: colour within
+      COLOR_ATOL; both steps' gradients against the float64 gradient, each
+      field's largest error of the shards at most SHARD_F64_FACTOR times
+      the unsharded kernel's (floor GRAD_RTOL). Logged beside it, where
+      the two float32 steps part: how many parameters differ by more than
+      GRAD_RTOL, and how many of those have an exact gradient smaller than
+      that difference;
+    - ``fit_sharded`` and ``train.loop.fit``, three steps from the same
+      init at lr 0.05 and 1e-4, each against the float64 fit (``f64_fit``)
+      under the JAX tests' tolerances (SHARD_PARAM_TOLS, from
+      tests/test_sharding.py:49-101) where float32 resolves the first-step
+      gradient, that is where the exact gradient exceeds
+      SHARD_F64_FACTOR times the larger error of the two float32 steps
+      (Adam's first step takes its sign): where the unsharded fit meets the
+      tolerance there, the shards' fit must too; where it misses it, the
+      shards' fit may miss it by at most SHARD_F64_FACTOR times as much
+      (largest |diff| over the tolerance); the two fits' MSEs within
+      SHARD_MSE_RTOL. Logged beside it,
+      the shards against the unsharded fit directly, as the JAX tests
+      compare them, and how many values each comparison puts over."""
+    from gs2d_tpu_torch.params import FIELDS
+    from gs2d_tpu_torch.parallel import sharded as tsh
+    from gs2d_tpu_torch.parallel.mesh import virtual_mesh
+    from gs2d_tpu_torch.train.loop import fit, state_index
+
+    def shard_limit(ex) -> float:
+        """1 (the JAX tolerance) where the unsharded fit meets it against
+        the float64 fit, else SHARD_F64_FACTOR times its miss."""
+        u = ex["unsharded"][0]
+        return 1.0 if u <= 1.0 else SHARD_F64_FACTOR * u
+
+    exact = {}
+    for label, layout, cfg0, p, ref in cases:
+        cfg0 = cfg0.replace(min_throughput=0.0)
+        if label not in exact:
+            t = time.perf_counter()
+            exact[label] = f64_gradients(p, cfg0, ref, dev)
+            log(f"  {label}: the float64 gradient in "
+                f"{time.perf_counter() - t:.1f}s")
+        g64 = exact[label]
+        for shape in MESH_SHARDS:
+            t_case = time.perf_counter()
+            mesh = virtual_mesh(*shape, dev)
+            cfg = tsh.prepare_config(cfg0, mesh, p)
+            cfg_full = cfg if layout != "flat" else tsh.prepare_config(
+                cfg0.replace(tile_rows_multiple=cfg.tile_rows_multiple),
+                virtual_mesh(1, 1, 1, dev), p)
+            ref_chw = padded_chw(ref, cfg, dev)
+            _, l2, _ = band_calls(layout, band_bin(p, cfg_full, layout,
+                                                   None), p, cfg_full, None)
+            col, g_full = l2(ref_chw[None].contiguous())
+            plan = tsh._plan(cfg, mesh, "fold", "pallas", 0, 0.0)
+            items = shard_items(p, ref_chw, plan, mesh)
+            fin, g = shard_grads(tsh._pallas_band_step(mesh.comm, items,
+                                                       plan), mesh)
+            with plain_versions():
+                fin_p, g_p = shard_grads(tsh._pallas_band_step(
+                    mesh.comm, items, plan), mesh)
+            vs_plain = (float((fin - fin_p).abs().max()), grads_ratio(g, g_p))
+            if (label, shape) not in exact:  # the same for every layout
+                exact[label, shape] = sharded_f64(p, cfg0, ref, mesh, dev)
+            f64 = grads_ratio(exact[label, shape], g64)
+            colour = float((fin[: cfg.height, : cfg.width] - col)
+                           .abs().max())
+            worst, n_diff, n_below, unresolved = 0.0, 0, 0, {}
+            for f in FIELDS:
+                x64 = getattr(g64, f)
+                tol = GRAD_RTOL * max(1.0, float(x64.abs().max()))
+                e_full = (getattr(g_full, f).double() - x64).abs()
+                e_shard = (getattr(g, f).double() - x64).abs()
+                worst = max(worst, float(e_shard.max()) / (
+                    SHARD_F64_FACTOR * max(float(e_full.max()), tol)))
+                diff = (getattr(g, f) - getattr(g_full, f)).double().abs()
+                n_diff += int((diff > tol).sum())
+                n_below += int(((diff > tol) & (x64.abs() < diff)).sum())
+                unresolved[f] = x64.abs() <= SHARD_F64_FACTOR * torch.maximum(
+                    e_full, e_shard)
+            errs = {}
+            for lr, (fields, atol, rtol) in SHARD_PARAM_TOLS.items():
+                key = (label, lr)
+                if key not in exact:
+                    exact[key] = f64_fit(p, cfg0.replace(learning_rate=lr),
+                                         ref, dev)
+                got, hist = tsh.fit_sharded(
+                    ref[None], cfg.replace(learning_rate=lr), mesh, 3,
+                    log_every=1, log_fn=None)
+                want, whist = fit(ref, cfg_full.replace(learning_rate=lr), 3,
+                                  dev, log_every=1, log_fn=None)
+                got = state_index(got, 0).params
+                ex = {"shards": [0.0, 0], "unsharded": [0.0, 0],
+                      "direct": [0.0, 0]}
+                n_left = 0
+                for f in fields or FIELDS:
+                    keep = ~unresolved[f]
+                    n_left += int((~keep).sum())
+                    w64 = getattr(exact[key], f)
+                    w = getattr(want.params, f)
+                    for name, x, y in (("shards", getattr(got, f), w64),
+                                       ("unsharded", w, w64),
+                                       ("direct", getattr(got, f), w)):
+                        over = (x.double() - y).abs() / (rtol * y.abs()
+                                                         + atol)
+                        ex[name][1] += int((over > 1).sum())
+                        if bool(keep.any()):
+                            ex[name][0] = max(ex[name][0],
+                                              float(over[keep].max()))
+                rel = max(abs(a["mse"][0] - b["mse"]) / b["mse"]
+                          for a, b in zip(hist, whist))
+                errs[lr] = (ex, n_left, rel)
+            log(f"  {label} {layout}, mesh {shape}, first step: kernels vs "
+                f"plain colour {vs_plain[0]:.2e} (tol {COLOR_ATOL}), grads / "
+                f"GRAD_RTOL {vs_plain[1]:.3e}; float64 shards vs float64 "
+                f"unsharded / GRAD_RTOL {f64:.3e}; vs the unsharded kernel: "
+                f"colour {colour:.2e} (tol {COLOR_ATOL}), grads vs float64 / "
+                f"GRAD_RTOL: unsharded {grads_ratio(g_full, g64):.3e}, "
+                f"shards {grads_ratio(g, g64):.3e} (shards' error / "
+                f"({SHARD_F64_FACTOR} x the unsharded's) {worst:.3f}, tol "
+                f"1); shards vs unsharded {grads_ratio(g, g_full):.3e}: "
+                f"{n_diff} parameters over GRAD_RTOL, {n_below} of them where "
+                f"|float64 gradient| < the difference "
+                f"({time.perf_counter() - t_case:.1f}s)")
+            for lr, (ex, nl, r) in errs.items():
+                fields, atol, rtol = SHARD_PARAM_TOLS[lr]
+                log(f"    3 steps at lr {lr}, {'/'.join(fields or ['all'])}, "
+                    f"max |diff| / ({atol} + {rtol} |want|) where float32 "
+                    f"resolves the gradient ({nl} values left out), and the "
+                    f"values over 1 in all: shards vs float64 fit "
+                    f"{ex['shards'][0]:.3f}, {ex['shards'][1]}; unsharded vs "
+                    f"float64 fit {ex['unsharded'][0]:.3f}, "
+                    f"{ex['unsharded'][1]} (the shards' gate "
+                    f"{shard_limit(ex):.3f}); shards vs unsharded "
+                    f"{ex['direct'][0]:.3f}, {ex['direct'][1]}; MSE rel "
+                    f"{r:.2e} (tol {SHARD_MSE_RTOL})")
+            if vs_plain[0] > COLOR_ATOL or vs_plain[1] > 1 or f64 > 1 \
+                    or colour > COLOR_ATOL or worst > 1 or any(
+                        ex["shards"][0] > shard_limit(ex)
+                        or r > SHARD_MSE_RTOL
+                        for ex, _, r in errs.values()):
+                raise AssertionError(f"{label} {layout} {shape}: splat "
+                                     "shards disagree with the unsharded "
+                                     "kernels")
+
+
+def eager_step_profiles(dev, cfg, ref, mesh, smi: str) -> None:
+    """One eager step of the default fit through the mesh
+    (``make_sharded_train_step`` on ``mesh``) and through train.loop's
+    one-image step, from the same init: ms a step over 50 steps, the
+    device's busy ms and operations a step (10 steps), and the host
+    operations that take the most host time (torch.profiler, 10 steps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.parallel.sharded import (make_sharded_train_step,
+                                                 pad_ref_batch)
+    from gs2d_tpu_torch.train.loop import (init_batched_state,
+                                           init_train_state,
+                                           make_train_step_fused)
+
+    step, sh = make_sharded_train_step(cfg, mesh, with_grad_mag=False)
+    ref_in = rd.pad_ref_chw(ref, cfg, dev)
+    one = make_train_step_fused(cfg)
+    runs = {"mesh": [step, sh["state"](init_batched_state(cfg, 1, dev)),
+                     sh["ref"](pad_ref_batch(ref[None], cfg, dev))],
+            "one-image": [one, init_train_state(cfg, dev), ref_in]}
+
+    def run(label, n):
+        r = runs[label]
+        for _ in range(n):
+            r[1], _ = r[0](r[1], r[2])
+
+    hosts = {}
+    for label in runs:
+        run(label, 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(label, 50)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / 50
+        prof = device_profile(lambda: run(label, 10), 10)
+        with profile(activities=[ProfilerActivity.CPU]) as host:
+            run(label, 10)
+        hosts[label] = {e.key: (e.self_cpu_time_total / 1e4, e.count / 10)
+                        for e in host.key_averages()}
+        rows = sorted(((t, n, key) for key, (t, n) in hosts[label].items()),
+                      reverse=True)
+        log(f"[mesh] one eager {label} step of the default fit: "
+            f"{ms:.4f} ms a step (50 steps) [{smi}]")
+        log(profile_lines(prof, ms, 10))
+        log(f"  host (torch.profiler, CPU): {sum(r[0] for r in rows):.4f} "
+            f"ms a step of host operations' own time, "
+            f"{sum(r[1] for r in rows):.0f} operations a step; the most:")
+        for t, n, key in rows[:6]:
+            log(f"    {t:.4f} ms/step x{n:.0f}: {key[:70]}")
+    mesh, one = hosts["mesh"], hosts["one-image"]
+    extra = sorted(((mesh[k][0] - one.get(k, (0.0, 0))[0],
+                     mesh[k][1] - one.get(k, (0.0, 0))[1], k)
+                    for k in mesh), reverse=True)
+    log("  the mesh step's extra host time, by operation (ms a step, "
+        "operations a step): " + "; ".join(
+            f"{k[:40]} +{t:.4f} ms x{n:+.0f}" for t, n, k in extra[:8]))
+
+
+def mesh_state_equals_fit(dev, smi: str) -> None:
+    """fit_sharded on a process mesh of one device (NCCL, a world of one
+    rank) against train.loop.fit, 200 eager steps of the default fit from
+    the same tuned config: the final parameters and Adam state; then the
+    eager steps' profiles (``eager_step_profiles``)."""
+    import torch.distributed as dist
+
+    from gs2d_tpu_torch.config import SplatConfig
+    from gs2d_tpu_torch.io.image import load_image
+    from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.parallel.mesh import make_mesh
+    from gs2d_tpu_torch.parallel.sharded import fit_sharded, prepare_config
+    from gs2d_tpu_torch.params import init_params
+    from gs2d_tpu_torch.train.loop import fit, state_index, state_leaves
+
+    ref = load_image(MINI)
+    cfg = SplatConfig(width=ref.shape[1], height=ref.shape[0],
+                      n_splats=1024)
+    cfg = tl.tune_tile_height(cfg, init_params(cfg, dev))
+    mesh = make_mesh(1, 1, 1, devices=[dev])
+    try:
+        cfg = prepare_config(cfg, mesh, init_params(cfg, dev))
+        got, _ = fit_sharded(ref[None], cfg, mesh, 200, log_fn=None)
+        want, _ = fit(ref, cfg, 200, dev, log_fn=None)
+        eager_step_profiles(dev, cfg, ref, mesh, smi)
+    finally:
+        dist.destroy_process_group()
+    same = all(torch.equal(x, y) for x, y in
+               zip(state_leaves(state_index(got, 0)), state_leaves(want)))
+    log(f"  fit_sharded on a process mesh of one device (NCCL, world of "
+        f"one) vs train.loop.fit, 200 eager steps: final state bit for bit: "
+        f"{same}")
+    if not same:
+        raise AssertionError("the mesh of one device differs from the fit")
+
+
+def mesh_cluster(smi: str, mse_mesh: dict) -> None:
+    """With two or more cards: ``--mesh 1,2,1`` and ``--mesh 1,1,2`` as
+    two-rank NCCL clusters (one process a card), 20 steps of the default
+    fit, against the world-of-one fit's first 20 MSEs."""
+    import subprocess
+
+    from gs2d_tpu_torch.parallel.mesh import _free_port
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"  a cluster of NCCL ranks needs two cards; this machine has "
+            f"{n}: no cluster ran [{smi}]")
+        return
+    for shape, rtol in (("1,2,1", 1e-5), ("1,1,2", 1e-2)):
+        with tempfile.TemporaryDirectory() as tmp:
+            port = _free_port()
+            procs = [subprocess.Popen(
+                [sys.executable, "-m", "gs2d_tpu_torch.fit", MINI,
+                 "--splats", "1024", "--iters", "20", "--log-every", "1",
+                 "--mesh", shape, "--out", tmp],
+                env=dict(os.environ, COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                         NUM_PROCESSES="2", PROCESS_ID=str(r),
+                         LOCAL_RANK=str(r)), cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for r in range(2)]
+            outs = [pr.communicate(timeout=300)[0] for pr in procs]
+            if any(pr.returncode for pr in procs):
+                raise AssertionError(f"--mesh {shape} cluster failed: "
+                                     f"{outs[0][-2000:]}")
+            mse = {r["iter"]: r["mse"][0] for r in read_metrics(tmp)
+                   if "iter" in r}
+        rel = max(abs(mse[i] - mse_mesh[i]) / mse_mesh[i] for i in range(20))
+        log(f"  --mesh {shape}, two NCCL ranks: 20 steps, max MSE rel diff "
+            f"from the world of one {rel:.2e} (tol {rtol}) [{smi}]")
+        if rel > rtol:
+            raise AssertionError(f"--mesh {shape} cluster off the fit")
+
+
+def mesh_phase(dev, smi: str) -> dict:
+    """The mesh (parallel/ on torch.distributed; ``mesh_phase``):
+
+    - banded kernels in one process (``banded_kernels``) and splat shards in
+      one process (``sharded_kernels``) at the default and the 10k inits;
+    - ``fit_sharded`` on a process mesh of one device against
+      ``train.loop.fit``, final state bit for bit;
+    - the CLI's ``--mesh 1,1,1`` (NCCL, a world of one rank) beside the
+      one-image fit of the same flags (``twins``): the default fit eager
+      and ``--scan-chunk 50 --rebin-margin 2`` (the 0.1% trajectory
+      gates), the 10k flat fit (the JAX scan path's gates), each within
+      MESH_MSE_RTOL of its twin, with both fits' ms a step; and a
+      ``--checkpoint-every 100`` run resumed at 100, 200 of 200 MSEs equal
+      to the unbroken run;
+    - with two or more cards, two-rank NCCL clusters (``mesh_cluster``).
+
+    Returns the summed launch counts of the phase's logged runs."""
+    t_phase = time.perf_counter()
+    total = {}
+
+    def count(launches):
+        for kk, v in launches.items():
+            total[kk] = total.get(kk, 0) + v
+
+    log("[mesh] banded kernels in one process (tile axes 2 and 4)")
+    cases = mesh_cases(dev)
+    banded_kernels(dev, cases)
+    log("[mesh] splat shards in one process (the ordered fold)")
+    sharded_kernels(dev, cases)
+    mesh_state_equals_fit(dev, smi)
+
+    def steady(recs) -> float:
+        """ms a step over steps 50-199 of a logged run (record times are
+        block ends when scanned)."""
+        at = {r["iter"]: r["elapsed_s"] for r in recs if "iter" in r}
+        return 1e3 * (at[199] - at[49]) / 150
+
+    def twins(image, splats, extra, label):
+        """The one-image fit and the --mesh 1,1,1 fit of the same flags,
+        each logged at every step: the mesh's MSEs against the one-image
+        fit's within MESH_MSE_RTOL, both fits' steady ms a step."""
+        argv = [image, "--splats", str(splats), "--iters", "200",
+                "--device", "cuda", *extra]
+        log(f"[mesh] python -m gs2d_tpu_torch.fit {os.path.basename(image)} "
+            f"{' '.join(argv[1:])} [--mesh 1,1,1]")
+        l_one, want, recs_one, _ = logged_fit(argv, details=True)
+        launches, mse, recs, printed = logged_fit(argv + ["--mesh", "1,1,1"],
+                                                  details=True)
+        count(l_one)
+        mse = {k: v[0] for k, v in mse.items()}
+        mode = [x for x in printed.splitlines()
+                if x.startswith("scanned blocks")]
+        rel = max(abs(mse[i] - want[i]) / want[i] for i in range(200))
+        log(f"  {mode[0] if mode else 'eager steps'}; against the one-image "
+            f"{label} fit: bit for bit {same_trajectory(mse, want)}, max "
+            f"MSE rel diff {rel:.2e} (tol {MESH_MSE_RTOL}); steady ms a "
+            f"step (steps 50-199, logged): mesh {steady(recs):.4f}, "
+            f"one-image {steady(recs_one):.4f} [{smi}]")
+        if rel > MESH_MSE_RTOL:
+            raise AssertionError(f"--mesh 1,1,1 {label} fit off the fit")
+        return launches, mse
+
+    launches, mse_mesh = twins(MINI, 1024, [], "default")
+    expect_launches("--mesh 1,1,1 default fit", launches,
+                    {"l2_resident": 200, "fwd_dense": 1})
+    count(launches)
+    check_trajectory(mse_mesh, {it: (want, TRAJECTORY_RTOL)
+                                for it, want in TRAJECTORY.items()})
+    launches, mse = twins(MINI, 1024, LAZY, "scanned default")
+    count(launches)
+    check_trajectory(mse, {it: (want, TRAJECTORY_RTOL)
+                           for it, want in TRAJECTORY.items()})
+    launches, mse = twins(FULL, N_10K, [], "10k flat")
+    expect_launches("--mesh 1,1,1 10k fit", launches,
+                    {"fwd_flat": 200, "bwd_flat": 200, "fwd_dense": 1})
+    count(launches)
+    check_trajectory(mse, TRAJECTORY_10K)
+    with tempfile.TemporaryDirectory() as out:
+        base = [MINI, "--splats", "1024", "--iters", "100", "--device",
+                "cuda", "--mesh", "1,1,1", "--checkpoint-every", "100"]
+        log("[mesh] the default fit with --mesh 1,1,1 --checkpoint-every "
+            "100, 100 iterations, then --resume for 100")
+        launches, first = logged_fit(base, out=out, iters=100)
+        count(launches)
+        launches, second = logged_fit(base + ["--resume"], out=out,
+                                      iters=100)
+        count(launches)
+    resumed = {**{k: v[0] for k, v in first.items()},
+               **{k: v[0] for k, v in second.items()}}
+    same = sum(resumed[i] == mse_mesh[i] for i in range(200))
+    log(f"  resumed at 100: {same} of 200 MSEs equal the unbroken --mesh "
+        f"1,1,1 fit")
+    if same != 200:
+        raise AssertionError("the resumed mesh fit differs")
+    mesh_cluster(smi, mse_mesh)
+    log(f"  the mesh phase took {time.perf_counter() - t_phase:.1f}s [{smi}]")
+    return total
+
+
 def top_band_cut(params, cfg, rows: int):
     """The splats whose tile box lies in the top ``rows`` tile rows, and
     the cfg of that band alone (height rows x tile_h, the same tiles):
@@ -3444,6 +4131,9 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["--backward-dump"] and len(argv) in (2, 3):
         return backward_dump(dev, *argv[1:])
+    if argv == ["--mesh"]:
+        mesh_phase(dev, smi)  # the mesh phase alone
+        return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -3629,6 +4319,7 @@ def main(argv) -> int:
     count(scan_phase(dev, smi, eager_mse, eager, pair_1080p))
     count(adaptive_phase(dev, smi, eager_mse["ssim"]))
     count(batched_phase(dev, smi, mse_l2))
+    count(mesh_phase(dev, smi))
     count(large_phase(dev, smi))
     count(recovery_phase(dev))
     for kk, _, _, _ in REFERENCES:

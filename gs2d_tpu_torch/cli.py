@@ -20,6 +20,11 @@ Usage:
       --scan-chunk 50 --out runs/torch_adaptive
   python -m gs2d_tpu_torch.fit a.npy b.npy --splats 1024 --iters 200 \
       --scan-chunk 50 --out runs/torch_batch
+  python -m gs2d_tpu_torch.fit assets/squirrel_cls_mini.npy --mesh 1,1,1 \
+      --iters 200 --out runs/torch_mesh
+  COORDINATOR_ADDRESS=127.0.0.1:29500 NUM_PROCESSES=2 PROCESS_ID=<0|1> \
+      python -m gs2d_tpu_torch.fit assets/squirrel_cls_mini.npy --mesh 1,2,1 \
+      --device cpu --iters 20 --out runs/torch_mesh_2   # one per process
 
 Fits through the layout gs2d_tpu would pick (``--binning auto``: resident
 for small populations, flat above 4096 splats, dense for small populations
@@ -60,7 +65,18 @@ which the port does not have). Several images (of one size) fit one
 population each through gs2d_tpu's batch route (``_fit_batch``:
 ``fit_batched``, eager or scanned, or ``fit_adaptive_batched`` with
 ``--densify-every``), writing ``render_final_<i>.png``; the flags that
-route would ignore exit 2. ``--device`` defaults
+route would ignore exit 2. ``--mesh D,T,S`` fits over a (data, tile,
+splat) mesh (``parallel.sharded.fit_sharded``), one process a device:
+started alone it runs a mesh of one device, and a larger mesh needs one
+process a device started with COORDINATOR_ADDRESS, NUM_PROCESSES and
+PROCESS_ID (NCCL on the card, gloo with ``--device cpu``); several images
+are its data axis (the batch must divide over it), ``--resume``,
+``--checkpoint-every`` (rank 0 writes the whole batched state), ``--ssim``,
+``--scan-chunk``, ``--rebin-margin`` and ``--densify-every`` pass through,
+``--reorder-every``, ``--save-render-every``, ``--recover`` and
+``--opacity-reset-every`` exit 2, and rank 0 writes one
+``render_final[_<i>].png`` a image (gs2d_tpu's ``render_pallas.render``,
+``ops/render_dense.render``, with the fit's tuned cfg). ``--device`` defaults
 to ``cuda`` and exits 2 when no GPU is visible; ``--device cpu`` runs the
 kernels' plain PyTorch versions. Flags of ``gs2d_tpu.cli`` for features
 this port does not have yet are not accepted (argparse exits 2), so
@@ -80,7 +96,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="Fit 2D Gaussian splats to a target image (PyTorch/CUDA).")
     p.add_argument("image", nargs="+",
                    help="target image (.npy uint8 (H, W, 3), or a file PIL "
-                        "can decode); more than one runs the batched fit, "
+                        "can decode); more than one runs the batched fit "
+                        "(the data axis with --mesh), "
                         "one population per image (equal sizes only)")
     p.add_argument("--splats", type=int, default=1024,
                    help="population size (reference default 1024)")
@@ -147,16 +164,123 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mix lambda*(1-SSIM) into the objective (0 = pure "
                         "L2, the reference objective); runs on the modular "
                         "path")
+    p.add_argument("--mesh", default="",
+                   help="data,tile,splat axis sizes for a fit over several "
+                        "devices (e.g. 1,2,2), one process a device started "
+                        "with COORDINATOR_ADDRESS, NUM_PROCESSES and "
+                        "PROCESS_ID; empty = one device")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda (default) requires a GPU, cpu "
                         "runs the kernels' plain PyTorch versions")
     return p
 
 
-# Flags gs2d_tpu's batch route refuses (gs2d_tpu/cli.py:129-136; --mesh is
-# not a flag of the port). Every other flag of the port applies to it.
+# Flags gs2d_tpu's batch route refuses (gs2d_tpu/cli.py:129-136; several
+# images with --mesh take the mesh route). Every other flag of the port
+# applies to it.
 BATCH_REFUSED = ("resume", "recover", "checkpoint_every", "ssim",
                  "reorder_every", "save_render_every")
+# Flags the mesh route refuses: gs2d_tpu's (cli.py:290-294), and the opacity
+# reset, which gs2d_tpu's fit_sharded does not apply.
+MESH_REFUSED = ("reorder_every", "save_render_every", "recover",
+                "opacity_reset_every")
+
+
+def _mesh_shape(parser, text: str) -> tuple:
+    try:
+        shape = tuple(int(x) for x in text.split(","))
+    except ValueError:
+        shape = ()
+    if len(shape) != 3 or min(shape) < 1:
+        parser.error(f"--mesh {text!r}: need three positive sizes D,T,S")
+    return shape
+
+
+def _fit_mesh(args, parser, cfg, refs, device, state0) -> int:
+    """The mesh route (gs2d_tpu's ``--mesh``, cli.py:287-330): the images
+    are the data axis, the fit ``parallel.sharded.fit_sharded`` with the
+    statics ``prepare_config`` tunes from the init; rank 0 logs, writes the
+    metrics, the checkpoints (global steps) and one render per image."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gs2d_tpu_torch.io.checkpoint import (Checkpointer, restore_sharded,
+                                              save_sharded)
+    from gs2d_tpu_torch.io.image import save_image
+    from gs2d_tpu_torch.ops import render_dense as rdn
+    from gs2d_tpu_torch.parallel.mesh import make_mesh
+    from gs2d_tpu_torch.parallel.multihost import initialize_cluster
+    from gs2d_tpu_torch.parallel.sharded import fit_sharded, prepare_config
+    from gs2d_tpu_torch.train.loop import init_batched_state, state_index
+    from gs2d_tpu_torch.utils.profiling import JsonlLogger
+
+    data, tile, splat = _mesh_shape(parser, args.mesh)
+    started = not dist.is_initialized()
+    initialize_cluster(backend="gloo" if device.type == "cpu" else "nccl")
+    try:
+        mesh = make_mesh(data, tile, splat, devices=(
+            None if dist.is_initialized() else [device]))
+    except ValueError as e:
+        parser.error(f"--mesh {args.mesh}: {e}")
+    try:
+        writer = mesh.is_writer
+        say = print if writer else None
+        if len(refs) % data:
+            print(f"error: batch of {len(refs)} images does not divide over "
+                  f"data axis {data}")
+            return 2
+        cfg = prepare_config(cfg, mesh, state0.params.to(mesh.device))
+        if args.rebin_margin < 0 and say:
+            say(f"rebin margin {cfg.rebin_margin} (auto)")
+        state = init_batched_state(cfg, len(refs), mesh.device)
+        ck = Checkpointer(os.path.join(args.out, "checkpoints")) \
+            if (args.checkpoint_every or args.resume) else None
+        start_iter = 0
+        if args.resume:
+            step, state = restore_sharded(ck, state, mesh)
+            if step is None:
+                print(f"error: --resume found no checkpoint under "
+                      f"{ck.directory}")
+                return 2
+            start_iter = step
+            if say:
+                say(f"resumed from checkpoint step {step}")
+        t0 = time.perf_counter()
+        state, hist = fit_sharded(
+            np.stack(refs), cfg, mesh, args.iters, state=state,
+            log_every=args.log_every, log_fn=say, ssim_lambda=args.ssim,
+            scan_chunk=args.scan_chunk, densify_every=args.densify_every,
+            checkpoint_every=args.checkpoint_every,
+            checkpoint_fn=(lambda s, it: save_sharded(
+                ck, start_iter + it, s, mesh, cfg))
+            if args.checkpoint_every else None,
+            iter_offset=start_iter)
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        total = time.perf_counter() - t0
+        if ck is not None:
+            save_sharded(ck, start_iter + args.iters, state, mesh, cfg)
+        if not writer:
+            return 0
+        logger = JsonlLogger(os.path.join(args.out, "metrics.jsonl"))
+        for rec in hist:
+            logger.log(**rec)
+        rate = args.iters / max(total, 1e-9)
+        print(f"fit {args.iters} iters in {total:.2f}s ({rate:.1f} iters/s)")
+        logger.log(event="done", seconds=total, iters_per_s=rate)
+        logger.close()
+        for i in range(len(refs)):
+            with torch.no_grad():
+                img = rdn.render(state_index(state, i).params, cfg)
+            name = "render_final.png" if len(refs) == 1 \
+                else f"render_final_{i:02d}.png"
+            save_image(os.path.join(args.out, name), img.cpu().numpy())
+        print(f"done (sharded over {mesh.shape})")
+        return 0
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _fit_batch(args, cfg, refs, device, logger, dump_render) -> int:
@@ -206,7 +330,13 @@ def main(argv=None) -> int:
                  "scan_chunk", "densify_every", "opacity_reset_every"):
         if getattr(args, flag) < 0:
             parser.error(f"--{flag.replace('_', '-')} must be >= 0")
-    batch = len(args.image) > 1
+    batch = len(args.image) > 1 and not args.mesh
+    if args.mesh:
+        _mesh_shape(parser, args.mesh)
+        for flag in MESH_REFUSED:
+            if getattr(args, flag):
+                parser.error(f"--{flag.replace('_', '-')} is not supported "
+                             "on the mesh path")
     if batch:
         # gs2d_tpu's batch route refuses what it would ignore (cli.py:129-136).
         for flag in BATCH_REFUSED:
@@ -281,6 +411,9 @@ def main(argv=None) -> int:
     else:
         # The deterministic init lets the policy measure the pair depth.
         cfg = tl.tune_tile_height(cfg, state.params)
+    os.makedirs(args.out, exist_ok=True)
+    if args.mesh:
+        return _fit_mesh(args, parser, cfg, refs, device, state)
     layout = rd.resolve_binning(cfg)  # "auto" depends on the tile grid
     if cfg.rebin_margin < 0:
         # Before the capacities below are sized for the margin.

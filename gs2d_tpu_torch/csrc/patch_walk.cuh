@@ -61,7 +61,9 @@ struct PatchGrid {
 
 struct Patch {
   int tile, pass, warp;  // warp: its index within the pass (the sum order)
-  int lane, x0, xx, y0;  // x0, y0: the patch's first column and row
+  int lane, x0, xx, y0;  // x0, y0: the patch's first column and row in the
+                         // launch's planes
+  int yg;                // its first row in the image: y0 + p.row_off
   float fx;
   bool active;           // false for the spare warps of a pass's last block
 };
@@ -85,6 +87,7 @@ __device__ __forceinline__ Patch patch_of(const RenderArgs& p,
   c.x0 = (c.tile % p.n_tiles_x) * p.tile_w + cg * 32;
   c.xx = c.x0 + c.lane;
   c.y0 = (c.tile / p.n_tiles_x) * p.tile_h + (c.pass * g.ngrp + grp) * kRows;
+  c.yg = c.y0 + p.row_off;
   c.fx = (float)c.xx + 0.5f;
   return c;
 }
@@ -92,14 +95,20 @@ __device__ __forceinline__ Patch patch_of(const RenderArgs& p,
 // The launch constants of a warp-patch kernel over lists of k_cap slots:
 // the walk's passes for the tile shape (tile_walk.cuh's walk_args, which fix
 // the patches' pass order) with the whole list as one chunk, so a->p.k_cap
-// is K. Returns 0 for a shape the kernels do not take.
+// is K. A band of tile rows (tile-axis sharding) is a launch over its
+// n_tiles_y rows whose planes hold only the band, row_off its first image
+// row: the splat geometry and the in-image test take image rows (yg), the
+// planes band rows (y0). Returns 0 for a shape the kernels do not take.
 inline int patch_args(int height, int width, int tile_h, int tile_w,
                       int n_tiles_x, int n_tiles_y, int k_cap,
                       float cutoff_sq, float min_throughput,
-                      int use_exp_approx, walk::WalkArgs* a) {
-  return walk::walk_args(height, width, tile_h, tile_w, n_tiles_x, n_tiles_y,
-                         k_cap, 1, 0, k_cap, cutoff_sq, min_throughput,
-                         use_exp_approx, a);
+                      int use_exp_approx, walk::WalkArgs* a,
+                      int row_off = 0) {
+  const int threads = walk::walk_args(
+      height, width, tile_h, tile_w, n_tiles_x, n_tiles_y, k_cap, 1, 0,
+      k_cap, cutoff_sq, min_throughput, use_exp_approx, a);
+  a->p.row_off = row_off;
+  return threads;
 }
 
 // The patch grid of a launch whose pass geometry walk_args fixed.
@@ -180,7 +189,7 @@ __device__ __forceinline__ Slot cull_slot(const Run& run, int k, int n,
   bool any = false;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    const int yy = c.y0 + r;
+    const int yy = c.yg + r;
     int beg_x, end_x;
     const bool q_ok = row_interval(sl.s, (float)yy + 0.5f - sl.s.py, p,
                                    beg_x, end_x);
@@ -239,7 +248,7 @@ __device__ __forceinline__ void fwd_patch_step(
   const float vx = c.fx - b.s.px;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    const float vy = ((float)(c.y0 + r) + 0.5f) - b.s.py;
+    const float vy = ((float)(c.yg + r) + 0.5f) - b.s.py;
     const float alpha = gauss_alpha(b.s, vx, vy, p);
     const bool live = covered(b, r, c.lane) && T[r] >= p.min_throughput;
     fwd_step(b.s, live, alpha, cr[r], cg[r], cb[r], T[r]);
@@ -292,7 +301,7 @@ __device__ __forceinline__ int fwd_patch(
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     cr[r] = cg[r] = cb[r] = 0.0f;
-    T[r] = (c.y0 + r < p.height && c.xx < p.width) ? 1.0f : 0.0f;
+    T[r] = (c.yg + r < p.height && c.xx < p.width) ? 1.0f : 0.0f;
   }
   return fwd_walk(
       run, n, c, p, T,
@@ -349,7 +358,7 @@ __device__ __forceinline__ void bwd_patch_step(
   Moments m;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    const float vy = ((float)(c.y0 + r) + 0.5f) - b.s.py;
+    const float vy = ((float)(c.yg + r) + 0.5f) - b.s.py;
     const float alpha = gauss_alpha(b.s, vx, vy, p);
     const bool live = covered(b, r, c.lane) && T[r] >= p.min_throughput;
     bwd_step(b.s, live, alpha, vy, gc_r[r], gc_g[r], gc_b[r], gf[r], ga[r],
@@ -500,8 +509,7 @@ __device__ __forceinline__ void l2_patch(const Run& run, int n,
   const size_t plane = (size_t)p.n_tiles_y * p.tile_h * wp;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    const int yy = c.y0 + r;
-    const size_t i = (size_t)yy * wp + c.xx;
+    const size_t i = (size_t)(c.y0 + r) * wp + c.xx;
     const float fr = gc_r[r], fg = gc_g[r], fb = gc_b[r];
     color[i] = fr;
     color[plane + i] = fg;
@@ -511,7 +519,7 @@ __device__ __forceinline__ void l2_patch(const Run& run, int n,
     gc_b[r] = fb - ref[2 * plane + i];
     gf[r] = gc_r[r] * fr + gc_g[r] * fg + gc_b[r] * fb;
     ga[r] = 0.0f;
-    T[r] = (yy < p.height && c.xx < p.width) ? 1.0f : 0.0f;
+    T[r] = (c.yg + r < p.height && c.xx < p.width) ? 1.0f : 0.0f;
   }
   int replay_survivors, replay_walked;
   bwd_patch<false>(run, n, n_full, c, p, gc_r, gc_g, gc_b, gf, ga, T,

@@ -47,8 +47,10 @@
 // a dense fit repeats the resident fit's numbers. What bounds them on the
 // card: about 58 f32 operations per (pixel, pair) forward and 81 backward
 // (counted in chip_smoke.py) against 64 bytes of row per pair, so they are
-// compute and latency bound; the launches' host cost outweighs both on
-// every fit step (ROADMAP.md, CUDA graphs).
+// compute and latency bound. An eager fit step spends most of its time on
+// the host between launches; a scanned step, one CUDA graph replayed
+// (train/graphs.py), keeps the card busy for all but about a tenth of it
+// (PERF.md section 5).
 
 #include <cuda_runtime.h>
 
@@ -174,17 +176,19 @@ using gs2d::walk::WalkArgs;
 extern "C" {
 
 // Kernels 6/7. rows is (n_tiles, K, 16), count (n_tiles,); color is
-// (3, Hp, Wp), trans (Hp, Wp); walked is null or (patches, 2). Returns
+// (3, Hp, Wp), trans (Hp, Wp); walked is null or (patches, 2). A band of
+// tile rows is n_tiles_y rows from image row row_off, its planes
+// (3, n_tiles_y * tile_h, Wp); 0 for the whole image. Returns
 // cudaGetLastError().
 int gs2d_fwd_dense(const float* rows, const int* count, float* color,
                    float* trans, int* walked, int height, int width,
                    int tile_h, int tile_w, int n_tiles_x, int n_tiles_y,
-                   int k_cap, float cutoff_sq, float min_throughput,
-                   int use_exp_approx, void* stream) {
+                   int row_off, int k_cap, float cutoff_sq,
+                   float min_throughput, int use_exp_approx, void* stream) {
   WalkArgs a;
   if (gs2d::patch::patch_args(height, width, tile_h, tile_w, n_tiles_x,
                               n_tiles_y, k_cap, cutoff_sq, min_throughput,
-                              use_exp_approx, &a) == 0) {
+                              use_exp_approx, &a, row_off) == 0) {
     return (int)cudaErrorInvalidValue;
   }
   const gs2d::patch::PatchGrid g = gs2d::patch::patch_grid(a);
@@ -254,19 +258,19 @@ int gs2d_bwd_chunk(const float* rows, const int* ids, const int* count,
 // Kernels 8/9 and the patch sum. ids is (n_tiles, K); fin, gc and cin are
 // (3, Hp, Wp), tin (Hp, Wp); partial is (n_tiles, K, patches per tile, 9)
 // scratch, read only where the patch kernel wrote it; grads9 (9, n_splats)
-// is written whole; walked is null or (patches, 2). Returns
-// cudaGetLastError().
+// is written whole; walked is null or (patches, 2); the band as in
+// gs2d_fwd_dense. Returns cudaGetLastError().
 int gs2d_bwd_dense(const float* rows, const int* ids, const int* count,
                    const float* fin, const float* gc, const float* cin,
                    const float* tin, float* partial, float* grads9,
                    int* walked, int n_splats, int height, int width,
                    int tile_h, int tile_w, int n_tiles_x, int n_tiles_y,
-                   int k_cap, float cutoff_sq, float min_throughput,
-                   int use_exp_approx, void* stream) {
+                   int row_off, int k_cap, float cutoff_sq,
+                   float min_throughput, int use_exp_approx, void* stream) {
   WalkArgs a;
   if (gs2d::patch::patch_args(height, width, tile_h, tile_w, n_tiles_x,
                               n_tiles_y, k_cap, cutoff_sq, min_throughput,
-                              use_exp_approx, &a) == 0) {
+                              use_exp_approx, &a, row_off) == 0) {
     return (int)cudaErrorInvalidValue;
   }
   const gs2d::patch::PatchGrid g = gs2d::patch::patch_grid(a);
@@ -284,18 +288,18 @@ int gs2d_bwd_dense(const float* rows, const int* ids, const int* count,
 // Kernels 4/5 and the patch sum. ref and color are (3, Hp, Wp); partial is
 // (n_tiles, K, patches per tile, 9) scratch (patches as in gs2d_l2_resident),
 // read only where the patch kernel wrote it; grads9 (9, n_splats) is
-// written whole; walked is null or (patches, 2). Returns
-// cudaGetLastError().
+// written whole; walked is null or (patches, 2); the band as in
+// gs2d_fwd_dense. Returns cudaGetLastError().
 int gs2d_l2_dense(const float* rows, const int* ids, const int* count,
                   const float* ref, float* color, float* partial,
                   float* grads9, int* walked, int n_splats, int height,
                   int width, int tile_h, int tile_w, int n_tiles_x,
-                  int n_tiles_y, int k_cap, float cutoff_sq,
+                  int n_tiles_y, int row_off, int k_cap, float cutoff_sq,
                   float min_throughput, int use_exp_approx, void* stream) {
   WalkArgs a;
   if (gs2d::patch::patch_args(height, width, tile_h, tile_w, n_tiles_x,
                               n_tiles_y, k_cap, cutoff_sq, min_throughput,
-                              use_exp_approx, &a) == 0) {
+                              use_exp_approx, &a, row_off) == 0) {
     return (int)cudaErrorInvalidValue;
   }
   const gs2d::patch::PatchGrid g = gs2d::patch::patch_grid(a);

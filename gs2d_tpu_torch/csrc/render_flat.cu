@@ -168,7 +168,9 @@ __device__ __forceinline__ int floor_div(int v, int d) {
 // Splat i's clamped tile box [tx0, tx1] x [ty0, ty1], empty when it is
 // offscreen: tiles._bbox_and_quad on the packed fields (16, n), operation
 // for operation (the half-height is the packed h, which packed_fields forms
-// as the box does).
+// as the box does). In a band of n_tiles_y tile rows from image row row_off
+// its rows are band rows, clipped to the band, and it is empty for a splat
+// outside the band, as tiles.bin_splats bins a band.
 struct TileBox {
   int tx0, tx1, ty0, ty1;
 };
@@ -192,12 +194,15 @@ __device__ __forceinline__ TileBox tile_box(const float* __restrict__ fields,
   const float hx = sqrtf((s11 / det) * det) * bounds;
   const int x0 = trunc_i32(px - hx), x1 = trunc_i32(px + hx);
   const int y0 = trunc_i32(py - hy), y1 = trunc_i32(py + hy);
+  const int r0 = p.row_off / p.tile_h;  // the band's first tile row
+  const int ty0 = floor_div(y0, p.tile_h), ty1 = floor_div(y1, p.tile_h);
   TileBox b;
   b.tx0 = min(max(floor_div(x0, p.tile_w), 0), p.n_tiles_x - 1);
   b.tx1 = min(max(floor_div(x1, p.tile_w), 0), p.n_tiles_x - 1);
-  b.ty0 = min(max(floor_div(y0, p.tile_h), 0), p.n_tiles_y - 1);
-  b.ty1 = min(max(floor_div(y1, p.tile_h), 0), p.n_tiles_y - 1);
-  if (x1 < 0 || x0 >= p.width || y1 < 0 || y0 >= p.height) {
+  b.ty0 = min(max(ty0 - r0, 0), p.n_tiles_y - 1);
+  b.ty1 = min(max(ty1 - r0, 0), p.n_tiles_y - 1);
+  if (x1 < 0 || x0 >= p.width || y1 < 0 || y0 >= p.height || ty1 < r0 ||
+      ty0 > r0 + p.n_tiles_y - 1) {
     b.ty0 = 1;  // offscreen: no tile
     b.ty1 = 0;
   }
@@ -242,14 +247,15 @@ __global__ void segment_sum_flat_kernel(const int* __restrict__ ids,
 // Launch constants: the pass geometry of walk_args and the patch grid.
 // Returns false for a tile shape the kernels do not take.
 bool flat_args(int height, int width, int tile_h, int tile_w, int n_tiles_x,
-               int n_tiles_y, int kc, int max_chunks, float cutoff_sq,
-               float min_throughput, int use_exp_approx, walk::WalkArgs* a,
-               PatchGrid* g) {
+               int n_tiles_y, int row_off, int kc, int max_chunks,
+               float cutoff_sq, float min_throughput, int use_exp_approx,
+               walk::WalkArgs* a, PatchGrid* g) {
   if (walk::walk_args(height, width, tile_h, tile_w, n_tiles_x, n_tiles_y,
                       kc, max_chunks, 0, 0, cutoff_sq, min_throughput,
                       use_exp_approx, a) == 0) {
     return false;
   }
+  a->p.row_off = row_off;
   *g = patch::patch_grid(*a);
   return true;
 }
@@ -264,16 +270,19 @@ extern "C" {
 
 // Kernel 10. rows is (M, 16), start/count (n_tiles,); color is
 // (3, Hp, Wp), trans (Hp, Wp); walked is null or (patches, 2), patches in
-// (tile, pass, warp) order. Returns cudaGetLastError().
+// (tile, pass, warp) order. A band of tile rows is n_tiles_y rows from
+// image row row_off, its planes (3, n_tiles_y * tile_h, Wp); 0 for the
+// whole image. Returns cudaGetLastError().
 int gs2d_fwd_flat(const float* rows, const int* start, const int* count,
                   float* color, float* trans, int* walked, int height,
                   int width, int tile_h, int tile_w, int n_tiles_x,
-                  int n_tiles_y, int kc, int max_chunks, float cutoff_sq,
-                  float min_throughput, int use_exp_approx, void* stream) {
+                  int n_tiles_y, int row_off, int kc, int max_chunks,
+                  float cutoff_sq, float min_throughput, int use_exp_approx,
+                  void* stream) {
   WalkArgs a;
   PatchGrid g;
   if (!gs2d::flat::flat_args(height, width, tile_h, tile_w, n_tiles_x,
-                             n_tiles_y, kc, max_chunks, cutoff_sq,
+                             n_tiles_y, row_off, kc, max_chunks, cutoff_sq,
                              min_throughput, use_exp_approx, &a, &g)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -289,21 +298,21 @@ int gs2d_fwd_flat(const float* rows, const int* start, const int* count,
 // packed fields (the splats' tile boxes); partial is scratch of
 // (patches per tile, m_rows, 9) floats, read only where the replay wrote it;
 // moments (m_rows, 9) and grads9 (9, n_splats) are written whole; walked is
-// null or (patches, 2) as in gs2d_fwd_flat, boxes null or (n_splats, 4).
-// Returns cudaGetLastError().
+// null or (patches, 2) as in gs2d_fwd_flat, boxes null or (n_splats, 4);
+// the band as in gs2d_fwd_flat. Returns cudaGetLastError().
 int gs2d_bwd_flat(const float* rows, const int* ids, const int* start,
                   const int* count, const float* fin, const float* gc,
                   const float* cin, const float* tin, const float* fields,
                   float* partial, float* moments, float* grads9, int* walked,
                   int* boxes, int n_splats, int m_rows, int height, int width,
                   int tile_h, int tile_w, int n_tiles_x, int n_tiles_y,
-                  int kc, int max_chunks, float cutoff_sq,
+                  int row_off, int kc, int max_chunks, float cutoff_sq,
                   float min_throughput, float bounds, int use_exp_approx,
                   void* stream) {
   WalkArgs a;
   PatchGrid g;
   if (!gs2d::flat::flat_args(height, width, tile_h, tile_w, n_tiles_x,
-                             n_tiles_y, kc, max_chunks, cutoff_sq,
+                             n_tiles_y, row_off, kc, max_chunks, cutoff_sq,
                              min_throughput, use_exp_approx, &a, &g)) {
     return (int)cudaErrorInvalidValue;
   }

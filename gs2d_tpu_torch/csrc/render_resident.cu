@@ -207,13 +207,13 @@ int l2_patches(const float* table, const int* ids, const int* count,
                const int* bases, int win, const float* ref, float* color,
                float* partial, float* grads16, int* walked, int n_splats,
                int n_pad, int height, int width, int tile_h, int tile_w,
-               int n_tiles_x, int n_tiles_y, int k_cap, float cutoff_sq,
-               float min_throughput, int use_exp_approx,
+               int n_tiles_x, int n_tiles_y, int row_off, int k_cap,
+               float cutoff_sq, float min_throughput, int use_exp_approx,
                cudaStream_t stream) {
   walk::WalkArgs a;
   if (patch::patch_args(height, width, tile_h, tile_w, n_tiles_x,
                         n_tiles_y, k_cap, cutoff_sq, min_throughput,
-                        use_exp_approx, &a) == 0) {
+                        use_exp_approx, &a, row_off) == 0) {
     return (int)cudaErrorInvalidValue;
   }
   const PatchGrid g = patch::patch_grid(a);
@@ -260,17 +260,19 @@ const char* gs2d_error_string(int err) {
 // the patch's 8-row group * (tile_w / 32) + its column group: every entry
 // the sum reads is written by the kernel; grads16 is (16, n_pad), zeroed by
 // the caller (rows 9..15 and columns >= n_splats are left as they are);
-// walked is null or (patches, 2). Returns cudaGetLastError().
+// walked is null or (patches, 2). A band of tile rows is n_tiles_y rows
+// from image row row_off, its planes (3, n_tiles_y * tile_h, Wp); 0 for the
+// whole image. Returns cudaGetLastError().
 int gs2d_l2_resident(const float* table, const int* ids, const int* count,
                      const float* ref, float* color, float* partial,
                      float* grads16, int* walked, int n_splats, int n_pad,
                      int height, int width, int tile_h, int tile_w,
-                     int n_tiles_x, int n_tiles_y, int k_cap,
+                     int n_tiles_x, int n_tiles_y, int row_off, int k_cap,
                      float cutoff_sq, float min_throughput,
                      int use_exp_approx, void* stream) {
   return l2_patches(table, ids, count, nullptr, 0, ref, color, partial,
                     grads16, walked, n_splats, n_pad, height, width, tile_h,
-                    tile_w, n_tiles_x, n_tiles_y, k_cap, cutoff_sq,
+                    tile_w, n_tiles_x, n_tiles_y, row_off, k_cap, cutoff_sq,
                     min_throughput, use_exp_approx, (cudaStream_t)stream);
 }
 
@@ -285,25 +287,25 @@ int gs2d_l2_window(const float* table, const int* ids, const int* count,
                    void* stream) {
   return l2_patches(table, ids, count, bases, win, ref, color, partial,
                     grads16, walked, n_splats, n_pad, height, width, tile_h,
-                    tile_w, n_tiles_x, n_tiles_y, k_cap, cutoff_sq,
+                    tile_w, n_tiles_x, n_tiles_y, 0, k_cap, cutoff_sq,
                     min_throughput, use_exp_approx, (cudaStream_t)stream);
 }
 
 // Kernel 3 and the patch sum. fin, gc and cin are (3, Hp, Wp), tin
-// (Hp, Wp); partial, grads16 and walked as in gs2d_l2_resident. Returns
-// cudaGetLastError().
+// (Hp, Wp); partial, grads16, walked and the band (n_tiles_y, row_off) as
+// in gs2d_l2_resident. Returns cudaGetLastError().
 int gs2d_bwd_resident(const float* table, const int* ids, const int* count,
                       const float* fin, const float* gc, const float* cin,
                       const float* tin, float* partial, float* grads16,
                       int* walked, int n_splats, int n_pad, int height,
                       int width, int tile_h, int tile_w, int n_tiles_x,
-                      int n_tiles_y, int k_cap, float cutoff_sq,
-                      float min_throughput, int use_exp_approx,
-                      void* stream) {
+                      int n_tiles_y, int row_off, int k_cap,
+                      float cutoff_sq, float min_throughput,
+                      int use_exp_approx, void* stream) {
   walk::WalkArgs a;
   if (patch::patch_args(height, width, tile_h, tile_w, n_tiles_x,
                         n_tiles_y, k_cap, cutoff_sq, min_throughput,
-                        use_exp_approx, &a) == 0) {
+                        use_exp_approx, &a, row_off) == 0) {
     return (int)cudaErrorInvalidValue;
   }
   const PatchGrid g = patch::patch_grid(a);
@@ -318,17 +320,18 @@ int gs2d_bwd_resident(const float* table, const int* ids, const int* count,
 }
 
 // Kernel 2. color is (3, Hp, Wp), trans (Hp, Wp); walked is null or
-// (patches, 2), patches in kernel 1's order. Returns cudaGetLastError().
+// (patches, 2), patches in kernel 1's order; the band as in
+// gs2d_l2_resident. Returns cudaGetLastError().
 int gs2d_fwd_resident(const float* table, const int* ids, const int* count,
                       float* color, float* trans, int* walked, int height,
                       int width, int tile_h, int tile_w, int n_tiles_x,
-                      int n_tiles_y, int k_cap, float cutoff_sq,
-                      float min_throughput, int use_exp_approx,
-                      void* stream) {
+                      int n_tiles_y, int row_off, int k_cap,
+                      float cutoff_sq, float min_throughput,
+                      int use_exp_approx, void* stream) {
   walk::WalkArgs a;
   if (patch::patch_args(height, width, tile_h, tile_w, n_tiles_x,
                         n_tiles_y, k_cap, cutoff_sq, min_throughput,
-                        use_exp_approx, &a) == 0) {
+                        use_exp_approx, &a, row_off) == 0) {
     return (int)cudaErrorInvalidValue;
   }
   const PatchGrid g = patch::patch_grid(a);

@@ -43,6 +43,8 @@ struct RenderArgs {
   float cutoff_sq;          // splat_bounds^2
   float min_throughput;     // per-pixel early-out threshold on T
   int use_exp_approx;
+  int row_off;              // image row of the launch's first pixel row: a
+                            // band's first row, 0 for the whole image
 };
 
 __device__ __forceinline__ float nan_min(float a, float b) {

@@ -237,6 +237,7 @@ inline int walk_args(int height, int width, int tile_h, int tile_w,
   a->p.cutoff_sq = cutoff_sq;
   a->p.min_throughput = min_throughput;
   a->p.use_exp_approx = use_exp_approx;
+  a->p.row_off = 0;
   a->kc = kc;
   a->max_chunks = max_chunks;
   a->sat_walk = sat_walk;

@@ -13,6 +13,12 @@ either package loads into the other: ``leaf_0 ... leaf_20`` in the order
 ``config_json``, the config's fields as JSON bytes. gs2d_tpu's orbax
 backend is not ported (ROADMAP.md, "Deliberately not ported"): files are
 single ``step_{n}.npz`` archives, written atomically.
+
+Under a mesh (``parallel/``) a checkpoint is the whole batched state in the
+same format: ``save_sharded`` writes it from rank 0, every rank holding it
+whole (``parallel.sharded.gather_state``), and ``restore_sharded`` reads it
+on rank 0 and sends it to every rank, whatever the world size and the mesh
+it was saved from; ``fit_sharded`` then keeps each rank's shard.
 """
 
 from __future__ import annotations
@@ -112,3 +118,40 @@ class Checkpointer:
         if step is None:
             return None, like
         return step, self.restore(step, like)
+
+
+def save_sharded(checkpointer: "Checkpointer", step: int, state: TrainState,
+                 mesh, cfg: Optional[SplatConfig] = None) -> None:
+    """Save the whole batched ``state`` (every rank holds it) from the
+    mesh's writer, rank 0; the other ranks wait until it is written."""
+    if mesh.is_writer:
+        checkpointer.save(step, state, cfg)
+    if mesh.device_mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def restore_sharded(checkpointer: "Checkpointer", like: TrainState, mesh):
+    """(step, state) of the newest checkpoint, read on rank 0 and sent to
+    every rank of the mesh (any world size or mesh shape); (None, ``like``)
+    when there is none. ``like`` is the whole batched state's template (its
+    devices and dtypes)."""
+    if mesh.device_mesh is None:
+        return checkpointer.restore_latest(like)
+    import torch.distributed as dist
+
+    payload = [None, None]
+    if dist.get_rank() == 0:
+        step = checkpointer.latest_step()
+        if step is not None:
+            with np.load(checkpointer._path(step)) as z:
+                payload = [step, [z[f"leaf_{i}"]
+                                  for i in range(len(LEAF_ORDER))]]
+    dist.broadcast_object_list(payload, src=0)
+    step, leaves = payload
+    if step is None:
+        return None, like
+    return step, _from_leaves([
+        torch.as_tensor(x).to(device=t.device, dtype=t.dtype)
+        for x, t in zip(leaves, _leaves(like))])

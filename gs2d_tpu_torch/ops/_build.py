@@ -39,20 +39,20 @@ _F = ctypes.c_float
 # csrc/render_flat.cu, csrc/render_dense.cu, csrc/render_mxu.cu,
 # csrc/probes.cu, csrc/graph_cond.cu).
 SIGNATURES = {
-    "gs2d_l2_resident": [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P],
-    "gs2d_fwd_resident": [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P],
-    "gs2d_bwd_resident": [_P] * 10 + [_I] * 9 + [_F, _F, _I, _P],
+    "gs2d_l2_resident": [_P] * 8 + [_I] * 10 + [_F, _F, _I, _P],
+    "gs2d_fwd_resident": [_P] * 6 + [_I] * 8 + [_F, _F, _I, _P],
+    "gs2d_bwd_resident": [_P] * 10 + [_I] * 10 + [_F, _F, _I, _P],
     "gs2d_l2_window": [_P] * 9 + [_I] * 10 + [_F, _F, _I, _P],
     "gs2d_rows_per_thread": [],
     "gs2d_max_threads": [],
     "gs2d_max_smem_per_block": [],
-    "gs2d_fwd_flat": [_P] * 6 + [_I] * 8 + [_F, _F, _I, _P],
-    "gs2d_bwd_flat": [_P] * 14 + [_I] * 10 + [_F, _F, _F, _I, _P],
-    "gs2d_fwd_dense": [_P] * 5 + [_I] * 7 + [_F, _F, _I, _P],
+    "gs2d_fwd_flat": [_P] * 6 + [_I] * 9 + [_F, _F, _I, _P],
+    "gs2d_bwd_flat": [_P] * 14 + [_I] * 11 + [_F, _F, _F, _I, _P],
+    "gs2d_fwd_dense": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _P],
     "gs2d_fwd_chunk": [_P] * 4 + [_I] * 9 + [_F, _F, _I, _P],
-    "gs2d_bwd_dense": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _P],
+    "gs2d_bwd_dense": [_P] * 10 + [_I] * 9 + [_F, _F, _I, _P],
     "gs2d_bwd_chunk": [_P] * 9 + [_I] * 10 + [_F, _F, _I, _P],
-    "gs2d_l2_dense": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
+    "gs2d_l2_dense": [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P],
     "gs2d_l2_mxu": [_P] * 9 + [_I] * 8 + [_F, _F, _I, _P],
     "gs2d_l2_mxu_chunk": [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P],
     "gs2d_fma_threads": [],

@@ -2,6 +2,14 @@
 parts of ``gs2d_tpu/ops/render_pallas.py``), and the plain PyTorch twin of
 the device code the CUDA kernels share (``csrc/splat_terms.cuh``).
 
+Every kernel wrapper takes ``band_row0`` / ``band_rows``, gs2d_tpu's band of
+tile rows (the unit of tile-axis sharding, ``parallel/sharded.py``): the
+binning's tile ids are band-local, the planes hold the band's
+``band_rows * tile_h`` rows, and the splat geometry and the in-image test
+take image rows, offset by ``band_row0 * tile_h`` (the TPU kernels'
+scalar-prefetched ``off``, the CUDA kernels' ``row_off``). ``band_rows``
+None is the whole image.
+
 The twin evaluates one splat-step for every tile at once: per-pixel planes
 are (n_tiles, tile_h, tile_w) tensors and each tile's slot-k splat scalars a
 (n_tiles, N_FIELDS) row block broadcast over the tile's pixels. Its float32
@@ -71,7 +79,8 @@ def moments_to_grads(m: GaussianParams,
 
     ``m`` carries the reduced moments (pos=(M1, M2), sx=M3, sy=M4, rot=M5,
     opacity=M0, color final); ``fields`` is the (N_FIELDS, n) packed table
-    the kernel consumed."""
+    the kernel consumed; the combinations run in the moments' dtype."""
+    fields = fields.to(m.opacity.dtype)
     a, b, d = fields[tl.FIELD_A], fields[tl.FIELD_B], fields[tl.FIELD_D]
     c, s = fields[tl.FIELD_COS], fields[tl.FIELD_SIN]
     sx, sy, op = fields[tl.FIELD_SX], fields[tl.FIELD_SY], fields[tl.FIELD_OP]
@@ -107,12 +116,23 @@ def unpack_moments(rows: torch.Tensor, n_splats: int) -> GaussianParams:
     )
 
 
-def identity_trans(cfg: SplatConfig, hp: int, wp: int,
-                   device=None) -> torch.Tensor:
-    """Identity transmittance plane (hp, wp): 1 inside the image, 0 on
-    padding. Out-of-image pixels never composite, so zero is exact there,
-    and it lets the saturation exits below ignore padding."""
-    yy = torch.arange(hp, device=device)[:, None]
+def band_grid(cfg: SplatConfig, band_row0: int = 0,
+              band_rows=None) -> tuple:
+    """(tile rows, first image row in pixels) of a launch over the band of
+    ``band_rows`` tile rows from tile row ``band_row0``; the whole grid and
+    0 when ``band_rows`` is None."""
+    if band_rows is None:
+        return cfg.n_tiles_y, 0
+    return int(band_rows), int(band_row0) * cfg.tile_h
+
+
+def identity_trans(cfg: SplatConfig, hp: int, wp: int, device=None,
+                   row0_px: int = 0) -> torch.Tensor:
+    """Identity transmittance plane (hp, wp) of the rows from image row
+    ``row0_px``: 1 inside the image, 0 on padding. Out-of-image pixels
+    never composite, so zero is exact there, and it lets the saturation
+    exits below ignore padding."""
+    yy = row0_px + torch.arange(hp, device=device)[:, None]
     xx = torch.arange(wp, device=device)[None, :]
     return ((yy < cfg.height) & (xx < cfg.width)).to(torch.float32)
 
@@ -156,19 +176,32 @@ def pad_ref_chw(ref, cfg: SplatConfig, device=None) -> torch.Tensor:
     return out
 
 
-def identity_carry(cfg: SplatConfig, device):
+def identity_carry(cfg: SplatConfig, device, band_row0: int = 0,
+                   band_rows=None):
     """The empty prefix entering a population: C_in (3, Hp, Wp) zeros and
-    the identity T_in (Hp, Wp)."""
-    hp, wp = cfg.padded_height, cfg.padded_width
+    the identity T_in (Hp, Wp), or the band's rows of them."""
+    gy, row0_px = band_grid(cfg, band_row0, band_rows)
+    hp, wp = gy * cfg.tile_h, cfg.padded_width
     return (torch.zeros((3, hp, wp), dtype=torch.float32, device=device),
-            identity_trans(cfg, hp, wp, device))
+            identity_trans(cfg, hp, wp, device, row0_px))
 
 
-def carry_planes(final_color, g_color, carry_in, cfg: SplatConfig):
+def carry_planes(final_color, g_color, carry_in, cfg: SplatConfig,
+                 band_row0: int = 0, band_rows=None):
     """The backward kernels' input planes from (H, W, 3) images, zero-padded
     as gs2d_tpu's backward_tiled / backward_resident pad them: (fin, gc,
     cin) (3, Hp, Wp) and tin (Hp, Wp). ``carry_in`` is the (C (H, W, 3),
-    T (H, W)) prefix entering the population; identity when None."""
+    T (H, W)) prefix entering the population; identity when None. Under a
+    band the images are the band's, already padded ((band_rows * tile_h,
+    Wp, 3) and (band_rows * tile_h, Wp)), as gs2d_tpu takes them."""
+    if band_rows is not None:
+        chw = lambda img: img.permute(2, 0, 1).contiguous()
+        if carry_in is None:
+            cin, tin = identity_carry(cfg, final_color.device, band_row0,
+                                      band_rows)
+        else:
+            cin, tin = chw(carry_in[0]), carry_in[1].contiguous()
+        return chw(final_color), chw(g_color), cin, tin
     fin = pad_ref_chw(final_color, cfg)[0]
     gc = pad_ref_chw(g_color, cfg)[0]
     if carry_in is None:
@@ -196,7 +229,7 @@ def segment_sum_plain(ids, start, count, moments, n_splats: int):
     Ids within a run are unique, so each tile's add is a plain indexed
     update; -1 ids would land on the dropped row n."""
     acc = torch.zeros((n_splats + 1, N_MOMENTS),
-                      dtype=torch.float32, device=moments.device)
+                      dtype=moments.dtype, device=moments.device)
     for s, c in zip(start.tolist(), count.tolist()):
         if c:
             run = ids[s: s + c].long()
@@ -209,14 +242,17 @@ def segment_sum_plain(ids, start, count, moments, n_splats: int):
 # Plain PyTorch twin of the shared device code (csrc/splat_terms.cuh).
 # ---------------------------------------------------------------------------
 
-def tile_coords(cfg: SplatConfig, device):
-    """Integer pixel coords, centres and the in-image mask of every tile:
-    (yy, xx, fy, fx, inside), each (n_tiles, tile_h, tile_w), tiles in
-    row-major grid order."""
+def tile_coords(cfg: SplatConfig, device, band_row0: int = 0,
+                band_rows=None):
+    """Integer pixel coords (image rows), centres and the in-image mask of
+    every tile of the grid, or of the band: (yy, xx, fy, fx, inside), each
+    (n_tiles, tile_h, tile_w), tiles in row-major grid order."""
     th, tw = cfg.tile_h, cfg.tile_w
-    t = torch.arange(cfg.n_tiles_y * cfg.n_tiles_x, device=device)
+    gy, row0_px = band_grid(cfg, band_row0, band_rows)
+    t = torch.arange(gy * cfg.n_tiles_x, device=device)
     ty = torch.div(t, cfg.n_tiles_x, rounding_mode="floor")
     tx = t - ty * cfg.n_tiles_x
+    ty = ty + row0_px // th
     r = torch.arange(th, device=device)
     c = torch.arange(tw, device=device)
     yy = (ty[:, None, None] * th + r[None, :, None]).expand(-1, th, tw)
@@ -229,21 +265,23 @@ def tile_coords(cfg: SplatConfig, device):
 
 
 def to_tiles(img_chw: torch.Tensor, cfg: SplatConfig) -> torch.Tensor:
-    """(C, Hp, Wp) -> (C, n_tiles, tile_h, tile_w)."""
-    ch = img_chw.shape[0]
-    x = img_chw.reshape(ch, cfg.n_tiles_y, cfg.tile_h, cfg.n_tiles_x,
-                        cfg.tile_w)
+    """(C, Hp, Wp) -> (C, n_tiles, tile_h, tile_w); a band's (C, rows, Wp)
+    alike."""
+    ch, hp = img_chw.shape[:2]
+    gy = hp // cfg.tile_h
+    x = img_chw.reshape(ch, gy, cfg.tile_h, cfg.n_tiles_x, cfg.tile_w)
     return x.permute(0, 1, 3, 2, 4).reshape(
-        ch, cfg.n_tiles_y * cfg.n_tiles_x, cfg.tile_h, cfg.tile_w)
+        ch, gy * cfg.n_tiles_x, cfg.tile_h, cfg.tile_w)
 
 
 def from_tiles(tiles: torch.Tensor, cfg: SplatConfig) -> torch.Tensor:
-    """(C, n_tiles, tile_h, tile_w) -> (C, Hp, Wp)."""
+    """(C, n_tiles, tile_h, tile_w) -> (C, Hp, Wp); a band's tiles to its
+    (C, rows, Wp) alike."""
     ch = tiles.shape[0]
-    x = tiles.reshape(ch, cfg.n_tiles_y, cfg.n_tiles_x, cfg.tile_h,
-                      cfg.tile_w)
+    gy = tiles.shape[1] // cfg.n_tiles_x
+    x = tiles.reshape(ch, gy, cfg.n_tiles_x, cfg.tile_h, cfg.tile_w)
     return x.permute(0, 1, 3, 2, 4).reshape(
-        ch, cfg.padded_height, cfg.padded_width)
+        ch, gy * cfg.tile_h, cfg.padded_width)
 
 
 def _row_interval(px, a, b, d, vy, cfg: SplatConfig):
@@ -280,8 +318,14 @@ def _splat_terms(rows, fx, fy, xx, yy, inside, T, cfg: SplatConfig):
     vx = fx - px
 
     # Row walk bounds: y in [trunc(py-h), trunc(py+h)] (main.cpp:490-492).
-    row_ok = (yy >= trunc_to_int(py - h)) & (yy <= trunc_to_int(py + h))
-    q_ok, beg_x, end_x = _row_interval(px, a, b, d, vy, cfg)
+    # Coverage is decided on the float32 rows, as the kernels decide it,
+    # also where rows in float64 carry the rest of the arithmetic (the
+    # float64 reference in chip_smoke.py).
+    px32, py32, h32 = px.float(), py.float(), h.float()
+    row_ok = (yy >= trunc_to_int(py32 - h32)) & (yy <= trunc_to_int(py32
+                                                                    + h32))
+    q_ok, beg_x, end_x = _row_interval(px32, a.float(), b.float(), d.float(),
+                                       fy - py32, cfg)
     col_ok = (xx >= beg_x) & (xx <= end_x)
 
     cover = row_ok & q_ok & col_ok & inside

@@ -110,9 +110,12 @@ def _dense_walk(tile_params, count, cfg: SplatConfig, step, carry, get_t):
         cfg.min_throughput, check_every)
 
 
-def _fwd_dense_plain(tile_params, count, cfg: SplatConfig):
-    """Plain twin of kernels 6/7: (color (3, Hp, Wp), T (Hp, Wp))."""
-    yy, xx, fy, fx, inside = rd.tile_coords(cfg, tile_params.device)
+def _fwd_dense_plain(tile_params, count, cfg: SplatConfig,
+                     band_row0: int = 0, band_rows=None):
+    """Plain twin of kernels 6/7: (color (3, Hp, Wp), T (Hp, Wp)), or the
+    band's rows of them."""
+    yy, xx, fy, fx, inside = rd.tile_coords(cfg, tile_params.device,
+                                            band_row0, band_rows)
     zero = torch.zeros_like(fx)
 
     def step(k, r, carry):
@@ -126,16 +129,18 @@ def _fwd_dense_plain(tile_params, count, cfg: SplatConfig):
 
 
 def _bwd_dense_plain(tile_params, ids, count, fin, gc, cin, tin,
-                     n_splats: int, cfg: SplatConfig):
+                     n_splats: int, cfg: SplatConfig, band_row0: int = 0,
+                     band_rows=None):
     """Plain twin of kernels 8/9 (and of the chunk reference) and the
     segment sum: (per-(tile, slot) partials (n_tiles, K, 9), splat moments
     (9, n)). ``fin``, ``gc`` and ``cin`` are (3, Hp, Wp), ``tin``
-    (Hp, Wp)."""
-    yy, xx, fy, fx, inside = rd.tile_coords(cfg, tile_params.device)
+    (Hp, Wp), or the band's rows of them."""
+    yy, xx, fy, fx, inside = rd.tile_coords(cfg, tile_params.device,
+                                            band_row0, band_rows)
     gc_rgb, gf, ga = rd.cotangent_tiles(fin, gc, cin, cfg)
     n_tiles, k = ids.shape
-    partial = torch.zeros((n_tiles, k, rd.N_MOMENTS), dtype=torch.float32,
-                          device=tile_params.device)
+    partial = torch.zeros((n_tiles, k, rd.N_MOMENTS),
+                          dtype=tile_params.dtype, device=tile_params.device)
 
     def step(slot, r, carry):
         carry, col = rd._bwd_splat_step(r, fx, fy, xx, yy, inside, cfg, carry,
@@ -149,15 +154,16 @@ def _bwd_dense_plain(tile_params, ids, count, fin, gc, cin, tin,
 
 
 def _l2_dense_plain(tile_params, ids, count, ref_chw, n_splats: int,
-                    cfg: SplatConfig):
+                    cfg: SplatConfig, band_row0: int = 0, band_rows=None):
     """Plain twin of kernels 4/5: (color (3, Hp, Wp), partials
     (n_tiles, K, 9), splat moments (9, n)). ``ref_chw`` is the padded
-    (1, 3, Hp, Wp) target."""
-    color, _ = _fwd_dense_plain(tile_params, count, cfg)
-    cin, tin = rd.identity_carry(cfg, color.device)
+    (1, 3, Hp, Wp) target, or the band's (1, 3, rows, Wp)."""
+    band = dict(band_row0=band_row0, band_rows=band_rows)
+    color, _ = _fwd_dense_plain(tile_params, count, cfg, **band)
+    cin, tin = rd.identity_carry(cfg, color.device, **band)
     partial, grads9 = _bwd_dense_plain(tile_params, ids, count, color,
                                        color - ref_chw[0], cin, tin,
-                                       n_splats, cfg)
+                                       n_splats, cfg, **band)
     return color, partial, grads9
 
 
@@ -166,16 +172,18 @@ def _l2_dense_plain(tile_params, ids, count, ref_chw, n_splats: int,
 # ---------------------------------------------------------------------------
 
 def _check_inputs(cfg: SplatConfig, tile_params, count, ids=None,
-                  planes=()):
+                  planes=(), gy: int = None):
     """Raise on what the kernels do not take; returns (library, K, kc).
     ``planes`` are (name, tensor) float32 images, (3, Hp, Wp) or (Hp, Wp)
-    by their rank."""
+    by their rank, of a launch over ``gy`` tile rows (the grid's when
+    None)."""
     if cfg.tile_w != CUDA_TILE_W or cfg.tile_h not in CUDA_TILE_HS:
         raise ValueError(
             f"tile {cfg.tile_h}x{cfg.tile_w} unsupported by the dense CUDA "
             f"kernels (tile_w {CUDA_TILE_W}, tile_h in {CUDA_TILE_HS})")
-    n_tiles = cfg.n_tiles_x * cfg.n_tiles_y
-    hp, wp = cfg.padded_height, cfg.padded_width
+    gy = gy or cfg.n_tiles_y
+    n_tiles = cfg.n_tiles_x * gy
+    hp, wp = gy * cfg.tile_h, cfg.padded_width
     k = tile_params.shape[1]
     want = [("tile_params", tile_params, torch.float32,
              (n_tiles, k, tl.N_FIELDS)),
@@ -205,22 +213,34 @@ def _statics(cfg: SplatConfig, k: int, kc: int):
 
 def _patch_statics(cfg: SplatConfig, k: int):
     """The warp-patch kernels' launch constants after the pointers and
-    n_splats."""
+    n_splats (kernel 13's, which takes no band)."""
     return (cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
             cfg.n_tiles_y, k, cfg.cutoff_sq, cfg.min_throughput,
             int(cfg.use_exp_approx))
 
 
-def _fwd_dense_cuda(tile_params, count, cfg: SplatConfig, walked=None):
-    """Kernels 6/7 on warp patches: (color (3, Hp, Wp), T (Hp, Wp));
-    ``walked`` gets each patch's survivors and the survivors walked
-    (render_resident._walked_ptr)."""
-    lib, k, _ = _check_inputs(cfg, tile_params, count)
-    color, trans = _fwd_planes(cfg, tile_params.device)
+def _band_statics(cfg: SplatConfig, k: int, gy: int, row_off: int):
+    """The banded warp-patch kernels' (4/5, 6/7, 8/9) launch constants
+    after the pointers and n_splats: ``gy`` tile rows from image row
+    ``row_off``."""
+    return (cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
+            gy, row_off, k, cfg.cutoff_sq, cfg.min_throughput,
+            int(cfg.use_exp_approx))
+
+
+def _fwd_dense_cuda(tile_params, count, cfg: SplatConfig, walked=None,
+                    band_row0: int = 0, band_rows=None):
+    """Kernels 6/7 on warp patches: (color (3, Hp, Wp), T (Hp, Wp)), or
+    the band's rows of them; ``walked`` gets each patch's survivors and
+    the survivors walked (render_resident._walked_ptr)."""
+    gy, row_off = rd.band_grid(cfg, band_row0, band_rows)
+    lib, k, _ = _check_inputs(cfg, tile_params, count, gy=gy)
+    color, trans = _fwd_planes(cfg, tile_params.device, gy)
     err = lib.gs2d_fwd_dense(
         tile_params.data_ptr(), count.data_ptr(), color.data_ptr(),
-        trans.data_ptr(), rr._walked_ptr(walked, cfg, tile_params.device),
-        *_patch_statics(cfg, k), stream(tile_params))
+        trans.data_ptr(),
+        rr._walked_ptr(walked, cfg, tile_params.device, gy),
+        *_band_statics(cfg, k, gy, row_off), stream(tile_params))
     check(err, "fwd_dense kernel launch")
     launches["fwd_dense"] += 1
     return color, trans
@@ -240,33 +260,35 @@ def _fwd_chunk_cuda(tile_params, count, cfg: SplatConfig):
     return color, trans
 
 
-def _fwd_planes(cfg: SplatConfig, dev):
-    """The forward's outputs, uninitialised: (3, Hp, Wp) and (Hp, Wp)."""
-    hp, wp = cfg.padded_height, cfg.padded_width
+def _fwd_planes(cfg: SplatConfig, dev, gy: int = None):
+    """The forward's outputs of ``gy`` tile rows (the grid's when None),
+    uninitialised: (3, Hp, Wp) and (Hp, Wp)."""
+    hp, wp = (gy or cfg.n_tiles_y) * cfg.tile_h, cfg.padded_width
     return (torch.empty((3, hp, wp), dtype=torch.float32, device=dev),
             torch.empty((hp, wp), dtype=torch.float32, device=dev))
 
 
 def _bwd_dense_cuda(tile_params, ids, count, fin, gc, cin, tin,
                     n_splats: int, cfg: SplatConfig, partial=None,
-                    walked=None):
+                    walked=None, band_row0: int = 0, band_rows=None):
     """Kernels 8/9 on warp patches and the patch sum: (per-patch partials
-    (n_tiles, K, patches per tile, 9), moments (9, n)); ``partial`` and
-    ``walked`` as in _l2_dense_cuda (``walked`` gets each patch's
-    survivors and the survivors its replay walked)."""
+    (n_tiles, K, patches per tile, 9), moments (9, n)); ``partial``,
+    ``walked`` and the band as in _l2_dense_cuda (``walked`` gets each
+    patch's survivors and the survivors its replay walked)."""
+    gy, row_off = rd.band_grid(cfg, band_row0, band_rows)
     lib, k, _ = _check_inputs(
         cfg, tile_params, count, ids,
-        (("fin", fin), ("gc", gc), ("cin", cin), ("tin", tin)))
+        (("fin", fin), ("gc", gc), ("cin", cin), ("tin", tin)), gy)
     dev = tile_params.device
-    partial = rr.patch_scratch(partial, cfg, k, dev)
+    partial = rr.patch_scratch(partial, cfg, k, dev, gy=gy)
     grads9 = torch.empty((rd.N_MOMENTS, n_splats), dtype=torch.float32,
                          device=dev)
     err = lib.gs2d_bwd_dense(
         tile_params.data_ptr(), ids.data_ptr(), count.data_ptr(),
         fin.data_ptr(), gc.data_ptr(), cin.data_ptr(), tin.data_ptr(),
         partial.data_ptr(), grads9.data_ptr(),
-        rr._walked_ptr(walked, cfg, dev), n_splats, *_patch_statics(cfg, k),
-        stream(tile_params))
+        rr._walked_ptr(walked, cfg, dev, gy), n_splats,
+        *_band_statics(cfg, k, gy, row_off), stream(tile_params))
     check(err, "bwd_dense kernel launch")
     launches["bwd_dense"] += 1
     return partial, grads9
@@ -296,26 +318,29 @@ def _bwd_chunk_cuda(tile_params, ids, count, fin, gc, cin, tin,
 
 
 def _l2_dense_cuda(tile_params, ids, count, ref_chw, n_splats: int,
-                   cfg: SplatConfig, partial=None, walked=None):
+                   cfg: SplatConfig, partial=None, walked=None,
+                   band_row0: int = 0, band_rows=None):
     """Kernels 4/5 on warp patches: (color (3, Hp, Wp), per-patch partials
     (n_tiles, K, patches per tile, 9), moments (9, n));
     render_resident.patch_slot_sums gives the partials per (tile, slot) as
     the plain twin returns them. ``partial`` replaces the uninitialised
     scratch (the kernel writes every entry its sum reads); ``walked`` gets
-    each patch's survivor counts (render_resident._walked_ptr)."""
+    each patch's survivor counts (render_resident._walked_ptr). Under band
+    arguments ``ref_chw`` and the colour are the band's rows."""
     ref = ref_chw[0]
+    gy, row_off = rd.band_grid(cfg, band_row0, band_rows)
     lib, k, _ = _check_inputs(cfg, tile_params, count, ids,
-                              (("ref_chw", ref),))
+                              (("ref_chw", ref),), gy)
     dev = tile_params.device
-    partial = rr.patch_scratch(partial, cfg, k, dev)
+    partial = rr.patch_scratch(partial, cfg, k, dev, gy=gy)
     color = torch.empty_like(ref)
     grads9 = torch.empty((rd.N_MOMENTS, n_splats), dtype=torch.float32,
                          device=dev)
     err = lib.gs2d_l2_dense(
         tile_params.data_ptr(), ids.data_ptr(), count.data_ptr(),
         ref.data_ptr(), color.data_ptr(), partial.data_ptr(),
-        grads9.data_ptr(), rr._walked_ptr(walked, cfg, dev), n_splats,
-        *_patch_statics(cfg, k), stream(tile_params))
+        grads9.data_ptr(), rr._walked_ptr(walked, cfg, dev, gy), n_splats,
+        *_band_statics(cfg, k, gy, row_off), stream(tile_params))
     check(err, "l2_dense kernel launch")
     launches["l2_dense"] += 1
     return color, partial, grads9
@@ -333,14 +358,17 @@ def _tile_params(binning: tl.TileBinning) -> torch.Tensor:
 
 
 def forward_tiled(binning: tl.TileBinning, cfg: SplatConfig,
-                  crop: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                  crop: bool = True, band_row0: int = 0,
+                  band_rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernels 6/7: (color (H, W, 3), T (H, W)) of a dense binning, or the
-    padded (Hp, Wp) planes with ``crop=False``."""
+    padded (Hp, Wp) planes with ``crop=False`` or under band arguments
+    (render.py; the band's (band_rows * tile_h, Wp) planes)."""
     tp = _tile_params(binning)
     fn = _fwd_dense_cuda if on_card(tp) else _fwd_dense_plain
-    color, trans = fn(tp, binning.count, cfg)
+    color, trans = fn(tp, binning.count, cfg, band_row0=band_row0,
+                      band_rows=band_rows)
     color = color.permute(1, 2, 0)
-    if crop:
+    if crop and band_rows is None:
         return (color[: cfg.height, : cfg.width],
                 trans[: cfg.height, : cfg.width])
     return color, trans
@@ -348,56 +376,72 @@ def forward_tiled(binning: tl.TileBinning, cfg: SplatConfig,
 
 def backward_tiled(binning: tl.TileBinning, final_color: torch.Tensor,
                    g_color: torch.Tensor, n_splats: int, cfg: SplatConfig,
-                   params: GaussianParams, carry_in=None) -> GaussianParams:
+                   params: GaussianParams, carry_in=None,
+                   band_row0: int = 0, band_rows=None) -> GaussianParams:
     """Kernels 8/9: analytic parameter gradients from a dense binning and
     an upstream cotangent. ``final_color`` and ``g_color`` are (H, W, 3);
     ``carry_in`` is the (C (H, W, 3), T (H, W)) prefix entering this
     population (identity when None); ``params`` supplies the packed fields
-    moments_to_grads combines the moments with."""
+    moments_to_grads combines the moments with. Under band arguments the
+    images are the band's, padded (render.carry_planes)."""
     tp = _tile_params(binning)
-    planes = rd.carry_planes(final_color, g_color, carry_in, cfg)
+    band = dict(band_row0=band_row0, band_rows=band_rows)
+    planes = rd.carry_planes(final_color, g_color, carry_in, cfg, **band)
     fn = _bwd_dense_cuda if on_card(tp) else _bwd_dense_plain
-    _, grads9 = fn(tp, binning.ids, binning.count, *planes, n_splats, cfg)
+    _, grads9 = fn(tp, binning.ids, binning.count, *planes, n_splats, cfg,
+                   **band)
     return rd.moments_to_grads(rd.unpack_moments(grads9, n_splats),
                                _fields_of(params, cfg))
 
 
 def _l2_chw(binning: tl.TileBinning, ref_chw, n_splats: int,
-            cfg: SplatConfig, params: GaussianParams):
+            cfg: SplatConfig, params: GaussianParams, band_row0: int = 0,
+            band_rows=None):
     tp = _tile_params(binning)
     fn = _l2_dense_cuda if on_card(tp) else _l2_dense_plain
     color, _, grads9 = fn(tp, binning.ids, binning.count, ref_chw, n_splats,
-                          cfg)
+                          cfg, band_row0=band_row0, band_rows=band_rows)
     grads = rd.moments_to_grads(rd.unpack_moments(grads9, n_splats),
                                 _fields_of(params, cfg))
-    return color.permute(1, 2, 0)[: cfg.height, : cfg.width], grads
+    color = color.permute(1, 2, 0)
+    if band_rows is None:
+        color = color[: cfg.height, : cfg.width]
+    return color, grads
 
 
 def l2_render_and_grads(binning: tl.TileBinning, ref_chw: torch.Tensor,
                         n_splats: int, cfg: SplatConfig,
-                        params: GaussianParams):
+                        params: GaussianParams, band_row0: int = 0,
+                        band_rows=None):
     """Fused L2 train path on a dense binning (kernel 4; K > 256 with K a
     multiple of 256 dispatches to the chunked function, as in gs2d_tpu).
     ``ref_chw`` is the padded (1, 3, Hp, Wp) target; returns (color
-    (H, W, 3), parameter gradients)."""
+    (H, W, 3), parameter gradients). Under band arguments (render.py) the
+    binning and ``ref_chw`` are the band's and the colour is the raw padded
+    band (band_rows * tile_h, Wp, 3)."""
     k = binning.ids.shape[1]
     if k > CHUNK and k % CHUNK == 0:
         return l2_render_and_grads_chunked(binning, ref_chw, n_splats, cfg,
-                                           params, chunk=CHUNK)
-    return _l2_chw(binning, ref_chw, n_splats, cfg, params)
+                                           params, chunk=CHUNK,
+                                           band_row0=band_row0,
+                                           band_rows=band_rows)
+    return _l2_chw(binning, ref_chw, n_splats, cfg, params, band_row0,
+                   band_rows)
 
 
 def l2_render_and_grads_chunked(binning: tl.TileBinning,
                                 ref_chw: torch.Tensor, n_splats: int,
                                 cfg: SplatConfig, params: GaussianParams,
-                                chunk: int = CHUNK):
+                                chunk: int = CHUNK, band_row0: int = 0,
+                                band_rows=None):
     """The same for lists in chunks of ``chunk`` (kernel 5): the CUDA
     kernel walks any list in chunks, so only the capacity check differs."""
     k = binning.ids.shape[1]
     kc = min(chunk, k)
     if k % kc:
         raise ValueError(f"per-tile capacity {k} must divide by chunk {kc}")
-    return _l2_chw(binning, ref_chw, n_splats, cfg, params)
+    return _l2_chw(binning, ref_chw, n_splats, cfg, params, band_row0,
+                   band_rows)
 
 
 def l2_step_dense(params: GaussianParams, ref_chw: torch.Tensor,
@@ -408,6 +452,16 @@ def l2_step_dense(params: GaussianParams, ref_chw: torch.Tensor,
     color, grads = l2_render_and_grads(binning, ref_chw, params.n, cfg,
                                        params)
     return color, grads, binning.n_dropped
+
+
+def render(params: GaussianParams, cfg: SplatConfig) -> torch.Tensor:
+    """gs2d_tpu.ops.render_pallas.render: the (H, W, 3) render of a
+    population through the dense binning at cfg's per-tile capacity
+    (render._max_per_tile) and kernels 6/7, differentiable through kernels
+    8/9 (the dense branch of render_flat.production_render)."""
+    from gs2d_tpu_torch.ops.render_flat import production_render
+
+    return production_render(params, cfg.replace(binning="dense"))[0]
 
 
 def render_dense(params: GaussianParams, cfg: SplatConfig,

@@ -112,9 +112,11 @@ def _flat_walk(rows, start, count, cfg: SplatConfig, kc: int,
 
 
 def _fwd_flat_plain(rows, start, count, cfg: SplatConfig, kc: int,
-                    max_chunks: int):
-    """Plain twin of kernel 10: (color (3, Hp, Wp), T (Hp, Wp))."""
-    yy, xx, fy, fx, inside = rd.tile_coords(cfg, rows.device)
+                    max_chunks: int, band_row0: int = 0, band_rows=None):
+    """Plain twin of kernel 10: (color (3, Hp, Wp), T (Hp, Wp)), or the
+    band's rows of them."""
+    yy, xx, fy, fx, inside = rd.tile_coords(cfg, rows.device, band_row0,
+                                            band_rows)
     zero = torch.zeros_like(fx)
 
     def step(idx, r, carry):
@@ -129,11 +131,12 @@ def _fwd_flat_plain(rows, start, count, cfg: SplatConfig, kc: int,
 
 def _bwd_flat_plain(rows, ids, start, count, fin, gc, cin, tin,
                     n_splats: int, cfg: SplatConfig, kc: int,
-                    max_chunks: int):
+                    max_chunks: int, band_row0: int = 0, band_rows=None):
     """Plain twin of kernel 11 and the segment sum: (per-pair moments
     (M, 9), splat moments (9, n)). ``fin``, ``gc`` and ``cin`` are
-    (3, Hp, Wp), ``tin`` (Hp, Wp)."""
-    yy, xx, fy, fx, inside = rd.tile_coords(cfg, rows.device)
+    (3, Hp, Wp), ``tin`` (Hp, Wp), or the band's rows of them."""
+    yy, xx, fy, fx, inside = rd.tile_coords(cfg, rows.device, band_row0,
+                                            band_rows)
     gc_rgb, gf, ga = rd.cotangent_tiles(fin, gc, cin, cfg)
     m = rows.shape[0]
     moments = torch.zeros((m + 1, rd.N_MOMENTS), dtype=torch.float32,
@@ -156,12 +159,15 @@ def _bwd_flat_plain(rows, ids, start, count, fin, gc, cin, tin,
 # CUDA launches.
 # ---------------------------------------------------------------------------
 
-def _check_inputs(cfg: SplatConfig, rows, start, count, kc: int, *planes):
+def _check_inputs(cfg: SplatConfig, rows, start, count, kc: int, gy: int,
+                  *planes):
+    """Raise on what the kernels do not take, for a launch over ``gy``
+    tile rows; returns the library."""
     if cfg.tile_w != CUDA_TILE_W or cfg.tile_h not in CUDA_TILE_HS:
         raise ValueError(
             f"tile {cfg.tile_h}x{cfg.tile_w} unsupported by the flat CUDA "
             f"kernels (tile_w {CUDA_TILE_W}, tile_h in {CUDA_TILE_HS})")
-    n_tiles = cfg.n_tiles_x * cfg.n_tiles_y
+    n_tiles = cfg.n_tiles_x * gy
     if rows.ndim != 2 or rows.shape[1] != tl.N_FIELDS \
             or rows.shape[0] % kc:
         raise ValueError(f"rows: need (M, {tl.N_FIELDS}) with M a multiple "
@@ -181,18 +187,21 @@ def _check_inputs(cfg: SplatConfig, rows, start, count, kc: int, *planes):
 
 
 def _fwd_flat_cuda(rows, start, count, cfg: SplatConfig, kc: int,
-                   max_chunks: int, walked=None):
+                   max_chunks: int, walked=None, band_row0: int = 0,
+                   band_rows=None):
     """Kernel 10; ``walked`` (patches, 2) int32 gets each warp patch's
-    survivors and survivors walked (render_resident._walked_ptr)."""
-    lib = _check_inputs(cfg, rows, start, count, kc)
-    hp, wp = cfg.padded_height, cfg.padded_width
+    survivors and survivors walked (render_resident._walked_ptr). Under
+    band arguments (render.py) the planes are the band's rows."""
+    gy, row_off = rd.band_grid(cfg, band_row0, band_rows)
+    lib = _check_inputs(cfg, rows, start, count, kc, gy)
+    hp, wp = gy * cfg.tile_h, cfg.padded_width
     color = torch.empty((3, hp, wp), dtype=torch.float32, device=rows.device)
     trans = torch.empty((hp, wp), dtype=torch.float32, device=rows.device)
     err = lib.gs2d_fwd_flat(
         rows.data_ptr(), start.data_ptr(), count.data_ptr(),
         color.data_ptr(), trans.data_ptr(),
-        rr._walked_ptr(walked, cfg, rows.device), cfg.height, cfg.width,
-        cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, cfg.n_tiles_y, kc,
+        rr._walked_ptr(walked, cfg, rows.device, gy), cfg.height, cfg.width,
+        cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, gy, row_off, kc,
         max_chunks, cfg.cutoff_sq, cfg.min_throughput,
         int(cfg.use_exp_approx), stream(rows))
     check(err, "fwd_flat kernel launch")
@@ -211,16 +220,18 @@ def partial_shape(cfg: SplatConfig, m_rows: int) -> Tuple[int, ...]:
 
 def _bwd_flat_cuda(rows, ids, start, count, fin, gc, cin, tin,
                    n_splats: int, cfg: SplatConfig, kc: int,
-                   max_chunks: int, *, fields, partial=None, walked=None,
-                   boxes=None):
+                   max_chunks: int, band_row0: int = 0, band_rows=None, *,
+                   fields, partial=None, walked=None, boxes=None):
     """Kernel 11: the plain twin's arguments plus ``fields``, the
     (N_FIELDS, n) packed fields of the splats (tiles.packed_fields), from
-    which the splat sum takes each splat's tile box. ``partial`` replaces
-    the uninitialised scratch (a test's NaN-filled buffer); ``walked`` as in
-    _fwd_flat_cuda; ``boxes`` (n, 4) int32 gets each splat's box (tx0, tx1,
-    ty0, ty1; empty as ty0 > ty1)."""
-    hp, wp = cfg.padded_height, cfg.padded_width
-    lib = _check_inputs(cfg, rows, start, count, kc,
+    which the splat sum takes each splat's tile box (band-local rows under
+    a band). ``partial`` replaces the uninitialised scratch (a test's
+    NaN-filled buffer); ``walked`` as in _fwd_flat_cuda; ``boxes`` (n, 4)
+    int32 gets each splat's box (tx0, tx1, ty0, ty1; empty as ty0 >
+    ty1)."""
+    gy, row_off = rd.band_grid(cfg, band_row0, band_rows)
+    hp, wp = gy * cfg.tile_h, cfg.padded_width
+    lib = _check_inputs(cfg, rows, start, count, kc, gy,
                         ("fin", fin, (3, hp, wp)),
                         ("gc", gc, (3, hp, wp)), ("cin", cin, (3, hp, wp)),
                         ("tin", tin, (hp, wp)),
@@ -251,10 +262,10 @@ def _bwd_flat_cuda(rows, ids, start, count, fin, gc, cin, tin,
         rows.data_ptr(), ids.data_ptr(), start.data_ptr(), count.data_ptr(),
         fin.data_ptr(), gc.data_ptr(), cin.data_ptr(), tin.data_ptr(),
         fields.data_ptr(), partial.data_ptr(), moments.data_ptr(),
-        grads9.data_ptr(), rr._walked_ptr(walked, cfg, dev),
+        grads9.data_ptr(), rr._walked_ptr(walked, cfg, dev, gy),
         0 if boxes is None else boxes.data_ptr(), n_splats, m_rows,
-        cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
-        cfg.n_tiles_y, kc, max_chunks, cfg.cutoff_sq, cfg.min_throughput,
+        cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, gy,
+        row_off, kc, max_chunks, cfg.cutoff_sq, cfg.min_throughput,
         cfg.splat_bounds, int(cfg.use_exp_approx), stream(rows))
     check(err, "bwd_flat kernel launch")
     launches["bwd_flat"] += 1
@@ -266,17 +277,19 @@ def _bwd_flat_cuda(rows, ids, start, count, fin, gc, cin, tin,
 # ---------------------------------------------------------------------------
 
 def _forward_chw(binning: tlf.FlatBinning, cfg: SplatConfig, kc: int,
-                 max_chunks: int):
+                 max_chunks: int, band_row0: int = 0, band_rows=None):
     fn = _fwd_flat_cuda if on_card(binning.rows) else _fwd_flat_plain
-    return fn(binning.rows, binning.start, binning.count, cfg, kc, max_chunks)
+    return fn(binning.rows, binning.start, binning.count, cfg, kc, max_chunks,
+              band_row0=band_row0, band_rows=band_rows)
 
 
 def _backward_chw(binning: tlf.FlatBinning, fin, gc, cin, tin,
                   n_splats: int, cfg: SplatConfig, kc: int, max_chunks: int,
-                  params: GaussianParams) -> GaussianParams:
+                  params: GaussianParams, band_row0: int = 0,
+                  band_rows=None) -> GaussianParams:
     fields = tl.packed_fields(params, cfg.splat_bounds)
     args = (binning.rows, binning.ids, binning.start, binning.count, fin, gc,
-            cin, tin, n_splats, cfg, kc, max_chunks)
+            cin, tin, n_splats, cfg, kc, max_chunks, band_row0, band_rows)
     if on_card(binning.rows):
         _, grads9 = _bwd_flat_cuda(*args, fields=fields)
     else:
@@ -285,42 +298,55 @@ def _backward_chw(binning: tlf.FlatBinning, fin, gc, cin, tin,
 
 
 def forward_flat(binning: tlf.FlatBinning, cfg: SplatConfig, kc: int,
-                 max_chunks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                 max_chunks: int, band_row0: int = 0,
+                 band_rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 10: the raw padded (color (Hp, Wp, 3), T (Hp, Wp)) of a flat
-    binning built with chunk ``kc`` and chunk cap ``max_chunks``."""
-    color, trans = _forward_chw(binning, cfg, kc, max_chunks)
+    binning built with chunk ``kc`` and chunk cap ``max_chunks``; under
+    band arguments (render.py) the band's rows."""
+    color, trans = _forward_chw(binning, cfg, kc, max_chunks, band_row0,
+                                band_rows)
     return color.permute(1, 2, 0), trans
 
 
 def backward_flat(binning: tlf.FlatBinning, final_color: torch.Tensor,
                   g_color: torch.Tensor, n_splats: int, cfg: SplatConfig,
                   kc: int, max_chunks: int, params: GaussianParams,
-                  carry_in=None) -> GaussianParams:
+                  carry_in=None, band_row0: int = 0,
+                  band_rows=None) -> GaussianParams:
     """Kernel 11: analytic gradients from a flat binning and an upstream
     cotangent. ``final_color`` and ``g_color`` are padded (Hp, Wp, 3);
     ``carry_in`` is the (C (Hp, Wp, 3), T (Hp, Wp)) prefix entering this
-    population (identity when None)."""
-    chw = lambda img: img.permute(2, 0, 1).contiguous()
-    if carry_in is None:
-        cin, tin = rd.identity_carry(cfg, final_color.device)
-    else:
-        cin, tin = chw(carry_in[0]), carry_in[1].contiguous()
-    return _backward_chw(binning, chw(final_color), chw(g_color), cin, tin,
-                         n_splats, cfg, kc, max_chunks, params)
+    population (identity when None); under band arguments all of them are
+    the band's rows."""
+    band = dict(band_row0=band_row0, band_rows=band_rows)
+    # The flat images are padded whole or banded: carry_planes' banded form
+    # over the whole grid when there is no band.
+    fin, gc, cin, tin = rd.carry_planes(
+        final_color, g_color, carry_in, cfg, band_row0=band_row0,
+        band_rows=cfg.n_tiles_y if band_rows is None else band_rows)
+    return _backward_chw(binning, fin, gc, cin, tin, n_splats, cfg, kc,
+                         max_chunks, params, **band)
 
 
 def l2_render_and_grads_flat(binning: tlf.FlatBinning, ref_chw: torch.Tensor,
                              n_splats: int, cfg: SplatConfig, kc: int,
-                             max_chunks: int, params: GaussianParams):
+                             max_chunks: int, params: GaussianParams,
+                             band_row0: int = 0, band_rows=None):
     """Flat-layout L2 train path: forward, cotangent gC = C - ref (zero on
     padding), backward, segment sum. ``ref_chw`` is the padded
-    (1, 3, Hp, Wp) target; returns (color (H, W, 3), parameter grads)."""
-    color, _ = _forward_chw(binning, cfg, kc, max_chunks)
+    (1, 3, Hp, Wp) target; returns (color (H, W, 3), parameter grads).
+    Under band arguments the binning and ``ref_chw`` are the band's and the
+    colour is the raw padded band (band_rows * tile_h, Wp, 3)."""
+    band = dict(band_row0=band_row0, band_rows=band_rows)
+    color, _ = _forward_chw(binning, cfg, kc, max_chunks, **band)
     gc = color - ref_chw[0]
-    cin, tin = rd.identity_carry(cfg, color.device)
+    cin, tin = rd.identity_carry(cfg, color.device, **band)
     grads = _backward_chw(binning, color, gc, cin, tin, n_splats, cfg, kc,
-                          max_chunks, params)
-    return color.permute(1, 2, 0)[: cfg.height, : cfg.width], grads
+                          max_chunks, params, **band)
+    color = color.permute(1, 2, 0)
+    if band_rows is None:
+        color = color[: cfg.height, : cfg.width]
+    return color, grads
 
 
 def l2_step_flat(params: GaussianParams, ref_chw: torch.Tensor,

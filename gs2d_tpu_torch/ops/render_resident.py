@@ -102,9 +102,11 @@ def _composite(table, ids_s, count, cfg: SplatConfig, coords):
     return carry
 
 
-def _fwd_resident_plain(table, ids_s, count, cfg: SplatConfig):
-    """Plain twin of kernel 2: (color (1, 3, Hp, Wp), T (1, Hp, Wp))."""
-    coords = rd.tile_coords(cfg, table.device)
+def _fwd_resident_plain(table, ids_s, count, cfg: SplatConfig,
+                        band_row0: int = 0, band_rows=None):
+    """Plain twin of kernel 2: (color (1, 3, Hp, Wp), T (1, Hp, Wp)), or
+    the band's rows of them."""
+    coords = rd.tile_coords(cfg, table.device, band_row0, band_rows)
     cr, cg, cb, T = _composite(table, ids_s, count, cfg, coords)
     color = rd.from_tiles(torch.stack([cr, cg, cb]), cfg)[None]
     return color, rd.from_tiles(T[None], cfg)
@@ -169,11 +171,13 @@ def _replay_plain(table, ids_s, count, n_splats: int, cfg: SplatConfig,
                                           gc_rgb, gf, comp), ids_s, n_splats)
 
 
-def _l2_resident_partials(table, ids_s, count, ref_chw, cfg: SplatConfig):
+def _l2_resident_partials(table, ids_s, count, ref_chw, cfg: SplatConfig,
+                          band_row0: int = 0, band_rows=None):
     """Kernel 1's function up to the splat-axis sum, in plain PyTorch:
     (color (1, 3, Hp, Wp), per-(tile, slot) partials (n_tiles, max count,
-    9)) of the one-block-per-tile walk."""
-    coords = rd.tile_coords(cfg, table.device)
+    9)) of the one-block-per-tile walk; the band's under band arguments
+    (``ref_chw`` then the band's (1, 3, rows, Wp))."""
+    coords = rd.tile_coords(cfg, table.device, band_row0, band_rows)
     fin_r, fin_g, fin_b, _ = _composite(table, ids_s, count, cfg, coords)
     ref_t = rd.to_tiles(ref_chw[0], cfg)
     gc = (fin_r - ref_t[0], fin_g - ref_t[1], fin_b - ref_t[2])
@@ -186,10 +190,12 @@ def _l2_resident_partials(table, ids_s, count, ref_chw, cfg: SplatConfig):
 
 
 def _l2_resident_plain(table, ids_s, count, ref_chw, n_splats: int,
-                       cfg: SplatConfig, drop=None):
+                       cfg: SplatConfig, drop=None, band_row0: int = 0,
+                       band_rows=None):
     """Plain twin of kernel 1: (color (1, 3, Hp, Wp), moments (16, n_pad));
-    ``drop`` as in _sum_partials."""
-    color, partial = _l2_resident_partials(table, ids_s, count, ref_chw, cfg)
+    ``drop`` as in _sum_partials, the band as in _l2_resident_partials."""
+    color, partial = _l2_resident_partials(table, ids_s, count, ref_chw, cfg,
+                                           band_row0, band_rows)
     return color, _sum_partials(partial, ids_s, n_splats, drop)
 
 
@@ -242,10 +248,12 @@ def listed_cover_mask(fields, count, cfg: SplatConfig, rows: int):
 
 
 def _bwd_resident_plain(table, ids_s, count, fin, gc, cin, tin,
-                        n_splats: int, cfg: SplatConfig):
+                        n_splats: int, cfg: SplatConfig, band_row0: int = 0,
+                        band_rows=None):
     """Plain twin of kernel 3: moments (16, n_pad). ``fin``, ``gc`` and
-    ``cin`` are (3, Hp, Wp), ``tin`` (Hp, Wp)."""
-    coords = rd.tile_coords(cfg, table.device)
+    ``cin`` are (3, Hp, Wp), ``tin`` (Hp, Wp), or the band's rows of
+    them."""
+    coords = rd.tile_coords(cfg, table.device, band_row0, band_rows)
     gc_rgb, gf, ga = rd.cotangent_tiles(fin, gc, cin, cfg)
     comp = (ga, rd.to_tiles(tin[None], cfg)[0])
     return _replay_plain(table, ids_s, count, n_splats, cfg, coords, gc_rgb,
@@ -262,11 +270,13 @@ def _pass_rows(lib, cfg: SplatConfig) -> int:
                // cfg.tile_w)
 
 
-def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int):
+def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int,
+                  gy: int = None):
     """Raise on what the kernels do not take: the tile shape (tile_w a
     multiple of 32; tiles taller than one pass of max_threads x rows pixels
     are walked in passes of sub_h rows that must divide the tile) and the
-    tensors. Returns the library."""
+    tensors of a launch over ``gy`` tile rows (the grid's when None).
+    Returns the library."""
     lib = library()
     rows, max_threads = lib.gs2d_rows_per_thread(), lib.gs2d_max_threads()
     sub_h = _pass_rows(lib, cfg)
@@ -276,7 +286,7 @@ def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int):
             f"(tile_w a multiple of 32; passes of min(tile_h, "
             f"{max_threads * rows} // tile_w) rows, a multiple of {rows} "
             "that divides tile_h)")
-    n_tiles = cfg.n_tiles_x * cfg.n_tiles_y
+    n_tiles = cfg.n_tiles_x * (gy or cfg.n_tiles_y)
     for name, t, dtype, shape in (
             ("table", table, torch.float32, None),
             ("ids", ids_s, torch.int32, (n_tiles, k)),
@@ -292,11 +302,11 @@ def _check_inputs(cfg: SplatConfig, table, ids_s, count, k: int):
 
 
 def _check_l2_inputs(cfg: SplatConfig, table, ids_s, count, ref_chw,
-                     n_splats: int):
+                     n_splats: int, gy: int = None):
     """_check_inputs for the fused L2 kernels (1 and 12), with the target
     and the table's row count. Returns the library."""
-    lib = _check_inputs(cfg, table, ids_s, count, ids_s.shape[1])
-    hp, wp = cfg.padded_height, cfg.padded_width
+    lib = _check_inputs(cfg, table, ids_s, count, ids_s.shape[1], gy)
+    hp, wp = (gy or cfg.n_tiles_y) * cfg.tile_h, cfg.padded_width
     if (ref_chw.shape != (1, 3, hp, wp) or ref_chw.dtype != torch.float32
             or not ref_chw.is_contiguous() or ref_chw.device != table.device):
         raise ValueError(f"ref_chw: need contiguous float32 (1, 3, {hp}, "
@@ -339,20 +349,22 @@ def patch_slot_sums(partial, count, n_pass: int):
 
 
 def patch_partial_shape(cfg: SplatConfig, k: int,
-                        width: int = rd.N_MOMENTS) -> Tuple[int, ...]:
+                        width: int = rd.N_MOMENTS,
+                        gy: int = None) -> Tuple[int, ...]:
     """The per-patch partials of kernels 1, 3, 4/5, 8/9 and 12 (``width``
-    9) and 13 (10 sums): (n_tiles, K, patches per tile, width). Their
-    scratch is uninitialised: a kernel writes every entry its sum reads (a
-    culled or saturated slot's exact zero included)."""
-    return (cfg.n_tiles_x * cfg.n_tiles_y, k,
+    9) and 13 (10 sums): (n_tiles, K, patches per tile, width), n_tiles
+    those of ``gy`` tile rows (the grid's when None). Their scratch is
+    uninitialised: a kernel writes every entry its sum reads (a culled or
+    saturated slot's exact zero included)."""
+    return (cfg.n_tiles_x * (gy or cfg.n_tiles_y), k,
             patches_per_tile(cfg, patch_rows()), width)
 
 
 def patch_scratch(partial, cfg: SplatConfig, k: int, dev,
-                  width: int = rd.N_MOMENTS):
+                  width: int = rd.N_MOMENTS, gy: int = None):
     """The partial scratch of a warp-patch launch: ``partial`` when given
     (a test's NaN-filled buffer), checked, else torch.empty."""
-    shape = patch_partial_shape(cfg, k, width)
+    shape = patch_partial_shape(cfg, k, width, gy)
     if partial is None:
         return torch.empty(shape, dtype=torch.float32, device=dev)
     if (tuple(partial.shape) != shape or partial.dtype != torch.float32
@@ -362,12 +374,13 @@ def patch_scratch(partial, cfg: SplatConfig, k: int, dev,
     return partial
 
 
-def _walked_ptr(walked, cfg: SplatConfig, dev) -> int:
+def _walked_ptr(walked, cfg: SplatConfig, dev, gy: int = None) -> int:
     """The optional (patches, 2) int32 count of survivors and walked
-    survivors per patch (chip_smoke.py's), as a pointer (0 when None)."""
+    survivors per patch (chip_smoke.py's) of a launch over ``gy`` tile
+    rows, as a pointer (0 when None)."""
     if walked is None:
         return 0
-    shape = (cfg.n_tiles_x * cfg.n_tiles_y
+    shape = (cfg.n_tiles_x * (gy or cfg.n_tiles_y)
              * patches_per_tile(cfg, patch_rows()), 2)
     if (tuple(walked.shape) != shape or walked.dtype != torch.int32
             or not walked.is_contiguous() or walked.device != dev):
@@ -376,61 +389,70 @@ def _walked_ptr(walked, cfg: SplatConfig, dev) -> int:
 
 
 def _l2_patches(table, ids_s, count, ref_chw, n_splats: int,
-                cfg: SplatConfig, partial=None, walked=None, window=None):
+                cfg: SplatConfig, partial=None, walked=None, window=None,
+                band_row0: int = 0, band_rows=None):
     """Kernel 1's launch, or with ``window`` = (bases, width) kernel 12's
-    (the same patch kernel, the patch sum over each tile's window): returns
-    (color (1, 3, Hp, Wp), moments (16, n_pad)). ``partial`` replaces the
-    uninitialised scratch (a test's NaN-filled buffer); ``walked`` gets each
-    patch's survivor counts."""
+    (the same patch kernel, the patch sum over each tile's window; no
+    band): returns (color (1, 3, Hp, Wp), moments (16, n_pad)), or the
+    band's rows of the colour. ``partial`` replaces the uninitialised
+    scratch (a test's NaN-filled buffer); ``walked`` gets each patch's
+    survivor counts."""
     k = ids_s.shape[1]
-    lib = _check_l2_inputs(cfg, table, ids_s, count, ref_chw, n_splats)
+    gy, row_off = rd.band_grid(cfg, band_row0, band_rows)
+    lib = _check_l2_inputs(cfg, table, ids_s, count, ref_chw, n_splats, gy)
     dev = table.device
-    partial = patch_scratch(partial, cfg, k, dev)
-    color = torch.empty((1, 3, cfg.padded_height, cfg.padded_width),
+    partial = patch_scratch(partial, cfg, k, dev, gy=gy)
+    color = torch.empty((1, 3, gy * cfg.tile_h, cfg.padded_width),
                         dtype=torch.float32, device=dev)
     grads16 = torch.zeros((rd.N_GRAD_FIELDS, _n_pad(n_splats)),
                           dtype=torch.float32, device=dev)
     head = (table.data_ptr(), ids_s.data_ptr(), count.data_ptr())
     tail = (ref_chw.data_ptr(), color.data_ptr(), partial.data_ptr(),
-            grads16.data_ptr(), _walked_ptr(walked, cfg, dev), n_splats,
+            grads16.data_ptr(), _walked_ptr(walked, cfg, dev, gy), n_splats,
             _n_pad(n_splats))
-    statics = (cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
-               cfg.n_tiles_y, k, cfg.cutoff_sq, cfg.min_throughput,
+    grid = (cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, gy)
+    statics = (k, cfg.cutoff_sq, cfg.min_throughput,
                int(cfg.use_exp_approx), stream(table))
     if window is None:
-        err = lib.gs2d_l2_resident(*head, *tail, *statics)
+        err = lib.gs2d_l2_resident(*head, *tail, *grid, row_off, *statics)
         check(err, "l2_resident kernel launch")
     else:
+        if band_rows is not None:
+            raise ValueError("the window kernel takes no band")
         bases, width = window
         err = lib.gs2d_l2_window(*head, bases.data_ptr(), *tail, width,
-                                 *statics)
+                                 *grid, *statics)
         check(err, "l2_window kernel launch")
     return color, grads16
 
 
 def _l2_resident_cuda(table, ids_s, count, ref_chw, n_splats: int,
-                      cfg: SplatConfig, partial=None, walked=None):
-    """Kernel 1; ``partial`` and ``walked`` as in _l2_patches."""
+                      cfg: SplatConfig, partial=None, walked=None,
+                      band_row0: int = 0, band_rows=None):
+    """Kernel 1; ``partial``, ``walked`` and the band as in _l2_patches."""
     out = _l2_patches(table, ids_s, count, ref_chw, n_splats, cfg, partial,
-                      walked)
+                      walked, band_row0=band_row0, band_rows=band_rows)
     launches["l2_resident"] += 1
     return out
 
 
-def _fwd_resident_cuda(table, ids_s, count, cfg: SplatConfig, walked=None):
-    """Kernel 2; ``walked`` as in _l2_resident_cuda."""
+def _fwd_resident_cuda(table, ids_s, count, cfg: SplatConfig, walked=None,
+                       band_row0: int = 0, band_rows=None):
+    """Kernel 2; ``walked`` and the band as in _l2_resident_cuda."""
     k = ids_s.shape[1]
-    lib = _check_inputs(cfg, table, ids_s, count, k)
+    gy, row_off = rd.band_grid(cfg, band_row0, band_rows)
+    lib = _check_inputs(cfg, table, ids_s, count, k, gy)
     dev = table.device
-    hp, wp = cfg.padded_height, cfg.padded_width
+    hp, wp = gy * cfg.tile_h, cfg.padded_width
     color = torch.empty((1, 3, hp, wp), dtype=torch.float32, device=dev)
     trans = torch.empty((1, hp, wp), dtype=torch.float32, device=dev)
     err = lib.gs2d_fwd_resident(
         table.data_ptr(), ids_s.data_ptr(), count.data_ptr(),
-        color.data_ptr(), trans.data_ptr(), _walked_ptr(walked, cfg, dev),
-        cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
-        cfg.n_tiles_y, k, cfg.cutoff_sq, cfg.min_throughput,
-        int(cfg.use_exp_approx), stream(table))
+        color.data_ptr(), trans.data_ptr(),
+        _walked_ptr(walked, cfg, dev, gy), cfg.height, cfg.width,
+        cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, gy, row_off, k,
+        cfg.cutoff_sq, cfg.min_throughput, int(cfg.use_exp_approx),
+        stream(table))
     check(err, "fwd_resident kernel launch")
     launches["fwd_resident"] += 1
     return color, trans
@@ -438,13 +460,14 @@ def _fwd_resident_cuda(table, ids_s, count, cfg: SplatConfig, walked=None):
 
 def _bwd_resident_cuda(table, ids_s, count, fin, gc, cin, tin,
                        n_splats: int, cfg: SplatConfig, partial=None,
-                       walked=None):
-    """Kernel 3 and the patch sum: moments (16, n_pad). ``partial`` and
-    ``walked`` as in _l2_patches (``walked`` gets each patch's survivors
-    and the survivors its replay walked)."""
+                       walked=None, band_row0: int = 0, band_rows=None):
+    """Kernel 3 and the patch sum: moments (16, n_pad). ``partial``,
+    ``walked`` and the band as in _l2_patches (``walked`` gets each
+    patch's survivors and the survivors its replay walked)."""
     k = ids_s.shape[1]
-    lib = _check_inputs(cfg, table, ids_s, count, k)
-    hp, wp = cfg.padded_height, cfg.padded_width
+    gy, row_off = rd.band_grid(cfg, band_row0, band_rows)
+    lib = _check_inputs(cfg, table, ids_s, count, k, gy)
+    hp, wp = gy * cfg.tile_h, cfg.padded_width
     for name, t, shape in (("fin", fin, (3, hp, wp)), ("gc", gc, (3, hp, wp)),
                            ("cin", cin, (3, hp, wp)), ("tin", tin, (hp, wp))):
         if (tuple(t.shape) != shape or t.dtype != torch.float32
@@ -455,15 +478,15 @@ def _bwd_resident_cuda(table, ids_s, count, fin, gc, cin, tin,
         raise ValueError("table does not hold n_splats + 1 rows")
     dev = table.device
     n_pad = _n_pad(n_splats)
-    partial = patch_scratch(partial, cfg, k, dev)
+    partial = patch_scratch(partial, cfg, k, dev, gy=gy)
     grads16 = torch.zeros((rd.N_GRAD_FIELDS, n_pad), dtype=torch.float32,
                           device=dev)
     err = lib.gs2d_bwd_resident(
         table.data_ptr(), ids_s.data_ptr(), count.data_ptr(), fin.data_ptr(),
         gc.data_ptr(), cin.data_ptr(), tin.data_ptr(), partial.data_ptr(),
-        grads16.data_ptr(), _walked_ptr(walked, cfg, dev), n_splats, n_pad,
-        cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
-        cfg.n_tiles_y, k, cfg.cutoff_sq, cfg.min_throughput,
+        grads16.data_ptr(), _walked_ptr(walked, cfg, dev, gy), n_splats,
+        n_pad, cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x,
+        gy, row_off, k, cfg.cutoff_sq, cfg.min_throughput,
         int(cfg.use_exp_approx), stream(table))
     check(err, "bwd_resident kernel launch")
     launches["bwd_resident"] += 1
@@ -480,21 +503,28 @@ def l2_render_and_grads_resident(
     ref_chw: torch.Tensor,
     n_splats: int,
     cfg: SplatConfig,
+    band_row0: int = 0,
+    band_rows=None,
 ) -> Tuple[torch.Tensor, GaussianParams]:
     """Fused L2 train step on the resident table (kernel 1): returns
     (color (H, W, 3), parameter gradients). ``ref_chw`` is the padded
     (1, 3, Hp, Wp) target (render.pad_ref_chw); ``table`` is
-    resident_table(params, cfg)."""
+    resident_table(params, cfg). Under band arguments (render.py) the
+    binning and ``ref_chw`` are the band's and the colour is the raw padded
+    band (band_rows * tile_h, Wp, 3), as gs2d_tpu returns it."""
     ids_s = _remap_ids(binning, n_splats)
+    band = dict(band_row0=band_row0, band_rows=band_rows)
     if on_card(table):
         color, grads16 = _l2_resident_cuda(table, ids_s, binning.count,
-                                           ref_chw, n_splats, cfg)
+                                           ref_chw, n_splats, cfg, **band)
     else:
         color, grads16 = _l2_resident_plain(table, ids_s, binning.count,
-                                            ref_chw, n_splats, cfg)
+                                            ref_chw, n_splats, cfg, **band)
     grads = rd.moments_to_grads(rd.unpack_moments(grads16, n_splats),
                                 _table_fields(table, n_splats))
-    color = color[0].permute(1, 2, 0)[: cfg.height, : cfg.width]
+    color = color[0].permute(1, 2, 0)
+    if band_rows is None:
+        color = color[: cfg.height, : cfg.width]
     return color, grads
 
 
@@ -504,17 +534,19 @@ def forward_resident(
     n_splats: int,
     cfg: SplatConfig,
     crop: bool = True,
+    band_row0: int = 0,
+    band_rows=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Resident forward pass (kernel 2): (color (H, W, 3), T (H, W)),
-    or the padded (Hp, Wp) planes with ``crop=False``."""
+    or the padded (Hp, Wp) planes with ``crop=False`` or under band
+    arguments (the band's (band_rows * tile_h, Wp) planes)."""
     ids_s = _remap_ids(binning, n_splats)
-    if on_card(table):
-        color, trans = _fwd_resident_cuda(table, ids_s, binning.count, cfg)
-    else:
-        color, trans = _fwd_resident_plain(table, ids_s, binning.count, cfg)
+    band = dict(band_row0=band_row0, band_rows=band_rows)
+    fn = _fwd_resident_cuda if on_card(table) else _fwd_resident_plain
+    color, trans = fn(table, ids_s, binning.count, cfg, **band)
     color = color[0].permute(1, 2, 0)
     trans = trans[0]
-    if crop:
+    if crop and band_rows is None:
         return (color[: cfg.height, : cfg.width],
                 trans[: cfg.height, : cfg.width])
     return color, trans
@@ -528,15 +560,20 @@ def backward_resident(
     n_splats: int,
     cfg: SplatConfig,
     carry_in=None,
+    band_row0: int = 0,
+    band_rows=None,
 ) -> GaussianParams:
     """Resident backward pass (kernel 3): parameter gradients of a render
     under the upstream cotangent ``g_color``. ``final_color`` and
     ``g_color`` are (H, W, 3); ``carry_in`` is the (C (H, W, 3), T (H, W))
-    prefix entering this population (identity when None)."""
+    prefix entering this population (identity when None). Under band
+    arguments all of them are the band's, padded (render.carry_planes)."""
     ids_s = _remap_ids(binning, n_splats)
-    planes = rd.carry_planes(final_color, g_color, carry_in, cfg)
+    band = dict(band_row0=band_row0, band_rows=band_rows)
+    planes = rd.carry_planes(final_color, g_color, carry_in, cfg, **band)
     fn = _bwd_resident_cuda if on_card(table) else _bwd_resident_plain
-    grads16 = fn(table, ids_s, binning.count, *planes, n_splats, cfg)
+    grads16 = fn(table, ids_s, binning.count, *planes, n_splats, cfg,
+                 **band)
     return rd.moments_to_grads(rd.unpack_moments(grads16, n_splats),
                                _table_fields(table, n_splats))
 

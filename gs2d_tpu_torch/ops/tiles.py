@@ -239,6 +239,17 @@ def tile_may_touch(px, py, a, b, d, tx, tyg, cfg: SplatConfig,
     return (~healthy) | center_inside | (qmin <= limit)
 
 
+def _band_clip(ty0, ty1, offscreen, band_row0, band_rows):
+    """gs2d_tpu's band restriction of a tile bbox (tiles.py:313-317): rows
+    shifted to the band of ``band_rows`` tile rows from ``band_row0`` and
+    clipped to it, a splat whose bbox misses the band off screen. Returns
+    (ty0, ty1, offscreen)."""
+    offscreen = offscreen | (ty1 < band_row0) \
+        | (ty0 > band_row0 + (band_rows - 1))
+    return ((ty0 - band_row0).clamp(0, band_rows - 1),
+            (ty1 - band_row0).clamp(0, band_rows - 1), offscreen)
+
+
 def _slot_grid(tx0, tx1, ty0, ty1, offscreen, cap: int):
     """The (N, cap) slot grid of a bbox expansion, row-major over each
     splat's tile bbox: (tile x, tile y, live slot, untruncated count)."""
@@ -294,11 +305,17 @@ def bin_splats(
     counts_only: bool = False,
     ids_only: bool = False,
     margin: float = 0.0,
+    band_row0: int = 0,
+    band_rows: int | None = None,
 ):
     """Build the per-tile splat lists (index order preserved within a tile).
 
     ``max_tiles_per_splat`` caps the expansion per splat (a splat covering
     more tiles gets its bbox truncated row-major; counted in n_dropped).
+    ``band_row0`` / ``band_rows`` bin only the band of that many tile rows
+    from that tile row, the unit of tile-axis sharding: tile ids are
+    band-local, a splat's bbox rows are clipped to the band, and a splat
+    whose bbox misses the band bins no tile (off screen, not dropped).
     ``counts_only`` returns just the *untruncated* per-tile counts
     (n_tiles,) int32, for tuning the capacity. ``ids_only`` skips the
     pregathered (n_tiles, K, N_FIELDS) ``tile_params`` of the dense layout
@@ -307,19 +324,25 @@ def bin_splats(
     pairs, whose extra pairs cover no pixel, for lazy rebinning."""
     n = p.n
     dev = p.device
-    n_tiles = cfg.n_tiles_y * cfg.n_tiles_x
     cap = max_tiles_per_splat or cfg.max_tiles_per_splat
     (tx0, tx1, ty0, ty1, offscreen), (px, py, qa, qb, qd, qk2) = \
         _bbox_and_quad(p, cfg, margin)
+    if band_rows is None:
+        band_rows, band_row0 = cfg.n_tiles_y, 0
+    else:
+        ty0, ty1, offscreen = _band_clip(ty0, ty1, offscreen, band_row0,
+                                         band_rows)
+    n_tiles = band_rows * cfg.n_tiles_x
     txg, tyg, live, count_full = _slot_grid(tx0, tx1, ty0, ty1, offscreen,
                                             cap)
     dropped_bbox = (count_full - count_full.clamp(max=cap)).sum()
     if cfg.exact_cull:
         # Drop bbox tiles the ellipse provably cannot touch: exact removals,
-        # not capacity drops, so n_dropped is unaffected.
+        # not capacity drops, so n_dropped is unaffected. The test takes
+        # image tile rows.
         live = live & tile_may_touch(
             px[:, None], py[:, None], qa[:, None], qb[:, None], qd[:, None],
-            txg, tyg, cfg, margin, k2=_col(qk2))
+            txg, tyg + band_row0, cfg, margin, k2=_col(qk2))
 
     # One int64 key per (splat, slot): tile in the high part, splat id in
     # the low part; dead slots get the key of the virtual tile n_tiles and

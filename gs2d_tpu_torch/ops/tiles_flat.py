@@ -18,8 +18,9 @@ one cumsum of run starts, one row gather of the per-splat values) followed
 by one stable sort on the tile id alone, so stability gives the
 (tile, splat) order. Every overflow (expansion, chunk cap, capacity cap) is
 counted in ``n_dropped``. ``margin`` and the opacity cull's per-splat
-cutoff widen and shrink the footprints as ``tiles.bin_splats`` does.
-Banded binning (tile-axis sharding) is a later slice and raises.
+cutoff widen and shrink the footprints as ``tiles.bin_splats`` does, and
+``band_row0`` / ``band_rows`` bin one band of tile rows (tile-axis
+sharding), as there.
 """
 
 from __future__ import annotations
@@ -44,12 +45,6 @@ class FlatBinning(NamedTuple):
     n_dropped: torch.Tensor  # 0-d int32: pairs lost to capacity caps
 
 
-def _not_in_slice(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1, parallel/ on "
-        "torch.distributed: banded binning for tile sharding)")
-
-
 def flat_capacity(counts, kc: int) -> int:
     """Rows needed for the block-aligned flat layout of measured counts."""
     c = np.asarray(counts)
@@ -63,13 +58,20 @@ def tune_flat_capacity(p: GaussianParams, cfg: SplatConfig, kc: int = 256,
     ``margin`` headroom, as gs2d_tpu.ops.tiles_flat.tune_flat_capacity.
     ``bin_margin`` measures the footprints with that many pixels of slack:
     a lazily rebinned fit bins the margined superset, so its capacity is
-    sized for it. Counts drift during fitting; overflow surfaces in
-    n_dropped."""
-    if n_bands != 1:
-        _not_in_slice("banded binning (n_bands > 1)")
+    sized for it. ``n_bands`` > 1 sizes one band's binning under tile-axis
+    sharding: the rows of the band that needs the most. Counts drift during
+    fitting; overflow surfaces in n_dropped."""
     counts = tl.bin_splats(p, cfg, 1, counts_only=True,
                            margin=bin_margin).cpu().numpy()
-    m = max(kc, int(flat_capacity(counts, kc) * margin))
+    if n_bands > 1:
+        if cfg.n_tiles_y % n_bands:
+            raise ValueError(f"{cfg.n_tiles_y} tile rows not divisible by "
+                             f"{n_bands} bands")
+        need = max(flat_capacity(b, kc)
+                   for b in counts.reshape(n_bands, -1))
+    else:
+        need = flat_capacity(counts, kc)
+    m = max(kc, int(need * margin))
     m = -(-m // kc) * kc
     max_chunks = max(1, -(-int(int(counts.max()) * margin) // kc))
     return m, max_chunks
@@ -97,21 +99,24 @@ def bin_splats_flat(
     of either is counted in n_dropped; the expansion is exact, with no
     per-splat tile cap. ``ids_only`` returns a (1, N_FIELDS) placeholder
     for ``rows`` (the lazy-rebinning cache pregathers them every step).
-    ``margin`` widens every footprint by that many pixels, as in
-    ``tiles.bin_splats``."""
-    if band_rows is not None or band_row0 != 0:
-        _not_in_slice("banded binning")
+    ``margin`` widens every footprint by that many pixels, and the band
+    arguments bin one band of tile rows, as in ``tiles.bin_splats``."""
     if m_cap % kc:
         raise ValueError(f"m_cap {m_cap} must be a multiple of kc {kc}")
     if max_chunks is None:
         max_chunks = m_cap // kc
     dev = p.device
     i32 = torch.int32
-    n_tiles = cfg.n_tiles_y * cfg.n_tiles_x
 
     # --- exact-count pair expansion -----------------------------------------
     (tx0, tx1, ty0, ty1, offscreen), (qpx, qpy, qa, qb, qd, qk2) = \
         tl._bbox_and_quad(p, cfg, margin)
+    if band_rows is None:
+        band_rows, band_row0 = cfg.n_tiles_y, 0
+    else:
+        ty0, ty1, offscreen = tl._band_clip(ty0, ty1, offscreen, band_row0,
+                                            band_rows)
+    n_tiles = band_rows * cfg.n_tiles_x
     w_t = (tx1 - tx0 + 1).to(i32)
     cnt = torch.where(offscreen, 0, w_t * (ty1 - ty0 + 1)).to(i32)
     starts = (torch.cumsum(cnt, 0, dtype=i32) - cnt)  # exclusive, (n,)
@@ -141,8 +146,8 @@ def bin_splats_flat(
     if cfg.exact_cull:
         fc = lambda i: ch[:, i].view(torch.float32)
         live_e = live_e & tl.tile_may_touch(
-            fc(4), fc(5), fc(6), fc(7), fc(8), tx_e, ty_e, cfg, margin,
-            k2=fc(9) if qk2 is not None else None)
+            fc(4), fc(5), fc(6), fc(7), fc(8), tx_e, ty_e + band_row0, cfg,
+            margin, k2=fc(9) if qk2 is not None else None)
     tile_e = torch.where(live_e, tile_e, n_tiles)     # dead rows sort last
     splat_e = torch.where(live_e, owner.to(i32), -1)
 

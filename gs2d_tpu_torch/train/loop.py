@@ -564,6 +564,99 @@ def _checkpoint(state, finite: bool, done: int, it: int, checkpoint_fn,
                f"checkpoint {done} not saved")
 
 
+class BlockLog:
+    """The host bookkeeping of a fit's blocks of steps, shared by the
+    one-image, batched and mesh block loops (gs2d_tpu's, message for
+    message). A block is the steps' aux read to the host, one row a step:
+    ``mse`` and ``psnr`` ((n,) for one image, (n, B) for several; or the
+    logged steps' rows alone, as the mesh gathers them), ``n_dropped``,
+    ``all_finite`` and, when scanned, ``rebinned`` (n,). History records
+    (and log lines) are appended to ``history``, one a step at a multiple
+    of ``log_every`` and the last of ``iterations``, with global iteration
+    numbers (``iter_offset``) and the block's end time."""
+
+    def __init__(self, history: list, iterations: int, log_every: int,
+                 log_fn, t0: float, iter_offset: int = 0):
+        self.history, self.iterations = history, iterations
+        self.log_every, self.log_fn = log_every, log_fn
+        self.t0, self.iter_offset = t0, iter_offset
+        self.warned_drop = self.warned_rebin = False
+
+    def logged(self, at: int, n: int) -> list:
+        """The logged steps of the n-step block from step ``at``."""
+        if not self.log_every:
+            return []
+        return [at + j for j in range(n)
+                if (at + j) % self.log_every == 0
+                or at + j == self.iterations - 1]
+
+    def check_finite(self, finite: torch.Tensor, at: int) -> None:
+        """The reference's abort (main.cpp:752-785) at the block's first
+        step whose parameters are not finite (``finite`` (n,) bool)."""
+        if not bool(finite.all()):
+            bad = int(torch.argmin(finite.to(torch.int32)))
+            raise FloatingPointError(
+                f"non-finite splat parameters at iteration "
+                f"{at + bad + self.iter_offset} "
+                "(reference aborts here, main.cpp:752-785)")
+
+    def warn_drop(self, dropped: torch.Tensor, at: int) -> None:
+        """The once-only overflow warning at the block's first step that
+        dropped pairs (``dropped`` (n,))."""
+        if self.warned_drop or not bool((dropped > 0).any()):
+            return
+        self.warned_drop = True
+        first = int(torch.argmax((dropped > 0).to(torch.int32)))
+        if self.log_fn:
+            block = " in this block" if dropped.numel() > 1 else ""
+            self.log_fn(f"WARNING: binning capacity overflow at iteration "
+                        f"{at + first + self.iter_offset}: "
+                        f"{int(dropped.sum())} splat-tile pairs dropped"
+                        f"{block}; raise max_splats_per_tile / "
+                        "max_tiles_per_splat")
+
+    def warn_rebin(self, rebinned: torch.Tensor, rebin_margin: float) -> None:
+        """The once-only warning that a block of 8 or more steps rebinned
+        on every step: the tripwire never validates (a footprint outgrew
+        the slot grid, or the margined binning drops pairs), which costs
+        more than rebin_margin=0. Never wrong, so a warning, as in
+        gs2d_tpu."""
+        n = rebinned.numel()
+        if self.warned_rebin or rebin_margin <= 0 or n < 8 \
+                or int(rebinned.sum()) != n:
+            return
+        self.warned_rebin = True
+        if self.log_fn:
+            self.log_fn("WARNING: lazy rebinning rebinned on every step of "
+                        f"this {n}-step block (cache never validates); "
+                        "re-tune binning (tune_flat_config / "
+                        "tune_tile_capacity) or set rebin_margin=0")
+
+    def record(self, block: dict, at: int, logged: list) -> None:
+        """The records of the ``logged`` steps of the block from ``at``."""
+        elapsed = time.perf_counter() - self.t0
+        n = block["n_dropped"].numel()
+        for k, it in enumerate(logged):
+            j = it - at
+            row = j if block["mse"].shape[0] == n else k
+            mse, psnr = block["mse"][row], block["psnr"][row]
+            rec = {"iter": it + self.iter_offset, "mse": mse.tolist(),
+                   "psnr": psnr.tolist(),
+                   "n_dropped": int(block["n_dropped"][j])}
+            if block.get("rebinned") is not None:
+                rec["rebinned"] = int(block["rebinned"][j])
+            rec["elapsed_s"] = elapsed
+            self.history.append(rec)
+            if not self.log_fn:
+                continue
+            if mse.dim() == 0:
+                self.log_fn(f"{rec['iter']} itr, mse {rec['mse']:.4f}, psnr "
+                            f"{rec['psnr']:.2f} dB")
+            else:
+                self.log_fn(f"{rec['iter']} itr, mse "
+                            + " ".join(f"{x:.4f}" for x in rec["mse"]))
+
+
 def _fit_scanned(ref, cfg: SplatConfig, iterations: int, state: TrainState,
                  scan_chunk: int, *, use_fused: bool, ssim_lambda: float,
                  log_every: int, log_fn, checkpoint_every: int,
@@ -580,8 +673,8 @@ def _fit_scanned(ref, cfg: SplatConfig, iterations: int, state: TrainState,
     fit_k = make_fit_scan_fused(cfg) if use_fused \
         else make_fit_scan(cfg, ssim_lambda)
     history = []
-    t0 = time.perf_counter()
-    warned_drop = warned_rebin = False
+    blog = BlockLog(history, iterations, log_every, log_fn,
+                    time.perf_counter(), iter_offset)
     done = 0
     while done < iterations:
         n = min(scan_chunk, iterations - done)
@@ -592,50 +685,12 @@ def _fit_scanned(ref, cfg: SplatConfig, iterations: int, state: TrainState,
             log_fn(f"captured the train step as a CUDA graph in "
                    f"{c.capture_s:.3f}s (warm-up step {c.warmup_s:.3f}s)")
         block = {f: getattr(auxes, f).cpu() for f in STEP_FIELDS}
-        elapsed = time.perf_counter() - t0
         finite = block["all_finite"]
-        if raise_on_nonfinite and not bool(finite.all()):
-            bad = int(torch.argmin(finite.to(torch.int32)))
-            raise FloatingPointError(
-                f"non-finite splat parameters at iteration "
-                f"{done + bad + iter_offset} "
-                "(reference aborts here, main.cpp:752-785)")
-        dropped = block["n_dropped"]
-        if not warned_drop and bool((dropped > 0).any()):
-            warned_drop = True
-            first = int(torch.argmax((dropped > 0).to(torch.int32)))
-            if log_fn:
-                log_fn(f"WARNING: binning capacity overflow at iteration "
-                       f"{done + first + iter_offset}: "
-                       f"{int(dropped.sum())} splat-tile pairs dropped in "
-                       "this block; raise max_splats_per_tile / "
-                       "max_tiles_per_splat")
-        rebins = int(block["rebinned"].sum())
-        if not warned_rebin and cfg.rebin_margin > 0 and n >= 8 \
-                and rebins == n:
-            # Every step rebinned: the tripwire never validates (a footprint
-            # outgrew the slot grid, or the margined binning drops pairs),
-            # which costs more than rebin_margin=0. Never wrong, so a
-            # warning, as in gs2d_tpu.
-            warned_rebin = True
-            if log_fn:
-                log_fn("WARNING: lazy rebinning rebinned on every step of "
-                       f"this {n}-step block (cache never validates); "
-                       "re-tune binning (tune_flat_config / "
-                       "tune_tile_capacity) or set rebin_margin=0")
-        for j in range(n):
-            it = done + j
-            if log_every and (it % log_every == 0 or it == iterations - 1):
-                rec = {"iter": it + iter_offset,
-                       "mse": float(block["mse"][j]),
-                       "psnr": float(block["psnr"][j]),
-                       "n_dropped": int(dropped[j]),
-                       "rebinned": int(block["rebinned"][j]),
-                       "elapsed_s": elapsed}
-                history.append(rec)
-                if log_fn:
-                    log_fn(f"{rec['iter']} itr, mse {rec['mse']:.4f}, psnr "
-                           f"{rec['psnr']:.2f} dB")
+        if raise_on_nonfinite:
+            blog.check_finite(finite, done)
+        blog.warn_drop(block["n_dropped"], done)
+        blog.warn_rebin(block["rebinned"], cfg.rebin_margin)
+        blog.record(block, done, blog.logged(done, n))
         done += n
         if checkpoint_every and checkpoint_fn \
                 and done % checkpoint_every == 0:
@@ -834,6 +889,7 @@ def run_batched(fit_k, state: TrainState, refs_chw: torch.Tensor, first: int,
     images' MSEs and PSNRs, the pairs dropped over the images,
     ``rebinned`` and the seconds since ``t0``. Returns (state,
     grad_mag_sum, the pairs dropped in these steps)."""
+    blog = BlockLog(history, iterations, log_every, log_fn, t0)
     drops, done = 0, 0
     while done < n:
         k = min(chunk, n - done)
@@ -847,26 +903,9 @@ def run_batched(fit_k, state: TrainState, refs_chw: torch.Tensor, first: int,
             grad_mag_sum = auxes.pos_grad_mag
         block = {f: getattr(auxes, f).cpu() for f in STEP_FIELDS}
         at = first + done
-        finite = block["all_finite"].reshape(k, -1).all(dim=-1)
-        if not bool(finite.all()):
-            bad = int(torch.argmin(finite.to(torch.int32)))
-            raise FloatingPointError(
-                f"non-finite splat parameters at iteration {at + bad} "
-                "(reference aborts here, main.cpp:752-785)")
+        blog.check_finite(block["all_finite"].reshape(k, -1).all(dim=-1), at)
         drops += int(block["n_dropped"].sum())
-        for j in range(k if log_every else 0):
-            it = at + j
-            if it % log_every and it != iterations - 1:
-                continue
-            rec = {"iter": it, "mse": block["mse"][j].tolist(),
-                   "psnr": block["psnr"][j].tolist(),
-                   "n_dropped": int(block["n_dropped"][j]),
-                   "rebinned": int(block["rebinned"][j]),
-                   "elapsed_s": time.perf_counter() - t0}
-            history.append(rec)
-            if log_fn:
-                log_fn(f"{it} itr, mse " + " ".join(
-                    f"{x:.4f}" for x in rec["mse"]))
+        blog.record(block, at, blog.logged(at, k))
         done += k
     return state, grad_mag_sum, drops
 

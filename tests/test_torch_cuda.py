@@ -23,7 +23,7 @@ from gs2d_tpu_torch.ops import render_resident as rr
 from gs2d_tpu_torch.ops import render_window as rw
 from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.ops import tiles_flat as tlf
-from gs2d_tpu_torch.params import params_from_numpy
+from gs2d_tpu_torch.params import FIELDS, GaussianParams, params_from_numpy
 from gs2d_tpu_torch.scripts.roofline import flat_listed_rows
 from gs2d_tpu_torch.utils.profiling import device_time
 
@@ -1317,3 +1317,135 @@ def test_batched_adaptive_fit_on_the_card(dev):
         for a, b in zip(loop.state_leaves(loop.state_index(s_b, i)),
                         loop.state_leaves(s_i)):
             assert torch.equal(a, b)
+
+
+# --- bands of tile rows (tile-axis sharding) ---------------------------------
+
+def band_case(dev, layout, n, tile_h, n_bands, seed, min_throughput):
+    """A population, its config with the tile grid rounded to whole bands
+    (the flat capacity sized for one band), and its padded target
+    (3, Hp, Wp)."""
+    cfg = SplatConfig(width=W, height=H, n_splats=n, tile_h=tile_h,
+                      binning=layout, flat_chunk=32, max_splats_per_tile=256,
+                      tile_rows_multiple=n_bands,
+                      min_throughput=min_throughput)
+    p, ref = flat_params(dev, seed, n)
+    if layout == "flat":
+        cfg = rf.tune_flat_config(p, cfg, n_bands=n_bands)
+    return cfg, p, rd.pad_ref_chw(ref, cfg, dev)[0]
+
+
+def bin_band(p, cfg, layout, band):
+    kw = {} if band is None else dict(band_row0=band[0], band_rows=band[1])
+    if layout == "flat":
+        b = tlf.bin_splats_flat(p, cfg, cfg.flat_capacity, kc=cfg.flat_chunk,
+                                max_chunks=cfg.flat_max_chunks, **kw)
+    else:
+        b = tl.bin_splats(p, cfg, 256, ids_only=layout == "resident", **kw)
+    assert int(b.n_dropped) == 0
+    return b
+
+
+def on(dev, x):
+    """A binning, params or tensor on ``dev``."""
+    if torch.is_tensor(x) or not isinstance(x, tuple):
+        return x.to(dev)
+    vals = [None if v is None else on(dev, v) for v in x]
+    return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+
+
+def band_calls(layout, b, p, cfg, band):
+    """The layout's forward, L2 step and backward wrappers on binning ``b``
+    of params ``p`` (the kernels for CUDA tensors, their plain versions for
+    CPU ones), under ``band`` = (row0, rows) or the whole grid."""
+    kw = {} if band is None else dict(band_row0=band[0], band_rows=band[1])
+    n, kc, mc = p.n, cfg.flat_chunk, cfg.flat_max_chunks
+    table = rr.resident_table(p, cfg) if layout == "resident" else None
+
+    def fwd():
+        if layout == "flat":
+            return rf.forward_flat(b, cfg, kc, mc, **kw)
+        if layout == "resident":
+            return rr.forward_resident(b, table, n, cfg, crop=False, **kw)
+        return rdn.forward_tiled(b, cfg, crop=False, **kw)
+
+    def l2(ref_chw):
+        if layout == "flat":
+            return rf.l2_render_and_grads_flat(b, ref_chw, n, cfg, kc, mc, p,
+                                               **kw)
+        if layout == "resident":
+            return rr.l2_render_and_grads_resident(b, table, ref_chw, n, cfg,
+                                                   **kw)
+        return rdn.l2_render_and_grads(b, ref_chw, n, cfg, p, **kw)
+
+    def bwd(fin, gc, carry):
+        if layout == "flat":
+            return rf.backward_flat(b, fin, gc, n, cfg, kc, mc, p,
+                                    carry_in=carry, **kw)
+        if layout == "resident":
+            return rr.backward_resident(b, table, fin, gc, n, cfg,
+                                        carry_in=carry, **kw)
+        return rdn.backward_tiled(b, fin, gc, n, cfg, p, carry_in=carry,
+                                  **kw)
+
+    return fwd, l2, bwd
+
+
+def close_grads(got, want):
+    for f in FIELDS:
+        w = getattr(want, f)
+        atol = 1e-4 * max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(getattr(got, f).cpu(), w.cpu(), rtol=0,
+                                   atol=atol, msg=f)
+
+
+@pytest.mark.parametrize("layout,tile_h,n_bands,min_throughput", [
+    ("resident", 8, 3, 1.0 / 256.0), ("resident", 32, 4, 0.0),
+    ("dense", 32, 2, 1.0 / 256.0), ("dense", 32, 4, 0.0),
+    ("flat", 32, 2, 1.0 / 256.0), ("flat", 64, 2, 0.0)])
+def test_banded_kernels_match_plain_and_unbanded_rows(
+        dev, layout, tile_h, n_bands, min_throughput):
+    """Each band's forward equals the unbanded kernel's rows bit for bit;
+    the banded forward, L2 step and carry-fed backward equal their plain
+    versions under the same band arguments; the bands' L2 gradients summed
+    in band order agree with the unbanded step's."""
+    cfg, p, ref = band_case(dev, layout, 160, tile_h, n_bands, 5 + tile_h,
+                            min_throughput)
+    rows = cfg.n_tiles_y // n_bands
+    bh = rows * tile_h
+    # The whole grid's flat binning needs the whole grid's capacity.
+    cfg_full = rf.tune_flat_config(p, cfg.replace(
+        flat_capacity=None, flat_max_chunks=None)) if layout == "flat" \
+        else cfg
+    full = bin_band(p, cfg_full, layout, None)
+    fwd, l2, _ = band_calls(layout, full, p, cfg_full, None)
+    c_full, t_full = fwd()
+    _, g_full = l2(ref[None].contiguous())
+    carry = (0.5 * c_full, 0.5 * t_full)
+    gc = random_cotangent(dev, cfg, 3).permute(1, 2, 0)
+    total = None
+    for i in range(n_bands):
+        band = (i * rows, rows)
+        sl = slice(i * bh, (i + 1) * bh)
+        b = bin_band(p, cfg, layout, band)
+        fwd, l2, bwd = band_calls(layout, b, p, cfg, band)
+        c_k, t_k = fwd()
+        assert torch.equal(c_k, c_full[sl]) and torch.equal(t_k, t_full[sl])
+        ref_b = ref[None, :, sl].contiguous()
+        col_k, g_k = l2(ref_b)
+        cpu = torch.device("cpu")
+        fwd_p, l2_p, bwd_p = band_calls(layout, on(cpu, b), on(cpu, p), cfg,
+                                        band)
+        c_p, t_p = fwd_p()
+        torch.testing.assert_close(c_k.cpu(), c_p, rtol=0, atol=1e-6)
+        torch.testing.assert_close(t_k.cpu(), t_p, rtol=0, atol=1e-6)
+        col_p, g_p = l2_p(ref_b.cpu())
+        torch.testing.assert_close(col_k.cpu(), col_p, rtol=0, atol=1e-6)
+        close_grads(g_k, g_p)
+        bwd_in = (c_full[sl], gc[sl].contiguous(),
+                  (carry[0][sl], carry[1][sl].contiguous()))
+        close_grads(bwd(*bwd_in), bwd_p(*on(cpu, bwd_in[:2]),
+                                        on(cpu, bwd_in[2])))
+        total = g_k if total is None else GaussianParams(
+            **{f: getattr(total, f) + getattr(g_k, f) for f in FIELDS})
+    close_grads(total, g_full)

@@ -262,11 +262,20 @@ def test_split_step_capacity_refused():
 
 
 def test_flat_later_slices_raise(rng):
-    _, cfg_t, _, tp = case(rng, 16, 8, 8)
-    with pytest.raises(NotImplementedError):
-        ttlf.bin_splats_flat(tp, cfg_t, 64, kc=8, band_rows=1)
-    with pytest.raises(NotImplementedError):
-        ttlf.tune_flat_capacity(tp, cfg_t, kc=8, n_bands=2)
+    """Banded binning, which later slices brought (tile-axis sharding),
+    now equals gs2d_tpu's band for band; unset flat statics still raise."""
+    cfg_j, cfg_t, jp, tp = case(rng, 16, 8, 8)
+    assert ttlf.tune_flat_capacity(tp, cfg_t, kc=8, n_bands=2) \
+        == jtlf.tune_flat_capacity(jp, cfg_j, kc=8, n_bands=2)
+    for r0 in (0, 2):
+        got = ttlf.bin_splats_flat(tp, cfg_t, 64, kc=8, band_row0=r0,
+                                   band_rows=2)
+        want = jtlf.bin_splats_flat(jp, cfg_j, 64, kc=8, band_row0=r0,
+                                    band_rows=2)
+        for f in ("ids", "start", "count", "n_dropped"):
+            np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                          np.asarray(getattr(want, f)),
+                                          err_msg=f)
     with pytest.raises(ValueError):
         trf.l2_step_flat(tp, trd.pad_ref_chw(np.zeros((H, W, 3)), cfg_t),
                          cfg_t)  # statics unset
