@@ -73,7 +73,10 @@ trajectories:
   kernels, ``fit_sharded`` on a world of one NCCL rank equal to
   ``train.loop.fit`` bit for bit, the CLI's ``--mesh 1,1,1`` fits (default
   eager and scanned, 10k flat) beside their one-image twins, resume at
-  100, and, with two or more cards, two-rank NCCL clusters;
+  100, captured virtual meshes (one captured step for every coordinate,
+  blocks of 50) equal to their per-step fits bit for bit over 200 steps,
+  and, with two or more cards, NCCL clusters eager and captured (each
+  rank's step with its collectives in the graph);
 - the large flat configurations (``large_phase``): the step above the
   split threshold against the fused one at 10k, then through
   ``train.loop.fit`` the 1080p fit with 1 Mi splats (``BASELINE.json``
@@ -86,6 +89,7 @@ trajectories:
     python3 chip_smoke.py
     python3 chip_smoke.py --profiles   # only the fused L2 steps' profiles
     python3 chip_smoke.py --mesh       # only the mesh phase
+    python3 chip_smoke.py --mesh-cluster   # only the NCCL clusters (2+ cards)
     python3 chip_smoke.py --backward-dump OUT.pt [OTHER.pt]
         # kernels 3 and 8/9 on kernel 3's compare populations, saved; held
         # bit for bit to OTHER.pt, the dump of another checkout's kernels
@@ -2435,17 +2439,17 @@ def cached_and_rebin_steps(fit_k, state, ref) -> None:
     for name, moved in (("cached step", 0.0), ("rebin step", 8.0)):
         g.load(state_leaves(state), ref)
         g.leaves[0].add_(moved)  # pos
-        want = g.make_cache(g.leaves)[0] if moved else None
-        g.cache[0].fill_(-7)
+        want = g.make_caches[0](g.leaves)[0] if moved else None
+        g.caches[0][0].fill_(-7)
         prof = device_profile(g.graph.replay, 1)
         flag = int(g.aux["rebinned"][0])
         sorts = [k for _, _, k in prof["rows"] if "sort" in k.lower()]
         log(f"  {name}: {prof['ops']:.0f} device operations, busy "
             f"{prof['busy']:.4f} ms, rebinned {flag}, sort/search kernels "
             f"the profiler named {len(sorts)}")
-        ran = not bool((g.cache[0] == -7).all())
+        ran = not bool((g.caches[0][0] == -7).all())
         if flag != (moved > 0) or ran != (moved > 0) or (
-                moved and not torch.equal(g.cache[0], want)):
+                moved and not torch.equal(g.caches[0][0], want)):
             raise AssertionError(f"{name}: rebinned {flag}, binning ran "
                                  f"{ran}")
 
@@ -3610,42 +3614,299 @@ def mesh_state_equals_fit(dev, smi: str) -> None:
         raise AssertionError("the mesh of one device differs from the fit")
 
 
-def mesh_cluster(smi: str, mse_mesh: dict) -> None:
-    """With two or more cards: ``--mesh 1,2,1`` and ``--mesh 1,1,2`` as
-    two-rank NCCL clusters (one process a card), 20 steps of the default
-    fit, against the world-of-one fit's first 20 MSEs."""
+# The captured virtual meshes of ``captured_meshes``: (label, image,
+# splats, mesh shape, combine, rebin margin, images).
+CAPTURED_MESHES = (
+    ("default (1,2,1) fold", "mini", 1024, (1, 2, 1), "fold", 0.0, 1),
+    ("default (1,1,2) scan", "mini", 1024, (1, 1, 2), "scan", 0.0, 1),
+    ("default (1,2,2) fold, margin 2", "mini", 1024, (1, 2, 2), "fold", 2.0,
+     1),
+    ("default (2,1,1), two images, margin 2", "mini", 1024, (2, 1, 1),
+     "fold", 2.0, 2),
+    ("10k flat (1,2,1), margin 2", "full", N_10K, (1, 2, 1), "fold", 2.0, 1),
+)
+
+
+def mesh_targets(image: str, n_images: int) -> np.ndarray:
+    """The fit's target, and for a second image a synthetic target of its
+    size (seed 1, as the batched phase's)."""
+    from gs2d_tpu_torch.io.image import load_image, synthetic_target
+
+    ref = load_image(MINI if image == "mini" else FULL)
+    return np.stack([ref] + [synthetic_target(*ref.shape[:2], seed=1)]
+                    * (n_images - 1))
+
+
+def captured_meshes(dev, smi: str) -> dict:
+    """Captured virtual meshes on one card (``make_fit_scan_sharded``: one
+    captured step holds every coordinate's band step and the mesh's
+    combines as tensor operations, replayed with no host work between the
+    steps of a block): for each of CAPTURED_MESHES, ``fit_sharded`` in
+    blocks of 50 against the same mesh's per-step ``fit_sharded``, 200
+    steps logged at every step, from the same init: final state and 200
+    MSEs bit for bit; both fits' steady ms a step (steps 50-199; the
+    scanned run's records are block ends); for the default fit's meshes
+    the device profile of 10 replays and the replays' idle share against
+    the scanned steady ms. The launch counts are set to 0 just before each
+    scanned run and read just after. Returns their sum."""
+    from gs2d_tpu_torch.config import SplatConfig
+    from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.parallel.mesh import virtual_mesh
+    from gs2d_tpu_torch.parallel.sharded import (fit_sharded,
+                                                 make_fit_scan_sharded,
+                                                 pad_ref_batch,
+                                                 prepare_config)
+    from gs2d_tpu_torch.params import init_params
+    from gs2d_tpu_torch.train.loop import (init_batched_state, state_index,
+                                           state_leaves)
+
+    t_sub = time.perf_counter()
+    total = {}
+    log("[mesh] captured virtual meshes on one card: blocks of 50 against "
+        "the same mesh's per-step fit, 200 steps")
+    for label, image, n, shape, combine, margin, n_img in CAPTURED_MESHES:
+        refs = mesh_targets(image, n_img)
+        cfg = SplatConfig(width=refs.shape[2], height=refs.shape[1],
+                          n_splats=n, rebin_margin=margin)
+        cfg = tl.tune_tile_height(cfg, init_params(cfg, dev))
+        mesh = virtual_mesh(*shape, device=dev)
+        init = init_batched_state(cfg, n_img, dev)
+        kw = dict(log_every=1, log_fn=None, combine=combine, state=init)
+        eager, h_e = fit_sharded(refs, cfg, mesh, 200, **kw)
+        reset_counts()
+        lines = []
+        scanned, h_s = fit_sharded(refs, cfg, mesh, 200, scan_chunk=50,
+                                   **{**kw, "log_fn": lines.append})
+        torch.cuda.synchronize()
+        launches = read_counts()
+        for kk, v in launches.items():
+            total[kk] = total.get(kk, 0) + v
+        state_same = all(torch.equal(x, y) for x, y in
+                         zip(state_leaves(scanned), state_leaves(eager)))
+        mse_e = [r["mse"] for r in h_e]
+        mse_s = [r["mse"] for r in h_s]
+        same = sum(a == b for a, b in zip(mse_s, mse_e))
+        at_e = {r["iter"]: r["elapsed_s"] for r in h_e}
+        at_s = {r["iter"]: r["elapsed_s"] for r in h_s}
+        ms_e = 1e3 * (at_e[199] - at_e[49]) / 150
+        ms_s = 1e3 * (at_s[199] - at_s[49]) / 150
+        rebins = sum(r["rebinned"] for r in h_s)
+        log(f"  {label}: {lines[0] if lines else 'no mode line'}; final "
+            f"state bit for bit {state_same}, {same} of 200 MSEs equal "
+            f"(MSE @ 200 {mse_s[-1]}), {rebins} rebinned steps; steady ms "
+            f"a step: scanned {ms_s:.4f}, per-step {ms_e:.4f} [{smi}]")
+        log(f"    launches of the scanned run: "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if not state_same or same != 200:
+            raise AssertionError(f"captured virtual mesh {label}: the "
+                                 "blocks differ from the per-step fit")
+        if image != "mini" or n_img != 1:
+            continue
+        cfg_p = prepare_config(cfg, mesh, state_index(init, 0).params)
+        fit_k, sh = make_fit_scan_sharded(cfg_p, mesh, combine=combine)
+        states = sh["state"](init)
+        bands = sh["ref"](pad_ref_batch(refs, cfg_p, dev))
+        fit_k(states, bands, 10)
+        g = fit_k.graph
+        g.load([t for c in mesh.coords for t in state_leaves(states[c])],
+               torch.stack([bands[c] for c in mesh.coords]))
+
+        def replays():
+            for _ in range(10):
+                g.graph.replay()
+
+        prof = device_profile(replays, 10)
+        log(f"    10 replays of the captured step ({len(mesh.coords)} "
+            f"coordinates, {len(g.caches)} lazy caches):")
+        log(profile_lines(prof, ms_s, 10))
+    log(f"  the captured virtual meshes took "
+        f"{time.perf_counter() - t_sub:.1f}s [{smi}]")
+    return total
+
+
+# A mesh's fit against the fit of one device, where the two sum in other
+# orders: the MSE tolerance of gs2d_tpu's own sharding tests
+# (tests/test_sharding.py, 3 steps) for the tile axis; the splat axis also
+# turns the early-out off (min_throughput 0).
+CLUSTER_RTOL = {"1,2,1": 1e-3, "1,1,2": 1e-2}
+
+
+def cluster_case(dev, shape) -> tuple:
+    """The default fit's targets (one an image of the data axis), cfg (2 px
+    rebin margin, tuned tile height) and init for a mesh of ``shape``, as
+    every rank of ``cluster_rank`` and the virtual mesh it is held to build
+    them."""
+    from gs2d_tpu_torch.config import SplatConfig
+    from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.params import init_params
+    from gs2d_tpu_torch.train.loop import init_batched_state
+
+    refs = mesh_targets("mini", shape[0])
+    cfg = SplatConfig(width=refs.shape[2], height=refs.shape[1],
+                      n_splats=1024, rebin_margin=2.0)
+    cfg = tl.tune_tile_height(cfg, init_params(cfg, dev))
+    return refs, cfg, init_batched_state(cfg, shape[0], dev)
+
+
+def cluster_rank(argv) -> int:
+    """One rank of a NCCL cluster of ``mesh_cluster`` (``chip_smoke.py
+    --cluster-rank RANK NPROC PORT D,T,S COMBINE OUT``): ``cluster_case``'s
+    fit on the mesh, 20 per-step steps and 20 in blocks of 10 (each rank's
+    step captured with its NCCL collectives, its band's lazy rebin under a
+    conditional node), from the same init. Rank 0 writes both fits' MSEs,
+    the mode line and both fits' ms a step (steps 10-19) to OUT as JSON and
+    both final states to OUT.pt."""
+    from gs2d_tpu_torch.parallel.mesh import make_mesh
+    from gs2d_tpu_torch.parallel.multihost import initialize_cluster
+    from gs2d_tpu_torch.parallel.sharded import fit_sharded
+    from gs2d_tpu_torch.train.loop import state_leaves
+
+    rank, nproc, port = int(argv[0]), int(argv[1]), int(argv[2])
+    shape = tuple(int(x) for x in argv[3].split(","))
+    combine, out = argv[4], argv[5]
+    initialize_cluster(coordinator_address=f"127.0.0.1:{port}",
+                       num_processes=nproc, process_id=rank)
+    import torch.distributed as dist
+
+    try:
+        mesh = make_mesh(*shape)
+        refs, cfg, init = cluster_case(mesh.device, shape)
+        kw = dict(log_every=1, combine=combine, state=init)
+        eager, h_e = fit_sharded(refs, cfg, mesh, 20, log_fn=None, **kw)
+        lines = []
+        scanned, h_s = fit_sharded(refs, cfg, mesh, 20, scan_chunk=10,
+                                   log_fn=lines.append, **kw)
+        torch.cuda.synchronize()
+        if rank == 0:
+            ms = lambda h: 1e3 * (h[19]["elapsed_s"] - h[9]["elapsed_s"]) / 10
+            with open(out, "w") as f:
+                json.dump({"eager": [r["mse"] for r in h_e],
+                           "scanned": [r["mse"] for r in h_s],
+                           "mode": lines[:1], "ms_eager": ms(h_e),
+                           "ms_scanned": ms(h_s),
+                           "rebinned": sum(r["rebinned"] for r in h_s)}, f)
+            torch.save({k: [t.cpu() for t in state_leaves(v)]
+                        for k, v in (("eager", eager), ("scanned", scanned))},
+                       out + ".pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_cluster(dev, smi: str, mse_mesh: dict) -> None:
+    """With two or more cards, NCCL clusters, one process a card:
+
+    - the CLI's ``--mesh 1,2,1`` and ``--mesh 1,1,2`` on two ranks, 20 steps
+      of the default fit, eager (against the world-of-one fit's first 20
+      MSEs within CLUSTER_RTOL) and with ``--scan-chunk 10 --rebin-margin
+      2`` (each rank replays one captured step with its NCCL collectives in
+      the graph; against the eager cluster's MSEs bit for bit);
+    - ``cluster_rank`` on the same meshes (fold combine), and with four or
+      more cards on (1,2,2) with the fold and the scan combine (all-gathers,
+      all-reduces and the scan's point-to-point exchanges in the graph):
+      the captured blocks against the per-step fit, and the per-step fit
+      against the virtual mesh of the same shape on one card (the same
+      sums in the same order), final states and 20 MSEs bit for bit."""
     import subprocess
 
-    from gs2d_tpu_torch.parallel.mesh import _free_port
+    from gs2d_tpu_torch.parallel.mesh import _free_port, virtual_mesh
+    from gs2d_tpu_torch.parallel.sharded import fit_sharded
+    from gs2d_tpu_torch.train.loop import state_leaves
 
     n = torch.cuda.device_count()
     if n < 2:
         log(f"  a cluster of NCCL ranks needs two cards; this machine has "
-            f"{n}: no cluster ran [{smi}]")
+            f"{n}: no cluster ran, no graph holding NCCL collectives was "
+            f"replayed across ranks [{smi}]")
         return
-    for shape, rtol in (("1,2,1", 1e-5), ("1,1,2", 1e-2)):
+    log(f"  {n} cards, NCCL {torch.cuda.nccl.version()}")
+
+    def launch(cmds, nproc):
+        port = _free_port()
+        procs = [subprocess.Popen(
+            cmd(port), env=dict(os.environ,
+                                COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                                NUM_PROCESSES=str(nproc),
+                                PROCESS_ID=str(r), LOCAL_RANK=str(r)),
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r, cmd in enumerate(cmds)]
+        try:
+            outs = [pr.communicate(timeout=180)[0] for pr in procs]
+        finally:
+            for pr in procs:
+                pr.kill()
+        if any(pr.returncode for pr in procs):
+            raise AssertionError("cluster failed: " + " | ".join(
+                o[-1500:] for o in outs))
+        return outs
+
+    def ranks(shape: str, combine: str):
+        """cluster_rank on len(shape) ranks against the virtual mesh."""
+        dims = tuple(int(x) for x in shape.split(","))
+        nproc = dims[0] * dims[1] * dims[2]
         with tempfile.TemporaryDirectory() as tmp:
-            port = _free_port()
-            procs = [subprocess.Popen(
-                [sys.executable, "-m", "gs2d_tpu_torch.fit", MINI,
-                 "--splats", "1024", "--iters", "20", "--log-every", "1",
-                 "--mesh", shape, "--out", tmp],
-                env=dict(os.environ, COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
-                         NUM_PROCESSES="2", PROCESS_ID=str(r),
-                         LOCAL_RANK=str(r)), cwd=ROOT,
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                for r in range(2)]
-            outs = [pr.communicate(timeout=300)[0] for pr in procs]
-            if any(pr.returncode for pr in procs):
-                raise AssertionError(f"--mesh {shape} cluster failed: "
-                                     f"{outs[0][-2000:]}")
-            mse = {r["iter"]: r["mse"][0] for r in read_metrics(tmp)
-                   if "iter" in r}
-        rel = max(abs(mse[i] - mse_mesh[i]) / mse_mesh[i] for i in range(20))
-        log(f"  --mesh {shape}, two NCCL ranks: 20 steps, max MSE rel diff "
-            f"from the world of one {rel:.2e} (tol {rtol}) [{smi}]")
-        if rel > rtol:
+            out = os.path.join(tmp, "rank0.json")
+            launch([lambda port, r=r: [
+                sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                "--cluster-rank", str(r), str(nproc), str(port), shape,
+                combine, out] for r in range(nproc)], nproc)
+            res = json.load(open(out))
+            states = torch.load(out + ".pt")
+        refs, cfg, init = cluster_case(dev, dims)
+        want, hist = fit_sharded(refs, cfg, virtual_mesh(*dims, device=dev),
+                                 20, log_every=1, log_fn=None,
+                                 combine=combine, state=init)
+        same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+        blocks = sum(a == b for a, b in zip(res["scanned"], res["eager"]))
+        virtual = sum(a == r["mse"] for a, r in zip(res["eager"], hist))
+        blocks_state = same(states["scanned"], states["eager"])
+        virtual_state = same(states["eager"],
+                             [t.cpu() for t in state_leaves(want)])
+        log(f"  --mesh {shape}, {nproc} NCCL ranks, {combine} combine "
+            f"(cluster_rank): {res['mode']}; blocks of 10 at margin 2 "
+            f"against 20 per-step steps: {blocks} of 20 MSEs equal, final "
+            f"state bit for bit {blocks_state}, {res['rebinned']} rebinned "
+            f"steps; the per-step fit against the virtual mesh: {virtual} "
+            f"of 20 MSEs equal, final state bit for bit {virtual_state}; "
+            f"ms a step (steps 10-19): scanned {res['ms_scanned']:.4f}, "
+            f"per-step {res['ms_eager']:.4f} [{smi}]")
+        if blocks != 20 or virtual != 20 or not blocks_state \
+                or not virtual_state:
+            raise AssertionError(f"{shape} {combine} cluster: the blocks, "
+                                 "the per-step fit and the virtual mesh "
+                                 "differ")
+
+    for shape in ("1,2,1", "1,1,2"):
+        rtol = CLUSTER_RTOL[shape]
+        runs = {}
+        for label, extra in (("eager", []), ("scanned", [
+                "--scan-chunk", "10", "--rebin-margin", "2"])):
+            with tempfile.TemporaryDirectory() as tmp:
+                argv = [sys.executable, "-m", "gs2d_tpu_torch.fit", MINI,
+                        "--splats", "1024", "--iters", "20", "--log-every",
+                        "1", "--mesh", shape, "--out", tmp, *extra]
+                outs = launch([lambda port: argv] * 2, 2)
+                runs[label] = {r["iter"]: r["mse"][0]
+                               for r in read_metrics(tmp) if "iter" in r}
+            mode = [x for x in outs[0].splitlines()
+                    if x.startswith("scanned blocks")]
+            if label == "scanned" and not mode:
+                raise AssertionError(f"--mesh {shape}: no scanned blocks")
+        rel = max(abs(runs["eager"][i] - mse_mesh[i]) / mse_mesh[i]
+                  for i in range(20))
+        same = sum(runs["scanned"][i] == runs["eager"][i] for i in range(20))
+        log(f"  --mesh {shape}, two NCCL ranks (the CLI): 20 steps, max MSE "
+            f"rel diff from the world of one {rel:.2e} (tol {rtol}); "
+            f"--scan-chunk 10 --rebin-margin 2 ({mode[0]}): {same} of 20 "
+            f"MSEs equal the eager cluster's [{smi}]")
+        if rel > rtol or same != 20:
             raise AssertionError(f"--mesh {shape} cluster off the fit")
+        ranks(shape, "fold")
+    if n < 4:
+        log(f"  a (1,2,2) cluster needs four cards; this machine has {n}")
+        return
+    for combine in ("fold", "scan"):
+        ranks("1,2,2", combine)
 
 
 def mesh_phase(dev, smi: str) -> dict:
@@ -3662,7 +3923,11 @@ def mesh_phase(dev, smi: str) -> dict:
       MESH_MSE_RTOL of its twin, with both fits' ms a step; and a
       ``--checkpoint-every 100`` run resumed at 100, 200 of 200 MSEs equal
       to the unbroken run;
-    - with two or more cards, two-rank NCCL clusters (``mesh_cluster``).
+    - captured virtual meshes (``captured_meshes``): blocks of 50 on
+      (1,2,1), (1,1,2), (1,2,2) and (2,1,1) meshes of the default fit and
+      (1,2,1) of the 10k fit, each equal to its per-step fit bit for bit;
+    - with two or more cards, NCCL clusters, eager and captured
+      (``mesh_cluster``).
 
     Returns the summed launch counts of the phase's logged runs."""
     t_phase = time.perf_counter()
@@ -3742,7 +4007,8 @@ def mesh_phase(dev, smi: str) -> dict:
         f"1,1,1 fit")
     if same != 200:
         raise AssertionError("the resumed mesh fit differs")
-    mesh_cluster(smi, mse_mesh)
+    count(captured_meshes(dev, smi))
+    mesh_cluster(dev, smi, mse_mesh)
     log(f"  the mesh phase took {time.perf_counter() - t_phase:.1f}s [{smi}]")
     return total
 
@@ -4098,6 +4364,8 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
         return 1
+    if argv[:1] == ["--cluster-rank"] and len(argv) == 7:
+        return cluster_rank(argv[1:])  # one rank of mesh_cluster's
     from gs2d_tpu_torch.config import SplatConfig
     from gs2d_tpu_torch.io.image import load_image
     from gs2d_tpu_torch.ops import _build
@@ -4133,6 +4401,14 @@ def main(argv) -> int:
         return backward_dump(dev, *argv[1:])
     if argv == ["--mesh"]:
         mesh_phase(dev, smi)  # the mesh phase alone
+        return 0
+    if argv == ["--mesh-cluster"]:
+        # The NCCL clusters alone (several cards), against the world of one.
+        log("[mesh] the default fit with --mesh 1,1,1, 20 iterations")
+        _, mse = logged_fit([MINI, "--splats", "1024", "--iters", "20",
+                             "--device", "cuda", "--mesh", "1,1,1"],
+                            iters=20)
+        mesh_cluster(dev, smi, {k: v[0] for k, v in mse.items()})
         return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)

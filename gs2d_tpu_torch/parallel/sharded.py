@@ -33,9 +33,9 @@ holds (one for a process mesh). State lives per coordinate as a batched
 TrainState of its images and its splat slice (``shard_state``);
 ``fit_sharded`` takes and returns the whole batched state, which every rank
 holds (``multihost.put_global`` / ``fetch_replicated``). On the card a
-scanned block on a mesh of one device replays one captured step
-(``train.loop.ScanFitter``, no collective in it); on a larger mesh each
-rank runs the block's steps eagerly with the same block semantics.
+scanned block (``make_fit_scan_sharded``) replays one captured step on
+every mesh, its collectives (NCCL on a process mesh) in the graph, and
+reduces the aux over the mesh once at the block's end.
 ``init_batched_state`` and ``pad_ref_batch`` are gs2d_tpu's batched
 helpers, shared with the batched fitters of ``train/loop.py``.
 """
@@ -63,12 +63,12 @@ from gs2d_tpu_torch.parallel.multihost import (fetch_replicated,
                                                gather_leaves, put_global,
                                                shard_index)
 from gs2d_tpu_torch.params import FIELDS, GaussianParams
+from gs2d_tpu_torch.train import graphs
 from gs2d_tpu_torch.train.adam import AdamState, adam_update
-from gs2d_tpu_torch.train.loop import (STEP_FIELDS, BlockLog, ScanFitter,
-                                       StepAux, TrainState, grad_mag,
-                                       init_batched_state, stack_states,
-                                       state_from_leaves, state_index,
-                                       state_leaves)
+from gs2d_tpu_torch.train.loop import (BlockLog, StepAux, TrainState,
+                                       grad_mag, init_batched_state,
+                                       stack_states, state_from_leaves,
+                                       state_index, state_leaves)
 from gs2d_tpu_torch.train.metrics import psnr_from_mse
 from gs2d_tpu_torch.train.ssim import conv_flags, mixed_loss
 
@@ -600,9 +600,10 @@ def _image_step(comm, plan: _Plan, items: dict, lazy: Optional[_CacheFns],
                 rebin):
     """One step of one image on every coordinate of ``items`` {coord:
     (params, opt, ref_band, cache)}: the lazy tripwire and rebin (``rebin(
-    coord, pred, params)`` refreshes the coordinate's cache list where pred
-    holds), the band step, Adam, the tile-summed MSE over real pixels and
-    the densify signal. Returns {coord: (params, opt, mse, n_dropped, gmag,
+    coord, pred)`` refreshes the coordinate's cache list from its params
+    where pred holds; local to the coordinate, no collective), the band
+    step, Adam, the tile-summed MSE over real pixels and the densify
+    signal. Returns {coord: (params, opt, mse, n_dropped, gmag,
     rebinned)}."""
     cfg = plan.cfg
     prebuilt, rebinned = None, {}
@@ -613,7 +614,7 @@ def _image_step(comm, plan: _Plan, items: dict, lazy: Optional[_CacheFns],
             covered = tl.pairs_covered_by(
                 params, snap, plan.cfg_shard, cfg.rebin_margin) \
                 & (cache[lazy.n_bin - 1] == 0)
-            rebin(c, ~covered, params)
+            rebin(c, ~covered)
             prebuilt[c] = lazy.binning(cache, params)
             rebinned[c] = (~covered).to(torch.int32)
     bands = {c: (v[0], v[2]) for c, v in items.items()}
@@ -635,14 +636,35 @@ def _image_step(comm, plan: _Plan, items: dict, lazy: Optional[_CacheFns],
                 nd, gm, rb) for c, (p, o, nd, gm, rb) in res.items()}
 
 
-def _mesh_step(comm, plan: _Plan, states: dict, refs: dict,
-               lazy: Optional[_CacheFns] = None, caches=None, rebin=None):
+class _Local(NamedTuple):
+    """A coordinate's step values before any reduction over the mesh:
+    ``mse`` and ``psnr`` (B_local,), ``bad`` the count of its non-finite
+    parameters (float32, as gs2d_tpu counts), ``drop`` its images' dropped
+    pairs (int32), ``reb`` 1 where one of its images rebinned (int32; 0
+    without a lazy cache) and ``gmag`` the (B_local, N_local) densify
+    signal (0 without it). A block stacks each field (n, ...)."""
+
+    mse: torch.Tensor
+    psnr: torch.Tensor
+    bad: torch.Tensor
+    drop: torch.Tensor
+    reb: torch.Tensor
+    gmag: torch.Tensor
+
+
+def _stack(xs: list) -> torch.Tensor:
+    """torch.stack, as a view for one tensor."""
+    return xs[0][None] if len(xs) == 1 else torch.stack(xs)
+
+
+def _local_step(comm, plan: _Plan, states: dict, refs: dict,
+                lazy: Optional[_CacheFns] = None, caches=None, rebin=None):
     """One step of every image of every coordinate: {coord: batched
     TrainState} and {coord: (B_local, band_h, Wp, 3) target bands} ->
-    ({coord: TrainState}, {coord: StepAux}) with the aux of gs2d_tpu's
-    sharded step: mse and psnr (B_local,), all_finite over the splat and
-    tile axes broadcast to (B_local,), n_dropped summed over the mesh,
-    pos_grad_mag (B_local, N_local), rebinned (the max over the mesh)."""
+    ({coord: TrainState}, {coord: _Local}). The collectives of the band
+    step run here; the aux's reductions over the mesh do not
+    (``_reduce_aux``). With ``lazy``, ``caches[c][b]`` is the cache list of
+    coordinate c's image b and ``rebin(b, c, pred)`` refreshes it."""
     coords = list(states)
     b_local = refs[coords[0]].shape[0]
     per_image = []
@@ -655,7 +677,7 @@ def _mesh_step(comm, plan: _Plan, states: dict, refs: dict,
         per_image.append(_image_step(
             comm, plan, items, lazy,
             None if rebin is None else functools.partial(rebin, b)))
-    new_states, bad, drop, reb = {}, {}, {}, {}
+    new_states, local = {}, {}
     for c in coords:
         outs = [r[c] for r in per_image]
         new = [TrainState(params=p, opt=o) for p, o, *_ in outs]
@@ -663,30 +685,47 @@ def _mesh_step(comm, plan: _Plan, states: dict, refs: dict,
         new_states[c] = state_from_leaves(
             [t[None] for t in state_leaves(new[0])]) if len(new) == 1 \
             else stack_states(new)
-        bad[c] = sum(
-            (~torch.isfinite(getattr(new_states[c].params, f))).sum()
-            for f in FIELDS).to(torch.float32)
-        drop[c] = sum(o[3] for o in outs).to(torch.int32).reshape(())
-        reb[c] = torch.stack([torch.as_tensor(o[5], dtype=torch.int32,
-                                              device=o[2].device)
-                              for o in outs]).max()
-    bad = _reduce_axes(comm, (SPLAT_AXIS, TILE_AXIS), bad)
-    drop = _reduce_axes(comm, (SPLAT_AXIS, TILE_AXIS, DATA_AXIS), drop)
+        mse = _stack([o[2] for o in outs])
+        local[c] = _Local(
+            mse=mse, psnr=psnr_from_mse(mse),
+            bad=sum((~torch.isfinite(getattr(new_states[c].params, f))).sum()
+                    for f in FIELDS).to(torch.float32),
+            drop=sum(o[3] for o in outs).to(torch.int32).reshape(()),
+            reb=_stack([o[5] for o in outs]).max() if lazy is not None
+            else 0,
+            gmag=_stack([o[4] for o in outs]) if plan.with_grad_mag else 0)
+    return new_states, local
+
+
+def _reduce_aux(comm, local: dict, lazy) -> dict:
+    """{coord: StepAux} of {coord: _Local} of one step (0-d counts) or of a
+    block ((n,) vectors), with gs2d_tpu's reductions over the mesh: the
+    non-finite count summed over the splat and tile axes (``all_finite``
+    broadcast to the images), the dropped pairs summed over every axis,
+    ``rebinned`` the max over every axis. Integer sums, a comparison and a
+    max: a block's reductions give each step's values."""
+    bad = _reduce_axes(comm, (SPLAT_AXIS, TILE_AXIS),
+                       {c: v.bad for c, v in local.items()})
+    drop = _reduce_axes(comm, (SPLAT_AXIS, TILE_AXIS, DATA_AXIS),
+                        {c: v.drop for c, v in local.items()})
+    reb = {c: v.reb for c, v in local.items()}
     if lazy is not None:
         reb = _reduce_axes(comm, (SPLAT_AXIS, TILE_AXIS, DATA_AXIS), reb,
                            op="max")
-    auxes = {}
-    for c in coords:
-        outs = [r[c] for r in per_image]
-        mse = torch.stack([o[2] for o in outs])
-        auxes[c] = StepAux(
-            mse=mse, psnr=psnr_from_mse(mse),
-            all_finite=(bad[c] == 0.0).expand(mse.shape),
-            n_dropped=drop[c],
-            pos_grad_mag=(torch.stack([o[4] for o in outs])
-                          if plan.with_grad_mag else 0),
-            rebinned=reb[c] if lazy is not None else 0)
-    return new_states, auxes
+    return {c: StepAux(
+        mse=v.mse, psnr=v.psnr,
+        all_finite=(bad[c] == 0.0)[..., None].expand(v.mse.shape),
+        n_dropped=drop[c], pos_grad_mag=v.gmag, rebinned=reb[c])
+        for c, v in local.items()}
+
+
+def _mesh_step(comm, plan: _Plan, states: dict, refs: dict):
+    """One step of every image of every coordinate, eager binning, with
+    the aux of gs2d_tpu's sharded step: mse and psnr (B_local,), all_finite
+    over the splat and tile axes broadcast to (B_local,), n_dropped summed
+    over the mesh, pos_grad_mag (B_local, N_local), rebinned 0."""
+    new_states, local = _local_step(comm, plan, states, refs)
+    return new_states, _reduce_aux(comm, local, None)
 
 
 # ---------------------------------------------------------------------------
@@ -780,101 +819,134 @@ def make_sharded_train_step(cfg: SplatConfig, mesh, combine: str = "fold",
     return step, _shardings(mesh)
 
 
-class _EagerBlocks:
-    """A scanned block on a mesh of several devices, or of several virtual
-    coordinates: ``n_iters`` steps run eagerly on every rank, the lazy band
-    caches binned afresh at the start of the block and carried across its
-    steps (each coordinate rebins only its own band, on its own
-    tripwire)."""
+_N_LEAVES = len(state_leaves(state_pspec()))
 
-    mode = "eager steps on every rank"
+
+def _block_step(comm, plan: _Plan, lazy: Optional[_CacheFns], coords: tuple,
+                b_local: int, leaves, ref, caches, rebin):
+    """The step of every coordinate this process holds, on the leaves of
+    their batched states in ``coords`` order and their stacked target bands
+    ``ref`` (n_coords, B_local, band_h, Wp, 3), in graphs.StepGraph's form:
+    cache ``i * b_local + b`` is coordinate i's image b. The aux is each
+    ``_Local`` field stacked over the coordinates (constants stay
+    constants)."""
+    k = _N_LEAVES
+    states = {c: state_from_leaves(leaves[i * k: (i + 1) * k])
+              for i, c in enumerate(coords)}
+    refs = {c: ref[i] for i, c in enumerate(coords)}
+    cache_of = band_rebin = None
+    if lazy is not None:
+        cache_of = {c: caches[i * b_local: (i + 1) * b_local]
+                    for i, c in enumerate(coords)}
+
+        def band_rebin(b, c, pred):
+            rebin(coords.index(c) * b_local + b, pred)
+
+    new, local = _local_step(comm, plan, states, refs, lazy, cache_of,
+                             band_rebin)
+    # A leaf the step leaves as it was (the opacity's moments without
+    # optimize_opacity) comes back as a view of its input, maybe with other
+    # strides on its axis of one image: return the input itself, which
+    # graphs.StepGraph's copy into its statics skips.
+    out = [t if t.data_ptr() != x.data_ptr() or t.shape != x.shape else x
+           for t, x in zip((t for c in coords
+                            for t in state_leaves(new[c])), leaves)]
+    field = lambda f: [getattr(local[c], f) for c in coords]
+    return out, _Local(
+        *(_stack(field(f)) if torch.is_tensor(field(f)[0]) else field(f)[0]
+          for f in _Local._fields))
+
+
+def _band_cache(lazy: _CacheFns, r0: int, first: int, b: int, leaves):
+    """The lazy cache of image ``b`` of the coordinate whose state's leaves
+    start at ``leaves[first]`` and whose band starts at tile row ``r0``."""
+    state = state_from_leaves(leaves[first: first + _N_LEAVES])
+    return lazy.make(state_index(state, b).params, r0)
+
+
+def _require_nccl_capture(mesh) -> None:
+    """A captured step that holds NCCL collectives (a process mesh of
+    several cards) needs NCCL 2.9.6 or later, the first NCCL that captures
+    collectives in a CUDA graph (PyTorch's CUDA-graph notes)."""
+    if mesh.device_mesh is None or mesh.device.type != "cuda" \
+            or mesh.size == 1:
+        return
+    version = tuple(torch.cuda.nccl.version()[:3])
+    if version < (2, 9, 6):
+        raise RuntimeError(
+            f"NCCL {'.'.join(map(str, version))} cannot capture collectives "
+            "in a CUDA graph (2.9.6 or later needed) for the scanned mesh "
+            "step")
+
+
+class _Blocks:
+    """Blocks of sharded steps on any mesh (gs2d_tpu's shard_map(lax.scan(
+    step))): ``fit_k(states, refs, n_iters, grad_mag_sum=None)``.
+
+    Each process runs one step body over every coordinate it holds
+    (``_block_step``) through a ``graphs.BlockRunner``. On the card it is
+    one captured step, replayed ``n_iters`` times with no host work in
+    between: on a process mesh the rank's band step with its NCCL
+    collectives in the graph (the ordered combine, the tile axis's gradient
+    and band-MSE all-reduces, the SSIM bands' gathers), on a virtual mesh
+    every coordinate's step, whose collectives are tensor operations. On
+    the CPU the same body runs in a Python loop. Each (coordinate, image)
+    carries its band's lazy cache through the block, binned afresh at its
+    start; its tripwire and rebin are local (a conditional node each on the
+    card). The reductions of the aux over the mesh run once, at the block's
+    end, on its (n_iters,) vectors (``_reduce_aux``). Every rank must call
+    with the same ``n_iters``."""
+
+    mode = ("one captured step a process, replayed on the card (the same "
+            "step in a Python loop on the CPU)")
 
     def __init__(self, mesh, plan: _Plan, lazy: Optional[_CacheFns]):
         self.mesh, self.plan, self.lazy = mesh, plan, lazy
-
-    def __call__(self, states: dict, refs: dict, n_iters: int):
-        comm, plan, lazy = self.mesh.comm, self.plan, self.lazy
-        caches = None
-        if lazy is not None:
-            caches = {c: [lazy.make(state_index(s, b).params,
-                                    _band_r0(plan, c))
-                          for b in range(refs[c].shape[0])]
-                      for c, s in states.items()}
-
-        def rebin(b, c, pred, params):
-            if bool(pred):
-                caches[c][b][:] = lazy.make(params, _band_r0(plan, c))
-
-        auxes = []
-        for _ in range(n_iters):
-            states, aux = _mesh_step(comm, plan, states, refs, lazy, caches,
-                                     rebin if lazy is not None else None)
-            auxes.append(aux)
-        out = {}
-        for c in states:
-            stack = {f: torch.stack([torch.as_tensor(getattr(a[c], f))
-                                     for a in auxes]) for f in STEP_FIELDS}
-            stack["rebinned"] = stack["rebinned"].to(torch.int32)
-            out[c] = StepAux(**stack, pos_grad_mag=sum(
-                a[c].pos_grad_mag for a in auxes) if plan.with_grad_mag
-                else 0)
-        return states, out
-
-
-class _CapturedBlocks:
-    """A scanned block on a mesh of one device: each image's steps through
-    ``train.loop.ScanFitter`` over the band step of the one coordinate
-    (on the card one captured step, replayed; no collective runs)."""
-
-    mode = "one captured step replayed (mesh of one device)"
-
-    def __init__(self, mesh, plan: _Plan, lazy: Optional[_CacheFns]):
-        self.coord = mesh.coords[0]
-        comm = mesh.comm  # every axis of size 1: no collective runs
-        c0 = self.coord
-
-        def one(state, ref, cache, rebin):
-            items = {c0: (state.params, state.opt, ref, cache)}
-            res = _image_step(comm, plan, items, lazy, rebin)[c0]
-            p, o, mse, n_drop, gmag, reb = res
-            finite = torch.stack([torch.isfinite(getattr(p, f)).all()
-                                  for f in FIELDS]).all()
-            return TrainState(params=p, opt=o), StepAux(
-                mse=mse, psnr=psnr_from_mse(mse), all_finite=finite,
-                n_dropped=n_drop, pos_grad_mag=gmag, rebinned=reb)
-
-        if lazy is None:
-            self.fitter = ScanFitter(lambda s, r: one(s, r, None, None),
-                                     with_grad_mag=plan.with_grad_mag)
-        else:
-            self.fitter = ScanFitter(
-                None, lambda s, r, cache, rebin: one(
-                    s, r, cache, lambda c, pred, params: rebin(pred,
-                                                               params)),
-                lambda params: lazy.make(params, 0),
-                with_grad_mag=plan.with_grad_mag)
+        self.runner, self.b_local = None, 0
 
     @property
     def graph(self):
-        return self.fitter.graph
+        return None if self.runner is None else self.runner.graph
 
-    def __call__(self, states: dict, refs: dict, n_iters: int):
-        c = self.coord
-        outs = [self.fitter(state_index(states[c], b), refs[c][b], n_iters)
-                for b in range(refs[c].shape[0])]
-        auxes = [o[1] for o in outs]
-        field = lambda f: torch.stack([torch.as_tensor(getattr(a, f))
-                                       for a in auxes], dim=-1)
-        mse = field("mse")
-        aux = StepAux(
-            mse=mse, psnr=field("psnr"),
-            all_finite=field("all_finite").all(dim=-1, keepdim=True)
-            .expand(mse.shape),
-            n_dropped=field("n_dropped").sum(dim=-1).to(torch.int32),
-            pos_grad_mag=(torch.stack([a.pos_grad_mag for a in auxes])
-                          if self.fitter.with_grad_mag else 0),
-            rebinned=field("rebinned").amax(dim=-1).to(torch.int32))
-        return {c: stack_states([o[0] for o in outs])}, {c: aux}
+    @property
+    def captures(self) -> int:
+        return 0 if self.runner is None else self.runner.captures
+
+    def _runner(self, b_local: int):
+        coords, plan, lazy = tuple(self.mesh.coords), self.plan, self.lazy
+        makes = [] if lazy is None else [
+            functools.partial(_band_cache, lazy, _band_r0(plan, c),
+                              i * _N_LEAVES, b)
+            for i, c in enumerate(coords) for b in range(b_local)]
+        return graphs.BlockRunner(
+            functools.partial(_block_step, self.mesh.comm, plan, lazy,
+                              coords, b_local),
+            makes, ("mse", "psnr", "bad", "drop")
+            + (("reb",) if lazy is not None else ()),
+            "gmag" if plan.with_grad_mag else None)
+
+    def __call__(self, states: dict, refs: dict, n_iters: int,
+                 grad_mag_sum: Optional[dict] = None):
+        coords = self.mesh.coords
+        b_local = refs[coords[0]].shape[0]
+        if self.runner is None or self.b_local != b_local:
+            self.runner, self.b_local = self._runner(b_local), b_local
+        total = None if grad_mag_sum is None \
+            else _stack([grad_mag_sum[c] for c in coords])
+        new, aux, total = self.runner(
+            [t for c in coords for t in state_leaves(states[c])],
+            _stack([refs[c] for c in coords]), n_iters, total)
+        if self.lazy is None:
+            aux["reb"] = torch.zeros((n_iters, len(coords)),
+                                     dtype=torch.int32,
+                                     device=aux["mse"].device)
+        k = _N_LEAVES
+        local = {c: _Local(**{f: aux[f][:, i] for f in aux},
+                           gmag=0 if total is None else total[i])
+                 for i, c in enumerate(coords)}
+        return ({c: state_from_leaves(new[i * k: (i + 1) * k])
+                 for i, c in enumerate(coords)},
+                _reduce_aux(self.mesh.comm, local, self.lazy))
 
 
 def make_fit_scan_sharded(cfg: SplatConfig, mesh, *, combine: str = "fold",
@@ -882,21 +954,24 @@ def make_fit_scan_sharded(cfg: SplatConfig, mesh, *, combine: str = "fold",
                           ssim_lambda: float = 0.0,
                           with_grad_mag: bool = False):
     """Blocks of sharded steps (gs2d_tpu's make_fit_scan_sharded): ``fit_k(
-    states, refs, n_iters) -> (states, auxes)``, each coordinate's aux
-    stacked (n_iters, ...). ``cfg.rebin_margin`` > 0 rebins lazily under
+    states, refs, n_iters, grad_mag_sum=None) -> (states, auxes)``, each
+    coordinate's aux stacked (n_iters, ...), on every mesh through one
+    class (``_Blocks``: one captured step a process on the card, its
+    collectives in the graph). ``cfg.rebin_margin`` > 0 rebins lazily under
     the mesh for the resident and flat layouts: each coordinate carries its
     band's margined binning through the block, runs the exact tripwire
     ``tiles.pairs_covered_by`` on its own splat shard every step and rebins
     only its own band; ``rebinned`` is the max over the mesh. With
     ``with_grad_mag`` the aux's ``pos_grad_mag`` is the (B_local, N_local)
-    sum of the block's densify signals. On a mesh of one device the block
-    replays one captured step on the card (``fit_k.mode`` says which ran).
+    sum of the block's densify signals, from zero or continuing
+    ``grad_mag_sum`` ({coord: (B_local, N_local)}). Raises on a process
+    mesh of several cards whose NCCL cannot capture collectives.
     Returns (fit_k, shardings) as make_sharded_train_step."""
     plan = _plan(cfg, mesh, combine, renderer, overlap_chunks, ssim_lambda,
                  with_grad_mag)
+    _require_nccl_capture(mesh)
     lazy = _band_cache_fns(plan) if cfg.rebin_margin > 0 else None
-    blocks = _CapturedBlocks if mesh.size == 1 else _EagerBlocks
-    return blocks(mesh, plan, lazy), _shardings(mesh)
+    return _Blocks(mesh, plan, lazy), _shardings(mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -1029,12 +1104,15 @@ def fit_sharded(
             n = min(scan_chunk, iterations - done)
             if densify_every:
                 n = min(n, densify_every - done % densify_every)
-            states, auxes = fit_k(states, ref_bands, n)
+            # The signal's sum continues from block to block, in the
+            # order of single steps.
+            states, auxes = fit_k(states, ref_bands, n, accum)
         else:
             states, auxes = step(states, ref_bands)
         if densify_fn is not None:
             g = {c: x.pos_grad_mag for c, x in auxes.items()}
-            accum = g if accum is None else {c: accum[c] + g[c] for c in g}
+            accum = g if accum is None or scanned \
+                else {c: accum[c] + g[c] for c in g}
             end = done + n
             if end % densify_every == 0 and end < iterations:
                 states = densify(states, accum, end)

@@ -300,78 +300,56 @@ def _cache_of_leaves(make_cache, leaves):
     return make_cache(state_from_leaves(leaves).params)
 
 
+def _scan_step(one_step, cached, leaves, ref, caches, rebin):
+    """ScanFitter's step body on the state's leaves (graphs.StepGraph's
+    form): ``one_step``, or ``cached`` on the one lazy cache."""
+    state = state_from_leaves(leaves)
+    if cached is None:
+        new, aux = one_step(state, ref)
+    else:
+        new, aux = cached(state, ref, caches[0],
+                          lambda pred, params: rebin(0, pred))
+    return state_leaves(new), aux
+
+
 class ScanFitter:
     """``fit_k(state, ref, n_iters) -> (state, StepAux of (n_iters,)
     tensors)``: ``n_iters`` steps of ``one_step`` (or of the lazy ``cached``
     step, binned afresh from the incoming params at the start of each call,
-    as each gs2d_tpu scan starts). CUDA states replay one captured step
-    (graphs.StepGraph, captured at the first call and again when a call
-    asks for more steps than its aux buffers hold; ``graph`` is the
-    latest, ``captures`` counts them); CPU states run the same step body
+    as each gs2d_tpu scan starts), through a ``graphs.BlockRunner``: CUDA
+    states replay one captured step (captured at the first call and again
+    when a call asks for more steps than its aux buffers hold; ``graph`` is
+    the latest, ``captures`` counts them); CPU states run the same step body
     in a Python loop. With ``with_grad_mag`` the steps' (N,) densify
     signals are summed, as gs2d_tpu sums them in the scan carry, and the
     aux's ``pos_grad_mag`` is that sum: from zero, or continuing the sum
     ``grad_mag_sum`` a caller passes (the blocks of one densify window), so
-    that blocks sum in the order of single steps. A class, not a closure:
-    a closure that names itself is a reference cycle, which the garbage
-    collector may free, graph and all, in the middle of a later capture,
-    where CUDA forbids destroying a graph."""
+    that blocks sum in the order of single steps."""
 
     def __init__(self, one_step, cached=None, make_cache=None,
                  with_grad_mag: bool = False):
-        self.one_step, self.cached, self.make_cache = \
-            one_step, cached, make_cache
         self.with_grad_mag = with_grad_mag
-        self.graph = None
-        self.captures = 0
+        self.runner = graphs.BlockRunner(
+            functools.partial(_scan_step, one_step, cached),
+            [] if make_cache is None else
+            [functools.partial(_cache_of_leaves, make_cache)],
+            STEP_FIELDS, "pos_grad_mag" if with_grad_mag else None)
 
-    def _on_leaves(self, leaves, ref, cache, rebin):
-        state = state_from_leaves(leaves)
-        if self.cached is None:
-            new, aux = self.one_step(state, ref)
-        else:
-            new, aux = self.cached(state, ref, cache, rebin)
-        return state_leaves(new), aux
+    @property
+    def graph(self):
+        return self.runner.graph
+
+    @property
+    def captures(self) -> int:
+        return self.runner.captures
 
     def __call__(self, state: TrainState, ref: torch.Tensor, n_iters: int,
                  grad_mag_sum: Optional[torch.Tensor] = None):
-        leaves = state_leaves(state)
-        summed = "pos_grad_mag" if self.with_grad_mag else None
-        if leaves[0].is_cuda:
-            if self.graph is None or n_iters > self.graph.n_max:
-                self.graph = graphs.StepGraph(
-                    self._on_leaves,
-                    None if self.make_cache is None else
-                    functools.partial(_cache_of_leaves, self.make_cache),
-                    leaves, ref, n_iters, STEP_FIELDS, summed)
-                self.captures += 1
-            new, aux, total = self.graph.run(leaves, ref, n_iters,
-                                              grad_mag_sum)
-            if summed:
-                aux[summed] = total
-            return state_from_leaves(new), StepAux(**aux)
-        make_cache = self.make_cache
-        cache = [] if make_cache is None else make_cache(state.params)
-
-        def rebin(pred, params):
-            if bool(pred):
-                cache[:] = make_cache(params)
-
-        auxes = []
-        total = None
-        if summed:
-            total = torch.zeros_like(state.params.sx) \
-                if grad_mag_sum is None else grad_mag_sum.clone()
-        for _ in range(n_iters):
-            leaves, aux = self._on_leaves(leaves, ref, cache, rebin)
-            if summed:
-                total.add_(aux.pos_grad_mag)
-            auxes.append(aux)
-        return state_from_leaves(leaves), StepAux(
-            **{f: torch.stack([torch.as_tensor(getattr(a, f), dtype=(
-                torch.int32 if f == "rebinned" else None)) for a in auxes])
-               for f in STEP_FIELDS},
-            **({} if total is None else {"pos_grad_mag": total}))
+        new, aux, total = self.runner(state_leaves(state), ref, n_iters,
+                                      grad_mag_sum)
+        if self.with_grad_mag:
+            aux["pos_grad_mag"] = total
+        return state_from_leaves(new), StepAux(**aux)
 
 
 def make_fit_scan_fused(cfg: SplatConfig, with_grad_mag: bool = False):

@@ -3,7 +3,8 @@
 Launched by tests/test_torch_sharded.py, one process a rank. Imports only
 torch and gs2d_tpu_torch. Phases:
 
-- ``fit_save``: ``fit_sharded`` over a process mesh of the given shape (the
+- ``fit_save``: ``fit_sharded`` in scanned blocks (``parallel.sharded.
+  _Blocks``, as on every mesh) over a process mesh of the given shape (the
   collectives cross processes), held bit for bit against the same fit on a
   virtual mesh of that shape computed in this process; with ``save`` the
   whole batched state is checkpointed at step 3 (rank 0 writes).
@@ -36,7 +37,9 @@ from gs2d_tpu_torch.io.checkpoint import (Checkpointer,  # noqa: E402
 from gs2d_tpu_torch.io.image import synthetic_target  # noqa: E402
 from gs2d_tpu_torch.parallel.mesh import make_mesh, virtual_mesh  # noqa
 from gs2d_tpu_torch.parallel.multihost import initialize_cluster  # noqa
-from gs2d_tpu_torch.parallel.sharded import fit_sharded  # noqa: E402
+from gs2d_tpu_torch.parallel.sharded import (_Blocks,  # noqa: E402
+                                             fit_sharded,
+                                             make_fit_scan_sharded)
 from gs2d_tpu_torch.train.loop import (init_batched_state,  # noqa: E402
                                        state_leaves)
 
@@ -51,6 +54,9 @@ cfg = SplatConfig(width=W, height=H, n_splats=64, min_throughput=0.0,
                   rebin_margin=2.0)
 refs = np.stack([synthetic_target(H, W, seed=d) for d in range(shape[0])])
 kw = dict(log_every=1, log_fn=None, combine=combine, scan_chunk=3)
+# The scanned blocks of a process mesh: the one block class of every mesh,
+# its step's collectives over gloo.
+assert type(make_fit_scan_sharded(cfg, mesh)[0]) is _Blocks
 
 
 def same_bits(a, b) -> bool:

@@ -1449,3 +1449,56 @@ def test_banded_kernels_match_plain_and_unbanded_rows(
         total = g_k if total is None else GaussianParams(
             **{f: getattr(total, f) + getattr(g_k, f) for f in FIELDS})
     close_grads(total, g_full)
+
+
+@pytest.mark.parametrize("margin", [0.0, 2.0])
+def test_captured_virtual_mesh_block_equals_eager(dev, margin):
+    """A (1,2,2) virtual mesh (fold combine) in blocks of 3: one captured
+    step holds every coordinate's band step, the combine's gathers and the
+    tile axis's all-reduces as tensor operations (and under a margin a
+    conditional node for each coordinate's band binning). Two blocks equal
+    6 eager sharded steps bit for bit (state, mse, all_finite, n_dropped),
+    one capture; the second block's replays run under sync debug mode
+    "error", so nothing in a block synchronises with the host; each replay
+    adds one eager step's kernel launches."""
+    from gs2d_tpu_torch.io.image import synthetic_target
+    from gs2d_tpu_torch.parallel import sharded as tsh
+    from gs2d_tpu_torch.parallel.mesh import virtual_mesh
+    from gs2d_tpu_torch.train import loop
+
+    cfg = SplatConfig(width=W, height=H, n_splats=64, max_splats_per_tile=64,
+                      rebin_margin=margin)
+    mesh = virtual_mesh(1, 2, 2, dev)
+    state = loop.init_batched_state(cfg, 1, dev)
+    cfg = tsh.prepare_config(cfg, mesh, loop.state_index(state, 0).params)
+    fit_k, sh = tsh.make_fit_scan_sharded(cfg, mesh)
+    step, _ = tsh.make_sharded_train_step(cfg, mesh)
+    refs = sh["ref"](tsh.pad_ref_batch(synthetic_target(H, W)[None], cfg,
+                                       dev))
+    before = dict(rr.launches)
+    s_e, a_e = sh["state"](state), []
+    for _ in range(6):
+        s_e, a = step(s_e, refs)
+        a_e.append(a)
+    eager = {k: rr.launches[k] - before[k] for k in before}
+    assert eager["fwd_resident"] == 6 * 4  # one a coordinate and step
+    s_g, a1 = fit_k(sh["state"](state), refs, 3)
+    before = dict(rr.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s_g, a2 = fit_k(s_g, refs, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    grown = {k: rr.launches[k] - before[k] for k in before}
+    assert fit_k.captures == 1
+    assert grown == {k: v // 2 for k, v in eager.items()}
+    for c in mesh.coords:
+        for x, y in zip(loop.state_leaves(s_g[c]), loop.state_leaves(s_e[c])):
+            assert torch.equal(x, y)
+        for f in ("mse", "all_finite", "n_dropped"):
+            got = torch.cat([getattr(a1[c], f), getattr(a2[c], f)])
+            want = torch.stack([torch.as_tensor(getattr(a[c], f))
+                                for a in a_e])
+            assert torch.equal(got, want), f
