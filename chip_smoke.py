@@ -3,7 +3,10 @@ hold each against its plain PyTorch version and every warp-patch kernel
 against the one-block-per-tile chunk walk over the same pairs, bit for bit
 (the references gs2d_fwd_chunk, gs2d_bwd_chunk and gs2d_l2_mxu_chunk: the
 designs the dense forward 6/7, the dense backward 8/9 and the MXU-form step
-13 had before their warp patches, which no path reaches; the L2 kernels 1,
+13 had before their warp patches, which no path reaches; the tensor-core
+probes 15b and 15c are held within their tolerance to the designs they had
+before wgmma, gs2d_moments_tensor_cores_staged and
+gs2d_moments_scratch_contraction_sync, the same way; the L2 kernels 1,
 4/5 and 12 against the forward reference, then gC = C - ref, then the
 backward reference, kernels 2 and 6/7 against the forward reference, the
 replays 3 and 8/9 against the backward reference under the same planes,
@@ -101,8 +104,10 @@ report and the last is {"ok": true, "device": {...}}. A kernel's
 recovery), each path counted from zero; ``ms`` is its device time a call
 at the main path's shapes; ``bound_ms`` is the least time the card could
 take for the work of its timed call (see
-``gs2d_tpu_torch/scripts/roofline.py::bound``). The report's
-"references" list the three chunk references the same way, each with
+``gs2d_tpu_torch/scripts/roofline.py::bound``; for the moment probes
+``gs2d_tpu_torch/ops/probes.py::moments_bound``, 15b's and 15c's products
+at the tensor cores' TF32 rate). The report's
+"references" list the five references the same way, each with
 ``reference_of`` (the kernel held to it), no TPU kernel replaced and 0
 launches on every path. Any failure raises
 and the script exits non-zero without printing a result; without a CUDA
@@ -215,7 +220,11 @@ MXU_GRAD_RTOL = 2e-3
 # Every output is held to PROBE_TC_RTOL of the size of its own terms
 # (ops/probes.py::moments_output_sizes; 15c's 128 outputs cycle through nine
 # moments whose sizes differ by about 1e3, and three of them cancel);
-# measured on the H100: 1.2e-7 (15b) and 2.5e-6 (15c) of that size at most.
+# measured on the H100: 1.2e-7 (15b) and 2.5e-6 (15c) of that size at most
+# for the designs before wgmma, 2.4e-7 and 1.2e-6 for the wgmma kernels
+# (their per-step values 5.2e-7 and 2.3e-6). 15c adds each chunk's product
+# into its batch's moments in float32: the tensor cores' own accumulation
+# truncates, and over a whole batch (1536 products) it drifted past this.
 PROBE_TC_RTOL = 1e-5
 N_100K = 102400
 
@@ -224,6 +233,12 @@ N_100K = 102400
 FWD_CHUNK_TIMES = "fwd_chunk (reference), same rows (plain ms: 6/7's)"
 BWD_CHUNK_TIMES = "bwd_chunk (reference), same rows (plain ms: kernel 3's)"
 MXU_CHUNK_TIMES = "l2_mxu_chunk (reference), same inputs (plain ms: 13's)"
+PROBE_REF_TIMES = {
+    "moments_tensor_cores_staged":
+        "moments_tensor_cores_staged (reference), K = 512 (plain ms: 15b's)",
+    "moments_scratch_contraction_sync":
+        "moments_scratch_contraction_sync (reference), K = 512 "
+        "(plain ms: 15c's)"}
 
 
 T_START = time.perf_counter()
@@ -357,9 +372,9 @@ def same_bits(got, want) -> bool:
                 and torch.equal(got[~nan], want[~nan]))
 
 
-# The chunk references' largest |difference| from the kernels held to them
-# in this run, by reference (finite entries; the gates need 0 and equal NaN
-# masks), for the report line.
+# The references' largest |difference| from the kernels held to them in
+# this run, by reference (finite entries; the chunk references' gates need
+# 0 and equal NaN masks, the probes' PROBE_TC_RTOL), for the report line.
 REF_ERRS = {}
 
 
@@ -2073,14 +2088,17 @@ def median_ms(rates) -> float:
     return 1e3 / float(np.median(rates))
 
 
-def probe_entry(t: dict, plain_ms: float, flops: int, n_bytes: int):
+def probe_entry(t: dict, plain_ms: float, bound_ms: tuple):
     """{ms, device, plain_ms, bound_ms, bound_by} of a probe kernel whose
-    device_time reading is ``t``, that does ``flops`` float32 operations
-    and writes ``n_bytes``."""
-    t_ops, t_bytes = flops / F32_PEAK, n_bytes / HBM_RATE
+    device_time reading is ``t`` and whose bound is ``bound_ms`` (ms, what
+    bounds it)."""
     return {"ms": t["device"], "device": t, "plain_ms": plain_ms,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_ms": bound_ms[0], "bound_by": bound_ms[1]}
+
+
+# A probe's share of its bound above this is a counting fault, as in
+# probe_phase's roofline workloads.
+PROBE_SHARE_MAX = 1.05
 
 
 def compare_probes(dev, smi: str):
@@ -2088,7 +2106,12 @@ def compare_probes(dev, smi: str):
     the shapes the measurement scripts give them: kernel 14 at every chain
     count of its sweep (the count with the best rate is reported), the
     moment probes at K = 512 on one block and on one block per SM (the
-    latter is timed and reported). Returns (max errors, times)."""
+    latter is timed and reported). The tensor-core probes 15b and 15c also
+    against their references (the designs before wgmma) within the same
+    tolerance, their per-step values against the plain steps, and a second
+    launch bit for bit; then one line of ns per splat-tile reduction, and
+    no probe above PROBE_SHARE_MAX of its bound. Returns (max errors,
+    times); the references' differences go to REF_ERRS."""
     from gs2d_tpu_torch.ops import probes
 
     log("[compare] probe kernels 14, 15a-c vs plain PyTorch on the card")
@@ -2115,20 +2138,25 @@ def compare_probes(dev, smi: str):
         if best is None or flops / ms > best[0]:
             best = (flops / ms, chains, t, flops, nbytes(got))
     _, chains, t, flops, out_bytes = best
+    t_ops, t_bytes = flops / F32_PEAK, out_bytes / HBM_RATE
     times["fma_peak"] = probe_entry(
         t, cuda_ms(lambda: probes.fma_peak_plain(
             chains, probes.FMA_INNER, probes.FMA_GRID, probes.FMA_THREADS,
-            dev), 3), flops, out_bytes)
+            dev), 3),
+        (1e3 * max(t_ops, t_bytes),
+         "operations" if t_ops >= t_bytes else "bytes"))
+    k = probes.N_K
     for kind, (name, fn, plain) in probes.MOMENT_PROBES.items():
         rtol = GRAD_RTOL if kind == "vpu" else PROBE_TC_RTOL
+        ref = probes.MOMENT_REFERENCES.get(kind)
         for n_blocks in (1, sms):
-            got = fn(dev, n_k=probes.N_K, n_blocks=n_blocks)
-            want = plain(probes.N_K, n_blocks, dev)
+            got = fn(dev, n_k=k, n_blocks=n_blocks)
+            want = plain(k, n_blocks, dev)
             torch.cuda.synchronize()
             # Each output against the size of its own terms: 15c's columns
             # cycle through nine moments whose sizes differ by about 1e3.
             err = (got - want).abs()
-            sizes = probes.moments_output_sizes(kind, want, probes.N_K)
+            sizes = probes.moments_output_sizes(kind, want, k)
             tol = rtol * sizes
             worst = int((err / tol).argmax())
             log(f"  {name}, {n_blocks} block(s): err {float(err.max()):.3g};"
@@ -2141,17 +2169,70 @@ def compare_probes(dev, smi: str):
                 raise AssertionError(f"{name} disagrees with its plain "
                                      "version")
             errs[name] = max(errs.get(name, 0.0), float(err.max()))
+            if ref is not None:
+                compare_probe_design(kind, got, sizes, rtol, n_blocks, dev)
+        bound = probes.moments_bound(kind, k, sms, nbytes(got))
         times[name] = probe_entry(
-            read_device_time(name, lambda: fn(dev, n_k=probes.N_K,
-                                              n_blocks=sms)),
-            cuda_ms(lambda: plain(probes.N_K, sms, dev), 1),
-            sms * probes.moments_flops(kind, probes.N_K), nbytes(got))
+            read_device_time(name, lambda: fn(dev, n_k=k, n_blocks=sms)),
+            cuda_ms(lambda: plain(k, sms, dev), 1), bound)
+        if ref is not None:
+            ref_name, launch = ref
+            times[PROBE_REF_TIMES[ref_name]] = probe_entry(
+                read_device_time(ref_name, lambda: launch(k, sms, dev)),
+                times[name]["plain_ms"], bound)
+    ns = {kk: 1e6 * times[key]["ms"] / k for kk, key in (
+        ("15a", "moments_cuda_cores"), ("15b", "moments_tensor_cores"),
+        ("15b old", PROBE_REF_TIMES["moments_tensor_cores_staged"]),
+        ("15c", "moments_scratch_contraction"),
+        ("15c old", PROBE_REF_TIMES["moments_scratch_contraction_sync"]))}
+    log(f"  ns per splat-tile reduction (device time / K, K = {k}, {sms} "
+        f"blocks): " + ", ".join(f"{kk} {v:.1f}" for kk, v in ns.items())
+        + f"; 15b / 15a {ns['15b'] / ns['15a']:.3f}, 15c / 15a "
+        f"{ns['15c'] / ns['15a']:.3f} [{smi}]")
     for kk, t in times.items():
         log(f"  {kk}: kernel {device_line(t['device'])}, plain "
             f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.6f} ms "
             f"({t['bound_by']}), "
             f"{t['bound_ms'] / t['ms']:.5f} of the bound [{smi}]")
+        if t["bound_ms"] / t["ms"] > PROBE_SHARE_MAX:
+            raise AssertionError(f"{kk}: {t['bound_ms'] / t['ms']} of its "
+                                 "bound: counting fault")
     return errs, times
+
+
+def compare_probe_design(kind, got, sizes, rtol, n_blocks, dev) -> None:
+    """A tensor-core probe's redesign on the card, beside the output
+    ``got`` it gave on n_blocks blocks: a second launch equal bit for bit,
+    its reference (the design before wgmma) within rtol of the outputs'
+    terms' size (the difference noted in REF_ERRS), and its per-step
+    values within rtol of their terms' size of the plain steps."""
+    from gs2d_tpu_torch.ops import probes
+
+    name, fn, _ = probes.MOMENT_PROBES[kind]
+    ref_name, launch = probes.MOMENT_REFERENCES[kind]
+    width, plain_steps = probes.MOMENT_STEPS[kind]
+    k = probes.N_K
+    steps = torch.full((k, width), float("nan"), device=dev)
+    again = fn(dev, n_k=k, n_blocks=n_blocks, steps=steps)
+    old = launch(k, n_blocks, dev)
+    want_steps = plain_steps(k, dev)
+    step_sizes = plain_steps(k, dev, sizes=True).clamp(min=1.0)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches differ")
+    d_old = (got - old).abs()
+    d_steps = (steps - want_steps).abs()
+    log(f"  {name}, {n_blocks} block(s): against {ref_name} "
+        f"{float((d_old / sizes).max()):.3g}, its steps against the plain "
+        f"steps {float((d_steps / step_sizes).max()):.3g} of their terms' "
+        f"size (tol {rtol}); a second launch bit for bit")
+    if not torch.isfinite(old).all() or bool((d_old > rtol * sizes).any()):
+        raise AssertionError(f"{name} disagrees with {ref_name}")
+    if not torch.isfinite(steps).all() \
+            or bool((d_steps > rtol * step_sizes).any()):
+        raise AssertionError(f"{name}: its steps disagree with the plain "
+                             "steps")
+    note_reference(ref_name, [got], [old])
 
 
 def probe_phase() -> dict:
@@ -2194,7 +2275,7 @@ def probe_phase() -> dict:
                                  f"times, expected {n * per[0]} to "
                                  f"{n * per[1]}")
     for kk in probes.launches:
-        if not launches[kk]:
+        if kk not in probes.REFERENCE_COUNTERS and not launches[kk]:
             raise AssertionError(f"{kk}: not launched by its script")
     log(f"  launches: { {k: v for k, v in launches.items() if v} }")
     return launches
@@ -4347,9 +4428,10 @@ KERNELS = (
      "scripts/probe_mxu_moments.py:111"),
 )
 # The references: the designs kernels 6/7, 8/9 and 13 had before their
-# warp patches, kept unchanged to hold them bit for bit. They port no TPU
-# kernel and no path launches them: (counter, source, the kernel held to it,
-# the key of its time).
+# warp patches, kept unchanged to hold them bit for bit, and the designs the
+# probes 15b and 15c had before wgmma, held within PROBE_TC_RTOL. They port
+# no TPU kernel and no path launches them: (counter, source, the kernel held
+# to it, the key of its time).
 REFERENCES = (
     ("fwd_chunk", "gs2d_tpu_torch/csrc/render_dense.cu", "fwd_dense",
      FWD_CHUNK_TIMES),
@@ -4357,6 +4439,12 @@ REFERENCES = (
      BWD_CHUNK_TIMES),
     ("l2_mxu_chunk", "gs2d_tpu_torch/csrc/render_mxu.cu", "l2_mxu",
      MXU_CHUNK_TIMES),
+    ("moments_tensor_cores_staged", "gs2d_tpu_torch/csrc/probes.cu",
+     "moments_tensor_cores",
+     PROBE_REF_TIMES["moments_tensor_cores_staged"]),
+    ("moments_scratch_contraction_sync", "gs2d_tpu_torch/csrc/probes.cu",
+     "moments_scratch_contraction",
+     PROBE_REF_TIMES["moments_scratch_contraction_sync"]),
 )
 
 
@@ -4602,7 +4690,8 @@ def main(argv) -> int:
         if total.get(kk):
             raise AssertionError(f"a path launched the reference {kk}")
     log(f"  the references (gs2d_fwd_chunk, gs2d_bwd_chunk, "
-        f"gs2d_l2_mxu_chunk; no port of a TPU kernel): "
+        f"gs2d_l2_mxu_chunk, gs2d_moments_tensor_cores_staged, "
+        f"gs2d_moments_scratch_contraction_sync; no port of a TPU kernel): "
         f"{ {kk: compare_counts[kk] for kk, _, _, _ in REFERENCES} } "
         f"launches in the compare phases, 0 on every path")
     log("[done] every phase passed")
@@ -4618,8 +4707,8 @@ def main(argv) -> int:
                 "library_ms": None}
 
     # The references' max_abs_err is their largest difference from the
-    # kernel held to them (0: bit for bit), their plain_ms that kernel's
-    # plain version's.
+    # kernel held to them (0 for the chunk references: bit for bit), their
+    # plain_ms that kernel's plain version's.
     report = {"kernels": [entry(kk, src, rep, times[kk], errs[kk])
                           for kk, src, rep in KERNELS],
               "references": [

@@ -14,36 +14,66 @@
 //   scripts/probe_mxu_moments.py::kernel_vpu / kernel_mxu / kernel_mxu2
 //   (pallas_call at :138, :138, :149). Every block computes the same
 //   function and writes its own 128 outputs, so a grid of one block per SM
-//   loads the whole card. All three are bound by operations (no input, 512 B
-//   of output a block).
-//   15a gs2d_moments_cuda_cores: the production reduction of
-//     csrc/render_resident.cu::replay_moments: 512 threads, a thread owns 8
+//   loads the whole card. No input, 512 B of output a block: bound by
+//   operations, 15b's and 15c's products at the tensor cores' TF32 rate
+//   (ops/probes.py::moments_bound).
+//   15a gs2d_moments_cuda_cores: the production reduction, the lane tree of
+//     csrc/patch_walk.cuh::bwd_patch_step: 512 threads, a thread owns 8
 //     rows of a column, per-thread row chains (Moments), the column
-//     monomials (Moments::finish), a fixed-order warp tree and the warps
-//     summed in index order every 32 steps.
-//   15b gs2d_moments_tensor_cores: per step the (32, 128) @ (128, 8) product
-//     z @ [1, vx, vx^2, 0...] on the tensor cores (mma.sync m16n8k8 TF32),
-//     the vy monomials and the two plain sums on the CUDA cores. z is
-//     computed in the production layout (a thread owns 8 rows of a column)
-//     and reaches the A fragments through shared memory: one padded
-//     (32, 132) plane, double buffered, one __syncthreads a step. That
-//     staging is the cost the probe is about. Warp w multiplies columns
-//     8w..8w+7 (one k-step) for both 16-row halves.
-//   15c gs2d_moments_scratch_contraction: the loop only stores z; the
-//     contraction Z (K, 4096) @ V (4096, 9) runs on the tensor cores
-//     afterwards. The TPU kernel's (K, 32, 128) scratch is 8 MiB and fits no
-//     block's 227 KB of shared memory; a global scratch would be 8 MiB a
-//     block, 1.1 GB for one block per SM, far past the 50 MB L2, and the
-//     probe would then measure HBM. The carry recursion yields the planes
-//     in order, so the contraction is taken in shared-memory batches of 8
-//     planes (131 KB, the n8 of the instruction): M^T (16, 8) = V^T (16,
-//     4096) @ Z^T (4096, 8), V's 9 columns padded to the m16. Warp w
-//     contracts pixels 256w..256w+255 and the warps' (16, 8) partials are
-//     added in index order. The (K, 9) result stays in shared memory for
-//     the fold into the (1, 128) output.
+//     monomials (Moments::finish), a fixed-order warp tree of the nine
+//     values (45 shuffles a step) and the warps summed in index order every
+//     32 steps.
+//   15b gs2d_moments_tensor_cores: per step the product of z with [1, vx,
+//     vx^2] and [1, vy, vy^2] on the tensor cores, z computed where they
+//     read it. The tile is taken transposed, E = z^T (128, 32) @ Vy (32, 8),
+//     Vy = [1, vy, vy^2, 0...], as wgmma with A from registers: warpgroup q
+//     multiplies columns 64 (q % 2) .. +63 by rows 16 (q / 2) .. +15 (two
+//     k8 steps), so lane (g, t) of warp j of it owns columns c and c + 8,
+//     c = 64 (q % 2) + 16 j + g, at rows r and r + 4, r = 16 (q / 2) + 8 s
+//     + t, s = 0, 1: its 8 pixels are exactly its A fragments a0-a3 of the
+//     two k-steps, and their carries stay in registers. Vy, split hi and lo
+//     once, sits in shared memory as B (hi rows 0-7, lo rows 8-15, the
+//     layout of 15c's stages); a k-step is two wgmmas, a_hi @ [Vy hi | Vy
+//     lo] (m64n16k8) and a_lo @ Vy hi (m64n8k8). Stage 2 (the column
+//     monomials 1 + vx + vx^2) and the two plain sums run on the CUDA cores;
+//     the five values of a step are reduced over the lanes by 8 shuffles
+//     (each reduces one value for half of the lanes), and the warps are
+//     summed in index order every 32 steps as in 15a: no shared z plane and
+//     no barrier inside the step loop. wgmma, not mma.sync: A from
+//     registers takes the fragments as they are. 512 threads, 12 KB of
+//     shared memory (scripts/probe_parts.py times it without its products).
+//   15c gs2d_moments_scratch_contraction: the loop only yields z; the
+//     contraction Z (K, 4096) @ V (4096, 9) runs on the tensor cores. The
+//     TPU kernel's (K, 32, 128) scratch is 8 MiB and fits no block's 227 KB
+//     of shared memory (in global memory it would be 1.1 GB for one block
+//     per SM, an HBM measurement), so the planes are contracted as the carry
+//     recursion yields them: in batches of 64 planes (wgmma's m64), each
+//     batch in 32 chunks of one tile row (128 pixels). Warp-specialised, 384
+//     threads: producer warpgroup p (a thread per tile column) runs the
+//     recursion of its pixel of rows r = p mod 2 through the batch's 64
+//     planes, its carries kept in shared memory across batches, and writes
+//     each plane, split hi and lo once at the store, and the chunk's V^T
+//     (hi rows 0-8, lo rows 16-24), into its own 80 KB stage, 128-byte
+//     swizzled K-major rows ([plane][pixel], [column][pixel]); the stage is
+//     handed over by mbarriers. The consumer warpgroup issues two wgmmas a
+//     k8 step, A hi @ [V^T hi | V^T lo] (m64n32k8) and A lo @ V^T hi
+//     (m64n16k8), into four independent accumulator chains, closes the chunk
+//     with commit_group / wait_group, adds it into the batch's (64, 9)
+//     moments in float32 (the tensor cores' own accumulation truncates) and
+//     frees the stage. A batch's moments go to the (K, 9) result in shared
+//     memory, then the fold. 195 KB of shared memory at K = 512 (199 712 B;
+//     K up to 1416): one block of 12 warps per SM. Each chunk moves 168 KB
+//     through shared memory: 80 KB stored, 88 KB read by the tensor cores.
+//   The designs before these (15b: z in the production layout staged
+//     through a shared plane, one __syncthreads a step; 15c: batches of 8
+//     planes, one __syncthreads after each phase) are kept unchanged as the
+//     reference-only gs2d_moments_tensor_cores_staged and
+//     gs2d_moments_scratch_contraction_sync, for chip_smoke.py and the card
+//     tests.
 // TF32 keeps 11 significant bits, the TPU kernels ask for
 // Precision.HIGHEST, so each float32 operand is split into a TF32 high and
-// low part and three products are added (3xTF32: lo*hi, hi*lo, hi*hi).
+// low part and three products are added (3xTF32: lo*hi, hi*lo, hi*hi, the
+// small terms first).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,7 +142,8 @@ struct Pixels {
 };
 
 // One step's NV per-thread values -> the step's row of the round buffer:
-// the fixed-order warp tree of replay_moments, lane 0 writes its warp's sum.
+// the fixed-order warp tree of csrc/patch_walk.cuh::bwd_patch_step, lane 0
+// writes its warp's sum.
 template <int NV>
 __device__ __forceinline__ void warp_to_round(float (&v)[NV], int kk,
                                               float* red) {
@@ -229,13 +260,13 @@ moments_cuda_cores_kernel(float* __restrict__ out, int n_k) {
   write_total(acc, total, out);
 }
 
-// ---- kernel 15b ------------------------------------------------------------
+// ---- kernel 15b's reference: z staged through a shared plane --------------
 
 constexpr int kZStride = kTileW + 4;  // fragment loads hit 32 distinct banks
 constexpr int kMxuSums = 5;           // s0, s1, s2, sum z*carry, sum z*z
 
 __global__ void __launch_bounds__(kThreads)
-moments_tensor_cores_kernel(float* __restrict__ out, int n_k) {
+moments_tensor_cores_staged_kernel(float* __restrict__ out, int n_k) {
   __shared__ float zs[2][kTileH * kZStride];
   __shared__ float red[kWarps * kRound * kMxuSums];
   __shared__ float total[kWarps];
@@ -296,7 +327,7 @@ moments_tensor_cores_kernel(float* __restrict__ out, int n_k) {
   write_total(acc, total, out);
 }
 
-// ---- kernel 15c ------------------------------------------------------------
+// ---- kernel 15c's reference: batches of 8 planes ----------------------------
 
 constexpr int kBatch = 8;                       // planes per contraction
 constexpr int kPlane = kTileH * kTileW;         // 4096 pixels
@@ -319,7 +350,7 @@ __device__ __forceinline__ float v_column(int m, float vx, float vy) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-moments_scratch_contraction_kernel(float* __restrict__ out, int n_k) {
+moments_scratch_contraction_sync_kernel(float* __restrict__ out, int n_k) {
   extern __shared__ float smem[];
   float* zs = smem;                              // kBatch x kPlaneStride
   float* red = zs + kBatch * kPlaneStride;       // kWarps x 16 x 8
@@ -379,10 +410,568 @@ moments_scratch_contraction_kernel(float* __restrict__ out, int n_k) {
   }
 }
 
-size_t contraction_smem_bytes(int n_k) {
+size_t contraction_sync_smem_bytes(int n_k) {
   return sizeof(float) * ((size_t)kBatch * kPlaneStride +
                           (size_t)kWarps * 16 * kBatch +
                           (size_t)n_k * kVCols);
+}
+
+// ---- Hopper pieces of kernels 15b and 15c ----------------------------------
+
+// The TF32 split of 15b and 15c in integer form, the arithmetic of the plain
+// twin ops/probes.py::tf32_split: round to nearest with ties away from zero
+// (cvt.rna.tf32.f32's rounding) to a 10-bit mantissa, the low 13 bits zero.
+// x - hi is exact, so |x - hi - lo| <= 2^-22 |x| for a normal x.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32_rna(float x, uint32_t& hi,
+                                               uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// wgmma's shared-memory matrix descriptor (PTX ISA, "Matrix Descriptor
+// Format"): the start address, the leading- and the stride-dimension byte
+// offsets, each >> 4, and the swizzle mode in bits 62-63 (0: none, 1: 128 B).
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo,
+                                               uint32_t swizzle) {
+  return (uint64_t)((addr & 0x3ffffu) >> 4) |
+         ((uint64_t)((lbo & 0x3ffffu) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3ffffu) >> 4) << 32) |
+         ((uint64_t)swizzle << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins a register that an asynchronous wgmma reads or writes: the compiler
+// moves no access of it across this point (after wgmma_wait: no read of d
+// before the product lands, no reuse of an A register before it is read).
+__device__ __forceinline__ void fence_reg(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
+}
+
+__device__ __forceinline__ void fence_reg(uint32_t& x) {
+  asm volatile("" : "+r"(x)::"memory");
+}
+
+// Orders this thread's ordinary shared-memory accesses with the tensor
+// cores' (the async proxy's) reads of the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64, 8) = a (64, 8) @ B (8, 8) [+ d], TF32, A from registers: lane
+// (g, t) of warp j of the warpgroup holds a0 (16 j + g, t), a1 (16 j + g +
+// 8, t), a2 (16 j + g, t + 4), a3 (16 j + g + 8, t + 4), and receives d0
+// (16 j + g, 2t), d1 (16 j + g, 2t + 1), d2 (16 j + g + 8, 2t), d3 (16 j +
+// g + 8, 2t + 1). B by descriptor. accumulate 0: d is the product alone.
+__device__ __forceinline__ void wgmma_m64n8k8_rs(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// d (64, 16) = A (64, 8) @ B (8, 16) [+ d], TF32, both by descriptor;
+// d[4 h + i] is wgmma_m64n8k8_rs's d[i] of columns 8 h .. 8 h + 7.
+__device__ __forceinline__ void wgmma_m64n16k8_ss(float (&d)[8], uint64_t a,
+                                                  uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64, 16) = a (64, 8) @ B (8, 16) [+ d], A from registers as in
+// wgmma_m64n8k8_rs; d[4 h + i] is its d[i] of columns 8 h .. 8 h + 7.
+__device__ __forceinline__ void wgmma_m64n16k8_rs(float (&d)[8],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, "
+      "1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// d (64, 32) = A (64, 8) @ B (8, 32) [+ d], both by descriptor; d[4 h + i]
+// as above for columns 8 h .. 8 h + 7.
+__device__ __forceinline__ void wgmma_m64n32k8_ss(float (&d)[16], uint64_t a,
+                                                  uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Returns once the phase of parity `parity` of the barrier has completed.
+// A pipeline that never hands the stage over traps (the launch fails)
+// after kMbarPolls polls, seconds, instead of holding the card.
+constexpr uint32_t kMbarPolls = 1u << 26;
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == kMbarPolls) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// close_round, and the step totals of block 0 written to steps (k0 + its
+// first step; nullptr: not written).
+template <int NV>
+__device__ __forceinline__ void close_round_steps(const float* red, int k0,
+                                                  int kn, float& acc,
+                                                  float* __restrict__ steps) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < kn * NV; i += blockDim.x) {
+    float a = 0.0f;
+    for (int w = 0; w < kWarps; ++w) a += red[w * kRound * NV + i];
+    acc += a;
+    if (steps != nullptr && blockIdx.x == 0) steps[(size_t)k0 * NV + i] = a;
+  }
+  __syncthreads();
+}
+
+// ---- kernel 15b: z in wgmma's A fragments ----------------------------------
+
+constexpr int kWarpgroup = 128;
+
+// Word of element (row, x) of a block of 128-byte rows (x < 32) under the
+// 128-byte swizzle: 16-byte chunk x / 4 of a row moves to chunk (x / 4) ^
+// (row % 8) (PTX ISA, the 128B swizzling mode; blocks 1024-byte aligned).
+__device__ __forceinline__ int swz_word(int row, int x) {
+  return row * 32 + ((((x >> 2) ^ (row & 7)) << 2) | (x & 3));
+}
+
+// A value the compiler must keep in its register instead of recomputing it
+// in the loop (it rematerialised the descriptors every step).
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("mov.b64 %0, %0;\n" : "+l"(x));
+  return x;
+}
+
+__global__ void __launch_bounds__(kThreads)
+moments_tensor_cores_kernel(float* __restrict__ out,
+                            float* __restrict__ steps, int n_k) {
+  // B = Vy (32, 8), Vy[r] = [1, vy, vy^2, 0...], split: K-major rows n of
+  // 128 B (the tile's 32 rows), hi in rows 0-7, lo in rows 8-15, swizzled
+  // as kernel 15c's stages; k-step S reads its 8 rows at byte 32 S.
+  __shared__ __align__(1024) uint32_t vy_b[16 * kTileH];
+  __shared__ float red[kWarps * kRound * kMxuSums];
+  __shared__ float total[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int q = warp >> 2, j = warp & 3;  // warpgroup, its warp
+  for (int i = threadIdx.x; i < 8 * kTileH; i += blockDim.x) {
+    const int n = i / kTileH, r = i % kTileH;
+    const float vy = (float)r - 16.0f;
+    const float b = n == 0 ? 1.0f : n == 1 ? vy : n == 2 ? vy * vy : 0.0f;
+    uint32_t hi, lo;
+    split_tf32_rna(b, hi, lo);
+    vy_b[swz_word(n, r)] = hi;
+    vy_b[swz_word(8 + n, r)] = lo;
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  // The lane's pixels are its A fragments of k-steps s = 0, 1 (register i
+  // at row 16 (q / 2) + 8 s + t + 4 (i / 2), column c + 8 (i % 2), t = lane
+  // % 4); every carry starts at 0.5, so the lane needs only its columns.
+  const int c = 64 * (q & 1) + 16 * j + g;
+  uint64_t b_desc[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int ks = 2 * (q >> 1) + s;
+    b_desc[s] = opaque(wgmma_desc(smem_u32(vy_b) + 32 * ks, 16, 8 * 128, 1));
+  }
+  // Stage 2's column monomials 1 + vx + vx^2 of columns c and c + 8 (exact).
+  const float vxa = (float)c - 64.0f, vxb = vxa + 8.0f;
+  const float wa = (1.0f + vxa) + vxa * vxa, wb = (1.0f + vxb) + vxb * vxb;
+  // After the lane sums: lane 0 holds s0 and sum z carry, lane 16 s1 and
+  // sum z z, lane 1 s2 (below); their places in a step's row of red.
+  const bool up = lane & 16;
+  const bool put_xy = lane == 0 || lane == 16 || lane == 1;
+  const bool put_cc = lane == 0 || lane == 16;
+  const int f_xy = lane == 0 ? 0 : lane == 16 ? 1 : 2, f_cc = up ? 4 : 3;
+  float* const red_w = red + warp * kRound * kMxuSums;
+  float carry[2][4];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) carry[s][i] = 0.5f;
+  }
+  // Per k-step s: d1[s] = a_hi @ [B hi | B lo] (n16), d2[s] = a_lo @ B hi
+  // (n8): four independent products a step, none waits for another.
+  float d1[2][8], d2[2][4];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) d1[s][i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d2[s][i] = 0.0f;
+  }
+
+  float acc = 0.0f;
+  for (int k0 = 0; k0 < n_k; k0 += kRound) {
+    const int kn = min(kRound, n_k - k0);
+    for (int kk = 0; kk < kn; ++kk) {
+      const float scale = kZScale * (float)(k0 + kk + 1);
+      uint32_t a_hi[2][4], a_lo[2][4];
+      float c3 = 0.0f, c4 = 0.0f;  // sum z * carry, sum z * z
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float cr = carry[s][i];
+          const float z = cr * scale + kZBias;
+          c3 = c3 + z * cr;
+          c4 = c4 + z * z;
+          carry[s][i] = cr * kCarryKeep + z * kCarryGain;
+          split_tf32_rna(z, a_hi[s][i], a_lo[s][i]);
+        }
+      }
+      // E (64, 8) of this warpgroup's 16 rows, 3xTF32.
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        wgmma_m64n16k8_rs(d1[s], a_hi[s], b_desc[s], 0);
+        wgmma_m64n8k8_rs(d2[s], a_lo[s], b_desc[s], 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          fence_reg(d1[s][i]);
+          fence_reg(d1[s][4 + i]);
+          fence_reg(d2[s][i]);
+          fence_reg(a_hi[s][i]);
+          fence_reg(a_lo[s][i]);
+        }
+      }
+      // The lane's E at columns c, c + 8 and n = 2t, 2t + 1, the small terms
+      // (lo hi, hi lo) first; n = 0, 1, 2 are the vy monomials 1, vy, vy^2,
+      // n >= 3 zero.
+      float e[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        e[i] = ((d2[0][i] + d1[0][4 + i]) + (d2[1][i] + d1[1][4 + i])) +
+               (d1[0][i] + d1[1][i]);
+      }
+      // Stage 2, the column monomials.
+      const float x = e[0] * wa + e[2] * wb;  // t = 0: s0; t = 1: s2
+      const float y = e[1] * wa + e[3] * wb;  // t = 0: s1
+      // Over the 8 lanes g of each t: half of the lanes carry x, the other
+      // half y; then the two plain sums over all 32 lanes the same way.
+      float xy = (up ? y : x) + __shfl_xor_sync(0xffffffffu, up ? x : y, 16);
+      xy += __shfl_xor_sync(0xffffffffu, xy, 8);
+      xy += __shfl_xor_sync(0xffffffffu, xy, 4);
+      float cc = (up ? c4 : c3) +
+                 __shfl_xor_sync(0xffffffffu, up ? c3 : c4, 16);
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) {
+        cc += __shfl_xor_sync(0xffffffffu, cc, off);
+      }
+      float* row = red_w + kk * kMxuSums;
+      if (put_xy) row[f_xy] = xy;
+      if (put_cc) row[f_cc] = cc;
+    }
+    close_round_steps<kMxuSums>(red, k0, kn, acc, steps);
+  }
+  write_total(acc, total, out);
+}
+
+// ---- kernel 15c: warp-specialised contraction on wgmma ---------------------
+
+constexpr int kPlanes = 64;                    // planes a batch: wgmma's m64
+constexpr int kStages = 2;                     // one per producer warpgroup
+constexpr int kContractionThreads = (1 + kStages) * kWarpgroup;
+constexpr int kSwz = 128;                      // a swizzled row: 32 TF32
+constexpr int kBlockPx = kSwz / 4;             // pixels of a column block
+constexpr int kColBlocks = kTileW / kBlockPx;  // 4 a chunk (one tile row)
+constexpr int kVRows = 16;                     // V^T: 9 columns, n16
+constexpr int kABlock = kPlanes * kSwz;        // 8 KB: 64 planes x 32 px
+constexpr int kBBlock = 2 * kVRows * kSwz;     // 4 KB: V^T hi, then lo
+constexpr int kAHalf = kColBlocks * kABlock;   // 32 KB: the hi (or lo) planes
+constexpr int kStageBytes = 2 * kAHalf + kColBlocks * kBBlock;  // 80 KB
+constexpr int kChunkSteps = kTileW / 8;        // k8 steps of a chunk
+constexpr int kSwzAtom = 8 * kSwz;             // 8 rows: the swizzle's period
+constexpr int kBarBytes = 2 * kStages * 8;
+
+size_t contraction_smem_bytes(int n_k) {
+  return kSwzAtom + (size_t)kStages * kStageBytes + kBarBytes +
+         sizeof(float) * ((size_t)kPlane + (size_t)n_k * kVCols);
+}
+
+constexpr int kChains = 4;  // accumulator sets a chunk: k-step s feeds s % 4
+
+// A chunk's accumulators, one set for each chain: big = A hi @ [V^T hi | V^T
+// lo] (n32: the hi hi product in columns 0-15, hi lo in 16-31), small = A lo
+// @ V^T hi (n16).
+struct ChunkAcc {
+  float big[kChains][16];
+  float small[kChains][8];
+};
+
+// Issues the 3xTF32 product of the chunk in the stage at shared address sp
+// into acc, chain j taking the k-steps s = j mod 4 (each set the product
+// of its k-steps alone), and commits it as one group. Two wgmmas a k-step,
+// A hi read once for both of its products; four independent chains, so a
+// wgmma does not wait for the one before it to land (with one accumulator
+// the products of a chunk ran one after the other on the H100).
+__device__ __forceinline__ void contract_chunk(ChunkAcc& acc, uint32_t sp) {
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < kChunkSteps; ++s) {
+    // k-step s: column block s / 4, 32 bytes further per step within the
+    // swizzled rows; 8-row groups kSwzAtom apart (the leading offset is
+    // not read under the swizzle).
+    const uint32_t ao = sp + (s / 4) * kABlock + (s % 4) * 32;
+    const uint32_t bo = sp + 2 * kAHalf + (s / 4) * kBBlock + (s % 4) * 32;
+    const uint64_t a_hi = wgmma_desc(ao, 16, kSwzAtom, 1);
+    const uint64_t a_lo = wgmma_desc(ao + kAHalf, 16, kSwzAtom, 1);
+    const uint64_t b = wgmma_desc(bo, 16, kSwzAtom, 1);
+    wgmma_m64n32k8_ss(acc.big[s % kChains], a_hi, b, s >= kChains);
+    wgmma_m64n16k8_ss(acc.small[s % kChains], a_lo, b, s >= kChains);
+  }
+  wgmma_commit();
+}
+
+// m += a finished chunk's product in float32 rounded to nearest, the small
+// terms (lo hi, hi lo) first: the tensor cores' own accumulation truncates,
+// so short chains keep it below the old kernel's error (a whole batch's
+// 1536 products in one accumulator drifted past PROBE_TC_RTOL of the
+// terms' size on the H100).
+__device__ __forceinline__ void add_chunk(float (&m)[8], ChunkAcc& acc) {
+#pragma unroll
+  for (int j = 0; j < kChains; ++j) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      fence_reg(acc.big[j][i]);
+      fence_reg(acc.big[j][8 + i]);
+      fence_reg(acc.small[j][i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float lo = 0.0f, hi = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kChains; ++j) {
+      lo = lo + (acc.small[j][i] + acc.big[j][8 + i]);
+      hi = hi + acc.big[j][i];
+    }
+    m[i] = m[i] + (lo + hi);
+  }
+}
+
+// The carry recursion of one pixel through a batch's planes k0 .. k0 + 63,
+// each plane split at the store (row m of the pixel's column block, word
+// sw[m % 8] of it); kMasked: planes m >= kv (past n_k) are zeros and keep
+// the carry. Returns the carry. Unrolled, so every store's offset is an
+// immediate; the scale (k + 1) 1e-6 is counted up in float32, exact.
+template <bool kMasked>
+__device__ __forceinline__ float produce_planes(float cr, int k0, int kv,
+                                                uint32_t* __restrict__ a_hi,
+                                                uint32_t* __restrict__ a_lo,
+                                                const int (&sw)[8]) {
+  float kf = (float)(k0 + 1);
+#pragma unroll
+  for (int m = 0; m < kPlanes; ++m) {
+    float z = 0.0f;
+    if (!kMasked || m < kv) {
+      z = cr * (kZScale * kf) + kZBias;
+      cr = cr * kCarryKeep + z * kCarryGain;
+    }
+    kf = kf + 1.0f;
+    uint32_t hi, lo;
+    split_tf32_rna(z, hi, lo);
+    a_hi[m * kBlockPx + sw[m & 7]] = hi;
+    a_lo[m * kBlockPx + sw[m & 7]] = lo;
+  }
+  return cr;
+}
+
+__global__ void __launch_bounds__(kContractionThreads)
+moments_scratch_contraction_kernel(float* __restrict__ out,
+                                   float* __restrict__ steps, int n_k) {
+  // Stages from a 1024-byte boundary (the swizzle XORs address bits 4-6
+  // with bits 7-9): stage s at s * kStageBytes holds A hi, A lo (column
+  // block b of 64 rows x 128 B at b * kABlock), B hi, B lo (b at b *
+  // kBBlock); then the barriers, the carries (4096), the (n_k, 9) result.
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((kSwzAtom - (smem_u32(smem_raw) & (kSwzAtom - 1))) &
+                  (kSwzAtom - 1));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  float* carry =
+      reinterpret_cast<float*>(base + kStages * kStageBytes + kBarBytes);
+  float* ms = carry + kPlane;
+  // full[s]: the producer warpgroup has filled stage s; empty[s]: the
+  // consumer warpgroup's products of it have landed.
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, kWarpgroup);
+      mbar_init(empty + s, kWarpgroup);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int n_batches = (n_k + kPlanes - 1) / kPlanes;
+
+  if (threadIdx.x >= kWarpgroup) {
+    // Producer warpgroup p fills stage p with the chunks (tile rows) r = p
+    // mod 2 of every batch; thread `col` runs tile column col, so a warp
+    // writes one 128-byte row of a block per store, 32 distinct banks.
+    const int p = threadIdx.x / kWarpgroup - 1, col = threadIdx.x % kWarpgroup;
+    const int blk = col / kBlockPx, x = col % kBlockPx;
+    const float vx = (float)col - 64.0f;
+    int sw[8];  // swz_word(row, x) within its row, by row % 8
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sw[i] = swz_word(i, x) - i * kBlockPx;
+    for (int r = p; r < kTileH; r += kStages) carry[r * kTileW + col] = 0.5f;
+    unsigned char* sp = base + p * kStageBytes;
+    uint32_t* a_hi = reinterpret_cast<uint32_t*>(sp + blk * kABlock);
+    uint32_t* a_lo = reinterpret_cast<uint32_t*>(sp + kAHalf + blk * kABlock);
+    uint32_t* b_hi =
+        reinterpret_cast<uint32_t*>(sp + 2 * kAHalf + blk * kBBlock);
+    uint32_t* b_lo = b_hi + kVRows * kBlockPx;
+    int u = 0;  // the stage's uses so far
+    for (int b = 0; b < n_batches; ++b) {
+      const int k0 = b * kPlanes, kv = min(kPlanes, n_k - k0);
+      for (int r = p; r < kTileH; r += kStages, ++u) {
+        mbar_wait(empty + p, (u & 1) ^ 1);
+        fence_proxy_async();
+        float& cr = carry[r * kTileW + col];
+        cr = kv == kPlanes ? produce_planes<false>(cr, k0, kv, a_hi, a_lo, sw)
+                           : produce_planes<true>(cr, k0, kv, a_hi, a_lo, sw);
+        const float vy = (float)r - 16.0f;
+#pragma unroll
+        for (int n = 0; n < kVRows; ++n) {
+          uint32_t hi, lo;
+          split_tf32_rna(v_column(n, vx, vy), hi, lo);
+          b_hi[n * kBlockPx + sw[n & 7]] = hi;
+          b_lo[n * kBlockPx + sw[n & 7]] = lo;
+        }
+        fence_proxy_async();
+        mbar_arrive(full + p);
+      }
+    }
+  } else {
+    // The consumer warpgroup: chunk `it` (tile row it % 32 of batch it /
+    // 32) is in stage it % 2. It issues the chunk's products, waits for
+    // them, adds them into the batch's moments and frees the stage at once,
+    // so each producer warpgroup refills its stage while the tensor cores
+    // read the other.
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t st0 = smem_u32(base);
+    ChunkAcc acc;
+    float mo[8];
+#pragma unroll
+    for (int j = 0; j < kChains; ++j) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc.big[j][i] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc.small[j][i] = 0.0f;
+    }
+    int it = 0;
+    for (int b = 0; b < n_batches; ++b) {
+      const int k0 = b * kPlanes;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) mo[i] = 0.0f;
+      for (int r = 0; r < kTileH; ++r, ++it) {
+        const int st = it % kStages;
+        mbar_wait(full + st, (it / kStages) & 1);
+        contract_chunk(acc, st0 + st * kStageBytes);
+        wgmma_wait<0>();
+        add_chunk(mo, acc);
+        mbar_arrive(empty + st);
+      }
+      // The batch's moments: mo[i] is M (k0 + m, n).
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int m = 16 * warp + g + 8 * ((i >> 1) & 1);
+        const int n = 8 * (i >> 2) + 2 * t + (i & 1);
+        const int k = k0 + m;
+        if (n < kVCols && k < n_k) {
+          ms[k * kVCols + n] = mo[i];
+          if (steps != nullptr && blockIdx.x == 0) {
+            steps[(size_t)k * kVCols + n] = mo[i];
+          }
+        }
+      }
+    }
+    // The consumer warpgroup alone (named barrier 1): the fold of the TPU
+    // kernel, M (n_k, 9) flat, reshaped to (4, n_k 9 / 4), summed over the
+    // 4 rows, the first 128 columns kept.
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kWarpgroup) : "memory");
+    const int qf = n_k * kVCols / 4;
+    float s = ms[threadIdx.x];
+    for (int i = 1; i < 4; ++i) s = s + ms[i * qf + threadIdx.x];
+    out[(size_t)blockIdx.x * kTileW + threadIdx.x] = s;
+  }
 }
 
 template <int CHAINS>
@@ -430,34 +1019,69 @@ int gs2d_moments_cuda_cores(float* out, int n_k, int n_blocks, void* stream) {
   return (int)cudaGetLastError();
 }
 
-int gs2d_moments_tensor_cores(float* out, int n_k, int n_blocks,
-                              void* stream) {
+// steps: nullptr, or (n_k, 5) float32 that block 0 fills with each step's
+// five values (s0, s1, s2, sum z carry, sum z z).
+int gs2d_moments_tensor_cores(float* out, float* steps, int n_k,
+                              int n_blocks, void* stream) {
   if (n_k <= 0 || n_blocks <= 0) return (int)cudaErrorInvalidValue;
   moments_tensor_cores_kernel<<<n_blocks, kThreads, 0,
-                                (cudaStream_t)stream>>>(out, n_k);
+                                (cudaStream_t)stream>>>(out, steps, n_k);
   return (int)cudaGetLastError();
 }
 
-// n_k a multiple of gs2d_probe_batch() with n_k * 9 / 4 >= 128 (the fold).
-int gs2d_moments_scratch_contraction(float* out, int n_k, int n_blocks,
+// Kernel 15b's reference (the design before wgmma); no path launches it.
+int gs2d_moments_tensor_cores_staged(float* out, int n_k, int n_blocks,
                                      void* stream) {
-  if (n_k <= 0 || n_k % kBatch || n_k * kVCols / 4 < kTileW ||
-      n_blocks <= 0) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (n_k <= 0 || n_blocks <= 0) return (int)cudaErrorInvalidValue;
+  moments_tensor_cores_staged_kernel<<<n_blocks, kThreads, 0,
+                                       (cudaStream_t)stream>>>(out, n_k);
+  return (int)cudaGetLastError();
+}
+
+static bool contraction_takes(int n_k, int n_blocks) {
+  return n_k > 0 && n_k % kBatch == 0 && n_k * kVCols / 4 >= kTileW &&
+         n_blocks > 0;
+}
+
+// n_k a multiple of gs2d_probe_batch() with n_k * 9 / 4 >= 128 (the fold);
+// the last batch of 64 planes is masked. steps: nullptr, or (n_k, 9)
+// float32 that block 0 fills with M = Z @ V.
+int gs2d_moments_scratch_contraction(float* out, float* steps, int n_k,
+                                     int n_blocks, void* stream) {
+  if (!contraction_takes(n_k, n_blocks)) return (int)cudaErrorInvalidValue;
   const size_t smem = contraction_smem_bytes(n_k);
   cudaError_t err = cudaFuncSetAttribute(
       moments_scratch_contraction_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  moments_scratch_contraction_kernel<<<n_blocks, kThreads, smem,
-                                       (cudaStream_t)stream>>>(out, n_k);
+  moments_scratch_contraction_kernel<<<n_blocks, kContractionThreads, smem,
+                                       (cudaStream_t)stream>>>(out, steps,
+                                                               n_k);
   return (int)cudaGetLastError();
 }
 
-// Bytes of dynamic shared memory kernel 15c asks for at n_k steps.
+// Kernel 15c's reference (batches of 8 planes); no path launches it.
+int gs2d_moments_scratch_contraction_sync(float* out, int n_k, int n_blocks,
+                                          void* stream) {
+  if (!contraction_takes(n_k, n_blocks)) return (int)cudaErrorInvalidValue;
+  const size_t smem = contraction_sync_smem_bytes(n_k);
+  cudaError_t err = cudaFuncSetAttribute(
+      moments_scratch_contraction_sync_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  moments_scratch_contraction_sync_kernel<<<n_blocks, kThreads, smem,
+                                            (cudaStream_t)stream>>>(out, n_k);
+  return (int)cudaGetLastError();
+}
+
+// Bytes of dynamic shared memory kernel 15c (and its reference) asks for
+// at n_k steps.
 int gs2d_contraction_smem_bytes(int n_k) {
   return (int)contraction_smem_bytes(n_k);
+}
+
+int gs2d_contraction_sync_smem_bytes(int n_k) {
+  return (int)contraction_sync_smem_bytes(n_k);
 }
 
 }  // extern "C"

@@ -60,9 +60,12 @@ SIGNATURES = {
     "gs2d_probe_batch": [],
     "gs2d_fma_peak": [_P, _I, _I, _I, _F, _F, _P],
     "gs2d_moments_cuda_cores": [_P, _I, _I, _P],
-    "gs2d_moments_tensor_cores": [_P, _I, _I, _P],
-    "gs2d_moments_scratch_contraction": [_P, _I, _I, _P],
+    "gs2d_moments_tensor_cores": [_P, _P, _I, _I, _P],
+    "gs2d_moments_tensor_cores_staged": [_P, _I, _I, _P],
+    "gs2d_moments_scratch_contraction": [_P, _P, _I, _I, _P],
+    "gs2d_moments_scratch_contraction_sync": [_P, _I, _I, _P],
     "gs2d_contraction_smem_bytes": [_I],
+    "gs2d_contraction_sync_smem_bytes": [_I],
     "gs2d_graph_if": [_P, _P, _P],
     "gs2d_cudart_build_version": [],
     "gs2d_cudart_version": [],

@@ -18,12 +18,23 @@ The moment probes run ``n_k`` steps of a fake z plane derived from a carry
 return ``(n_blocks, 128)``: every block of the grid computes the same
 function, so one block reproduces the TPU probe's (1, 128) output and one
 block per SM loads the whole card. Each wrapper adds one to
-``launches[<name>]`` where it launches its kernel, and nowhere else.
+``launches[<name>]`` where it launches its kernel, and nowhere else. 15b and
+15c take an optional ``steps`` tensor, (n_k, 5) and (n_k, 9), which receives
+each step's values (``moments_mxu_plain_steps``, ``moments_mxu2_plain_steps``
+on the CPU). ``_moments_tensor_cores_staged_cuda`` and
+``_moments_scratch_contraction_sync_cuda`` launch the designs 15b and 15c had
+before their wgmma redesign, kept unchanged as their references for
+``chip_smoke.py`` and the card tests (``launches`` counts them too; no path
+reaches them).
 
-``fma_peak_flops`` and ``moments_flops`` count each function's float32 operations once from its
-definition (an add, a multiply or a compare is one; a product of an (m, k)
-by a (k, n) matrix is 2 m k n), whatever unit carries them out, for the
-bound that ``chip_smoke.py`` and the scripts report.
+``fma_peak_flops`` and ``moments_flops`` count each function's float32
+operations once from its definition (an add, a multiply or a compare is one;
+a product of an (m, k) by a (k, n) matrix is 2 m k n), whatever unit carries
+them out; ``moments_flops_split`` parts the matrix product from the rest,
+and ``moments_bound`` takes 15b's and 15c's products at the tensor cores'
+rate. ``tf32_split``, ``tensor_core_pixels`` and ``swizzled_word`` state in
+Python what the two tensor-core kernels do with a value and where they put
+it, for the CPU tests.
 """
 
 from __future__ import annotations
@@ -46,7 +57,11 @@ FMA_CHAINS = (1, 2, 4, 8, 16, 32)
 FMA_ULPS = 4           # see fma_peak_plain
 
 launches = {"fma_peak": 0, "moments_cuda_cores": 0,
-            "moments_tensor_cores": 0, "moments_scratch_contraction": 0}
+            "moments_tensor_cores": 0, "moments_scratch_contraction": 0,
+            "moments_tensor_cores_staged": 0,
+            "moments_scratch_contraction_sync": 0}
+MXU_SUMS = 5           # 15b's values a step: s0, s1, s2, sum z carry, sum z z
+V_COLUMNS = 9          # 15c's: the columns of V
 
 
 def reset_launch_counts() -> None:
@@ -74,26 +89,53 @@ def fma_peak_flops(chains: int, inner: int, n_threads: int) -> int:
     return n_threads * (2 * chains * inner + chains - 1)
 
 
-def moments_flops(kind: str, n_k: int) -> int:
-    """Float32 operations of one block's n_k steps. Per pixel and step: z 2
-    and the carry update 3. "vpu": the products z vy, z vy vy, z carry,
-    z vy carry, z z 5 and the six sums over rows 6; per column r0 vx,
-    r0 vx vx, r1 vx 3 and the nine sums over columns 9; the nine totals
-    added onto the scalar 9. "mxu": the (32, 128) @ (128, 8) product over
-    the three columns of Vx that are not zero (1, vx, vx^2; the other five
-    give zeros whatever z is and need no work); over those (32, 3) the three
-    sums over rows and the products by vy and vy^2 (5), vy^2 once per row,
-    the sums of the three (1, 3) rows 6; per pixel the two other sums with
-    their products 4; five adds onto the scalar. "mxu2": the
-    (n_k, 4096) @ (4096, 9) product and the fold's 3 x 128 adds."""
+def moments_flops_split(kind: str, n_k: int) -> tuple:
+    """(product, rest): float32 operations of one block's n_k steps, the
+    matrix product's apart (0 for "vpu"). Per pixel and step: z 2 and the
+    carry update 3. "vpu": the products z vy, z vy vy, z carry, z vy carry,
+    z z 5 and the six sums over rows 6; per column r0 vx, r0 vx vx, r1 vx 3
+    and the nine sums over columns 9; the nine totals added onto the scalar
+    9. "mxu": the product, (32, 128) @ (128, 8) over the three columns of Vx
+    that are not zero (1, vx, vx^2; the other five give zeros whatever z is
+    and need no work); over those (32, 3) the three sums over rows and the
+    products by vy and vy^2 (5), vy^2 once per row, the sums of the three
+    (1, 3) rows 6; per pixel the two other sums with their products 4; five
+    adds onto the scalar. "mxu2": the product (n_k, 4096) @ (4096, 9) and
+    the fold's 3 x 128 adds."""
     if kind == "vpu":
-        return n_k * (_PIXELS * 16 + TILE_W * 12 + 9)
+        return 0, n_k * (_PIXELS * 16 + TILE_W * 12 + 9)
     if kind == "mxu":
         stage2 = 5 * TILE_H * MXU_COLUMNS + TILE_H + 3 * (MXU_COLUMNS - 1)
-        return n_k * (_PIXELS * 9 + 2 * _PIXELS * MXU_COLUMNS + stage2 + 5)
+        return (n_k * 2 * _PIXELS * MXU_COLUMNS,
+                n_k * (_PIXELS * 9 + stage2 + 5))
     if kind == "mxu2":
-        return n_k * (_PIXELS * 5 + 2 * _PIXELS * 9) + 3 * TILE_W
+        return n_k * 2 * _PIXELS * V_COLUMNS, n_k * _PIXELS * 5 + 3 * TILE_W
     raise ValueError(f"unknown moment probe {kind!r}")
+
+
+def moments_flops(kind: str, n_k: int) -> int:
+    """All float32 operations of one block's n_k steps
+    (``moments_flops_split``'s two parts)."""
+    return sum(moments_flops_split(kind, n_k))
+
+
+def moments_bound(kind: str, n_k: int, n_blocks: int, n_bytes: int):
+    """(bound_ms, bound_by) of n_blocks blocks of a moment probe that write
+    n_bytes: the larger of its operations' and its bytes' least times. 15a's
+    operations run at the CUDA cores' float32 rate. 15b and 15c may run their
+    product on the tensor cores, 3xTF32 (three TF32 products for one float32
+    product) at the TF32 rate beside the rest at the float32 rate, or all on
+    the CUDA cores, whichever is less: min(total / F32_PEAK, max(rest /
+    F32_PEAK, 3 product / TF32_PEAK))."""
+    from gs2d_tpu_torch.scripts.roofline import F32_PEAK, HBM_RATE, TF32_PEAK
+
+    product, rest = (n_blocks * f for f in moments_flops_split(kind, n_k))
+    t_ops = (product + rest) / F32_PEAK
+    if product:
+        t_ops = min(t_ops, max(rest / F32_PEAK, 3 * product / TF32_PEAK))
+    t_bytes = n_bytes / HBM_RATE
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -163,24 +205,45 @@ def moments_vpu_plain(n_k: int, n_blocks: int, device) -> torch.Tensor:
     return acc.expand(n_blocks, TILE_W)
 
 
-def moments_mxu_plain(n_k: int, n_blocks: int, device) -> torch.Tensor:
-    """Plain twin of kernel 15b: per step A = z @ [1, vx, vx^2, 0...] in
-    full float32, its sums over rows under 1, vy, vy^2, and the two pixel
-    sums."""
+def _mxu_steps(n_k: int, device, sizes: bool = False):
+    """Yields kernel 15b's five values of each step as 0-d tensors: with
+    ``sizes``, the sums of their terms' absolute values instead."""
     vx, vy = _tile_offsets(device)
     vxc = vx[0]
     big_vx = torch.zeros((TILE_W, 8), dtype=torch.float32, device=device)
     big_vx[:, 0], big_vx[:, 1], big_vx[:, 2] = 1.0, vxc, vxc * vxc
     vy_col = vy[:, :1]
-    acc = torch.zeros((), dtype=torch.float32, device=device)
+    if sizes:
+        big_vx, vy_col = big_vx.abs(), vy_col.abs()
     for z, carry in _z_steps(n_k, device):
+        if sizes:
+            z, carry = z.abs(), carry.abs()
         a = z @ big_vx
         s0 = a.sum(dim=0)
         s1 = (a * vy_col).sum(dim=0)
         s2 = (a * (vy_col * vy_col)).sum(dim=0)
-        acc = acc + (s0.sum() + s1.sum() + s2.sum() + (z * carry).sum()
-                     + (z * z).sum())
+        yield (s0.sum(), s1.sum(), s2.sum(), (z * carry).sum(),
+               (z * z).sum())
+
+
+def moments_mxu_plain(n_k: int, n_blocks: int, device) -> torch.Tensor:
+    """Plain twin of kernel 15b: per step A = z @ [1, vx, vx^2, 0...] in
+    full float32, its sums over rows under 1, vy, vy^2, and the two pixel
+    sums."""
+    acc = torch.zeros((), dtype=torch.float32, device=device)
+    for s0, s1, s2, c1, c2 in _mxu_steps(n_k, device):
+        acc = acc + (s0 + s1 + s2 + c1 + c2)
     return acc.expand(n_blocks, TILE_W)
+
+
+def moments_mxu_plain_steps(n_k: int, device,
+                            sizes: bool = False) -> torch.Tensor:
+    """(n_k, 5): each step's s0, s1, s2 (the sums of A under 1, vy, vy^2),
+    sum z carry and sum z z, which kernel 15b writes to its ``steps``; with
+    ``sizes``, the sums of their terms' absolute values (s1's terms cancel
+    over vy), the scale of their errors."""
+    rows = [torch.stack(v) for v in _mxu_steps(n_k, device, sizes)]
+    return torch.stack(rows)
 
 
 def check_contraction_steps(n_k: int, batch: int = 4) -> None:
@@ -191,12 +254,28 @@ def check_contraction_steps(n_k: int, batch: int = 4) -> None:
                          f"with n_k * 9 / 4 >= {TILE_W}")
 
 
-def _contraction_fold(n_k: int, n_blocks: int, device, sizes: bool):
+def contraction_v(device) -> torch.Tensor:
+    """V (4096, 9), the TPU kernel's nine columns [1, vx, vy, vx^2, vx vy,
+    vy^2, vx, vy, vx] of each pixel (row-major over the tile)."""
     vx, vy = _tile_offsets(device)
-    v = torch.stack([torch.ones_like(vx), vx, vy, vx * vx, vx * vy, vy * vy,
-                     vx, vy, vx], dim=-1).reshape(_PIXELS, 9)
+    return torch.stack([torch.ones_like(vx), vx, vy, vx * vx, vx * vy,
+                        vy * vy, vx, vy, vx], dim=-1).reshape(_PIXELS, 9)
+
+
+def moments_mxu2_plain_steps(n_k: int, device,
+                             sizes: bool = False) -> torch.Tensor:
+    """M (n_k, 9) = Z @ V in full float32, the moments kernel 15c writes to
+    its ``steps``; with ``sizes``, |Z| @ |V|."""
+    v = contraction_v(device)
     zs = torch.stack([z.reshape(-1) for z, _ in _z_steps(n_k, device)])
-    m = zs.abs() @ v.abs() if sizes else zs @ v
+    return zs.abs() @ v.abs() if sizes else zs @ v
+
+
+def contraction_fold(m: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """``kernel_mxu2``'s fold of M (n_k, 9): flat, reshaped to (4, n_k 9 /
+    4), summed over the 4 rows, the first 128 columns kept; every block's
+    row."""
+    n_k = m.shape[0]
     out = m.reshape(4, n_k * 9 // 4).sum(dim=0, keepdim=True)[:, :TILE_W]
     return out.expand(n_blocks, TILE_W)
 
@@ -205,7 +284,7 @@ def moments_mxu2_plain(n_k: int, n_blocks: int, device) -> torch.Tensor:
     """Plain twin of kernel 15c: the z planes stacked to (n_k, 4096), one
     product with V (4096, 9) in full float32, and ``kernel_mxu2``'s fold."""
     check_contraction_steps(n_k)
-    return _contraction_fold(n_k, n_blocks, device, sizes=False)
+    return contraction_fold(moments_mxu2_plain_steps(n_k, device), n_blocks)
 
 
 def moments_output_sizes(kind: str, want: torch.Tensor,
@@ -218,8 +297,54 @@ def moments_output_sizes(kind: str, want: torch.Tensor,
     |Z| @ |V|, since a product rounded to a few bits keeps that share of
     its own size whatever the sum comes to."""
     if kind == "mxu2":
-        want = _contraction_fold(n_k, want.shape[0], want.device, sizes=True)
+        want = contraction_fold(moments_mxu2_plain_steps(
+            n_k, want.device, sizes=True), want.shape[0])
     return want.abs().clamp(min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# What the tensor-core kernels do with a value and where they put it.
+# ---------------------------------------------------------------------------
+
+def tf32_split(x: torch.Tensor) -> tuple:
+    """(hi, lo) float32 tensors with hi + lo ~ x, each a TF32 value (a
+    10-bit mantissa, the low 13 bits zero): round to nearest with ties away
+    from zero, through the int32 view, as csrc/probes.cu::tf32_rna does;
+    x - hi is exact, so |x - hi - lo| <= 2^-22 |x| for normal x."""
+
+    def rna(v):
+        u = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        u = (u + 0x1000) & 0xFFFFE000
+        u = torch.where(u >= 2 ** 31, u - 2 ** 32, u)
+        return u.to(torch.int32).view(torch.float32)
+
+    x = x.to(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def tensor_core_pixels() -> np.ndarray:
+    """Kernel 15b's map, as csrc/probes.cu::moments_tensor_cores_kernel
+    computes it: [warp, lane, k-step s, register i] -> (row, column) of the
+    tile pixel whose z that register holds, (16, 32, 2, 4, 2). Warpgroup q =
+    warp // 4 multiplies columns 64 (q % 2) .. +63 by rows 16 (q // 2) ..
+    +15; lane (g, t) = (lane // 4, lane % 4) of its warp j owns columns c,
+    c + 8 (c = 64 (q % 2) + 16 j + g) at rows r, r + 4 (r = 16 (q // 2) + 8
+    s + t); register i is at row r + 4 (i // 2), column c + 8 (i % 2)."""
+    warp, lane, s, i = np.meshgrid(np.arange(16), np.arange(32),
+                                   np.arange(2), np.arange(4), indexing="ij")
+    q, j, g, t = warp // 4, warp % 4, lane // 4, lane % 4
+    row = 16 * (q // 2) + t + 8 * s + 4 * (i // 2)
+    col = 64 * (q % 2) + 16 * j + g + 8 * (i % 2)
+    return np.stack([row, col], axis=-1)
+
+
+def swizzled_word(row, x):
+    """Kernel 15c's stage layout, as its producers store: the 32-bit word of
+    element (row, x) of a column block of 128-byte rows (x < 32 the pixel in
+    the block), 16-byte chunk x // 4 of the row moved to chunk (x // 4) ^
+    (row % 8)."""
+    return row * 32 + ((((x >> 2) ^ (row & 7)) << 2) | (x & 3))
 
 
 # ---------------------------------------------------------------------------
@@ -255,15 +380,43 @@ def fma_peak(chains: int, device, inner: int = FMA_INNER,
     return fma_peak_plain(chains, inner, grid, FMA_THREADS, device)
 
 
-def _moments_cuda(name: str, n_k: int, n_blocks: int, device):
+def _steps_ptr(steps, n_k: int, width: int) -> int:
+    """The data pointer of a (n_k, width) float32 contiguous CUDA tensor, or
+    0 (the kernel writes no steps) for None."""
+    if steps is None:
+        return 0
+    if (steps.device.type != "cuda" or steps.dtype != torch.float32
+            or tuple(steps.shape) != (n_k, width)
+            or not steps.is_contiguous()):
+        raise ValueError(f"steps must be a contiguous float32 ({n_k}, "
+                         f"{width}) CUDA tensor, got {tuple(steps.shape)} "
+                         f"{steps.dtype} on {steps.device}")
+    return steps.data_ptr()
+
+
+def _moments_cuda(name: str, n_k: int, n_blocks: int, device,
+                  steps=None, width: int = 0):
+    """Launches gs2d_<name>; ``width`` > 0: its C entry point takes a steps
+    pointer after ``out`` ((n_k, width), or 0)."""
     if n_k <= 0 or n_blocks <= 0:
         raise ValueError(f"n_k {n_k} and n_blocks {n_blocks} must be positive")
     lib = library()
     out = torch.empty((n_blocks, TILE_W), dtype=torch.float32, device=device)
-    err = getattr(lib, f"gs2d_{name}")(out.data_ptr(), n_k, n_blocks,
-                                       stream(out))
+    fn = getattr(lib, f"gs2d_{name}")
+    if width:
+        err = fn(out.data_ptr(), _steps_ptr(steps, n_k, width), n_k,
+                 n_blocks, stream(out))
+    else:
+        err = fn(out.data_ptr(), n_k, n_blocks, stream(out))
     check(err, f"{name} kernel launch")
     launches[name] += 1
+    return out
+
+
+def _plain_with_steps(plain, plain_steps, n_k, n_blocks, device, steps):
+    out = plain(n_k, n_blocks, device)
+    if steps is not None:
+        steps.copy_(plain_steps(n_k, device))
     return out
 
 
@@ -275,30 +428,61 @@ def moments_cuda_cores(device, n_k: int = N_K,
     return moments_vpu_plain(n_k, n_blocks, device)
 
 
-def moments_tensor_cores(device, n_k: int = N_K,
-                         n_blocks: int = 1) -> torch.Tensor:
-    """Kernel 15b: the per-step product on the tensor cores (3xTF32)."""
+def moments_tensor_cores(device, n_k: int = N_K, n_blocks: int = 1,
+                         steps: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel 15b: the per-step product on the tensor cores (wgmma, 3xTF32,
+    z computed in its A fragments); ``steps`` (n_k, 5), when given,
+    receives each step's values (``moments_mxu_plain_steps``)."""
     if _on_card(device):
-        return _moments_cuda("moments_tensor_cores", n_k, n_blocks, device)
-    return moments_mxu_plain(n_k, n_blocks, device)
+        return _moments_cuda("moments_tensor_cores", n_k, n_blocks, device,
+                             steps, MXU_SUMS)
+    return _plain_with_steps(moments_mxu_plain, moments_mxu_plain_steps, n_k,
+                             n_blocks, device, steps)
 
 
-def moments_scratch_contraction(device, n_k: int = N_K,
-                                n_blocks: int = 1) -> torch.Tensor:
-    """Kernel 15c: z planes staged in shared memory, contracted in batches
-    on the tensor cores (3xTF32), then the fold."""
-    if not _on_card(device):
-        return moments_mxu2_plain(n_k, n_blocks, device)
+def _moments_tensor_cores_staged_cuda(n_k: int, n_blocks: int, device):
+    """The reference (gs2d_moments_tensor_cores_staged, kernel 15b before
+    wgmma: z staged through a shared plane for mma.sync). For chip_smoke.py
+    and the card tests only."""
+    return _moments_cuda("moments_tensor_cores_staged", n_k, n_blocks,
+                         device)
+
+
+def _contraction_room(lib, n_k: int, smem_fn) -> None:
     from gs2d_tpu_torch.utils.hardware import resolve_budget
 
-    lib = library()
     check_contraction_steps(n_k, lib.gs2d_probe_batch())
-    need, limit = lib.gs2d_contraction_smem_bytes(n_k), resolve_budget(
+    need, limit = smem_fn(n_k), resolve_budget(
         "smem_per_block", lib.gs2d_max_smem_per_block())
     if need > limit:
         raise ValueError(f"n_k = {n_k} needs {need} B of shared memory per "
                          f"block, more than the card's {limit} B")
+
+
+def moments_scratch_contraction(device, n_k: int = N_K, n_blocks: int = 1,
+                                steps: torch.Tensor | None = None
+                                ) -> torch.Tensor:
+    """Kernel 15c: the z planes, produced in batches of 64 by the carry
+    recursion and split at the store into shared-memory stages, contracted
+    with V on the tensor cores (wgmma, 3xTF32), then the fold; ``steps``
+    (n_k, 9), when given, receives M = Z @ V
+    (``moments_mxu2_plain_steps``)."""
+    if not _on_card(device):
+        return _plain_with_steps(moments_mxu2_plain, moments_mxu2_plain_steps,
+                                 n_k, n_blocks, device, steps)
+    lib = library()
+    _contraction_room(lib, n_k, lib.gs2d_contraction_smem_bytes)
     return _moments_cuda("moments_scratch_contraction", n_k, n_blocks,
+                         device, steps, V_COLUMNS)
+
+
+def _moments_scratch_contraction_sync_cuda(n_k: int, n_blocks: int, device):
+    """The reference (gs2d_moments_scratch_contraction_sync, kernel 15c
+    before wgmma: batches of 8 planes, __syncthreads between the phases).
+    For chip_smoke.py and the card tests only."""
+    lib = library()
+    _contraction_room(lib, n_k, lib.gs2d_contraction_sync_smem_bytes)
+    return _moments_cuda("moments_scratch_contraction_sync", n_k, n_blocks,
                          device)
 
 
@@ -308,6 +492,19 @@ MOMENT_PROBES = {
     "mxu2": ("moments_scratch_contraction", moments_scratch_contraction,
              moments_mxu2_plain),
 }
+# The tensor-core probes' references (the designs before wgmma), by kind:
+# (counter, launcher (n_k, n_blocks, device)).
+MOMENT_REFERENCES = {
+    "mxu": ("moments_tensor_cores_staged", _moments_tensor_cores_staged_cuda),
+    "mxu2": ("moments_scratch_contraction_sync",
+             _moments_scratch_contraction_sync_cuda),
+}
+# Their counters, which no script or path reaches.
+REFERENCE_COUNTERS = tuple(name for name, _ in MOMENT_REFERENCES.values())
+# Each tensor-core probe's per-step values: (width, plain (n_k, device,
+# sizes=False)).
+MOMENT_STEPS = {"mxu": (MXU_SUMS, moments_mxu_plain_steps),
+                "mxu2": (V_COLUMNS, moments_mxu2_plain_steps)}
 
 
 def fma_sass_counts() -> dict:

@@ -9,12 +9,15 @@ nothing folds), ``ops/probes.py``:
 
   vpu   -- the production reduction on the CUDA cores: per-thread row
            chains, column monomials, warp tree, warps in index order.
-  mxu   -- per step z (32, 128) @ Vx (128, 8) on the tensor cores (3xTF32),
-           z staged through shared memory, then a small stage 2 on the CUDA
-           cores. Tests whether small in-loop matrix products issue fast
-           enough to beat the chains.
-  mxu2  -- the loop only stores z planes into shared memory; one batched
-           contraction per 8 planes on the tensor cores afterwards.
+  mxu   -- per step the product of z with the monomials on the tensor cores
+           (wgmma, 3xTF32), z computed in the A fragments' registers (no
+           shared plane, no barrier a step), then a small stage 2 on the
+           CUDA cores. Tests whether small in-loop matrix products issue
+           fast enough to beat the chains.
+  mxu2  -- producer warps run the recursion and store the z planes, split
+           for TF32, into shared-memory stages; a consumer warpgroup
+           contracts each batch of 64 planes with V on the tensor cores
+           (wgmma, 3xTF32) as the stages are handed over.
 
 Each is timed by its device time (``scripts/roofline.py::time_ms``) for one
 block (the TPU probe's shape: one core, K = 512, 200 reps) and for one

@@ -66,6 +66,7 @@ import functools
 import time
 
 F32_PEAK = 67e12     # FLOP/s, float32 outside the tensor cores (data sheet)
+TF32_PEAK = 495e12   # FLOP/s, TF32 on the tensor cores, dense (data sheet)
 HBM_RATE = 3.35e12   # B/s (data sheet)
 ROW_OPS = 27
 PIXEL_OPS = 17

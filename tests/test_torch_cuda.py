@@ -1002,27 +1002,92 @@ def test_fma_peak_refuses_bad_shapes(dev):
         probes.fma_peak(4, dev, inner=12)
 
 
+def _moment_launcher(kind):
+    """(counter, launch (dev, n_k, n_blocks), plain) of a moment probe, or
+    of a tensor-core probe's reference ("mxu staged", "mxu2 sync": the
+    designs 15b and 15c had before wgmma)."""
+    base, _, ref = kind.partition(" ")
+    name, fn, plain = probes.MOMENT_PROBES[base]
+    if not ref:
+        return name, (lambda dev, n_k, n_blocks:
+                      fn(dev, n_k=n_k, n_blocks=n_blocks)), plain
+    ref_name, launch = probes.MOMENT_REFERENCES[base]
+    return ref_name, (lambda dev, n_k, n_blocks:
+                      launch(n_k, n_blocks, dev)), plain
+
+
 @pytest.mark.parametrize("kind,rtol", [("vpu", 1e-4), ("mxu", 1e-5),
-                                       ("mxu2", 1e-5)])
+                                       ("mxu2", 1e-5), ("mxu staged", 1e-5),
+                                       ("mxu2 sync", 1e-5)])
 @pytest.mark.parametrize("n_k,n_blocks", [(64, 1), (512, 3)])
 def test_moment_probes_match_plain(dev, kind, rtol, n_k, n_blocks):
-    """Kernels 15a-c against their plain versions: the moments' sum-order
-    class for the CUDA-core reduction, what 3xTF32 keeps for the two
-    tensor-core forms, each output against the size of its terms
-    (probes.moments_output_sizes: 15c's columns cycle through nine moments
-    of very different sizes); every block writes the same row, and a second
-    launch repeats the first bit for bit."""
-    name, fn, plain = probes.MOMENT_PROBES[kind]
+    """Kernels 15a-c and the references of 15b and 15c against their plain
+    versions: the moments' sum-order class for the CUDA-core reduction,
+    what 3xTF32 keeps for the tensor-core forms, each output against the
+    size of its terms (probes.moments_output_sizes: 15c's columns cycle
+    through nine moments of very different sizes); every block writes the
+    same row, and a second launch repeats the first bit for bit."""
+    name, launch, plain = _moment_launcher(kind)
     before = probes.launches[name]
-    got = fn(dev, n_k=n_k, n_blocks=n_blocks)
-    again = fn(dev, n_k=n_k, n_blocks=n_blocks)
+    got = launch(dev, n_k, n_blocks)
+    again = launch(dev, n_k, n_blocks)
     want = plain(n_k, n_blocks, dev)
     torch.cuda.synchronize()
     assert got.shape == (n_blocks, 128) and torch.isfinite(got).all()
-    sizes = probes.moments_output_sizes(kind, want, n_k)
+    sizes = probes.moments_output_sizes(kind.split()[0], want, n_k)
     assert ((got - want).abs() <= rtol * sizes).all()
     assert torch.equal(got, again) and torch.equal(got, got[:1].expand_as(got))
     assert probes.launches[name] == before + 2
+
+
+@pytest.mark.parametrize("kind", ["mxu", "mxu2"])
+@pytest.mark.parametrize("n_k,n_blocks", [(64, 1), (136, 2), (512, 132)])
+def test_moment_probe_redesigns_match_their_references(dev, kind, n_k,
+                                                       n_blocks):
+    """15b and 15c against the designs they had before wgmma, in one call,
+    within what 3xTF32 keeps of the outputs' terms' size (136: 15c's last
+    batch of 64 planes holds 8, 15b's last round of 32 steps 8)."""
+    name, fn, plain = probes.MOMENT_PROBES[kind]
+    _, launch = probes.MOMENT_REFERENCES[kind]
+    got = fn(dev, n_k=n_k, n_blocks=n_blocks)
+    old = launch(n_k, n_blocks, dev)
+    want = plain(n_k, n_blocks, dev)
+    torch.cuda.synchronize()
+    sizes = probes.moments_output_sizes(kind, want, n_k)
+    assert ((got - old).abs() <= 1e-5 * sizes).all()
+    assert ((got - want).abs() <= 1e-5 * sizes).all()
+
+
+@pytest.mark.parametrize("kind", ["mxu", "mxu2"])
+@pytest.mark.parametrize("n_k", [64, 136, 512])
+def test_moment_probe_steps_match_the_plain_steps(dev, kind, n_k):
+    """Each step's values, which 15b and 15c form a step at a time and
+    write when given a tensor: (n_k, 5) and (n_k, 9), within what 3xTF32
+    keeps of their terms' size; the output is the one without steps."""
+    name, fn, _ = probes.MOMENT_PROBES[kind]
+    width, plain_steps = probes.MOMENT_STEPS[kind]
+    steps = torch.full((n_k, width), float("nan"), device=dev)
+    got = fn(dev, n_k=n_k, n_blocks=2, steps=steps)
+    bare = fn(dev, n_k=n_k, n_blocks=2)
+    want = plain_steps(n_k, dev)
+    sizes = plain_steps(n_k, dev, sizes=True).clamp(min=1.0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(steps).all()
+    assert ((steps - want).abs() <= 1e-5 * sizes).all()
+    assert torch.equal(got, bare)
+
+
+def test_moment_probe_steps_refuse_other_tensors(dev):
+    with pytest.raises(ValueError):
+        probes.moments_tensor_cores(dev, n_k=64,
+                                    steps=torch.empty(64, 9, device=dev))
+    with pytest.raises(ValueError):
+        probes.moments_scratch_contraction(dev, n_k=64,
+                                           steps=torch.empty(64, 9))
+    with pytest.raises(ValueError):
+        probes.moments_scratch_contraction(
+            dev, n_k=64, steps=torch.empty(64, 9, device=dev,
+                                           dtype=torch.float64))
 
 
 def test_scratch_contraction_refuses_what_it_cannot_hold(dev):
@@ -1030,6 +1095,14 @@ def test_scratch_contraction_refuses_what_it_cannot_hold(dev):
         probes.moments_scratch_contraction(dev, n_k=60)   # not batches of 8
     with pytest.raises(ValueError):
         probes.moments_scratch_contraction(dev, n_k=4096)  # shared memory
+
+
+def test_scratch_contraction_reference_refuses_what_it_cannot_hold(dev):
+    _, launch = probes.MOMENT_REFERENCES["mxu2"]
+    with pytest.raises(ValueError):
+        launch(60, 1, dev)
+    with pytest.raises(ValueError):
+        launch(4096, 1, dev)
 
 
 def _scan_case(dev, binning, margin):
