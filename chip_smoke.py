@@ -3,9 +3,10 @@ hold each against its plain PyTorch version and every warp-patch kernel
 against the one-block-per-tile chunk walk over the same pairs, bit for bit
 (the references gs2d_fwd_chunk, gs2d_bwd_chunk and gs2d_l2_mxu_chunk: the
 designs the dense forward 6/7, the dense backward 8/9 and the MXU-form step
-13 had before their warp patches, which no path reaches; the tensor-core
-probes 15b and 15c are held within their tolerance to the designs they had
-before wgmma, gs2d_moments_tensor_cores_staged and
+13 had before their warp patches, which no path reaches; the CUDA-core
+probe 15a is held bit for bit to its lane tree, gs2d_moments_cuda_cores_tree,
+and the tensor-core probes 15b and 15c within their tolerance to the designs
+they had before wgmma, gs2d_moments_tensor_cores_staged and
 gs2d_moments_scratch_contraction_sync, the same way; the L2 kernels 1,
 4/5 and 12 against the forward reference, then gC = C - ref, then the
 backward reference, kernels 2 and 6/7 against the forward reference, the
@@ -107,7 +108,7 @@ take for the work of its timed call (see
 ``gs2d_tpu_torch/scripts/roofline.py::bound``; for the moment probes
 ``gs2d_tpu_torch/ops/probes.py::moments_bound``, 15b's and 15c's products
 at the tensor cores' TF32 rate). The report's
-"references" list the five references the same way, each with
+"references" list the six references the same way, each with
 ``reference_of`` (the kernel held to it), no TPU kernel replaced and 0
 launches on every path. Any failure raises
 and the script exits non-zero without printing a result; without a CUDA
@@ -213,7 +214,8 @@ MXU_GRAD_RTOL = 2e-3
 # Kernel 14 against its plain version: both round each step once, so they
 # agree to the unit in the last place but for the plain version's rare
 # double rounding (ops/probes.py); FMA_ULPS units of the result.
-# Kernel 15a: the moments' sum-order class (GRAD_RTOL of the result).
+# Kernel 15a: the moments' sum-order class (GRAD_RTOL of the result); its
+# reference, the lane tree, adds the same operands (PROBE_REF_RTOL).
 # Kernels 15b and 15c: what 3xTF32 keeps. Each product loses about 2^-21
 # of its size and the sums are taken in another order than the plain
 # versions' float32 products, and the tensor cores' accumulators truncate.
@@ -226,6 +228,9 @@ MXU_GRAD_RTOL = 2e-3
 # into its batch's moments in float32: the tensor cores' own accumulation
 # truncates, and over a whole batch (1536 products) it drifted past this.
 PROBE_TC_RTOL = 1e-5
+# Each moment probe against its reference, of the outputs' terms' size: 0
+# is bit for bit (15a's butterfly adds the tree's operands in either order).
+PROBE_REF_RTOL = {"vpu": 0.0, "mxu": PROBE_TC_RTOL, "mxu2": PROBE_TC_RTOL}
 N_100K = 102400
 
 # Where the references' times stand in the times dicts: each beside the
@@ -234,6 +239,8 @@ FWD_CHUNK_TIMES = "fwd_chunk (reference), same rows (plain ms: 6/7's)"
 BWD_CHUNK_TIMES = "bwd_chunk (reference), same rows (plain ms: kernel 3's)"
 MXU_CHUNK_TIMES = "l2_mxu_chunk (reference), same inputs (plain ms: 13's)"
 PROBE_REF_TIMES = {
+    "moments_cuda_cores_tree":
+        "moments_cuda_cores_tree (reference), K = 512 (plain ms: 15a's)",
     "moments_tensor_cores_staged":
         "moments_tensor_cores_staged (reference), K = 512 (plain ms: 15b's)",
     "moments_scratch_contraction_sync":
@@ -2106,12 +2113,13 @@ def compare_probes(dev, smi: str):
     the shapes the measurement scripts give them: kernel 14 at every chain
     count of its sweep (the count with the best rate is reported), the
     moment probes at K = 512 on one block and on one block per SM (the
-    latter is timed and reported). The tensor-core probes 15b and 15c also
-    against their references (the designs before wgmma) within the same
-    tolerance, their per-step values against the plain steps, and a second
-    launch bit for bit; then one line of ns per splat-tile reduction, and
-    no probe above PROBE_SHARE_MAX of its bound. Returns (max errors,
-    times); the references' differences go to REF_ERRS."""
+    latter is timed and reported). Each moment probe also against its
+    reference (15a's lane tree bit for bit, 15b's and 15c's designs before
+    wgmma within their tolerance), its per-step values against the plain
+    steps, and a second launch bit for bit; then one line of ns per
+    splat-tile reduction, and no probe above PROBE_SHARE_MAX of its bound.
+    Returns (max errors, times); the references' differences go to
+    REF_ERRS."""
     from gs2d_tpu_torch.ops import probes
 
     log("[compare] probe kernels 14, 15a-c vs plain PyTorch on the card")
@@ -2181,13 +2189,16 @@ def compare_probes(dev, smi: str):
                 read_device_time(ref_name, lambda: launch(k, sms, dev)),
                 times[name]["plain_ms"], bound)
     ns = {kk: 1e6 * times[key]["ms"] / k for kk, key in (
-        ("15a", "moments_cuda_cores"), ("15b", "moments_tensor_cores"),
+        ("15a", "moments_cuda_cores"),
+        ("15a old", PROBE_REF_TIMES["moments_cuda_cores_tree"]),
+        ("15b", "moments_tensor_cores"),
         ("15b old", PROBE_REF_TIMES["moments_tensor_cores_staged"]),
         ("15c", "moments_scratch_contraction"),
         ("15c old", PROBE_REF_TIMES["moments_scratch_contraction_sync"]))}
     log(f"  ns per splat-tile reduction (device time / K, K = {k}, {sms} "
         f"blocks): " + ", ".join(f"{kk} {v:.1f}" for kk, v in ns.items())
-        + f"; 15b / 15a {ns['15b'] / ns['15a']:.3f}, 15c / 15a "
+        + f"; 15a / 15a old {ns['15a'] / ns['15a old']:.3f}, 15b / 15a "
+        f"{ns['15b'] / ns['15a']:.3f}, 15c / 15a "
         f"{ns['15c'] / ns['15a']:.3f} [{smi}]")
     for kk, t in times.items():
         log(f"  {kk}: kernel {device_line(t['device'])}, plain "
@@ -2201,11 +2212,12 @@ def compare_probes(dev, smi: str):
 
 
 def compare_probe_design(kind, got, sizes, rtol, n_blocks, dev) -> None:
-    """A tensor-core probe's redesign on the card, beside the output
-    ``got`` it gave on n_blocks blocks: a second launch equal bit for bit,
-    its reference (the design before wgmma) within rtol of the outputs'
-    terms' size (the difference noted in REF_ERRS), and its per-step
-    values within rtol of their terms' size of the plain steps."""
+    """A moment probe's redesign on the card, beside the output ``got`` it
+    gave on n_blocks blocks: a second launch equal bit for bit, its
+    reference (the design before it) within PROBE_REF_RTOL[kind] of the
+    outputs' terms' size, which for 0 is bit for bit (torch.equal; 15a
+    against its lane tree), the difference noted in REF_ERRS, and its
+    per-step values within rtol of their terms' size of the plain steps."""
     from gs2d_tpu_torch.ops import probes
 
     name, fn, _ = probes.MOMENT_PROBES[kind]
@@ -2222,12 +2234,17 @@ def compare_probe_design(kind, got, sizes, rtol, n_blocks, dev) -> None:
         raise AssertionError(f"{name}: two launches differ")
     d_old = (got - old).abs()
     d_steps = (steps - want_steps).abs()
+    ref_rtol = PROBE_REF_RTOL[kind]
     log(f"  {name}, {n_blocks} block(s): against {ref_name} "
-        f"{float((d_old / sizes).max()):.3g}, its steps against the plain "
-        f"steps {float((d_steps / step_sizes).max()):.3g} of their terms' "
-        f"size (tol {rtol}); a second launch bit for bit")
-    if not torch.isfinite(old).all() or bool((d_old > rtol * sizes).any()):
+        f"{float((d_old / sizes).max()):.3g} (tol {ref_rtol}"
+        f"{', bit for bit' if ref_rtol == 0 else ''}), its steps against "
+        f"the plain steps {float((d_steps / step_sizes).max()):.3g} of "
+        f"their terms' size (tol {rtol}); a second launch bit for bit")
+    if not torch.isfinite(old).all() or bool((d_old > ref_rtol * sizes)
+                                             .any()):
         raise AssertionError(f"{name} disagrees with {ref_name}")
+    if ref_rtol == 0 and not torch.equal(got, old):
+        raise AssertionError(f"{name} differs from {ref_name} in its bits")
     if not torch.isfinite(steps).all() \
             or bool((d_steps > rtol * step_sizes).any()):
         raise AssertionError(f"{name}: its steps disagree with the plain "
@@ -4428,8 +4445,9 @@ KERNELS = (
      "scripts/probe_mxu_moments.py:111"),
 )
 # The references: the designs kernels 6/7, 8/9 and 13 had before their
-# warp patches, kept unchanged to hold them bit for bit, and the designs the
-# probes 15b and 15c had before wgmma, held within PROBE_TC_RTOL. They port
+# warp patches and the lane tree of probe 15a, kept unchanged to hold them
+# bit for bit, and the designs the probes 15b and 15c had before wgmma,
+# held within PROBE_TC_RTOL. They port
 # no TPU kernel and no path launches them: (counter, source, the kernel held
 # to it, the key of its time).
 REFERENCES = (
@@ -4439,6 +4457,8 @@ REFERENCES = (
      BWD_CHUNK_TIMES),
     ("l2_mxu_chunk", "gs2d_tpu_torch/csrc/render_mxu.cu", "l2_mxu",
      MXU_CHUNK_TIMES),
+    ("moments_cuda_cores_tree", "gs2d_tpu_torch/csrc/probes.cu",
+     "moments_cuda_cores", PROBE_REF_TIMES["moments_cuda_cores_tree"]),
     ("moments_tensor_cores_staged", "gs2d_tpu_torch/csrc/probes.cu",
      "moments_tensor_cores",
      PROBE_REF_TIMES["moments_tensor_cores_staged"]),
@@ -4553,6 +4573,14 @@ def main(argv) -> int:
     from gs2d_tpu_torch.ops import probes
     log(f"  fma_peak compiled code (cuobjdump -sass), per chain count: "
         f"{probes.fma_sass_counts()}")
+    sass = probes.moments_sass_counts()
+    log(f"  moments_cuda_cores (butterfly, G = {probes.MOMENT_STEP_BATCH}) "
+        f"and moments_cuda_cores_tree compiled code (cuobjdump -sass; "
+        f"static counts, step bodies = FMUL / {probes.MOMENT_STEP_FMUL}): "
+        f"{sass}")
+    if sass["moments_cuda_cores"]["shfl_per_step"] > 12:
+        raise AssertionError("15a's butterfly issues more than 12 shuffles "
+                             "a step")
 
     compare_counts = read_counts()
 
@@ -4690,7 +4718,8 @@ def main(argv) -> int:
         if total.get(kk):
             raise AssertionError(f"a path launched the reference {kk}")
     log(f"  the references (gs2d_fwd_chunk, gs2d_bwd_chunk, "
-        f"gs2d_l2_mxu_chunk, gs2d_moments_tensor_cores_staged, "
+        f"gs2d_l2_mxu_chunk, gs2d_moments_cuda_cores_tree, "
+        f"gs2d_moments_tensor_cores_staged, "
         f"gs2d_moments_scratch_contraction_sync; no port of a TPU kernel): "
         f"{ {kk: compare_counts[kk] for kk, _, _, _ in REFERENCES} } "
         f"launches in the compare phases, 0 on every path")

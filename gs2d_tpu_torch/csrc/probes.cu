@@ -17,12 +17,26 @@
 //   loads the whole card. No input, 512 B of output a block: bound by
 //   operations, 15b's and 15c's products at the tensor cores' TF32 rate
 //   (ops/probes.py::moments_bound).
-//   15a gs2d_moments_cuda_cores: the production reduction, the lane tree of
+//   15a gs2d_moments_cuda_cores: the production reduction of
 //     csrc/patch_walk.cuh::bwd_patch_step: 512 threads, a thread owns 8
 //     rows of a column, per-thread row chains (Moments), the column
-//     monomials (Moments::finish), a fixed-order warp tree of the nine
-//     values (45 shuffles a step) and the warps summed in index order every
-//     32 steps.
+//     monomials (Moments::finish), the nine values reduced over the warp's
+//     lanes and the warps summed in index order every 32 steps. Bound by
+//     instruction issue: the library is built with -fmad=false, so the 16
+//     operations a pixel are 16 instructions, and beside them production's
+//     lane tree issues 45 shuffles and 45 adds a step (30 shuffles here:
+//     this probe's z plane is the same in every column, so three of the
+//     nine values are the same on every lane and ptxas folds their
+//     shuffles; production's z differs by pixel). The lanes are
+//     reduced instead by a reduce-scatter butterfly over kStepBatch steps'
+//     values (butterfly_to_round): at each level a lane keeps half of its
+//     values and adds its partner's, so nine values take 12 shuffles, not
+//     45, and four steps' 36 values 37 (G = 4, the fastest of 1, 2 and 4 on
+//     the H100: scripts/probe_parts.py times the others). Every add has the
+//     operands of the tree's lane 0, in either order, so the totals, and
+//     the output, are the tree's bit for bit. The design before it, the
+//     tree, is kept unchanged as the reference-only
+//     gs2d_moments_cuda_cores_tree.
 //   15b gs2d_moments_tensor_cores: per step the product of z with [1, vx,
 //     vx^2] and [1, vy, vy^2] on the tensor cores, z computed where they
 //     read it. The tile is taken transposed, E = z^T (128, 32) @ Vy (32, 8),
@@ -175,6 +189,23 @@ __device__ __forceinline__ void close_round(const float* red, int kn,
   __syncthreads();
 }
 
+// close_round, and the step totals of block 0 written to steps (k0 + its
+// first step; nullptr: not written). NW: the warps summed, kWarps
+// (scripts/probe_parts.py sums one, to time the round close without them).
+template <int NV, int NW>
+__device__ __forceinline__ void close_round_steps(const float* red, int k0,
+                                                  int kn, float& acc,
+                                                  float* __restrict__ steps) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < kn * NV; i += blockDim.x) {
+    float a = 0.0f;
+    for (int w = 0; w < NW; ++w) a += red[w * kRound * NV + i];
+    acc += a;
+    if (steps != nullptr && blockIdx.x == 0) steps[(size_t)k0 * NV + i] = a;
+  }
+  __syncthreads();
+}
+
 // The block's sum of the threads' running sums, written to all 128 outputs
 // (the TPU kernels add a scalar onto a (1, 128) row).
 __device__ __forceinline__ void write_total(float acc, float* total,
@@ -225,10 +256,144 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
   mma_tf32(c, a_hi, b_hi);
 }
 
-// ---- kernel 15a ------------------------------------------------------------
+// ---- kernel 15a: a reduce-scatter butterfly over a batch of steps -------
+
+constexpr int kStepBatch = 4;  // steps reduced together; divides kRound
+static_assert(kRound % kStepBatch == 0, "a round holds whole batches");
+
+// Of n values, the lane with a level's bit clear keeps the first
+// butterfly_keep(n), its partner the rest (ops/probes.py::butterfly_keep).
+__host__ __device__ constexpr int butterfly_keep(int n) { return (n + 1) / 2; }
+
+// The values a lane holds after `levels` levels, n before them.
+__host__ __device__ constexpr int butterfly_held(int n, int levels) {
+  return levels == 0 ? n : butterfly_held(butterfly_keep(n), levels - 1);
+}
+
+// Levels OFF, OFF / 2, ..., 1 of the butterfly over the lane's N values v.
+// The lane with bit OFF clear keeps v[0 .. keep) and adds its partner's of
+// them, the lane with it set keeps v[keep .. N) and adds its partner's: a
+// shuffle and two selects a kept value (no select for the last of an odd N,
+// which only the clear lane keeps; the set lane's copy of it is a spare).
+// [first, end) follows the values the lane holds: slot j holds value first
+// + j if that is below end, else a spare.
+template <int N, int OFF, int NOUT>
+__device__ __forceinline__ void butterfly_levels(const float* v,
+                                                 float (&out)[NOUT],
+                                                 int lane, int& first,
+                                                 int& end) {
+  constexpr int keep = butterfly_keep(N), rest = N - keep;
+  const bool up = lane & OFF;
+  float w[keep];
+#pragma unroll
+  for (int i = 0; i < keep; ++i) {
+    if (i < rest) {
+      const float mine = up ? v[keep + i] : v[i];
+      const float theirs = up ? v[i] : v[keep + i];
+      w[i] = mine + __shfl_xor_sync(0xffffffffu, theirs, OFF);
+    } else {
+      w[i] = v[i] + __shfl_xor_sync(0xffffffffu, v[i], OFF);
+    }
+  }
+  if (up) {
+    first += keep;
+  } else {
+    end = min(end, first + keep);
+  }
+  if constexpr (OFF > 1) {
+    butterfly_levels<keep, OFF / 2>(w, out, lane, first, end);
+  } else {
+    static_assert(keep == NOUT, "out holds the last level's values");
+#pragma unroll
+    for (int i = 0; i < keep; ++i) out[i] = w[i];
+  }
+}
+
+// The warp's sums of the lanes' N values, v[s * 9 + f] of step kk + s
+// value f, written to the round buffer at row = red + (warp * kRound + kk)
+// * 9: row[s * 9 + f] is the slot warp_to_round's lane 0 writes, and each
+// total is the tree's bit for bit (its adds take the same two operands).
+template <int N>
+__device__ __forceinline__ void butterfly_to_round(const float (&v)[N],
+                                                   float* row) {
+  constexpr int kHeld = butterfly_held(N, 5);
+  float w[kHeld];
+  int first = 0, end = N;
+  butterfly_levels<N, 16>(v, w, threadIdx.x & 31, first, end);
+#pragma unroll
+  for (int j = 0; j < kHeld; ++j) {
+    if (first + j < end) row[first + j] = w[j];
+  }
+}
+
+// Adds v's values into x: scripts/probe_parts.py puts it in place of the
+// reduction to time 15a's arithmetic with its values still used (an
+// empty asm does not keep them: ptxas drops the work whose results no
+// instruction reads).
+template <int N>
+__device__ __forceinline__ void fold_into(const float (&v)[N], float& x) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x += v[i];
+}
+
+// Step k of the thread's 8 pixels, the arithmetic of the reference's step
+// in its order: the row chains, then Moments::finish into v[0 .. 9).
+__device__ __forceinline__ void moments_step(Pixels& px, float vx, int k,
+                                             float* v) {
+  Moments m;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float vy = px.vy(r);
+    const float z = px.z(k, r);
+    const float zvy = z * vy;
+    m.r0 = m.r0 + z;
+    m.r1 = m.r1 + zvy;
+    m.r2 = m.r2 + zvy * vy;
+    m.cr = m.cr + z * px.carry[r];
+    m.cg = m.cg + zvy * px.carry[r];
+    m.cb = m.cb + z * z;
+    px.advance(r, z);
+  }
+  m.finish(vx, v);
+}
 
 __global__ void __launch_bounds__(kThreads)
-moments_cuda_cores_kernel(float* __restrict__ out, int n_k) {
+moments_cuda_cores_kernel(float* __restrict__ out, float* __restrict__ steps,
+                          int n_k) {
+  __shared__ float red[kWarps * kRound * kMoments];
+  __shared__ float total[kWarps];
+  Pixels px;
+  const float vx = px.vx();
+  float* const red_w = red + (threadIdx.x >> 5) * kRound * kMoments;
+  float acc = 0.0f;
+  for (int k0 = 0; k0 < n_k; k0 += kRound) {
+    const int kn = min(kRound, n_k - k0);
+    int kk = 0;
+    for (; kk + kStepBatch <= kn; kk += kStepBatch) {
+      float v[kStepBatch * kMoments];
+#pragma unroll
+      for (int s = 0; s < kStepBatch; ++s) {
+        moments_step(px, vx, k0 + kk + s, v + s * kMoments);
+      }
+      butterfly_to_round(v, red_w + kk * kMoments);
+    }
+    // The last round's steps past its whole batches, one at a time.
+    for (; kk < kn; ++kk) {
+      float t[kMoments];
+      moments_step(px, vx, k0 + kk, t);
+      butterfly_to_round(t, red_w + kk * kMoments);
+    }
+    close_round_steps<kMoments, kWarps>(red, k0, kn, acc, steps);
+  }
+  write_total(acc, total, out);
+}
+
+// ---- kernel 15a's reference: the lane tree ---------------------------------
+
+// The design before the butterfly, unchanged: production's fixed-order warp
+// tree (warp_to_round). No path launches it.
+__global__ void __launch_bounds__(kThreads)
+moments_cuda_cores_tree_kernel(float* __restrict__ out, int n_k) {
   __shared__ float red[kWarps * kRound * kMoments];
   __shared__ float total[kWarps];
   Pixels px;
@@ -576,22 +741,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// close_round, and the step totals of block 0 written to steps (k0 + its
-// first step; nullptr: not written).
-template <int NV>
-__device__ __forceinline__ void close_round_steps(const float* red, int k0,
-                                                  int kn, float& acc,
-                                                  float* __restrict__ steps) {
-  __syncthreads();
-  for (int i = threadIdx.x; i < kn * NV; i += blockDim.x) {
-    float a = 0.0f;
-    for (int w = 0; w < kWarps; ++w) a += red[w * kRound * NV + i];
-    acc += a;
-    if (steps != nullptr && blockIdx.x == 0) steps[(size_t)k0 * NV + i] = a;
-  }
-  __syncthreads();
-}
-
 // ---- kernel 15b: z in wgmma's A fragments ----------------------------------
 
 constexpr int kWarpgroup = 128;
@@ -737,7 +886,7 @@ moments_tensor_cores_kernel(float* __restrict__ out,
       if (put_xy) row[f_xy] = xy;
       if (put_cc) row[f_cc] = cc;
     }
-    close_round_steps<kMxuSums>(red, k0, kn, acc, steps);
+    close_round_steps<kMxuSums, kWarps>(red, k0, kn, acc, steps);
   }
   write_total(acc, total, out);
 }
@@ -1012,10 +1161,22 @@ int gs2d_fma_peak(float* out, int chains, int inner, int grid, float c,
 }
 
 // out: (n_blocks, 128) float32; every block computes the same n_k steps.
-int gs2d_moments_cuda_cores(float* out, int n_k, int n_blocks, void* stream) {
+// steps: nullptr, or (n_k, 9) float32 that block 0 fills with each step's
+// nine totals (Moments::finish's rows summed over the tile).
+int gs2d_moments_cuda_cores(float* out, float* steps, int n_k, int n_blocks,
+                            void* stream) {
   if (n_k <= 0 || n_blocks <= 0) return (int)cudaErrorInvalidValue;
   moments_cuda_cores_kernel<<<n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      out, n_k);
+      out, steps, n_k);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 15a's reference (the lane tree); no path launches it.
+int gs2d_moments_cuda_cores_tree(float* out, int n_k, int n_blocks,
+                                 void* stream) {
+  if (n_k <= 0 || n_blocks <= 0) return (int)cudaErrorInvalidValue;
+  moments_cuda_cores_tree_kernel<<<n_blocks, kThreads, 0,
+                                   (cudaStream_t)stream>>>(out, n_k);
   return (int)cudaGetLastError();
 }
 

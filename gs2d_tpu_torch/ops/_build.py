@@ -59,7 +59,8 @@ SIGNATURES = {
     "gs2d_fma_unroll": [],
     "gs2d_probe_batch": [],
     "gs2d_fma_peak": [_P, _I, _I, _I, _F, _F, _P],
-    "gs2d_moments_cuda_cores": [_P, _I, _I, _P],
+    "gs2d_moments_cuda_cores": [_P, _P, _I, _I, _P],
+    "gs2d_moments_cuda_cores_tree": [_P, _I, _I, _P],
     "gs2d_moments_tensor_cores": [_P, _P, _I, _I, _P],
     "gs2d_moments_tensor_cores_staged": [_P, _I, _I, _P],
     "gs2d_moments_scratch_contraction": [_P, _P, _I, _I, _P],

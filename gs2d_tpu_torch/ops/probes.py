@@ -18,12 +18,14 @@ The moment probes run ``n_k`` steps of a fake z plane derived from a carry
 return ``(n_blocks, 128)``: every block of the grid computes the same
 function, so one block reproduces the TPU probe's (1, 128) output and one
 block per SM loads the whole card. Each wrapper adds one to
-``launches[<name>]`` where it launches its kernel, and nowhere else. 15b and
-15c take an optional ``steps`` tensor, (n_k, 5) and (n_k, 9), which receives
-each step's values (``moments_mxu_plain_steps``, ``moments_mxu2_plain_steps``
-on the CPU). ``_moments_tensor_cores_staged_cuda`` and
-``_moments_scratch_contraction_sync_cuda`` launch the designs 15b and 15c had
-before their wgmma redesign, kept unchanged as their references for
+``launches[<name>]`` where it launches its kernel, and nowhere else. The
+moment probes take an optional ``steps`` tensor, (n_k, 9), (n_k, 5) and
+(n_k, 9), which receives each step's values (``moments_vpu_plain_steps``,
+``moments_mxu_plain_steps``, ``moments_mxu2_plain_steps`` on the CPU).
+``_moments_cuda_cores_tree_cuda``, ``_moments_tensor_cores_staged_cuda``
+and ``_moments_scratch_contraction_sync_cuda`` launch the designs 15a, 15b
+and 15c had before their redesigns for the H100 (15a's lane tree, 15b's and
+15c's designs before wgmma), kept unchanged as their references for
 ``chip_smoke.py`` and the card tests (``launches`` counts them too; no path
 reaches them).
 
@@ -34,7 +36,9 @@ them out; ``moments_flops_split`` parts the matrix product from the rest,
 and ``moments_bound`` takes 15b's and 15c's products at the tensor cores'
 rate. ``tf32_split``, ``tensor_core_pixels`` and ``swizzled_word`` state in
 Python what the two tensor-core kernels do with a value and where they put
-it, for the CPU tests.
+it, and ``butterfly_schedule`` which lane 15a's butterfly leaves each value
+on, for the CPU tests; ``moments_sass_counts`` counts 15a's and its
+reference's instructions in the built library.
 """
 
 from __future__ import annotations
@@ -58,8 +62,9 @@ FMA_ULPS = 4           # see fma_peak_plain
 
 launches = {"fma_peak": 0, "moments_cuda_cores": 0,
             "moments_tensor_cores": 0, "moments_scratch_contraction": 0,
-            "moments_tensor_cores_staged": 0,
+            "moments_cuda_cores_tree": 0, "moments_tensor_cores_staged": 0,
             "moments_scratch_contraction_sync": 0}
+VPU_VALUES = 9         # 15a's values a step: Moments::finish's rows
 MXU_SUMS = 5           # 15b's values a step: s0, s1, s2, sum z carry, sum z z
 V_COLUMNS = 9          # 15c's: the columns of V
 
@@ -183,14 +188,19 @@ def _z_steps(n_k: int, device):
             + z * float(np.float32(1e-4))
 
 
-def moments_vpu_plain(n_k: int, n_blocks: int, device) -> torch.Tensor:
-    """Plain twin of kernel 15a, the float32 operations of ``kernel_vpu``
-    in its order: six sums over rows, the column monomials, nine sums over
-    columns, their sum added onto the scalar."""
+def _vpu_steps(n_k: int, device, sizes: bool = False):
+    """Yields kernel 15a's nine values of each step, (9,): ``kernel_vpu``'s
+    six sums over rows, the column monomials and the nine sums over columns,
+    in Moments::finish's row order [r0 vx, r1, r0 vx^2, r1 vx, r2, sum z
+    carry, sum z vy carry, sum z z, r0]; with ``sizes``, the sums of their
+    terms' absolute values instead."""
     vx, vy = _tile_offsets(device)
     vx_row = vx[:1]
-    acc = torch.zeros((), dtype=torch.float32, device=device)
+    if sizes:
+        vx_row, vy = vx_row.abs(), vy.abs()
     for z, carry in _z_steps(n_k, device):
+        if sizes:
+            z, carry = z.abs(), carry.abs()
         zvy = z * vy
         r0 = z.sum(dim=0, keepdim=True)
         r1 = zvy.sum(dim=0, keepdim=True)
@@ -201,8 +211,26 @@ def moments_vpu_plain(n_k: int, n_blocks: int, device) -> torch.Tensor:
         r0x = r0 * vx_row
         stacked = torch.cat([r0x, r1, r0x * vx_row, r1 * vx_row, r2, c1, c2,
                              c3, r0], dim=0)
-        acc = acc + stacked.sum(dim=1).sum()
+        yield stacked.sum(dim=1)
+
+
+def moments_vpu_plain(n_k: int, n_blocks: int, device) -> torch.Tensor:
+    """Plain twin of kernel 15a, the float32 operations of ``kernel_vpu``
+    in its order: each step's nine values (``_vpu_steps``), their sum added
+    onto the scalar."""
+    acc = torch.zeros((), dtype=torch.float32, device=device)
+    for values in _vpu_steps(n_k, device):
+        acc = acc + values.sum()
     return acc.expand(n_blocks, TILE_W)
+
+
+def moments_vpu_plain_steps(n_k: int, device,
+                            sizes: bool = False) -> torch.Tensor:
+    """(n_k, 9): each step's nine values, which kernel 15a writes to its
+    ``steps``; with ``sizes``, the sums of their terms' absolute values
+    (r0 vx, r1, r1 vx and sum z vy carry cancel over the tile), the scale
+    of their errors."""
+    return torch.stack(list(_vpu_steps(n_k, device, sizes)))
 
 
 def _mxu_steps(n_k: int, device, sizes: bool = False):
@@ -339,6 +367,43 @@ def tensor_core_pixels() -> np.ndarray:
     return np.stack([row, col], axis=-1)
 
 
+BUTTERFLY_OFFSETS = (16, 8, 4, 2, 1)
+# csrc/probes.cu kStepBatch: the steps whose values 15a reduces together.
+MOMENT_STEP_BATCH = 4
+
+
+def butterfly_keep(n: int) -> int:
+    """Of n values, how many the lane with a level's bit clear keeps (the
+    first ones); its partner keeps the rest (csrc/probes.cu
+    butterfly_keep)."""
+    return (n + 1) // 2
+
+
+def butterfly_schedule(n_values: int) -> list:
+    """Kernel 15a's reduce-scatter butterfly over the lanes' n_values
+    values, as csrc/probes.cu::butterfly_levels runs it: for each level
+    (offset, slots, kept), ``slots`` the values a lane holds before it (one
+    shuffle each for the first butterfly_keep(slots)) and ``kept[lane]`` the
+    values the lane holds after it, whose sums over the lanes so far it
+    carries: the lane with the offset's bit clear keeps the first
+    butterfly_keep(slots) of its slots, its partner the rest, and a slot
+    past the lane's values (an odd count's last, on the partner) is a spare.
+    After the last level every value is on one lane."""
+    first, end = [0] * 32, [n_values] * 32
+    slots, levels = n_values, []
+    for off in BUTTERFLY_OFFSETS:
+        keep = butterfly_keep(slots)
+        for lane in range(32):
+            if lane & off:
+                first[lane] += keep
+            else:
+                end[lane] = min(end[lane], first[lane] + keep)
+        levels.append((off, slots, [tuple(range(first[lane], end[lane]))
+                                    for lane in range(32)]))
+        slots = keep
+    return levels
+
+
 def swizzled_word(row, x):
     """Kernel 15c's stage layout, as its producers store: the 32-bit word of
     element (row, x) of a column block of 128-byte rows (x < 32 the pixel in
@@ -420,12 +485,24 @@ def _plain_with_steps(plain, plain_steps, n_k, n_blocks, device, steps):
     return out
 
 
-def moments_cuda_cores(device, n_k: int = N_K,
-                       n_blocks: int = 1) -> torch.Tensor:
-    """Kernel 15a: the production reduction on the CUDA cores."""
+def moments_cuda_cores(device, n_k: int = N_K, n_blocks: int = 1,
+                       steps: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel 15a: the production reduction on the CUDA cores, its lanes
+    reduced by a reduce-scatter butterfly over MOMENT_STEP_BATCH steps;
+    ``steps`` (n_k, 9), when given, receives each step's values
+    (``moments_vpu_plain_steps``)."""
     if _on_card(device):
-        return _moments_cuda("moments_cuda_cores", n_k, n_blocks, device)
-    return moments_vpu_plain(n_k, n_blocks, device)
+        return _moments_cuda("moments_cuda_cores", n_k, n_blocks, device,
+                             steps, VPU_VALUES)
+    return _plain_with_steps(moments_vpu_plain, moments_vpu_plain_steps, n_k,
+                             n_blocks, device, steps)
+
+
+def _moments_cuda_cores_tree_cuda(n_k: int, n_blocks: int, device):
+    """The reference (gs2d_moments_cuda_cores_tree, kernel 15a before the
+    butterfly: production's lane tree). For chip_smoke.py and the card
+    tests only."""
+    return _moments_cuda("moments_cuda_cores_tree", n_k, n_blocks, device)
 
 
 def moments_tensor_cores(device, n_k: int = N_K, n_blocks: int = 1,
@@ -492,28 +569,27 @@ MOMENT_PROBES = {
     "mxu2": ("moments_scratch_contraction", moments_scratch_contraction,
              moments_mxu2_plain),
 }
-# The tensor-core probes' references (the designs before wgmma), by kind:
-# (counter, launcher (n_k, n_blocks, device)).
+# The moment probes' references (15a's lane tree, held bit for bit; 15b's
+# and 15c's designs before wgmma), by kind: (counter, launcher (n_k,
+# n_blocks, device)).
 MOMENT_REFERENCES = {
+    "vpu": ("moments_cuda_cores_tree", _moments_cuda_cores_tree_cuda),
     "mxu": ("moments_tensor_cores_staged", _moments_tensor_cores_staged_cuda),
     "mxu2": ("moments_scratch_contraction_sync",
              _moments_scratch_contraction_sync_cuda),
 }
 # Their counters, which no script or path reaches.
 REFERENCE_COUNTERS = tuple(name for name, _ in MOMENT_REFERENCES.values())
-# Each tensor-core probe's per-step values: (width, plain (n_k, device,
+# Each moment probe's per-step values: (width, plain (n_k, device,
 # sizes=False)).
-MOMENT_STEPS = {"mxu": (MXU_SUMS, moments_mxu_plain_steps),
+MOMENT_STEPS = {"vpu": (VPU_VALUES, moments_vpu_plain_steps),
+                "mxu": (MXU_SUMS, moments_mxu_plain_steps),
                 "mxu2": (V_COLUMNS, moments_mxu2_plain_steps)}
 
 
-def fma_sass_counts() -> dict:
-    """{chains: {"FFMA": n, "FMUL": n, "FADD": n}} of kernel 14's compiled
-    code, from ``cuobjdump -sass`` (beside nvcc in the toolkit) on the built
-    library: the loop must be fused multiply-adds, since the library is
-    compiled with -fmad=false and a multiply and an add would read half the
-    peak."""
-    import re
+def _sass_functions() -> list:
+    """The built library's compiled functions, from ``cuobjdump -sass``
+    (beside nvcc in the toolkit): one text block each, its name first."""
     import subprocess
 
     from gs2d_tpu_torch.ops import _build
@@ -521,8 +597,18 @@ def fma_sass_counts() -> dict:
     tool = _build.toolkit_binary("cuobjdump")
     sass = subprocess.run([tool, "-sass", str(_build.build())],
                           capture_output=True, text=True, check=True).stdout
+    return sass.split("Function : ")[1:]
+
+
+def fma_sass_counts() -> dict:
+    """{chains: {"FFMA": n, "FMUL": n, "FADD": n}} of kernel 14's compiled
+    code: the loop must be fused multiply-adds, since the library is
+    compiled with -fmad=false and a multiply and an add would read half the
+    peak."""
+    import re
+
     counts = {}
-    for block in sass.split("Function : ")[1:]:
+    for block in _sass_functions():
         m = re.match(r"\S*fma_peak_kernelILi(\d+)E", block)
         if m:
             counts[int(m.group(1))] = {
@@ -531,3 +617,44 @@ def fma_sass_counts() -> dict:
     if not counts:
         raise RuntimeError("cuobjdump shows no fma_peak_kernel in the library")
     return dict(sorted(counts.items()))
+
+
+# FMULs of one step of 15a's body: 8 a pixel (z, z vy, z vy vy, z carry, z
+# vy carry, z z and the carry update's two), the step's z scale and
+# Moments::finish's 3. Nothing else in 15a or its reference multiplies.
+MOMENT_STEP_FMUL = 8 * 8 + 1 + 3
+# The shuffles of write_total's tree, once a kernel.
+WRITE_TOTAL_SHFL = 5
+
+
+def moments_sass_counts() -> dict:
+    """{"moments_cuda_cores" | "moments_cuda_cores_tree": {"SHFL", "FADD",
+    "FMUL", "SEL", "FSEL": n, "step_bodies": n, "shfl_per_step": x}} of
+    kernel 15a's and its reference's compiled code: static counts, so
+    however far the compiler unrolled the step loops, ``step_bodies`` =
+    FMUL / MOMENT_STEP_FMUL steps' bodies are in the code, and
+    ``shfl_per_step`` their shuffles, write_total's taken out, per body.
+    The butterfly: 12, 10 or 9.25 at G = 1, 2, 4 (the last round's
+    single steps beside a batch raise the mean over bodies). The tree's 45
+    compile to 30 on the H100's toolkit: the probe's z plane is the same in
+    every column, so r0, sum z carry and sum z z are the same on every lane
+    of a warp, and ptxas folds their shuffles; the butterfly's selects
+    depend on the lane, so it keeps all of its shuffles. Production's z
+    differs from pixel to pixel, and its tree keeps all 45."""
+    import re
+
+    counts = {}
+    for block in _sass_functions():
+        m = re.match(r"\S*?(moments_cuda_cores(?:_tree)?)_kernel", block)
+        if not m:
+            continue
+        c = {op: len(re.findall(rf"\b{op}\b", block))
+             for op in ("SHFL", "FADD", "FMUL", "SEL", "FSEL")}
+        c["step_bodies"] = c["FMUL"] / MOMENT_STEP_FMUL
+        c["shfl_per_step"] = (c["SHFL"] - WRITE_TOTAL_SHFL) / max(
+            c["step_bodies"], 1)
+        counts[m.group(1)] = c
+    if len(counts) != 2:
+        raise RuntimeError("cuobjdump shows no moments_cuda_cores kernel "
+                           "and reference in the library")
+    return counts

@@ -8,7 +8,9 @@ Times three standalone kernels that isolate just the reduction structure
 nothing folds), ``ops/probes.py``:
 
   vpu   -- the production reduction on the CUDA cores: per-thread row
-           chains, column monomials, warp tree, warps in index order.
+           chains, column monomials, the lanes reduced by a reduce-scatter
+           butterfly over four steps (bit for bit the production lane
+           tree), warps in index order.
   mxu   -- per step the product of z with the monomials on the tensor cores
            (wgmma, 3xTF32), z computed in the A fragments' registers (no
            shared plane, no barrier a step), then a small stage 2 on the

@@ -1,13 +1,16 @@
-"""Where the tensor-core moment probes 15b and 15c spend their time: each
-built again from ``csrc/probes.cu`` with one part of its work taken out, and
-timed beside the whole kernel on the card.
+"""Where the moment probes 15a, 15b and 15c spend their time: each built
+again from ``csrc/probes.cu`` with one part of its work taken out, and
+timed beside the whole kernel on the card; and 15a at each step batch G
+its butterfly may take.
 
     python -m gs2d_tpu_torch.scripts.probe_parts
 
-A part is taken out by removing its statements from a copy of the source
-(``PARTS``; the tests check that every statement is still in
-``csrc/probes.cu``). Such a variant computes wrong moments, so only its
-time is read: at the probe script's shape (K = 512 steps, one block per
+A part is taken out by removing its statements from a copy of the source,
+or by putting a cheaper one in their place (``PARTS``; the tests check that
+every statement is still in ``csrc/probes.cu``). Such a variant computes
+wrong moments, so only its time is read. 15a at another G
+(``BATCHES``, ``batch_source``) computes the same moments bit for bit,
+which is checked. At the probe script's shape (K = 512 steps, one block per
 SM), the device time of a call (``scripts/roofline.py::time_ms``), every
 variant and its whole kernel in turn, twice. A kernel takes the sum of its
 parts' times when they do not overlap, and its longest part's when they
@@ -17,10 +20,25 @@ do. Without a GPU it exits 2.
 from __future__ import annotations
 
 import argparse
+import re
 
-# (kernel, part taken out, the statements that do it); kernel "15b" is
-# gs2d_moments_tensor_cores, "15c" gs2d_moments_scratch_contraction.
+# (kernel, part taken out, the statements that do it: each removed, or a
+# pair (statement, what takes its place)); kernel "15a" is
+# gs2d_moments_cuda_cores, "15b" gs2d_moments_tensor_cores, "15c"
+# gs2d_moments_scratch_contraction.
 PARTS = (
+    # The values are added into the thread's sum instead (fold_into: one
+    # FADD a value), so the arithmetic that makes them stays: 15a's
+    # arithmetic and those adds.
+    ("15a", "its reduction over the lanes",
+     (("      butterfly_to_round(v, red_w + kk * kMoments);\n",
+       "      fold_into(v, acc);\n"),
+      ("      butterfly_to_round(t, red_w + kk * kMoments);\n",
+       "      fold_into(t, acc);\n"))),
+    # One warp's row is read where the sixteen were summed.
+    ("15a", "the round close's cross-warp sum",
+     (("close_round_steps<kMoments, kWarps>(",
+       "close_round_steps<kMoments, 1>("),)),
     ("15b", "its tensor-core products",
      ("        wgmma_m64n16k8_rs(d1[s], a_hi[s], b_desc[s], 0);\n",
       "        wgmma_m64n8k8_rs(d2[s], a_lo[s], b_desc[s], 0);\n")),
@@ -38,29 +56,60 @@ PARTS = (
      ("          b_hi[n * kBlockPx + sw[n & 7]] = hi;\n",
       "          b_lo[n * kBlockPx + sw[n & 7]] = lo;\n")),
 )
-ENTRY = {"15b": "gs2d_moments_tensor_cores",
+ENTRY = {"15a": "gs2d_moments_cuda_cores",
+         "15b": "gs2d_moments_tensor_cores",
          "15c": "gs2d_moments_scratch_contraction"}
+# The step batches G that 15a's butterfly may take: they divide kRound.
+BATCHES = (1, 2, 4)
+_BATCH_LINE = re.compile(r"constexpr int kStepBatch = (\d+);")
 
 
 def variant_source(source: str, statements) -> str:
-    """``source`` without ``statements`` (each must occur exactly once)."""
-    for text in statements:
+    """``source`` with ``statements`` taken out (each must occur exactly
+    once): a string is removed, a pair (statement, replacement) replaced."""
+    for item in statements:
+        text, new = (item, "") if isinstance(item, str) else item
         if source.count(text) != 1:
             raise ValueError(f"not once in csrc/probes.cu: {text!r}")
-        source = source.replace(text, "")
+        source = source.replace(text, new)
     return source
 
 
-def build_variants(out_dir):
-    """Compiles the whole source and every PARTS variant (one nvcc each, all
-    at once) into ``out_dir``; returns their library paths, whole first."""
+def source_batch(source: str) -> int:
+    """15a's step batch G in ``source`` (csrc/probes.cu kStepBatch)."""
+    found = _BATCH_LINE.findall(source)
+    if len(found) != 1:
+        raise ValueError("csrc/probes.cu sets kStepBatch not once")
+    return int(found[0])
+
+
+def batch_source(source: str, batch: int) -> str:
+    """``source`` with 15a's step batch set to ``batch``."""
+    source_batch(source)
+    return _BATCH_LINE.sub(f"constexpr int kStepBatch = {batch};", source)
+
+
+def variants(src: str) -> list:
+    """(kernel, label, source, exact) of every variant: the PARTS, then 15a
+    at each of BATCHES but the source's own (exact: its output must equal
+    the whole kernel's bit for bit)."""
+    own = source_batch(src)
+    return ([(kernel, f"without {part}", variant_source(src, stmts), False)
+             for kernel, part, stmts in PARTS]
+            + [("15a", f"at G = {g} (the source's G = {own})",
+                batch_source(src, g), True) for g in BATCHES if g != own])
+
+
+def build_variants(out_dir, sources):
+    """Compiles the whole source and ``sources`` (one nvcc each, all at
+    once) into ``out_dir``; returns their library paths, whole first."""
     import subprocess
 
     from gs2d_tpu_torch.ops import _build
 
     src = (_build.CSRC_DIR / "probes.cu").read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
-    sources = [src] + [variant_source(src, stmts) for _, _, stmts in PARTS]
+    sources = [src, *sources]
     libs, procs = [], []
     for i, text in enumerate(sources):
         cu, lib = out_dir / f"probes_{i}.cu", out_dir / f"probes_{i}.so"
@@ -99,10 +148,11 @@ def main(argv=None, log=print, reps: int = 20) -> int:
     device = torch.device("cuda")
     card = card_line(device)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    libs = build_variants(_build.BUILD_DIR / "probe_parts")
-    out = torch.empty((sms, TILE_W), dtype=torch.float32, device=device)
+    todo = variants((_build.CSRC_DIR / "probes.cu").read_text())
+    libs = build_variants(_build.BUILD_DIR / "probe_parts",
+                          [text for _, _, text, _ in todo])
 
-    def launcher(path, kernel):
+    def launcher(path, kernel, out):
         fn = getattr(ctypes.CDLL(str(path)), ENTRY[kernel])
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p]
@@ -116,14 +166,30 @@ def main(argv=None, log=print, reps: int = 20) -> int:
                                    f"{err}")
         return call
 
-    whole = {k: launcher(libs[0], k) for k in ENTRY}
-    log(f"parts of 15b and 15c: K = {N_K}, {sms} blocks, device ms a call "
-        f"[{card}]")
+    def output(call, out):
+        call()
+        torch.cuda.synchronize(device)
+        return out.clone()
+
+    outs = [torch.empty((sms, TILE_W), dtype=torch.float32, device=device)
+            for _ in range(2)]
+    whole = {k: launcher(libs[0], k, outs[0]) for k in ENTRY}
+    log(f"parts of 15a, 15b and 15c, 15a at other step batches: K = {N_K}, "
+        f"{sms} blocks, device ms a call [{card}]")
+    for (kernel, label, _, exact), lib in zip(todo, libs[1:]):
+        if exact:
+            want = output(whole[kernel], outs[0])
+            got = output(launcher(lib, kernel, outs[1]), outs[1])
+            if not torch.equal(got, want):
+                raise AssertionError(f"{kernel} {label} differs from the "
+                                     "whole kernel")
+            log(f"  {kernel} {label}: equal to the whole kernel bit for "
+                "bit")
     for rnd in range(2):
-        for (kernel, part, _), lib in zip(PARTS, libs[1:]):
+        for (kernel, label, _, _), lib in zip(todo, libs[1:]):
             ms_all = time_ms(whole[kernel], reps, device)
-            ms_part = time_ms(launcher(lib, kernel), reps, device)
-            log(f"  {kernel} without {part}: {ms_part:.4f} ms (whole "
+            ms_part = time_ms(launcher(lib, kernel, outs[1]), reps, device)
+            log(f"  {kernel} {label}: {ms_part:.4f} ms (whole "
                 f"{ms_all:.4f} ms; round {rnd + 1}) [{card}]")
     return 0
 

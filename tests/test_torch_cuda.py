@@ -1004,8 +1004,8 @@ def test_fma_peak_refuses_bad_shapes(dev):
 
 def _moment_launcher(kind):
     """(counter, launch (dev, n_k, n_blocks), plain) of a moment probe, or
-    of a tensor-core probe's reference ("mxu staged", "mxu2 sync": the
-    designs 15b and 15c had before wgmma)."""
+    of its reference ("vpu tree": 15a's lane tree; "mxu staged", "mxu2
+    sync": the designs 15b and 15c had before wgmma)."""
     base, _, ref = kind.partition(" ")
     name, fn, plain = probes.MOMENT_PROBES[base]
     if not ref:
@@ -1018,10 +1018,11 @@ def _moment_launcher(kind):
 
 @pytest.mark.parametrize("kind,rtol", [("vpu", 1e-4), ("mxu", 1e-5),
                                        ("mxu2", 1e-5), ("mxu staged", 1e-5),
-                                       ("mxu2 sync", 1e-5)])
+                                       ("mxu2 sync", 1e-5),
+                                       ("vpu tree", 1e-4)])
 @pytest.mark.parametrize("n_k,n_blocks", [(64, 1), (512, 3)])
 def test_moment_probes_match_plain(dev, kind, rtol, n_k, n_blocks):
-    """Kernels 15a-c and the references of 15b and 15c against their plain
+    """Kernels 15a-c and their references against their plain
     versions: the moments' sum-order class for the CUDA-core reduction,
     what 3xTF32 keeps for the tensor-core forms, each output against the
     size of its terms (probes.moments_output_sizes: 15c's columns cycle
@@ -1040,13 +1041,22 @@ def test_moment_probes_match_plain(dev, kind, rtol, n_k, n_blocks):
     assert probes.launches[name] == before + 2
 
 
-@pytest.mark.parametrize("kind", ["mxu", "mxu2"])
+# Each redesign against its reference and its per-step values against the
+# plain steps, of their terms' size: 15a's butterfly adds the lane tree's
+# operands (bit for bit) and its steps differ from the plain ones by the
+# moments' sum order; 15b and 15c keep what 3xTF32 keeps.
+REDESIGN_RTOL = {"vpu": 0.0, "mxu": 1e-5, "mxu2": 1e-5}
+STEPS_RTOL = {"vpu": 1e-4, "mxu": 1e-5, "mxu2": 1e-5}
+
+
+@pytest.mark.parametrize("kind", ["mxu", "mxu2", "vpu"])
 @pytest.mark.parametrize("n_k,n_blocks", [(64, 1), (136, 2), (512, 132)])
 def test_moment_probe_redesigns_match_their_references(dev, kind, n_k,
                                                        n_blocks):
-    """15b and 15c against the designs they had before wgmma, in one call,
-    within what 3xTF32 keeps of the outputs' terms' size (136: 15c's last
-    batch of 64 planes holds 8, 15b's last round of 32 steps 8)."""
+    """15a against its lane tree bit for bit, 15b and 15c against the
+    designs they had before wgmma within what 3xTF32 keeps of the outputs'
+    terms' size, in one call (136: 15c's last batch of 64 planes holds 8,
+    15b's and 15a's last round of 32 steps 8)."""
     name, fn, plain = probes.MOMENT_PROBES[kind]
     _, launch = probes.MOMENT_REFERENCES[kind]
     got = fn(dev, n_k=n_k, n_blocks=n_blocks)
@@ -1054,16 +1064,29 @@ def test_moment_probe_redesigns_match_their_references(dev, kind, n_k,
     want = plain(n_k, n_blocks, dev)
     torch.cuda.synchronize()
     sizes = probes.moments_output_sizes(kind, want, n_k)
-    assert ((got - old).abs() <= 1e-5 * sizes).all()
-    assert ((got - want).abs() <= 1e-5 * sizes).all()
+    if REDESIGN_RTOL[kind] == 0:
+        assert torch.equal(got, old)
+    assert ((got - old).abs() <= REDESIGN_RTOL[kind] * sizes).all()
+    assert ((got - want).abs() <= STEPS_RTOL[kind] * sizes).all()
 
 
-@pytest.mark.parametrize("kind", ["mxu", "mxu2"])
+@pytest.mark.parametrize("n_k", [35, 67])
+def test_cuda_cores_butterfly_takes_a_short_last_round(dev, n_k):
+    """A last round whose steps are no whole number of batches (3 steps):
+    15a reduces them one at a time, still the lane tree's bits."""
+    got = probes.moments_cuda_cores(dev, n_k=n_k, n_blocks=2)
+    old = probes._moments_cuda_cores_tree_cuda(n_k, 2, dev)
+    torch.cuda.synchronize()
+    assert torch.equal(got, old)
+
+
+@pytest.mark.parametrize("kind", ["mxu", "mxu2", "vpu"])
 @pytest.mark.parametrize("n_k", [64, 136, 512])
 def test_moment_probe_steps_match_the_plain_steps(dev, kind, n_k):
-    """Each step's values, which 15b and 15c form a step at a time and
-    write when given a tensor: (n_k, 5) and (n_k, 9), within what 3xTF32
-    keeps of their terms' size; the output is the one without steps."""
+    """Each step's values, which 15a, 15b and 15c form a step at a time
+    and write when given a tensor: (n_k, 9), (n_k, 5) and (n_k, 9), within
+    STEPS_RTOL of their terms' size; the output is the one without
+    steps."""
     name, fn, _ = probes.MOMENT_PROBES[kind]
     width, plain_steps = probes.MOMENT_STEPS[kind]
     steps = torch.full((n_k, width), float("nan"), device=dev)
@@ -1073,11 +1096,36 @@ def test_moment_probe_steps_match_the_plain_steps(dev, kind, n_k):
     sizes = plain_steps(n_k, dev, sizes=True).clamp(min=1.0)
     torch.cuda.synchronize()
     assert torch.isfinite(steps).all()
-    assert ((steps - want).abs() <= 1e-5 * sizes).all()
+    assert ((steps - want).abs() <= STEPS_RTOL[kind] * sizes).all()
     assert torch.equal(got, bare)
 
 
+def test_cuda_cores_sass_shuffles_a_step(dev):
+    """15a's compiled code issues at most 12 shuffles a step (the
+    butterfly: 12, 10 or 9.25 at G = 1, 2, 4), fewer than its reference,
+    the lane tree: 45 in the source, 30 where ptxas folds the shuffles of
+    the three values that are the same on every lane (the probe's z plane
+    is the same in every column; ops/probes.py::moments_sass_counts). Both
+    bodies hold whole steps of FMULs, none fused."""
+    sass = probes.moments_sass_counts()
+    new, old = sass["moments_cuda_cores"], sass["moments_cuda_cores_tree"]
+    for c in (new, old):
+        assert c["step_bodies"] >= 1
+        assert c["step_bodies"] == int(c["step_bodies"])
+    assert 30 <= old["shfl_per_step"] <= 45
+    assert new["shfl_per_step"] <= 12 < old["shfl_per_step"]
+
+
 def test_moment_probe_steps_refuse_other_tensors(dev):
+    with pytest.raises(ValueError):
+        probes.moments_cuda_cores(dev, n_k=64,
+                                  steps=torch.empty(64, 5, device=dev))
+    with pytest.raises(ValueError):
+        probes.moments_cuda_cores(dev, n_k=64, steps=torch.empty(64, 9))
+    with pytest.raises(ValueError):
+        probes.moments_cuda_cores(
+            dev, n_k=64, steps=torch.empty(64, 9, device=dev,
+                                           dtype=torch.float64))
     with pytest.raises(ValueError):
         probes.moments_tensor_cores(dev, n_k=64,
                                     steps=torch.empty(64, 9, device=dev))

@@ -305,7 +305,8 @@ def test_cpu_wrappers_fill_the_steps_with_the_plain_steps(kind, width):
 
 def test_reference_launchers_are_counted_apart():
     assert set(probes.REFERENCE_COUNTERS) == {
-        "moments_tensor_cores_staged", "moments_scratch_contraction_sync"}
+        "moments_cuda_cores_tree", "moments_tensor_cores_staged",
+        "moments_scratch_contraction_sync"}
     assert set(probes.REFERENCE_COUNTERS) <= set(probes.launches)
     assert not set(probes.REFERENCE_COUNTERS) & {
         name for name, _, _ in probes.MOMENT_PROBES.values()}
