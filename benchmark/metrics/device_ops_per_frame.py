@@ -1,0 +1,8 @@
+"""Device operations (kernels, copies, memsets) in the traced span, over its
+frames."""
+
+from lib import spanstats
+
+
+def read(ctx):
+    return spanstats.ops_per_unit(ctx)
