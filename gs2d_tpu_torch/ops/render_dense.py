@@ -51,6 +51,7 @@ from gs2d_tpu_torch.ops import render_resident as rr
 from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.ops._build import check, library, on_card, stream
 from gs2d_tpu_torch.params import GaussianParams
+from gs2d_tpu_torch.utils.profiling import span
 
 # Kernel launch counts since the last reset_launch_counts().
 launches = {"l2_dense": 0, "fwd_dense": 0, "bwd_dense": 0, "fwd_chunk": 0,
@@ -469,6 +470,7 @@ def render_dense(params: GaussianParams, cfg: SplatConfig,
     """Forward render of a population through kernels 6/7 (the dense
     branch of gs2d_tpu's production_render): (color (H, W, 3),
     n_dropped)."""
-    binning = tl.bin_splats(params, cfg, max_per_tile)
-    color, _ = forward_tiled(binning, cfg)
-    return color, binning.n_dropped
+    with span("gs2d.render"):
+        binning = tl.bin_splats(params, cfg, max_per_tile)
+        color, _ = forward_tiled(binning, cfg)
+        return color, binning.n_dropped

@@ -44,6 +44,7 @@ from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.ops import tiles_flat as tlf
 from gs2d_tpu_torch.ops._build import check, library, on_card, stream
 from gs2d_tpu_torch.params import FIELDS, GaussianParams
+from gs2d_tpu_torch.utils.profiling import span
 
 # Kernel launch counts since the last reset_launch_counts().
 launches = {"fwd_flat": 0, "bwd_flat": 0}
@@ -197,13 +198,14 @@ def _fwd_flat_cuda(rows, start, count, cfg: SplatConfig, kc: int,
     hp, wp = gy * cfg.tile_h, cfg.padded_width
     color = torch.empty((3, hp, wp), dtype=torch.float32, device=rows.device)
     trans = torch.empty((hp, wp), dtype=torch.float32, device=rows.device)
-    err = lib.gs2d_fwd_flat(
-        rows.data_ptr(), start.data_ptr(), count.data_ptr(),
-        color.data_ptr(), trans.data_ptr(),
-        rr._walked_ptr(walked, cfg, rows.device, gy), cfg.height, cfg.width,
-        cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, gy, row_off, kc,
-        max_chunks, cfg.cutoff_sq, cfg.min_throughput,
-        int(cfg.use_exp_approx), stream(rows))
+    walked_ptr = rr._walked_ptr(walked, cfg, rows.device, gy)
+    with span("gs2d.fwd_flat"):
+        err = lib.gs2d_fwd_flat(
+            rows.data_ptr(), start.data_ptr(), count.data_ptr(),
+            color.data_ptr(), trans.data_ptr(), walked_ptr, cfg.height,
+            cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, gy, row_off,
+            kc, max_chunks, cfg.cutoff_sq, cfg.min_throughput,
+            int(cfg.use_exp_approx), stream(rows))
     check(err, "fwd_flat kernel launch")
     launches["fwd_flat"] += 1
     return color, trans
@@ -278,9 +280,12 @@ def _bwd_flat_cuda(rows, ids, start, count, fin, gc, cin, tin,
 
 def _forward_chw(binning: tlf.FlatBinning, cfg: SplatConfig, kc: int,
                  max_chunks: int, band_row0: int = 0, band_rows=None):
-    fn = _fwd_flat_cuda if on_card(binning.rows) else _fwd_flat_plain
-    return fn(binning.rows, binning.start, binning.count, cfg, kc, max_chunks,
-              band_row0=band_row0, band_rows=band_rows)
+    args = (binning.rows, binning.start, binning.count, cfg, kc, max_chunks)
+    band = dict(band_row0=band_row0, band_rows=band_rows)
+    if on_card(binning.rows):
+        return _fwd_flat_cuda(*args, **band)  # the launch is gs2d.fwd_flat
+    with span("gs2d.fwd_flat"):
+        return _fwd_flat_plain(*args, **band)
 
 
 def _backward_chw(binning: tlf.FlatBinning, fin, gc, cin, tin,
@@ -365,14 +370,15 @@ def l2_step_flat(params: GaussianParams, ref_chw: torch.Tensor,
 def render_flat(params: GaussianParams, cfg: SplatConfig):
     """Forward render of a population through kernel 10 (the flat branch of
     gs2d_tpu's production_render): (color (H, W, 3), n_dropped)."""
-    if params.n != cfg.n_splats:
-        raise ValueError(f"params hold {params.n} splats, cfg says "
-                         f"{cfg.n_splats}")
-    m_cap, kc, max_chunks = _statics(cfg)
-    binning = tlf.bin_splats_flat(params, cfg, m_cap, kc=kc,
-                                  max_chunks=max_chunks)
-    color, _ = forward_flat(binning, cfg, kc, max_chunks)
-    return color[: cfg.height, : cfg.width], binning.n_dropped
+    with span("gs2d.render"):
+        if params.n != cfg.n_splats:
+            raise ValueError(f"params hold {params.n} splats, cfg says "
+                             f"{cfg.n_splats}")
+        m_cap, kc, max_chunks = _statics(cfg)
+        binning = tlf.bin_splats_flat(params, cfg, m_cap, kc=kc,
+                                      max_chunks=max_chunks)
+        color, _ = forward_flat(binning, cfg, kc, max_chunks)
+        return color[: cfg.height, : cfg.width], binning.n_dropped
 
 
 # ---------------------------------------------------------------------------

@@ -43,6 +43,7 @@ from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.ops._build import check, library, on_card, stream
 from gs2d_tpu_torch.ops.numerics import trunc_to_int
 from gs2d_tpu_torch.params import GaussianParams
+from gs2d_tpu_torch.utils.profiling import span
 
 # Kernel launch counts since the last reset_launch_counts().
 launches = {"l2_resident": 0, "fwd_resident": 0, "bwd_resident": 0}
@@ -582,10 +583,11 @@ def render_resident(params: GaussianParams, cfg: SplatConfig,
                     max_per_tile: int):
     """Forward render of a population through kernel 2 (the resident branch
     of gs2d_tpu's production_render): (color (H, W, 3), n_dropped)."""
-    binning = tl.bin_splats(params, cfg, max_per_tile, ids_only=True)
-    color, _ = forward_resident(binning, resident_table(params, cfg),
-                                params.n, cfg)
-    return color, binning.n_dropped
+    with span("gs2d.render"):
+        binning = tl.bin_splats(params, cfg, max_per_tile, ids_only=True)
+        color, _ = forward_resident(binning, resident_table(params, cfg),
+                                    params.n, cfg)
+        return color, binning.n_dropped
 
 
 def l2_step_resident(params: GaussianParams, ref_chw: torch.Tensor,

@@ -33,6 +33,7 @@ import torch
 from gs2d_tpu_torch.config import SplatConfig
 from gs2d_tpu_torch.ops import tiles as tl
 from gs2d_tpu_torch.params import GaussianParams
+from gs2d_tpu_torch.utils.profiling import span
 
 
 class FlatBinning(NamedTuple):
@@ -101,89 +102,93 @@ def bin_splats_flat(
     for ``rows`` (the lazy-rebinning cache pregathers them every step).
     ``margin`` widens every footprint by that many pixels, and the band
     arguments bin one band of tile rows, as in ``tiles.bin_splats``."""
-    if m_cap % kc:
-        raise ValueError(f"m_cap {m_cap} must be a multiple of kc {kc}")
-    if max_chunks is None:
-        max_chunks = m_cap // kc
-    dev = p.device
-    i32 = torch.int32
+    with span("gs2d.bin_flat"):
+        if m_cap % kc:
+            raise ValueError(f"m_cap {m_cap} must be a multiple of kc {kc}")
+        if max_chunks is None:
+            max_chunks = m_cap // kc
+        dev = p.device
+        i32 = torch.int32
 
-    # --- exact-count pair expansion -----------------------------------------
-    (tx0, tx1, ty0, ty1, offscreen), (qpx, qpy, qa, qb, qd, qk2) = \
-        tl._bbox_and_quad(p, cfg, margin)
-    if band_rows is None:
-        band_rows, band_row0 = cfg.n_tiles_y, 0
-    else:
-        ty0, ty1, offscreen = tl._band_clip(ty0, ty1, offscreen, band_row0,
-                                            band_rows)
-    n_tiles = band_rows * cfg.n_tiles_x
-    w_t = (tx1 - tx0 + 1).to(i32)
-    cnt = torch.where(offscreen, 0, w_t * (ty1 - ty0 + 1)).to(i32)
-    starts = (torch.cumsum(cnt, 0, dtype=i32) - cnt)  # exclusive, (n,)
-    total = starts[-1] + cnt[-1]
-    dropped_exp = (total - m_cap).clamp(min=0)
+        with span("gs2d.bin_flat.expand"):   # exact-count pair expansion
+            (tx0, tx1, ty0, ty1, offscreen), (qpx, qpy, qa, qb, qd, qk2) = \
+                tl._bbox_and_quad(p, cfg, margin)
+            if band_rows is None:
+                band_rows, band_row0 = cfg.n_tiles_y, 0
+            else:
+                ty0, ty1, offscreen = tl._band_clip(ty0, ty1, offscreen,
+                                                    band_row0, band_rows)
+            n_tiles = band_rows * cfg.n_tiles_x
+            w_t = (tx1 - tx0 + 1).to(i32)
+            cnt = torch.where(offscreen, 0, w_t * (ty1 - ty0 + 1)).to(i32)
+            starts = (torch.cumsum(cnt, 0, dtype=i32) - cnt)  # exclusive
+            total = starts[-1] + cnt[-1]
+            dropped_exp = (total - m_cap).clamp(min=0)
 
-    e = torch.arange(m_cap, dtype=i32, device=dev)
-    live_e = e < total
-    # Owner of expansion row e: the number of later run starts at or before
-    # e (the cumsum of the run-start indicator; coincident starts of empty
-    # splats telescope, so empty runs are skipped).
-    owner = torch.searchsorted(starts[1:].contiguous(), e, right=True)
-    bits = lambda v: v.to(torch.float32).view(i32)
-    chans = [starts, w_t, ty0.to(i32), tx0.to(i32)]
-    if cfg.exact_cull:
-        chans += [bits(qpx), bits(qpy), bits(qa), bits(qb), bits(qd)]
-        if qk2 is not None:
-            chans.append(bits(qk2))
-    ch = torch.stack(chans, dim=1)[owner]             # one (E, C) row gather
+            e = torch.arange(m_cap, dtype=i32, device=dev)
+            live_e = e < total
+            # Owner of expansion row e: the number of later run starts at or
+            # before e (the cumsum of the run-start indicator; coincident
+            # starts of empty splats telescope, so empty runs are skipped).
+            owner = torch.searchsorted(starts[1:].contiguous(), e, right=True)
+            bits = lambda v: v.to(torch.float32).view(i32)
+            chans = [starts, w_t, ty0.to(i32), tx0.to(i32)]
+            if cfg.exact_cull:
+                chans += [bits(qpx), bits(qpy), bits(qa), bits(qb), bits(qd)]
+                if qk2 is not None:
+                    chans.append(bits(qk2))
+            ch = torch.stack(chans, dim=1)[owner]     # one (E, C) row gather
 
-    rank = e - ch[:, 0]
-    wb = ch[:, 1].clamp(min=1)
-    ly = torch.div(rank, wb, rounding_mode="floor")
-    ty_e = ch[:, 2] + ly
-    tx_e = ch[:, 3] + (rank - ly * wb)
-    tile_e = ty_e * cfg.n_tiles_x + tx_e
-    if cfg.exact_cull:
-        fc = lambda i: ch[:, i].view(torch.float32)
-        live_e = live_e & tl.tile_may_touch(
-            fc(4), fc(5), fc(6), fc(7), fc(8), tx_e, ty_e + band_row0, cfg,
-            margin, k2=fc(9) if qk2 is not None else None)
-    tile_e = torch.where(live_e, tile_e, n_tiles)     # dead rows sort last
-    splat_e = torch.where(live_e, owner.to(i32), -1)
+            rank = e - ch[:, 0]
+            wb = ch[:, 1].clamp(min=1)
+            ly = torch.div(rank, wb, rounding_mode="floor")
+            ty_e = ch[:, 2] + ly
+            tx_e = ch[:, 3] + (rank - ly * wb)
+            tile_e = ty_e * cfg.n_tiles_x + tx_e
+            if cfg.exact_cull:
+                fc = lambda i: ch[:, i].view(torch.float32)
+                live_e = live_e & tl.tile_may_touch(
+                    fc(4), fc(5), fc(6), fc(7), fc(8), tx_e,
+                    ty_e + band_row0, cfg, margin,
+                    k2=fc(9) if qk2 is not None else None)
+            tile_e = torch.where(live_e, tile_e, n_tiles)  # dead rows last
+            splat_e = torch.where(live_e, owner.to(i32), -1)
 
-    # --- one stable sort by tile id -----------------------------------------
-    sorted_tile, perm = torch.sort(tile_e, stable=True)
-    sorted_id = splat_e[perm]
-    tiles_iota = torch.arange(n_tiles, dtype=i32, device=dev)
-    run_start = torch.searchsorted(sorted_tile, tiles_iota,
-                                   side="left").to(i32)
-    count_all = torch.searchsorted(sorted_tile, tiles_iota,
-                                   side="right").to(i32) - run_start
+        with span("gs2d.bin_flat.sort"):     # one stable sort by tile id
+            sorted_tile, perm = torch.sort(tile_e, stable=True)
+            sorted_id = splat_e[perm]
+            tiles_iota = torch.arange(n_tiles, dtype=i32, device=dev)
+            run_start = torch.searchsorted(sorted_tile, tiles_iota,
+                                           side="left").to(i32)
+            count_all = torch.searchsorted(sorted_tile, tiles_iota,
+                                           side="right").to(i32) - run_start
 
-    # --- block-aligned flat run layout --------------------------------------
-    count = count_all.clamp(max=max_chunks * kc)
-    dropped_chunks = (count_all - count).sum()
-    blocks = torch.div(count + (kc - 1), kc, rounding_mode="floor")
-    start_raw = (torch.cumsum(blocks, 0, dtype=i32) - blocks) * kc
-    # Tiles whose run would spill past the capacity are dropped whole
-    # (counted); their start is clamped to m_cap.
-    fits = start_raw + blocks * kc <= m_cap
-    dropped_cap = torch.where(fits, 0, count).sum()
-    count = torch.where(fits, count, 0).to(i32)
-    start = start_raw.clamp(max=m_cap).to(i32)
+        with span("gs2d.bin_flat.layout"):   # block-aligned flat run layout
+            count = count_all.clamp(max=max_chunks * kc)
+            dropped_chunks = (count_all - count).sum()
+            blocks = torch.div(count + (kc - 1), kc, rounding_mode="floor")
+            start_raw = (torch.cumsum(blocks, 0, dtype=i32) - blocks) * kc
+            # Tiles whose run would spill past the capacity are dropped whole
+            # (counted); their start is clamped to m_cap.
+            fits = start_raw + blocks * kc <= m_cap
+            dropped_cap = torch.where(fits, 0, count).sum()
+            count = torch.where(fits, count, 0).to(i32)
+            start = start_raw.clamp(max=m_cap).to(i32)
 
-    # --- scatter sorted rows to their block-aligned flat positions ----------
-    tch = torch.stack([run_start, count, start], dim=1)[
-        sorted_tile.clamp(max=n_tiles - 1)]
-    rank_t = e - tch[:, 0]
-    valid = (sorted_tile < n_tiles) & (rank_t < tch[:, 1])
-    dest = torch.where(valid, tch[:, 2] + rank_t, m_cap).long()
-    ids = torch.full((m_cap + 1,), -1, dtype=i32, device=dev)
-    ids[dest] = sorted_id          # unique destinations but the trash row
-    ids = ids[:m_cap]
+            # Scatter the sorted rows to their block-aligned flat positions.
+            tch = torch.stack([run_start, count, start], dim=1)[
+                sorted_tile.clamp(max=n_tiles - 1)]
+            rank_t = e - tch[:, 0]
+            valid = (sorted_tile < n_tiles) & (rank_t < tch[:, 1])
+            dest = torch.where(valid, tch[:, 2] + rank_t, m_cap).long()
+            ids = torch.full((m_cap + 1,), -1, dtype=i32, device=dev)
+            ids[dest] = sorted_id      # unique destinations but the trash row
+            ids = ids[:m_cap]
 
-    rows = (torch.zeros((1, tl.N_FIELDS), dtype=torch.float32, device=dev)
-            if ids_only else pregather_rows(ids, p, cfg))
-    return FlatBinning(
-        ids=ids, rows=rows, start=start, count=count,
-        n_dropped=(dropped_exp + dropped_chunks + dropped_cap).to(i32))
+        with span("gs2d.bin_flat.pregather"):
+            rows = (torch.zeros((1, tl.N_FIELDS), dtype=torch.float32,
+                                device=dev)
+                    if ids_only else pregather_rows(ids, p, cfg))
+        return FlatBinning(
+            ids=ids, rows=rows, start=start, count=count,
+            n_dropped=(dropped_exp + dropped_chunks + dropped_cap).to(i32))

@@ -1,9 +1,8 @@
 """Tracing / profiling / observability (the counterpart of
 ``gs2d_tpu/utils/profiling.py``):
 
-- ``sync``: wait for the device a tensor lies on (nothing on the CPU)
-- ``PhaseTimer``: wall-clock phase timing with device sync, so numbers mean
-  what they say under asynchronous launches
+- ``span``: a named host range of the program in torch.profiler's trace
+  (free while no profiler records)
 - ``timed_call``, ``cuda_ms``: time of a call from CUDA events (device
   time only while the launches queue faster than the device runs them)
 - ``device_time``: device time of a call from a CUDA-graph replay, beside
@@ -21,74 +20,36 @@ import contextlib
 import json
 import os
 import time
-from collections import defaultdict
 from typing import Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
 
 
-def _first_tensor(tree):
-    if isinstance(tree, torch.Tensor):
-        return tree
-    if isinstance(tree, dict):
-        tree = tree.values()
-    elif hasattr(tree, "__dict__") and not isinstance(tree, type):
-        tree = vars(tree).values()
-    if isinstance(tree, (str, bytes)) or not hasattr(tree, "__iter__"):
-        return None
-    for item in tree:
-        found = _first_tensor(item)
-        if found is not None:
-            return found
-    return None
+# One null context for every span while no profiler records.
+_OFF = contextlib.nullcontext()
 
 
-def sync(tree=None):
-    """Wait until the device of the first tensor in ``tree`` (a tensor, or a
-    nesting of tuples, lists, dicts and dataclasses of them) has finished
-    its queued work: ``torch.cuda.synchronize`` for a CUDA tensor, nothing
-    for a CPU tensor or no tensor."""
-    x = _first_tensor(tree)
-    if x is not None and x.is_cuda:
-        torch.cuda.synchronize(x.device)
+def span(name: str):
+    """A named host range of the program in torch.profiler's own trace, for
+    ``with span("gs2d.<layer>.<stage>"):`` around a stage of work. The range
+    is recorded with the trace's clock, so the device operations enqueued
+    while it is open can be laid beside it; its parent is the range that
+    encloses it on the same thread. Names start with ``gs2d.``, and a
+    child's name starts with its parent's.
 
-
-class PhaseTimer:
-    """Accumulating wall-clock timer keyed by phase name."""
-
-    def __init__(self):
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
-
-    @contextlib.contextmanager
-    def phase(self, name: str, result=None):
-        t0 = time.perf_counter()
-        yield
-        sync(result)
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
-
-    def time(self, name: str, fn, *args, **kw):
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        sync(out)
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
-        return out
-
-    def summary(self) -> dict:
-        return {
-            name: {
-                "total_s": self.totals[name],
-                "count": self.counts[name],
-                "mean_ms": 1e3 * self.totals[name] / max(self.counts[name], 1),
-            }
-            for name in self.totals
-        }
-
-    def report(self, log=print):
-        for name, s in sorted(self.summary().items()):
-            log(f"{name:24s} {s['mean_ms']:9.3f} ms/call  x{s['count']}")
+    While no profiler records it costs one check and returns a shared null
+    context: no device work, no synchronisation, no host read. Recording, it
+    is a FUNCTION-scope ``RecordFunction`` (``_RecordFunctionFast``): a host
+    event and nothing on the device. ``torch.profiler.record_function``
+    (and an NVTX range) is not used: it opens a user annotation, which the
+    profiler also projects onto the device timeline as a CUDA event
+    (``gpu_user_annotation``), and a reader that counts the trace's device
+    operations, or their busy time, would count the range as one."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _RecordFunctionFast(name)
 
 
 def timed_call(fn, reps: int = 1):

@@ -977,6 +977,50 @@ def test_device_time_is_the_kernels_time(dev):
     assert t["events"] >= 0.95 * t["device"]
 
 
+# The runtime calls that put the render path's work on the device, as the
+# card's trace names them (benchmark/lib/spans.py matches them to device
+# operations).
+ENQUEUE = {"cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync"}
+
+
+def test_traced_flat_render_spans_are_host_ranges_only(dev):
+    """utils/profiling.py::span on the card: a traced render_flat holds its
+    ranges as host events and no device event named gs2d.* (a user
+    annotation would be one), and the enqueueing calls made inside
+    gs2d.render are as many as the render's device operations (which
+    benchmark/lib/spans.py pairs in order). No check by time: in some
+    sessions the profiler's device timestamps sit up to a fraction of a
+    millisecond before their calls' host timestamps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    p, _ = flat_params(dev, 31, 300)
+    cfg = rf.tune_flat_config(p, SplatConfig(
+        width=W, height=H, n_splats=300, tile_h=32, binning="flat"))
+    want = rf.render_flat(p, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = rf.render_flat(p, cfg)
+        torch.cuda.synchronize()
+    assert torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
+    events = [(e.name(), e.device_type() == DeviceType.CUDA, e.start_ns(),
+               e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()]
+    assert not [n for n, on_dev, _, _ in events
+                if on_dev and n.startswith("gs2d.")]
+    renders = [(s, e) for n, on_dev, s, e in events
+               if not on_dev and n == "gs2d.render"]
+    assert len(renders) == 1
+    lo, hi = renders[0]
+    names = {n for n, on_dev, _, _ in events if not on_dev}
+    assert {"gs2d.bin_flat", "gs2d.fwd_flat"} <= names
+    calls = [s for n, on_dev, s, _ in events
+             if not on_dev and n in ENQUEUE and lo <= s < hi]
+    ops = [s for _, on_dev, s, _ in events if on_dev]
+    assert calls and len(calls) == len(ops)
+
+
 @pytest.mark.parametrize("chains", [1, 2, 4, 8, 16, 32])
 def test_fma_peak_matches_plain_and_is_fused(dev, chains):
     """Kernel 14: every thread's sum equals the plain version's (each step
