@@ -949,6 +949,96 @@ BWD_RESIDENT_PARTS = ("bwd_resident_kernel", "patch_sum_kernel")
 BWD_DENSE_PARTS = ("bwd_dense_kernel", "patch_sum_kernel")
 
 
+def hd_population(dev, seed: int, n: int = 1 << 20, size=(1080, 1920)):
+    """A 1080p population as the hd-1m render cell draws it (positions over
+    the image, sigma 6-10, rotation in [0, pi), colours in [0, 1], opacity
+    1) and its statics as the CLI's auto path tunes them."""
+    from gs2d_tpu_torch.config import SplatConfig
+    from gs2d_tpu_torch.ops import render_flat as rf
+    from gs2d_tpu_torch.ops import tiles as tl
+    from gs2d_tpu_torch.params import GaussianParams
+
+    h, w = size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    u = torch.rand((5, n), generator=gen, device=dev)
+    p = GaussianParams(
+        pos=torch.stack([u[0] * (w - 1), u[1] * (h - 1)], -1),
+        sx=6.0 + 4.0 * u[2], sy=6.0 + 4.0 * u[3], rot=np.pi * u[4],
+        color=torch.rand((n, 3), generator=gen, device=dev),
+        opacity=torch.ones((n,), device=dev))
+    cfg = tl.tune_tile_height(SplatConfig(width=w, height=h, n_splats=n), p)
+    return p, rf.tune_flat_config(p, cfg)
+
+
+def expand_phase(dev, smi: str) -> dict:
+    """The flat binning's expansion kernels (csrc/tiles_flat.cu) against
+    their plain twin at 1080p/1M, three populations: tile_e, splat_e and
+    dropped_exp integer-equal, the whole FlatBinning equal (rows bit for
+    bit), render_flat's frame bit for bit; then the expansion's device time
+    (utils/profiling.py::device_time), kernels against the plain stage, and
+    its share of a bytes bound (the splats' positions, scales and
+    rotations read once, 20 bytes a splat, and tile_e and splat_e written
+    once, 8 bytes a row, over HBM_RATE). Returns expand_flat's KERNELS
+    entry: {ms, device, plain_ms (the plain stage's device time on the
+    card), bound_ms, bound_by}."""
+    from gs2d_tpu_torch.ops import render_flat as rf
+    from gs2d_tpu_torch.ops import tiles_flat as tlf
+
+    t_phase = time.perf_counter()
+    log("[expand] the flat binning's expansion kernels vs the plain twin, "
+        "1080p/1M populations (hd-1m's draw)")
+    for seed in (0, 1, 2):
+        p, cfg = hd_population(dev, 2300 + seed)
+        m_cap, kc, mc = rf._statics(cfg)
+        got = tlf._expand_cuda(p, cfg, m_cap)
+        want = tlf._expand_plain(p, cfg, m_cap)
+        for g, w_, name in zip(got, want,
+                               ("tile_e", "splat_e", "dropped_exp")):
+            if not torch.equal(g, w_):
+                raise AssertionError(f"expansion seed {seed}: {name} "
+                                     "differs from the plain twin's")
+        reset_counts()
+        b_k = tlf.bin_splats_flat(p, cfg, m_cap, kc=kc, max_chunks=mc)
+        frame_k, _ = rf.render_flat(p, cfg)
+        expect_launches(f"expansion seed {seed}, the kernels' binning and "
+                        "render", read_counts(),
+                        {"expand_flat": 2, "fwd_flat": 1})
+        reset_counts()
+        with plain_versions(("tiles_flat",)):
+            b_p = tlf.bin_splats_flat(p, cfg, m_cap, kc=kc, max_chunks=mc)
+            frame_p, _ = rf.render_flat(p, cfg)
+        expect_launches(f"expansion seed {seed}, the plain expansion's "
+                        "binning and render", read_counts(), {"fwd_flat": 1})
+        for f in tlf.FlatBinning._fields:
+            if not same_bits(getattr(b_k, f), getattr(b_p, f)):
+                raise AssertionError(f"expansion seed {seed}: binning {f} "
+                                     "differs from the plain expansion's")
+        if not same_bits(frame_k, frame_p) or int(b_k.n_dropped):
+            raise AssertionError(f"expansion seed {seed}: the frame differs "
+                                 "or pairs dropped")
+        log(f"  seed {2300 + seed}: tile {cfg.tile_h}x{cfg.tile_w} "
+            f"({cfg.n_tiles_y}x{cfg.n_tiles_x}), m_cap {m_cap}, "
+            f"{int((got[1] >= 0).sum())} live pairs, dropped_exp "
+            f"{int(got[2])}: tile_e, splat_e, dropped_exp, the binning "
+            f"and the frame equal the plain expansion's bit for bit")
+    t_k = device_time(lambda: tlf._expand_cuda(p, cfg, m_cap), reps=20)
+    t_p = device_time(lambda: tlf._expand_plain(p, cfg, m_cap), reps=20)
+    n_bytes = 20 * p.n + 8 * m_cap
+    bound_ms = 1e3 * n_bytes / HBM_RATE
+    log(f"  expansion, kernels: {device_line(t_k)}; by kernel "
+        f"{ {k: round(v[0], 5) for k, v in t_k['kernels'].items()} } "
+        f"[{smi}]")
+    log(f"  expansion, plain twin on the card: {device_line(t_p)} [{smi}]")
+    log(f"  bytes bound {bound_ms:.5f} ms ({n_bytes} B over "
+        f"{HBM_RATE / 1e12:.2f} TB/s: 20 B a splat, 8 B a row of the "
+        f"m_cap): kernels {bound_ms / t_k['device']:.4f} of it, plain "
+        f"{bound_ms / t_p['device']:.5f}; kernels "
+        f"{t_p['device'] / t_k['device']:.1f}x faster; the phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return probe_entry(t_k, t_p["device"], (bound_ms, "bytes"))
+
+
 @contextlib.contextmanager
 def walk_forced(forced: bool):
     """With ``forced``, the chunk walks' saturating walk on at any N (the
@@ -2330,7 +2420,8 @@ def fit_1080p_phase(dev, smi: str) -> dict:
                 image, N_100K, smi, ["--checkpoint-every", "200", *extra],
                 runs=1, no_drops=True, keep=out)
             expect_launches(f"1080p flat fit ({name})", launches,
-                            {"fwd_flat": 201, "bwd_flat": 200})
+                            {"fwd_flat": 201, "bwd_flat": 200,
+                             "expand_flat": EXPANSIONS[name]})
             log(f"  MSE-255 @ 1 / 50 / 200: {mse[0]:.4f} / {mse[49]:.4f} / "
                 f"{mse[199]:.4f} (no reference trajectory at this size)")
             step, state = Checkpointer(os.path.join(
@@ -2500,6 +2591,11 @@ def recovery_phase(dev) -> dict:
 # bench.py's lazy rebinning contract.
 SCAN = ["--scan-chunk", "50"]
 LAZY = SCAN + ["--rebin-margin", "2"]
+# The flat expansion's launches in a 200-step CLI fit: eager, one a step
+# and one for the final render; scanned under LAZY, the host's alone (the
+# capture's cache, each of the 4 blocks' fresh binning, the final render),
+# since a replay's rebins run under the conditional node and count none.
+EXPANSIONS = {"eager": 201, "scanned": 6}
 
 
 def replay_profile(fit_k, state, ref, steady_ms: float,
@@ -2638,7 +2734,8 @@ def scan_phase(dev, smi: str, eager_mse: dict, eager: dict,
             ("default, --rebin-margin 2", MINI, 1024, LAZY,
              {"l2_resident": 200, "fwd_resident": 1}, "default"),
             ("10k, --rebin-margin 2", FULL, N_10K, LAZY,
-             {"fwd_flat": 201, "bwd_flat": 200}, "10k"),
+             {"fwd_flat": 201, "bwd_flat": 200,
+              "expand_flat": EXPANSIONS["scanned"]}, "10k"),
             ("dense default", MINI, 1024, ["--binning", "dense", *SCAN],
              {"l2_dense": 200, "fwd_dense": 1}, "dense"),
             ("resident SSIM", MINI, 1024, ["--ssim", SSIM, *SCAN],
@@ -2901,7 +2998,7 @@ def adaptive_phase(dev, smi: str, ssim_mse: dict) -> dict:
     launches, mse, recs, printed = logged_fit(
         argv + ["--densify-every", "100"], iters=300, details=True)
     expect_launches("adaptive 10k fit", launches,
-                    {"fwd_flat": 301, "bwd_flat": 300})
+                    {"fwd_flat": 301, "bwd_flat": 300, "expand_flat": 301})
     count(launches)
     check_drops("10k fit", recs, printed, every=100)
     log(f"  live splats after each densify: {live_counts(printed)}")
@@ -3150,7 +3247,8 @@ def batched_phase(dev, smi: str, mse_l2: dict) -> dict:
         log(f"  {time.perf_counter() - t0:.2f}s with tuning and capture "
             f"[{smi}]")
         expect_launches("batched adaptive 10k fit", launches,
-                        {"fwd_flat": 602, "bwd_flat": 600})
+                        {"fwd_flat": 602, "bwd_flat": 600,
+                         "expand_flat": 602})
         count(launches)
         check_drops("batched adaptive fit", recs, printed, every=100)
         live_b = live_counts(printed)
@@ -3196,14 +3294,16 @@ MESH_MSE_RTOL = 1e-6
 
 
 @contextlib.contextmanager
-def plain_versions():
-    """The kernel wrappers of the resident, dense and flat layouts run their
-    plain PyTorch versions on the card's tensors (no launch is counted)."""
-    from gs2d_tpu_torch.ops import render_dense as rdn
-    from gs2d_tpu_torch.ops import render_flat as rf
-    from gs2d_tpu_torch.ops import render_resident as rr
+def plain_versions(modules=("render_resident", "render_dense", "render_flat",
+                            "tiles_flat")):
+    """The kernel wrappers of ``modules`` (of gs2d_tpu_torch.ops; by
+    default the resident, dense and flat layouts and the flat binning's
+    expansion) run their plain PyTorch versions on the card's tensors (no
+    launch is counted)."""
+    import importlib
 
-    mods = (rr, rdn, rf)
+    mods = [importlib.import_module(f"gs2d_tpu_torch.ops.{m}")
+            for m in modules]
     saved = [m.on_card for m in mods]
     for m in mods:
         m.on_card = lambda t: False
@@ -4085,7 +4185,8 @@ def mesh_phase(dev, smi: str) -> dict:
                            for it, want in TRAJECTORY.items()})
     launches, mse = twins(FULL, N_10K, [], "10k flat")
     expect_launches("--mesh 1,1,1 10k fit", launches,
-                    {"fwd_flat": 200, "bwd_flat": 200, "fwd_dense": 1})
+                    {"fwd_flat": 200, "bwd_flat": 200, "fwd_dense": 1,
+                     "expand_flat": 200})
     count(launches)
     check_trajectory(mse, TRAJECTORY_10K)
     with tempfile.TemporaryDirectory() as out:
@@ -4189,7 +4290,8 @@ def large_fit(dev, smi: str, label: str, size, n: int, iters: int,
     peak = torch.cuda.max_memory_allocated()
     launches = read_counts()
     expect_launches(f"{label} fit", launches,
-                    {"fwd_flat": iters, "bwd_flat": iters})
+                    {"fwd_flat": iters, "bwd_flat": iters,
+                     "expand_flat": iters})
     ignored = [x for x in lines if x.startswith("scan_chunk ignored")]
     if split != bool(ignored) or (ignored and lines[0] != (
             "scan_chunk ignored: flat capacity exceeds the single-program "
@@ -4430,6 +4532,10 @@ KERNELS = (
      "gs2d_tpu/ops/render_pallas.py:253, gs2d_tpu/ops/render_pallas.py:496"),
     ("fwd_flat", "gs2d_tpu_torch/csrc/render_flat.cu",
      "gs2d_tpu/ops/render_pallas_flat.py:227"),
+    # The flat binning's pair expansion: jnp code in gs2d_tpu, no Pallas
+    # kernel (the count and emission kernels; launches are emissions).
+    ("expand_flat", "gs2d_tpu_torch/csrc/tiles_flat.cu",
+     "gs2d_tpu/ops/tiles_flat.py:166"),
     ("bwd_flat", "gs2d_tpu_torch/csrc/render_flat.cu",
      "gs2d_tpu/ops/render_pallas_flat.py:265"),
     ("l2_window", "gs2d_tpu_torch/csrc/render_resident.cu",
@@ -4510,6 +4616,9 @@ def main(argv) -> int:
     if argv == ["--mesh"]:
         mesh_phase(dev, smi)  # the mesh phase alone
         return 0
+    if argv == ["--expand"]:
+        expand_phase(dev, smi)  # the expansion's phase alone
+        return 0
     if argv == ["--mesh-cluster"]:
         # The NCCL clusters alone (several cards), against the world of one.
         log("[mesh] the default fit with --mesh 1,1,1, 20 iterations")
@@ -4555,6 +4664,8 @@ def main(argv) -> int:
 
     new_errs, new_times = compare_new(dev, smi)
     flat_errs, flat_times = compare_flat(dev, smi)
+    # Integer-equal to the plain expansion, or expand_phase raises.
+    errs["expand_flat"], times["expand_flat"] = 0.0, expand_phase(dev, smi)
     compare_dense_10k(dev, smi)
     errs.update(new_errs)
     errs.update(flat_errs)
@@ -4608,7 +4719,7 @@ def main(argv) -> int:
     dense = ["--binning", "dense"]
     launches, mse, rates = fit_phase(FULL, N_10K, smi, runs=2)
     expect_launches("flat L2 fit", launches,
-                    {"fwd_flat": 201, "bwd_flat": 200})
+                    {"fwd_flat": 201, "bwd_flat": 200, "expand_flat": 201})
     count(launches)
     check_trajectory(mse, TRAJECTORY_10K)
     log(f"  MSE-255 @ 200: {mse[199]:.4f} (no gate)")
@@ -4681,7 +4792,7 @@ def main(argv) -> int:
 
     launches, mse, _ = fit_phase(FULL, N_10K, smi, ssim, runs=2)
     expect_launches("flat SSIM fit", launches,
-                    {"fwd_flat": 201, "bwd_flat": 200})
+                    {"fwd_flat": 201, "bwd_flat": 200, "expand_flat": 201})
     count(launches)
     check_trajectory(mse, TRAJECTORY_SSIM_10K)
     log(f"  MSE-255 @ 200: {mse[199]:.4f} (no gate)")

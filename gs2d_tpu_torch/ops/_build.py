@@ -34,10 +34,11 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C entry points and their argument types (csrc/render_resident.cu,
 # csrc/render_flat.cu, csrc/render_dense.cu, csrc/render_mxu.cu,
-# csrc/probes.cu, csrc/graph_cond.cu).
+# csrc/probes.cu, csrc/graph_cond.cu, csrc/tiles_flat.cu).
 SIGNATURES = {
     "gs2d_l2_resident": [_P] * 8 + [_I] * 10 + [_F, _F, _I, _P],
     "gs2d_fwd_resident": [_P] * 6 + [_I] * 8 + [_F, _F, _I, _P],
@@ -70,6 +71,9 @@ SIGNATURES = {
     "gs2d_graph_if": [_P, _P, _P],
     "gs2d_cudart_build_version": [],
     "gs2d_cudart_version": [],
+    "gs2d_expand_count": [_P] * 6 + [_I] * 9 + [_F] * 3 + [_P],
+    "gs2d_expand_emit": [_P] * 9 + [_I] * 11 + [_F] * 6 + [_P],
+    "gs2d_expand_trig": [_P] * 3 + [_L, _P],  # verification only
 }
 
 

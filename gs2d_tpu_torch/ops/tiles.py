@@ -122,6 +122,18 @@ def splat_tile_bbox(p: GaussianParams, cfg: SplatConfig):
     return _bbox_and_quad(p, cfg)[0]
 
 
+def cull_cutoff(p: GaussianParams, cfg: SplatConfig, margin: float = 0.0):
+    """The opacity cull's per-splat Mahalanobis cutoff k2 (n,) of
+    _bbox_and_quad, or None where cfg.opacity_cull_alpha is 0."""
+    if not cfg.opacity_cull_alpha > 0.0:
+        return None
+    headroom = 2.0 if margin > 0 else 1.0
+    return torch.minimum(
+        torch.full_like(p.opacity, _f32(cfg.cutoff_sq)),
+        2.0 * log_f32(torch.clamp(p.opacity, min=_f32(1e-30))
+                      * _f32(headroom / cfg.opacity_cull_alpha)))
+
+
 def _bbox_and_quad(p: GaussianParams, cfg: SplatConfig, margin: float = 0.0):
     """Per-splat clamped tile bbox (tx0, tx1, ty0, ty1, offscreen) plus the
     inverse-covariance quadratic (px, py, a, b, d, k2) it was derived from.
@@ -139,13 +151,8 @@ def _bbox_and_quad(p: GaussianParams, cfg: SplatConfig, margin: float = 0.0):
     a, b, d, det = geometry.inv_cov_of(s11, s12, s22)
     hy = geometry.bbox_half_height(a, det, cfg.splat_bounds)
     hx = geometry.bbox_half_width(d, det, cfg.splat_bounds)
-    k2 = None
-    if cfg.opacity_cull_alpha > 0.0:
-        headroom = 2.0 if margin > 0 else 1.0
-        k2 = torch.minimum(
-            torch.full_like(p.opacity, _f32(cfg.cutoff_sq)),
-            2.0 * log_f32(torch.clamp(p.opacity, min=_f32(1e-30))
-                          * _f32(headroom / cfg.opacity_cull_alpha)))
+    k2 = cull_cutoff(p, cfg, margin)
+    if k2 is not None:
         # The half-extents are linear in the cutoff radius sqrt(k2).
         shrink = torch.sqrt(torch.clamp(k2, min=0.0)) \
             / _f32(cfg.splat_bounds)

@@ -21,6 +21,12 @@ counted in ``n_dropped``. ``margin`` and the opacity cull's per-splat
 cutoff widen and shrink the footprints as ``tiles.bin_splats`` does, and
 ``band_row0`` / ``band_rows`` bin one band of tile rows (tile-axis
 sharding), as there.
+
+The expansion dispatches on the device: CUDA tensors run the kernels of
+``csrc/tiles_flat.cu`` (``_expand_cuda``: a per-splat count, its cumsum, one
+emission of every row), integer-equal to the plain PyTorch expansion
+(``_expand_plain``) that CPU tensors run; any other device raises. The sort,
+the layout and the pregather are PyTorch on both.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 
 from gs2d_tpu_torch.config import SplatConfig
 from gs2d_tpu_torch.ops import tiles as tl
+from gs2d_tpu_torch.ops._build import check, library, on_card, stream
 from gs2d_tpu_torch.params import GaussianParams
 from gs2d_tpu_torch.utils.profiling import span
 
@@ -81,6 +88,142 @@ def tune_flat_capacity(p: GaussianParams, cfg: SplatConfig, kc: int = 256,
 # The flat rows are the dense layout's pregather applied to the flat ids.
 pregather_rows = tl.pregather_rows
 
+# Launches of the expansion's emission kernel since the last
+# reset_launch_counts(), one a binning on the card. Counted as the other
+# kernel modules' launches are (train/graphs.launch_counters): a replay of a
+# captured step adds the launches captured in it, none of those captured
+# under a conditional node (the lazy rebin's; the step's ``rebinned`` aux
+# counts those).
+launches = {"expand_flat": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _expand_plain(p: GaussianParams, cfg: SplatConfig, m_cap: int,
+                  band_row0=0, band_rows: int | None = None,
+                  margin: float = 0.0):
+    """The pair expansion in plain PyTorch (the CPU path, and the card-side
+    reference of _expand_cuda): (tile_e, splat_e, dropped_exp), row e of
+    the m_cap holding its pair's band-local tile id and splat id, or the
+    dead tile n_tiles and -1; dropped_exp the 0-d int32 count of the rows
+    past m_cap."""
+    dev = p.device
+    i32 = torch.int32
+    (tx0, tx1, ty0, ty1, offscreen), (qpx, qpy, qa, qb, qd, qk2) = \
+        tl._bbox_and_quad(p, cfg, margin)
+    if band_rows is None:
+        band_rows, band_row0 = cfg.n_tiles_y, 0
+    else:
+        ty0, ty1, offscreen = tl._band_clip(ty0, ty1, offscreen,
+                                            band_row0, band_rows)
+    n_tiles = band_rows * cfg.n_tiles_x
+    w_t = (tx1 - tx0 + 1).to(i32)
+    cnt = torch.where(offscreen, 0, w_t * (ty1 - ty0 + 1)).to(i32)
+    starts = (torch.cumsum(cnt, 0, dtype=i32) - cnt)  # exclusive
+    total = starts[-1] + cnt[-1]
+    dropped_exp = (total - m_cap).clamp(min=0)
+
+    e = torch.arange(m_cap, dtype=i32, device=dev)
+    live_e = e < total
+    # Owner of expansion row e: the number of later run starts at or
+    # before e (the cumsum of the run-start indicator; coincident starts
+    # of empty splats telescope, so empty runs are skipped).
+    owner = torch.searchsorted(starts[1:].contiguous(), e, right=True)
+    bits = lambda v: v.to(torch.float32).view(i32)
+    chans = [starts, w_t, ty0.to(i32), tx0.to(i32)]
+    if cfg.exact_cull:
+        chans += [bits(qpx), bits(qpy), bits(qa), bits(qb), bits(qd)]
+        if qk2 is not None:
+            chans.append(bits(qk2))
+    ch = torch.stack(chans, dim=1)[owner]     # one (E, C) row gather
+
+    rank = e - ch[:, 0]
+    wb = ch[:, 1].clamp(min=1)
+    ly = torch.div(rank, wb, rounding_mode="floor")
+    ty_e = ch[:, 2] + ly
+    tx_e = ch[:, 3] + (rank - ly * wb)
+    tile_e = ty_e * cfg.n_tiles_x + tx_e
+    if cfg.exact_cull:
+        fc = lambda i: ch[:, i].view(torch.float32)
+        live_e = live_e & tl.tile_may_touch(
+            fc(4), fc(5), fc(6), fc(7), fc(8), tx_e,
+            ty_e + band_row0, cfg, margin,
+            k2=fc(9) if qk2 is not None else None)
+    tile_e = torch.where(live_e, tile_e, n_tiles)  # dead rows last
+    splat_e = torch.where(live_e, owner.to(i32), -1)
+    return tile_e, splat_e, dropped_exp
+
+
+def _expand_cuda(p: GaussianParams, cfg: SplatConfig, m_cap: int,
+                 band_row0=0, band_rows: int | None = None,
+                 margin: float = 0.0):
+    """_expand_plain's integers from the kernels of csrc/tiles_flat.cu: the
+    per-splat count, torch.cumsum of it, the emission of every row. Takes
+    an int ``band_row0``; launches on the current stream, allocates through
+    PyTorch and never synchronises, so a CUDA graph captures it. The opacity
+    cull's cutoff is tiles.cull_cutoff's, in plain PyTorch."""
+    if band_rows is None:
+        band_rows, band_row0 = cfg.n_tiles_y, 0
+    n = p.n
+    if n < 1 or not 0 <= m_cap < 2**31:
+        raise ValueError(f"the expansion takes 1 or more splats and m_cap "
+                         f"in [0, 2^31), got {n} and {m_cap}")
+    fields = [p.pos, p.sx, p.sy, p.rot]
+    k2 = tl.cull_cutoff(p, cfg, margin)
+    if k2 is not None:
+        fields.append(k2)
+    for t in fields:
+        if t.dtype != torch.float32 or t.device != p.device:
+            raise ValueError(f"splat fields: need float32 on {p.device}, "
+                             f"got {t.dtype} on {t.device}")
+    pos, sx, sy, rot, *rest = [t.contiguous() for t in fields]
+    k2_ptr = rest[0].data_ptr() if rest else None
+    lib = library()
+    dev, i32 = p.device, torch.int32
+    f32 = tl._f32
+    box = (n, cfg.width, cfg.height, cfg.tile_w, cfg.tile_h, cfg.n_tiles_x,
+           cfg.n_tiles_y, int(band_row0), band_rows)
+    bounds = f32(cfg.splat_bounds)
+    # PyTorch's CUDA division by a host scalar: a product with its float32
+    # reciprocal (the opacity cull's shrink).
+    inv_bounds = float(np.float32(1.0) / np.float32(bounds))
+    ptrs = (pos.data_ptr(), sx.data_ptr(), sy.data_ptr(), rot.data_ptr(),
+            k2_ptr)
+    cnt = torch.empty((n,), dtype=i32, device=dev)
+    check(lib.gs2d_expand_count(*ptrs, cnt.data_ptr(), *box, bounds,
+                                inv_bounds, f32(margin), stream(cnt)),
+          "expand_count kernel launch")
+    incl = torch.cumsum(cnt, 0, dtype=i32)
+    tile_e = torch.empty((m_cap,), dtype=i32, device=dev)
+    splat_e = torch.empty((m_cap,), dtype=i32, device=dev)
+    dropped_exp = torch.empty((), dtype=i32, device=dev)
+    limit = f32(np.float32(cfg.cutoff_sq) + np.float32(tl.CULL_ABS_MARGIN))
+    check(lib.gs2d_expand_emit(
+        *ptrs, incl.data_ptr(), tile_e.data_ptr(), splat_e.data_ptr(),
+        dropped_exp.data_ptr(), n, m_cap, *box[1:], int(cfg.exact_cull),
+        bounds, inv_bounds, f32(margin), f32(tl.CULL_REL_MARGIN),
+        f32(tl.CULL_ABS_MARGIN), limit, stream(cnt)),
+        "expand_emit kernel launch")
+    launches["expand_flat"] += 1
+    return tile_e, splat_e, dropped_exp
+
+
+def expand_trig_cuda(v: torch.Tensor):
+    """(cos v, sin v) of a contiguous float32 CUDA tensor as the expansion's
+    kernels compute them. Verification only, as the repo keeps its
+    references: the card test holds it to torch.cos / torch.sin on every
+    float32; no path calls it."""
+    if v.dtype != torch.float32 or not v.is_contiguous() or not v.is_cuda:
+        raise ValueError("v: need contiguous float32 on the card")
+    c, s = torch.empty_like(v), torch.empty_like(v)
+    check(library().gs2d_expand_trig(v.data_ptr(), c.data_ptr(),
+                                     s.data_ptr(), v.numel(), stream(v)),
+          "expand_trig kernel launch")
+    return c, s
+
 
 def bin_splats_flat(
     p: GaussianParams,
@@ -111,48 +254,12 @@ def bin_splats_flat(
         i32 = torch.int32
 
         with span("gs2d.bin_flat.expand"):   # exact-count pair expansion
-            (tx0, tx1, ty0, ty1, offscreen), (qpx, qpy, qa, qb, qd, qk2) = \
-                tl._bbox_and_quad(p, cfg, margin)
-            if band_rows is None:
-                band_rows, band_row0 = cfg.n_tiles_y, 0
-            else:
-                ty0, ty1, offscreen = tl._band_clip(ty0, ty1, offscreen,
-                                                    band_row0, band_rows)
-            n_tiles = band_rows * cfg.n_tiles_x
-            w_t = (tx1 - tx0 + 1).to(i32)
-            cnt = torch.where(offscreen, 0, w_t * (ty1 - ty0 + 1)).to(i32)
-            starts = (torch.cumsum(cnt, 0, dtype=i32) - cnt)  # exclusive
-            total = starts[-1] + cnt[-1]
-            dropped_exp = (total - m_cap).clamp(min=0)
-
-            e = torch.arange(m_cap, dtype=i32, device=dev)
-            live_e = e < total
-            # Owner of expansion row e: the number of later run starts at or
-            # before e (the cumsum of the run-start indicator; coincident
-            # starts of empty splats telescope, so empty runs are skipped).
-            owner = torch.searchsorted(starts[1:].contiguous(), e, right=True)
-            bits = lambda v: v.to(torch.float32).view(i32)
-            chans = [starts, w_t, ty0.to(i32), tx0.to(i32)]
-            if cfg.exact_cull:
-                chans += [bits(qpx), bits(qpy), bits(qa), bits(qb), bits(qd)]
-                if qk2 is not None:
-                    chans.append(bits(qk2))
-            ch = torch.stack(chans, dim=1)[owner]     # one (E, C) row gather
-
-            rank = e - ch[:, 0]
-            wb = ch[:, 1].clamp(min=1)
-            ly = torch.div(rank, wb, rounding_mode="floor")
-            ty_e = ch[:, 2] + ly
-            tx_e = ch[:, 3] + (rank - ly * wb)
-            tile_e = ty_e * cfg.n_tiles_x + tx_e
-            if cfg.exact_cull:
-                fc = lambda i: ch[:, i].view(torch.float32)
-                live_e = live_e & tl.tile_may_touch(
-                    fc(4), fc(5), fc(6), fc(7), fc(8), tx_e,
-                    ty_e + band_row0, cfg, margin,
-                    k2=fc(9) if qk2 is not None else None)
-            tile_e = torch.where(live_e, tile_e, n_tiles)  # dead rows last
-            splat_e = torch.where(live_e, owner.to(i32), -1)
+            expand = _expand_cuda if on_card(p.pos) else _expand_plain
+            tile_e, splat_e, dropped_exp = expand(p, cfg, m_cap, band_row0,
+                                                  band_rows, margin)
+        if band_rows is None:
+            band_rows = cfg.n_tiles_y
+        n_tiles = band_rows * cfg.n_tiles_x
 
         with span("gs2d.bin_flat.sort"):     # one stable sort by tile id
             sorted_tile, perm = torch.sort(tile_e, stable=True)
@@ -178,6 +285,7 @@ def bin_splats_flat(
             # Scatter the sorted rows to their block-aligned flat positions.
             tch = torch.stack([run_start, count, start], dim=1)[
                 sorted_tile.clamp(max=n_tiles - 1)]
+            e = torch.arange(m_cap, dtype=i32, device=dev)
             rank_t = e - tch[:, 0]
             valid = (sorted_tile < n_tiles) & (rank_t < tch[:, 1])
             dest = torch.where(valid, tch[:, 2] + rank_t, m_cap).long()

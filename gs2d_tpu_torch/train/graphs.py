@@ -81,9 +81,11 @@ def launch_counters() -> list:
     """The ``launches`` dicts of every kernel module."""
     from gs2d_tpu_torch.ops import probes, render_dense, render_flat
     from gs2d_tpu_torch.ops import render_mxu, render_resident, render_window
+    from gs2d_tpu_torch.ops import tiles_flat
 
     return [m.launches for m in (render_resident, render_flat, render_dense,
-                                 render_window, render_mxu, probes)]
+                                 render_window, render_mxu, probes,
+                                 tiles_flat)]
 
 
 def _read_counts() -> List[dict]:

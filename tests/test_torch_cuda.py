@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
 and the scanned fit's captured step (a CUDA graph, lazy rebinning under a
-conditional node) against the eager step.
+conditional node) against the eager step; the flat binning's expansion
+kernels against their plain twin, alone, in render_flat and in captured
+fits.
 
 Every test is marked ``cuda`` and skips where no GPU is visible (a CUDA
 kernel has no CPU mode). This file imports neither jax nor gs2d_tpu, so it
@@ -1667,3 +1669,226 @@ def test_captured_virtual_mesh_block_equals_eager(dev, margin):
             want = torch.stack([torch.as_tensor(getattr(a[c], f))
                                 for a in a_e])
             assert torch.equal(got, want), f
+
+
+# ---------------------------------------------------------------------------
+# The flat binning's expansion kernels (csrc/tiles_flat.cu) against their
+# plain twin tiles_flat._expand_plain, run on the card's tensors.
+# ---------------------------------------------------------------------------
+
+def hd_population(dev, seed):
+    """chip_smoke.py's 1080p/1M population, as the hd-1m render cell draws
+    it, and its statics as the CLI's auto path tunes them."""
+    from chip_smoke import hd_population as draw
+
+    return draw(dev, seed)
+
+
+def wide_population(seed, n, width=1024, height=512, scale=(1.5, 40.0)):
+    """population()'s splats with wider scales, any rotation and opacities
+    in [0, 1]."""
+    d, _ = population(seed, n, width, height)
+    rng = np.random.default_rng(seed + 1)
+    d["sx"] = rng.uniform(*scale, n)
+    d["sy"] = rng.uniform(*scale, n)
+    d["rot"] = rng.uniform(-20.0, 20.0, n)
+    d["opacity"] = rng.uniform(0.0, 1.0, n)
+    return d
+
+
+def expand_case(dev, case):
+    """(params, cfg, m_cap, band and margin arguments) of an expansion
+    case; cfg's flat statics are tuned for the case's footprints."""
+    if case.startswith("hd1m"):
+        p, cfg = hd_population(dev, 2300 + int(case[-1]))
+        return p, cfg, cfg.flat_capacity, {}
+    tile_h = 64 if case == "tile-h-64" else 32
+    cfg = SplatConfig(width=1024, height=512, n_splats=20000, tile_h=tile_h,
+                      binning="flat")
+    d = wide_population(EXPAND_CASES.index(case), 20000)
+    kw, n_bands, m_cap = {}, 1, None
+    if case == "nonfinite":
+        bad = {"pos": [[np.nan, 10.0], [10.0, np.nan], [np.inf, 5.0],
+                       [-np.inf, 5.0], [5.0, np.inf], [-50.0, 100.0],
+                       [100.0, -50.0], [1524.0, 100.0], [100.0, 1012.0],
+                       [1e30, 1e30], [-1e30, 3.0], [-0.0, -0.0]],
+               "sx": [0.0, np.inf, np.nan, 1e-20, 1e20, 0.0, 3.0],
+               "sy": [0.0, 0.0, 5.0, 1e-20, 1e20, np.inf, np.nan],
+               "rot": [np.nan, np.inf, 1e20, -1e30, 0.0, np.pi / 2, 7e4]}
+        for f, vals in bad.items():
+            for j, v in enumerate(vals):
+                d[f][7 * j + len(f)] = v
+        d["sx"][100:110] = d["sy"][100:110]  # circles
+    elif case == "overflow":
+        d["sx"][:300] = np.random.default_rng(5).uniform(200, 900, 300)
+        d["sy"][:300] = d["sx"][:300] * 0.7
+    elif case == "margin":
+        kw = {"margin": 2.0}
+        cfg = cfg.replace(rebin_margin=2.0)
+    elif case == "band":
+        n_bands = 4
+        kw = {"band_row0": 8, "band_rows": 4}
+    elif case.startswith("opacity-cull"):
+        cfg = cfg.replace(opacity_cull_alpha=1.0 / 256.0)
+        d["opacity"][:50] = 0.0
+        d["opacity"][50:60] = np.nan
+        if case == "opacity-cull-margin":
+            kw = {"margin": 2.0}
+            cfg = cfg.replace(rebin_margin=2.0)
+    elif case == "no-exact-cull":
+        cfg = cfg.replace(exact_cull=False)
+    p = params_from_numpy({f: v.astype(np.float32) for f, v in d.items()},
+                          dev)
+    cfg = rf.tune_flat_config(p, cfg, n_bands=n_bands)
+    m_cap = cfg.flat_capacity
+    if case == "overflow":
+        m_cap = 4 * cfg.flat_chunk
+    return p, cfg, m_cap, kw
+
+
+EXPAND_CASES = ["hd1m-0", "hd1m-1", "hd1m-2", "nonfinite", "overflow",
+                "margin", "band", "opacity-cull", "opacity-cull-margin",
+                "no-exact-cull", "tile-h-32", "tile-h-64"]
+
+
+def same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", EXPAND_CASES)
+def test_expansion_kernels_equal_the_plain_twin(dev, monkeypatch, case):
+    """tile_e, splat_e and dropped_exp from the kernels equal the plain
+    expansion's on the card, integer for integer, and so does the whole
+    FlatBinning built on them (ids, rows bit for bit, start, count,
+    n_dropped); one launch of the emission a binning, none on the plain
+    path."""
+    p, cfg, m_cap, kw = expand_case(dev, case)
+    got = tlf._expand_cuda(p, cfg, m_cap, **kw)
+    want = tlf._expand_plain(p, cfg, m_cap, **kw)
+    for g, w, name in zip(got, want, ("tile_e", "splat_e", "dropped_exp")):
+        assert g.dtype == torch.int32 and same_bits(g, w), name
+    live = int((got[1] >= 0).sum())
+    assert live > 0
+    if case == "overflow":
+        assert int(got[2]) > 0 and live <= m_cap
+    if case in ("nonfinite", "opacity-cull"):
+        assert int((got[1] < 0).sum()) > 0
+    kc, mc = cfg.flat_chunk, cfg.flat_max_chunks
+    before = tlf.launches["expand_flat"]
+    b_k = tlf.bin_splats_flat(p, cfg, m_cap, kc=kc, max_chunks=mc, **kw)
+    assert tlf.launches["expand_flat"] == before + 1
+    monkeypatch.setattr(tlf, "on_card", lambda t: False)
+    b_p = tlf.bin_splats_flat(p, cfg, m_cap, kc=kc, max_chunks=mc, **kw)
+    assert tlf.launches["expand_flat"] == before + 1
+    for f in tlf.FlatBinning._fields:
+        assert same_bits(getattr(b_k, f), getattr(b_p, f)), f
+
+
+def test_expansion_trig_is_torchs_on_every_float32(dev):
+    """cosf and sinf as the expansion's kernels compute them equal
+    torch.cos and torch.sin on the card for every float32 bit pattern
+    (NaN for NaN)."""
+    chunk = 1 << 26
+    for lo in range(-2**31, 2**31, chunk):
+        v = torch.arange(lo, lo + chunk, dtype=torch.int64, device=dev) \
+            .to(torch.int32).view(torch.float32)
+        c, s = tlf.expand_trig_cuda(v)
+        for got, want, name in ((c, torch.cos(v), "cos"),
+                                (s, torch.sin(v), "sin")):
+            same = (got.view(torch.int32) == want.view(torch.int32)) \
+                | (torch.isnan(got) & torch.isnan(want))
+            bad = torch.nonzero(~same)[:4, 0]
+            assert bad.numel() == 0, (name, v[bad].tolist(),
+                                      got[bad].tolist(), want[bad].tolist())
+
+
+def test_render_flat_frame_equals_the_plain_expansions(dev, monkeypatch):
+    """render_flat's 1080p/1M frame from the kernels' binning is the frame
+    of the plain expansion's, bit for bit; one emission a render."""
+    p, cfg = hd_population(dev, 2310)
+    before = tlf.launches["expand_flat"]
+    color_k, drop_k = rf.render_flat(p, cfg)
+    assert tlf.launches["expand_flat"] == before + 1
+    monkeypatch.setattr(tlf, "on_card", lambda t: False)
+    color_p, drop_p = rf.render_flat(p, cfg)
+    assert tlf.launches["expand_flat"] == before + 1
+    assert same_bits(color_k, color_p)
+    assert int(drop_k) == int(drop_p) == 0
+
+
+def flat_fit_case(dev, margin, width=256, height=128, n=2048):
+    from gs2d_tpu_torch.io.image import synthetic_target
+    from gs2d_tpu_torch.train import loop
+
+    cfg = SplatConfig(width=width, height=height, n_splats=n, tile_h=32,
+                      binning="flat", rebin_margin=margin,
+                      learning_rate=0.5)
+    state = loop.init_train_state(cfg, dev)
+    cfg = rf.tune_flat_config(state.params, cfg)
+    return cfg, state, rd.pad_ref_chw(synthetic_target(height, width), cfg,
+                                      dev)
+
+
+@pytest.mark.parametrize("margin", [0.0, 2.0, 0.25])
+def test_captured_flat_fit_equals_the_plain_expansions(dev, monkeypatch,
+                                                       margin):
+    """A captured flat fit (its binning in the CUDA graph, under the "if"
+    node where margin > 0) over 12 steps equals the same captured fit with
+    the plain expansion bit for bit: states, MSEs, rebins."""
+    from gs2d_tpu_torch.train import loop
+
+    cfg, state, ref = flat_fit_case(dev, margin)
+    runs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(tlf, "on_card", lambda t: False)
+        before = tlf.launches["expand_flat"]
+        s, aux = loop.make_fit_scan_fused(cfg)(state, ref, 12)
+        torch.cuda.synchronize()
+        runs.append((s, aux, tlf.launches["expand_flat"] - before))
+    (s_k, a_k, n_k), (s_p, a_p, n_p) = runs
+    assert n_k > 0 and n_p == 0
+    for f in ("mse", "rebinned", "n_dropped"):
+        assert same_bits(getattr(a_k, f), getattr(a_p, f)), f
+    for a, b in zip(loop.state_leaves(s_k), loop.state_leaves(s_p)):
+        assert same_bits(a, b)
+    if margin == 0.25:
+        assert 0 < int(a_k.rebinned.sum()) < 12
+
+
+def test_captured_two_band_mesh_equals_the_plain_expansions(dev,
+                                                            monkeypatch):
+    """A (1,2,1) virtual mesh of the flat fit in a block of 6 captured steps
+    (each band's binning under its conditional node, margin 2) equals the
+    same block with the plain expansion bit for bit, band for band."""
+    from gs2d_tpu_torch.io.image import synthetic_target
+    from gs2d_tpu_torch.parallel import sharded as tsh
+    from gs2d_tpu_torch.parallel.mesh import virtual_mesh
+    from gs2d_tpu_torch.train import loop
+
+    cfg = SplatConfig(width=256, height=128, n_splats=2048, tile_h=32,
+                      binning="flat", rebin_margin=2.0, learning_rate=0.5)
+    mesh = virtual_mesh(1, 2, 1, dev)
+    state = loop.init_batched_state(cfg, 1, dev)
+    cfg = tsh.prepare_config(cfg, mesh, loop.state_index(state, 0).params)
+    runs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(tlf, "on_card", lambda t: False)
+        before = tlf.launches["expand_flat"]
+        fit_k, sh = tsh.make_fit_scan_sharded(cfg, mesh)
+        refs = sh["ref"](tsh.pad_ref_batch(synthetic_target(128, 256)[None],
+                                           cfg, dev))
+        s, a = fit_k(sh["state"](state), refs, 6)
+        torch.cuda.synchronize()
+        runs.append((s, a, tlf.launches["expand_flat"] - before))
+    (s_k, a_k, n_k), (s_p, a_p, n_p) = runs
+    assert n_k > 0 and n_p == 0
+    for c in mesh.coords:
+        for x, y in zip(loop.state_leaves(s_k[c]), loop.state_leaves(s_p[c])):
+            assert same_bits(x, y)
+        for f in ("mse", "n_dropped"):
+            assert same_bits(torch.as_tensor(getattr(a_k[c], f)),
+                             torch.as_tensor(getattr(a_p[c], f))), f

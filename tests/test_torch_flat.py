@@ -2,7 +2,9 @@
 (integer-equal ids, starts, counts and n_dropped through all three
 overflows), the row pregather, capacity and tile-height tuning, the plain
 versions of kernels 10 and 11 against the JAX flat Pallas kernels in
-interpret mode, the L2 step, five fit steps, and the CLI.
+interpret mode, the L2 step, five fit steps, and the CLI; the binning's
+expansion dispatch (CPU tensors run the plain twin) and the schedule of its
+emission kernel (csrc/tiles_flat.cu) emulated against that twin.
 
 Kernel inputs (the flat binning) are built by the JAX package and handed to
 both sides where a test isolates a kernel. Tolerances follow
@@ -308,3 +310,143 @@ def test_cli_unported_layouts_exit_2(tmp_path, capsys, layout):
                   "--binning", layout, "--out", str(tmp_path)])
     assert e.value.code == 2
     assert f"invalid choice: '{layout}'" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# The expansion's dispatch: CPU tensors run the plain twin, CUDA tensors the
+# kernels of csrc/tiles_flat.cu (held to the twin on the card by
+# tests/test_torch_cuda.py), any other device raises.
+# ---------------------------------------------------------------------------
+
+EXPAND_SOURCE = os.path.join(REPO, "gs2d_tpu_torch", "csrc", "tiles_flat.cu")
+EXPAND_ENTRIES = ("gs2d_expand_count", "gs2d_expand_emit",
+                  "gs2d_expand_trig")
+
+
+@pytest.mark.parametrize("margin,band", [(0.0, None), (2.0, (2, 2))])
+def test_expansion_runs_the_plain_twin_on_cpu(rng, monkeypatch, margin,
+                                              band):
+    """CPU tensors take _expand_plain, whose binning is JAX's; the kernel
+    path is never entered and the launch counter stays 0."""
+    cfg_j, cfg_t, jp, tp = case(rng, 120, 8, 8)
+    kw = {} if band is None else dict(band_row0=band[0], band_rows=band[1])
+    calls = []
+    plain = ttlf._expand_plain
+    monkeypatch.setattr(ttlf, "_expand_plain",
+                        lambda *a, **k: calls.append(a) or plain(*a, **k))
+
+    def refuse(*a, **k):
+        raise AssertionError("the kernel path ran on CPU tensors")
+
+    monkeypatch.setattr(ttlf, "_expand_cuda", refuse)
+    ttlf.reset_launch_counts()
+    got = ttlf.bin_splats_flat(tp, cfg_t, 256, kc=8, margin=margin, **kw)
+    want = jtlf.bin_splats_flat(jp, cfg_j, 256, kc=8, margin=margin, **kw)
+    assert len(calls) == 1 and ttlf.launches == {"expand_flat": 0}
+    for f in ("ids", "start", "count", "n_dropped"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
+
+
+def test_expansion_refuses_other_devices(rng):
+    _, cfg_t, _, tp = case(rng, 16, 8, 8)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ttlf.bin_splats_flat(tp.to("meta"), cfg_t, 64, kc=8)
+
+
+def test_expansion_counter_is_a_launch_counter():
+    """The expansion's counter is one of train/graphs.launch_counters, so a
+    captured step's replays add its launches as they add every kernel's."""
+    from gs2d_tpu_torch.train import graphs
+
+    assert any(c is ttlf.launches for c in graphs.launch_counters())
+
+
+@pytest.mark.parametrize("name", EXPAND_ENTRIES)
+def test_expansion_entry_points_are_in_the_source(name):
+    """Every SIGNATURES entry of the expansion is a C entry point of
+    csrc/tiles_flat.cu, with as many parameters as ctypes passes it."""
+    from gs2d_tpu_torch.ops import _build
+
+    src = open(EXPAND_SOURCE).read()
+    head = src.index(f"int {name}(")
+    params = src[head:src.index(")", head)].split("(", 1)[1]
+    assert len(params.split(",")) == len(_build.SIGNATURES[name])
+
+
+def emulate_emission(tp, cfg, m_cap, block=256, band_row0=0, band_rows=None,
+                     margin=0.0):
+    """csrc/tiles_flat.cu's schedule in numpy: the per-splat counts, their
+    inclusive scan, each block's splats with the starts in shared memory
+    (INT_MAX past the population), its rows walked with the branchless
+    owner search, the grid's fill of the dead rows, dropped_exp. The box
+    and the cull are the plain twin's per-splat and per-pair values."""
+    (tx0, tx1, ty0, ty1, off), (px, py, a, b, d, k2) = \
+        ttl._bbox_and_quad(tp, cfg, margin)
+    if band_rows is None:
+        band_rows, band_row0 = cfg.n_tiles_y, 0
+    else:
+        ty0, ty1, off = ttl._band_clip(ty0, ty1, off, band_row0, band_rows)
+    w_t = (tx1 - tx0 + 1).numpy()
+    cnt = np.where(off.numpy(), 0, w_t * (ty1 - ty0 + 1).numpy())
+    incl = np.cumsum(cnt).astype(np.int64)
+    n, total = len(cnt), int(incl[-1])
+    dead = band_rows * cfg.n_tiles_x
+    tile_e = np.full(m_cap, -7, np.int64)
+    splat_e = np.full(m_cap, -7, np.int64)
+    for base in range(0, n, block):
+        idx = np.arange(base, base + block)
+        s_start = np.where(idx < n, np.concatenate([[0], incl])[
+            np.minimum(idx, n - 1)], np.iinfo(np.int32).max)
+        end = min(int(incl[min(base + block, n) - 1]), m_cap)
+        e = np.arange(max(int(s_start[0]), 0), end)
+        o = np.zeros_like(e)
+        step = block // 2
+        while step:
+            o = np.where(s_start[o + step] <= e, o + step, o)
+            step //= 2
+        owner = base + o
+        rank = e - s_start[o]
+        wb = np.maximum(w_t[owner], 1)
+        ly = rank // wb
+        ty = ty0.numpy()[owner] + ly
+        tx = tx0.numpy()[owner] + (rank - ly * wb)
+        own = torch.from_numpy(owner)
+        live = np.ones(len(e), bool)
+        if cfg.exact_cull:
+            live = ttl.tile_may_touch(
+                px[own], py[own], a[own], b[own], d[own],
+                torch.from_numpy(tx), torch.from_numpy(ty + band_row0), cfg,
+                margin, k2=None if k2 is None else k2[own]).numpy()
+        tile_e[e] = np.where(live, ty * cfg.n_tiles_x + tx, dead)
+        splat_e[e] = np.where(live, owner, -1)
+    tile_e[total:] = dead
+    splat_e[total:] = -1
+    return tile_e, splat_e, max(total - m_cap, 0)
+
+
+@pytest.mark.parametrize("case_name", ["tuned", "overflow", "band-margin",
+                                       "offscreen-runs"])
+def test_emission_schedule_equals_the_plain_twin(rng, case_name):
+    """The emission kernel's block schedule and owner search, emulated with
+    blocks of 4 and 256 splats, write every row the plain twin writes, the
+    same integers, and no other row."""
+    n = 700
+    cfg_j, cfg_t, jp, tp = case(rng, n, 8, 8)
+    kw = {}
+    m_cap = 4096
+    if case_name == "overflow":
+        m_cap = 256
+    elif case_name == "band-margin":
+        kw = dict(band_row0=2, band_rows=3, margin=2.0)
+    elif case_name == "offscreen-runs":  # long runs of empty splats
+        tp.pos[100:400] += 10.0 * W
+    want = ttlf._expand_plain(tp, cfg_t, m_cap, **kw)
+    for block in (4, 256):
+        got = emulate_emission(tp, cfg_t, m_cap, block=block, **kw)
+        np.testing.assert_array_equal(got[0], want[0].numpy())
+        np.testing.assert_array_equal(got[1], want[1].numpy())
+        assert got[2] == int(want[2])
+    if case_name == "overflow":
+        assert int(want[2]) > 0
