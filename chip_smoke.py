@@ -717,7 +717,9 @@ def flat_survivors(b, rows, fwd_in, bwd_in, fields, cfg, dev) -> str:
     """Kernels 10 and 11's survivors per patch against the plain cull mask
     (listed_cover_mask of the flat runs), patch by patch; returns the
     totals: (patch, slot) steps of the one-block-per-tile walk, survivors,
-    and survivors walked before each kernel's saturation exit."""
+    and survivors walked before each kernel's saturation exit. Kernel 10's
+    come from its full cull (walked given), which production calls, taking
+    the mask past the exit, do not run."""
     from gs2d_tpu_torch.ops import render_flat as rf
     from gs2d_tpu_torch.ops import render_resident as rr
 
@@ -736,8 +738,9 @@ def flat_survivors(b, rows, fwd_in, bwd_in, fields, cfg, dev) -> str:
     steps = int(b.count.sum()) * mask.shape[1]
     return (f"(patch, slot) steps {steps}, survivors {int(want.sum())} "
             f"(plain mask, equal patch by patch), walked before the "
-            f"saturation exit: kernel 10 {int(walked[0][:, 1].sum())}, "
-            f"kernel 11 {int(walked[1][:, 1].sum())}")
+            f"saturation exit: kernel 10 {int(walked[0][:, 1].sum())} (its "
+            f"full cull, the path walked selects; production calls take "
+            f"the mask), kernel 11 {int(walked[1][:, 1].sum())}")
 
 
 def compare_flat_case(name, params, ref, cfg, dev, carry=None,
@@ -1003,13 +1006,15 @@ def expand_phase(dev, smi: str) -> dict:
         frame_k, _ = rf.render_flat(p, cfg)
         expect_launches(f"expansion seed {seed}, the kernels' binning and "
                         "render", read_counts(),
-                        {"expand_flat": 2, "fwd_flat": 1})
+                        {"expand_flat": 2, "fwd_flat": 1,
+                         "fwd_flat_mask": 1})
         reset_counts()
         with plain_versions(("tiles_flat",)):
             b_p = tlf.bin_splats_flat(p, cfg, m_cap, kc=kc, max_chunks=mc)
             frame_p, _ = rf.render_flat(p, cfg)
         expect_launches(f"expansion seed {seed}, the plain expansion's "
-                        "binning and render", read_counts(), {"fwd_flat": 1})
+                        "binning and render", read_counts(),
+                        {"fwd_flat": 1, "fwd_flat_mask": 1})
         for f in tlf.FlatBinning._fields:
             if not same_bits(getattr(b_k, f), getattr(b_p, f)):
                 raise AssertionError(f"expansion seed {seed}: binning {f} "
@@ -1037,6 +1042,207 @@ def expand_phase(dev, smi: str) -> dict:
         f"{t_p['device'] / t_k['device']:.1f}x faster; the phase "
         f"{time.perf_counter() - t_phase:.1f}s")
     return probe_entry(t_k, t_p["device"], (bound_ms, "bytes"))
+
+
+def skipped_share(exits, n, per_tile: int) -> float:
+    """The share of the listed 32-slot chunks (over every patch) that kernel
+    10's tail left unculled: a patch culls the chunks up to the one that
+    holds its exit survivor, and reads the mask for the rest (on a finite
+    population no word is set, so it culls none of them)."""
+    n_p = n.repeat_interleave(per_tile).to(torch.int64)
+    listed = (n_p + 31) // 32
+    culled = (exits.to(torch.int64) + 31) // 32
+    return float((listed - culled).sum()) / float(listed.sum())
+
+
+def tail_plants(exits, n, start, cfg) -> list:
+    """Where tail_phase plants non-finite rows in a 1080p/1M binning, from
+    each patch's exit slot on the finite rows ((n_tiles, patches a tile))
+    and the runs' lengths n: [(case, tile, slots, field, value)], a tile
+    each. A colour plant lies past every exit of its tile but the
+    below-image case's, whose patch saturates from slot 0; the rows there
+    are walked by every patch of the tile (0 * NaN or inf where no pixel is
+    live), so that channel of the tile reads NaN throughout. A position or
+    opacity plant past the exits changes no pixel."""
+    from gs2d_tpu_torch.ops import tiles as tl
+
+    first, last = exits.min(dim=1).values, exits.max(dim=1).values
+    bottom = (cfg.n_tiles_y - 1) * cfg.n_tiles_x
+    room = torch.where(last + 128 < n, n - last, 0)
+    room[bottom:] = 0
+    order = [int(t) for t in torch.argsort(room, descending=True)[:5]]
+    if int(room[order[-1]]) <= 0:
+        raise AssertionError(f"tail plants: room {room[order].tolist()}")
+    past = [(int(last[t]) + 64) // 32 * 32 for t in order]  # chunk starts
+    s = int(start[order[2]])
+    edge = past[2] + 31 - (s + past[2]) % 32  # flat rows 32 w + 31, 32 w + 32
+    pad = bottom + int(torch.argmax(n[bottom:]))
+    if int(first[pad]) != 0:
+        raise AssertionError("tail plants: no patch below the image")
+    nan, inf = float("nan"), float("inf")
+    return [("mid-chunk", order[0], [past[0] + 11, past[0] + 17],
+             tl.FIELD_CR, nan),
+            ("alone in its word", order[1], [past[1] + 5], tl.FIELD_CG, inf),
+            ("across a word boundary", order[2], [edge, edge + 1],
+             tl.FIELD_CB, -inf),
+            ("the last listed row", order[3], [int(n[order[3]]) - 1],
+             tl.FIELD_CR, -inf),
+            ("position and opacity", order[4], [past[4] + 3, past[4] + 40],
+             None, nan),
+            ("a patch below the image", pad, [int(n[pad]) // 2], tl.FIELD_CG,
+             nan)]
+
+
+def planted_tail(seed: int, b, cfg, exits, n, per_tile: int) -> str:
+    """Kernel 10's tail on non-finite rows planted past the exits
+    (tail_plants): the mask pass's words equal the plain twin's and have
+    exactly the planted rows' bits; kernel 10 with the mask equals its full
+    cull bit for bit, and the chunk reference gs2d_fwd_chunk outside the
+    planted channels' tiles, where it reads NaN throughout (the chunk walk
+    stops at its 32-row pass's exit, so it need not reach them); the exits are
+    the finite rows'. A mask pass that flags nothing, or a tail that walks
+    no flagged row, leaves those channels finite. Returns the log's
+    summary."""
+    from gs2d_tpu_torch.ops import render as rd
+    from gs2d_tpu_torch.ops import render_dense as rdn
+    from gs2d_tpu_torch.ops import render_flat as rf
+    from gs2d_tpu_torch.ops import tiles as tl
+
+    dev = b.rows.device
+    plants = tail_plants(exits.reshape(-1, per_tile), n, b.start, cfg)
+    rows = b.rows.clone()
+    at, poison = {}, torch.zeros((3, n.numel()), dtype=torch.bool,
+                                 device=dev)
+    for case, t, slots, field, value in plants:
+        at[case] = [int(b.start[t]) + k for k in slots]
+        for i, k in enumerate(slots):
+            if not 0 <= k < int(n[t]):
+                raise AssertionError(f"tail plant {case}: slot {k} of "
+                                     f"{int(n[t])}")
+            f = field if field is not None else (tl.FIELD_PX, tl.FIELD_OP)[i]
+            rows[at[case][i], f] = value
+        if field is not None:
+            poison[field - tl.FIELD_CR, t] = True
+    flat_rows = [r for rs in at.values() for r in rs]
+    bits = torch.zeros((-(-rows.shape[0] // 32) * 32,), dtype=torch.bool,
+                       device=dev)
+    bits[flat_rows] = True
+    words = rf._nonfinite_mask_cuda(rows)
+    got_bits = ((words.to(torch.int64)[:, None] >> torch.arange(
+        32, device=dev)) & 1).reshape(-1).bool()
+    lone = int(bits.reshape(-1, 32)[at["alone in its word"][0] // 32].sum())
+    fwd_in = (rows, b.start, b.count, cfg, cfg.flat_chunk,
+              cfg.flat_max_chunks)
+    exits_p = torch.full_like(exits, -1)
+    walked = torch.full((exits.numel(), 2), -1, dtype=torch.int32,
+                        device=dev)
+    c_m, t_m = rf._fwd_flat_cuda(*fwd_in, exits=exits_p)
+    c_f, t_f = rf._fwd_flat_cuda(*fwd_in, walked=walked)
+    c_r, t_r = rdn._fwd_chunk_cuda(flat_listed_rows(b._replace(rows=rows),
+                                                    dev), n, cfg)
+    torch.cuda.synchronize()
+    poisoned = rd.from_tiles(poison[:, :, None, None].expand(
+        -1, -1, cfg.tile_h, cfg.tile_w), cfg)
+    same = {"mask words, the plain twin": torch.equal(
+                words, rf._nonfinite_mask_plain(rows)),
+            "mask words, the planted rows": torch.equal(got_bits, bits),
+            "one bit in the lone row's word": lone == 1,
+            "full cull": same_bits(c_m, c_f) and same_bits(t_m, t_f),
+            "NaN exactly in the planted channels' tiles": torch.equal(
+                torch.isnan(c_m), poisoned),
+            "chunk reference elsewhere": (
+                torch.equal(c_m[~poisoned], c_r[~poisoned])
+                and same_bits(t_m, t_r)),
+            "exits": torch.equal(exits_p, exits)}
+    if not all(same.values()):
+        raise AssertionError(f"tail seed {seed}, planted rows: {same}")
+    return (f"{len(flat_rows)} planted rows ({', '.join(p[0] for p in plants)}"
+            f"): the mask has exactly their bits, and kernel 10 equals the "
+            f"full cull, NaN in {int(poison.sum())} planted tile channels, "
+            f"the chunk reference elsewhere")
+
+
+def tail_phase(dev, smi: str) -> None:
+    """Kernel 10's tail after the saturation exit at 1080p/1M, three
+    populations (hd-1m's draw): the mask pass's words against the plain
+    twin, kernel 10 with the mask (every production call) against its full
+    cull (walked given, the walk before the mask) and the chunk reference
+    gs2d_fwd_chunk over the same rows, bit for bit in colour and T; each
+    patch's exit slot within its run; the same on non-finite rows planted
+    past the exits (planted_tail); the share of listed chunks the tail
+    left unculled; render_flat's launches; then the device time of the
+    forward (kernel 10 and the mask pass apart) against the full cull's and
+    the mask pass's bytes bound (64 B a row of the M rows over HBM_RATE)."""
+    from gs2d_tpu_torch.ops import render_dense as rdn
+    from gs2d_tpu_torch.ops import render_flat as rf
+    from gs2d_tpu_torch.ops import render_resident as rr
+    from gs2d_tpu_torch.ops import tiles_flat as tlf
+
+    t_phase = time.perf_counter()
+    log("[tail] kernel 10 past its saturation exit (the non-finite mask) vs "
+        "its full cull and the chunk reference, 1080p/1M populations")
+    for seed in (0, 1, 2):
+        p, cfg = hd_population(dev, 2600 + seed)
+        m_cap, kc, mc = cfg.flat_capacity, cfg.flat_chunk, cfg.flat_max_chunks
+        b = tlf.bin_splats_flat(p, cfg, m_cap, kc=kc, max_chunks=mc)
+        if int(b.n_dropped):
+            raise AssertionError(f"tail seed {seed}: pairs dropped")
+        n = b.count.clamp(max=mc * kc)
+        per_tile = rr.patches_per_tile(cfg, rr.patch_rows())
+        patches = n.numel() * per_tile
+        fwd_in = (b.rows, b.start, b.count, cfg, kc, mc)
+        exits = torch.full((patches,), -1, dtype=torch.int32, device=dev)
+        walked = torch.full((patches, 2), -1, dtype=torch.int32, device=dev)
+        reset_counts()
+        c_m, t_m = rf._fwd_flat_cuda(*fwd_in, exits=exits)
+        expect_launches(f"tail seed {seed}, kernel 10", read_counts(),
+                        {"fwd_flat": 1, "fwd_flat_mask": 1})
+        c_f, t_f = rf._fwd_flat_cuda(*fwd_in, walked=walked)
+        c_r, t_r = rdn._fwd_chunk_cuda(flat_listed_rows(b, dev), n, cfg)
+        words = rf._nonfinite_mask_cuda(b.rows)
+        torch.cuda.synchronize()
+        same = {"full cull": same_bits(c_m, c_f) and same_bits(t_m, t_f),
+                "chunk reference": (same_bits(c_m, c_r)
+                                    and same_bits(t_m, t_r)),
+                "mask words": torch.equal(
+                    words, rf._nonfinite_mask_plain(b.rows)),
+                "exits within the runs": bool(
+                    ((exits >= 0) & (exits <= n.repeat_interleave(
+                        per_tile))).all())}
+        if not all(same.values()):
+            raise AssertionError(f"tail seed {seed}: {same}")
+        planted = planted_tail(seed, b, cfg, exits, n, per_tile)
+        reset_counts()
+        rf.render_flat(p, cfg)
+        expect_launches(f"tail seed {seed}, render_flat", read_counts(),
+                        {"expand_flat": 1, "fwd_flat": 1, "fwd_flat_mask": 1})
+        share = skipped_share(exits, n, per_tile)
+        frac = float((exits.float() / n.repeat_interleave(per_tile).clamp(
+            min=1)).mean())
+        log(f"  seed {2600 + seed}: tile {cfg.tile_h}x{cfg.tile_w}, M "
+            f"{m_cap}, {int(n.sum())} listed pairs: equal bit for bit "
+            f"(colour, T) to the full cull and the chunk reference; mask "
+            f"words equal the plain twin's ({int((words != 0).sum())} set); "
+            f"exit at slot {float(exits.float().mean()):.1f} of "
+            f"{float(n.float().mean()):.1f} on average ({frac:.4f} of the "
+            f"run), {int((exits == 0).sum())} patches saturated from the "
+            f"start; chunks left unculled {share:.4f}; {planted}")
+    t_m = device_time(lambda: rf._fwd_flat_cuda(*fwd_in), reps=20)
+    t_f = device_time(lambda: rf._fwd_flat_cuda(*fwd_in, walked=walked),
+                      reps=20)
+    t_k = device_time(lambda: rf._nonfinite_mask_cuda(b.rows), reps=20)
+    parts = {("mask pass" if "nonfinite_mask" in name else "kernel 10"):
+             round(v[0], 5) for name, v in t_m["kernels"].items()}
+    bound_ms = 1e3 * 64 * m_cap / HBM_RATE
+    log(f"  the forward, kernel 10 and its mask pass: {device_line(t_m)}; "
+        f"apart (profiler, ms a call) {parts} [{smi}]")
+    log(f"  kernel 10 with its full cull (the walk before the mask): "
+        f"{device_line(t_f)} [{smi}]")
+    log(f"  the mask pass alone: {device_line(t_k)}; its bytes bound "
+        f"{bound_ms:.5f} ms (64 B a row of M = {m_cap} over "
+        f"{HBM_RATE / 1e12:.2f} TB/s), {bound_ms / t_k['device']:.4f} of it; "
+        f"the forward {t_f['device'] / t_m['device']:.2f}x faster than the "
+        f"full cull; the phase {time.perf_counter() - t_phase:.1f}s")
 
 
 @contextlib.contextmanager
@@ -2371,7 +2577,8 @@ def probe_phase() -> dict:
             raise AssertionError(f"{r['workload']}: share "
                                  f"{r['share_published']} of the published "
                                  "ceiling")
-    want = {"l2_resident": 1, "l2_dense": 2, "fwd_flat": 2, "bwd_flat": 2}
+    want = {"l2_resident": 1, "l2_dense": 2, "fwd_flat": 2, "fwd_flat_mask": 2,
+            "bwd_flat": 2}
     # A workload's first call, then device_time's at 10 reps: a warm-up, 10
     # event-timed calls, one on a side stream, 10 captured, and 20 traced
     # in each of one to three attempts at a profiler window.
@@ -2420,7 +2627,8 @@ def fit_1080p_phase(dev, smi: str) -> dict:
                 image, N_100K, smi, ["--checkpoint-every", "200", *extra],
                 runs=1, no_drops=True, keep=out)
             expect_launches(f"1080p flat fit ({name})", launches,
-                            {"fwd_flat": 201, "bwd_flat": 200,
+                            {"fwd_flat": 201, "fwd_flat_mask": 201,
+                             "bwd_flat": 200,
                              "expand_flat": EXPANSIONS[name]})
             log(f"  MSE-255 @ 1 / 50 / 200: {mse[0]:.4f} / {mse[49]:.4f} / "
                 f"{mse[199]:.4f} (no reference trajectory at this size)")
@@ -2734,7 +2942,7 @@ def scan_phase(dev, smi: str, eager_mse: dict, eager: dict,
             ("default, --rebin-margin 2", MINI, 1024, LAZY,
              {"l2_resident": 200, "fwd_resident": 1}, "default"),
             ("10k, --rebin-margin 2", FULL, N_10K, LAZY,
-             {"fwd_flat": 201, "bwd_flat": 200,
+             {"fwd_flat": 201, "fwd_flat_mask": 201, "bwd_flat": 200,
               "expand_flat": EXPANSIONS["scanned"]}, "10k"),
             ("dense default", MINI, 1024, ["--binning", "dense", *SCAN],
              {"l2_dense": 200, "fwd_dense": 1}, "dense"),
@@ -2998,7 +3206,8 @@ def adaptive_phase(dev, smi: str, ssim_mse: dict) -> dict:
     launches, mse, recs, printed = logged_fit(
         argv + ["--densify-every", "100"], iters=300, details=True)
     expect_launches("adaptive 10k fit", launches,
-                    {"fwd_flat": 301, "bwd_flat": 300, "expand_flat": 301})
+                    {"fwd_flat": 301, "fwd_flat_mask": 301, "bwd_flat": 300,
+                     "expand_flat": 301})
     count(launches)
     check_drops("10k fit", recs, printed, every=100)
     log(f"  live splats after each densify: {live_counts(printed)}")
@@ -3247,8 +3456,8 @@ def batched_phase(dev, smi: str, mse_l2: dict) -> dict:
         log(f"  {time.perf_counter() - t0:.2f}s with tuning and capture "
             f"[{smi}]")
         expect_launches("batched adaptive 10k fit", launches,
-                        {"fwd_flat": 602, "bwd_flat": 600,
-                         "expand_flat": 602})
+                        {"fwd_flat": 602, "fwd_flat_mask": 602,
+                         "bwd_flat": 600, "expand_flat": 602})
         count(launches)
         check_drops("batched adaptive fit", recs, printed, every=100)
         live_b = live_counts(printed)
@@ -4185,7 +4394,8 @@ def mesh_phase(dev, smi: str) -> dict:
                            for it, want in TRAJECTORY.items()})
     launches, mse = twins(FULL, N_10K, [], "10k flat")
     expect_launches("--mesh 1,1,1 10k fit", launches,
-                    {"fwd_flat": 200, "bwd_flat": 200, "fwd_dense": 1,
+                    {"fwd_flat": 200, "fwd_flat_mask": 200,
+                     "bwd_flat": 200, "fwd_dense": 1,
                      "expand_flat": 200})
     count(launches)
     check_trajectory(mse, TRAJECTORY_10K)
@@ -4290,8 +4500,8 @@ def large_fit(dev, smi: str, label: str, size, n: int, iters: int,
     peak = torch.cuda.max_memory_allocated()
     launches = read_counts()
     expect_launches(f"{label} fit", launches,
-                    {"fwd_flat": iters, "bwd_flat": iters,
-                     "expand_flat": iters})
+                    {"fwd_flat": iters, "fwd_flat_mask": iters,
+                     "bwd_flat": iters, "expand_flat": iters})
     ignored = [x for x in lines if x.startswith("scan_chunk ignored")]
     if split != bool(ignored) or (ignored and lines[0] != (
             "scan_chunk ignored: flat capacity exceeds the single-program "
@@ -4619,6 +4829,9 @@ def main(argv) -> int:
     if argv == ["--expand"]:
         expand_phase(dev, smi)  # the expansion's phase alone
         return 0
+    if argv == ["--tail"]:
+        tail_phase(dev, smi)  # kernel 10's tail alone
+        return 0
     if argv == ["--mesh-cluster"]:
         # The NCCL clusters alone (several cards), against the world of one.
         log("[mesh] the default fit with --mesh 1,1,1, 20 iterations")
@@ -4666,6 +4879,7 @@ def main(argv) -> int:
     flat_errs, flat_times = compare_flat(dev, smi)
     # Integer-equal to the plain expansion, or expand_phase raises.
     errs["expand_flat"], times["expand_flat"] = 0.0, expand_phase(dev, smi)
+    tail_phase(dev, smi)
     compare_dense_10k(dev, smi)
     errs.update(new_errs)
     errs.update(flat_errs)
@@ -4719,7 +4933,8 @@ def main(argv) -> int:
     dense = ["--binning", "dense"]
     launches, mse, rates = fit_phase(FULL, N_10K, smi, runs=2)
     expect_launches("flat L2 fit", launches,
-                    {"fwd_flat": 201, "bwd_flat": 200, "expand_flat": 201})
+                    {"fwd_flat": 201, "fwd_flat_mask": 201, "bwd_flat": 200,
+                     "expand_flat": 201})
     count(launches)
     check_trajectory(mse, TRAJECTORY_10K)
     log(f"  MSE-255 @ 200: {mse[199]:.4f} (no gate)")
@@ -4792,7 +5007,8 @@ def main(argv) -> int:
 
     launches, mse, _ = fit_phase(FULL, N_10K, smi, ssim, runs=2)
     expect_launches("flat SSIM fit", launches,
-                    {"fwd_flat": 201, "bwd_flat": 200, "expand_flat": 201})
+                    {"fwd_flat": 201, "fwd_flat_mask": 201, "bwd_flat": 200,
+                     "expand_flat": 201})
     count(launches)
     check_trajectory(mse, TRAJECTORY_SSIM_10K)
     log(f"  MSE-255 @ 200: {mse[199]:.4f} (no gate)")

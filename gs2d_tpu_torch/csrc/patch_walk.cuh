@@ -20,7 +20,11 @@
 // as a row source (a template parameter, no branch in the step): TableRun
 // reads the resident table through the tile's ids, DenseRun the dense
 // layout's (n_tiles, K, 16) tile_params, FlatRun the tile's run of
-// pregathered rows.
+// pregathered rows. A FlatRun may also carry the launch's non-finite mask
+// (kMasked, kernel 10): the forward walk then stops culling at its
+// saturation exit and reads the mask for the non-finite rows after it
+// (fwd_tail). TableRun and DenseRun carry none, so their walk is compiled
+// without the tail.
 //
 // Exactness. A culled slot's step adds exact zeros and leaves (C, T, ga)
 // unchanged, as long as its Gaussian term is finite (a finite,
@@ -125,20 +129,26 @@ inline int patch_blocks(const walk::WalkArgs& a, const PatchGrid& g) {
   return a.p.n_tiles_x * a.p.n_tiles_y * g.n_pass * g.bpp;
 }
 
+// The patch's index among the launch's patches, in (tile, pass, warp) order.
+__device__ __forceinline__ size_t patch_index(const Patch& c,
+                                              const PatchGrid& g) {
+  return ((size_t)c.tile * g.n_pass + c.pass) * (g.ngrp * g.ncg) + c.warp;
+}
+
 // Writes a patch's (survivors, survivors walked) into walked (patches, 2),
 // patches in (tile, pass, warp) order, when the caller asked for them.
 __device__ __forceinline__ void record_walk(int* walked, const Patch& c,
                                             const PatchGrid& g, int survivors,
                                             int n_walked) {
   if (walked == nullptr || c.lane != 0) return;
-  const size_t w =
-      ((size_t)c.tile * g.n_pass + c.pass) * (g.ngrp * g.ncg) + c.warp;
+  const size_t w = patch_index(c, g);
   walked[2 * w] = survivors;
   walked[2 * w + 1] = n_walked;
 }
 
 // Row sources: slot k's 16-float row in tile `tile`'s list.
 struct TableRun {  // the resident table through the (n_tiles, K) ids
+  static constexpr bool kMasked = false;
   const float* table;
   const int* ids;
   int k_cap;
@@ -148,6 +158,7 @@ struct TableRun {  // the resident table through the (n_tiles, K) ids
 };
 
 struct DenseRun {  // the (n_tiles, K, 16) tile_params: tile t owns rows t * K..
+  static constexpr bool kMasked = false;
   const float* rows;
   int k_cap;
   __device__ __forceinline__ const float* row(int tile, int k) const {
@@ -156,9 +167,24 @@ struct DenseRun {  // the (n_tiles, K, 16) tile_params: tile t owns rows t * K..
 };
 
 struct FlatRun {  // one tile's run of pregathered rows
+  static constexpr bool kMasked = true;
   const float* run;
+  // Null, or the launch's non-finite mask (render_flat.cu's
+  // nonfinite_mask_kernel: bit j of word w for flat row 32 w + j) from the
+  // word that holds the run's first row, as its bit bit0.
+  const unsigned* mask = nullptr;
+  int bit0 = 0;
   __device__ __forceinline__ const float* row(int, int k) const {
     return run + (size_t)k * kFields;
+  }
+  // Bit j: whether slot k + j is listed (below n) and its row has a
+  // non-finite field; k < n, a multiple of 32. A run that starts inside a
+  // word (kc not a multiple of 32) takes its bits from two.
+  __device__ __forceinline__ unsigned nonfinite(int k, int n) const {
+    const int w = (bit0 + k) >> 5;
+    const unsigned hi = bit0 != 0 && n - k > 32 - bit0 ? mask[w + 1] : 0u;
+    const unsigned bits = __funnelshift_r(mask[w], hi, bit0);
+    return n - k < 32 ? bits & ((1u << (n - k)) - 1u) : bits;
   }
 };
 
@@ -255,6 +281,36 @@ __device__ __forceinline__ void fwd_patch_step(
   }
 }
 
+// The tail of a masked forward walk, from chunk k0 (a multiple of 32) to the
+// run's end, past the saturation exit: fwd_walk's cull walks only the
+// non-finite survivors there, which are the rows the mask flags (a bad row
+// is always kept). A lane reads the word of one chunk, so a load covers
+// 1,024 slots; only a chunk with a flagged listed slot is culled, and its
+// non-finite survivors are walked in slot order: the steps fwd_walk's full
+// cull walks, in the same order.
+template <class Run, class Step>
+__device__ __forceinline__ void fwd_tail(const Run& run, int k0, int n,
+                                         const Patch& c, const RenderArgs& p,
+                                         Step&& step, int& walked) {
+  for (; k0 < n; k0 += 32 * 32) {
+    const int k = k0 + 32 * c.lane;
+    const unsigned word = k < n ? run.nonfinite(k, n) : 0u;
+    unsigned hit = __ballot_sync(0xffffffffu, word != 0u);
+    while (hit) {
+      const int j = __ffs(hit) - 1;
+      hit &= hit - 1;
+      const Slot sl = cull_slot(run, k0 + 32 * j + c.lane, n, c, p);
+      unsigned todo = __ballot_sync(0xffffffffu, sl.bad);
+      while (todo) {
+        const int src = __ffs(todo) - 1;
+        todo &= todo - 1;
+        step(broadcast(sl, src));
+        ++walked;
+      }
+    }
+  }
+}
+
 // The forward walk of the patch over the n listed slots of its tile: the
 // survivors of each 32-slot cull in list order, each broadcast from its
 // lane to the warp and handed to step, which updates the patch's carries
@@ -262,14 +318,32 @@ __device__ __forceinline__ void fwd_patch_step(
 // of the patch keeps T >= min_throughput; after it only the non-finite
 // survivors are walked. Returns that prefix's length (the replay's);
 // survivors and walked get the survivors' count and how many were walked.
+// A run with its mask set (kMasked) culls only up to the exit, or not at
+// all when the patch starts with no pixel at T >= min_throughput, and
+// walks the rest in fwd_tail: the same steps, but survivors then counts
+// only the culls before the exit. exit_slot, when set (kMasked only), gets
+// the number of slots up to the exit's survivor (0 for a patch saturated
+// from the start, n where it never saturates).
 template <class Run, class Step>
 __device__ __forceinline__ int fwd_walk(const Run& run, int n, const Patch& c,
                                         const RenderArgs& p,
                                         const float (&T)[kRows], Step&& step,
-                                        int& survivors, int& walked) {
+                                        int& survivors, int& walked,
+                                        int* exit_slot = nullptr) {
   int n_full = -1;  // set at the saturation exit
   survivors = walked = 0;
-  for (int k0 = 0; k0 < n; k0 += 32) {
+  [[maybe_unused]] int exit_at = n;
+  if constexpr (Run::kMasked) {
+    if (saturated(T, p)) {
+      exit_at = 0;
+      if (run.mask != nullptr) n_full = 0;
+    }
+  }
+  int k0 = 0;
+  for (; k0 < n; k0 += 32) {
+    if constexpr (Run::kMasked) {
+      if (run.mask != nullptr && n_full >= 0) break;  // fwd_tail's
+    }
     const Slot sl = cull_slot(run, k0 + c.lane, n, c, p);
     unsigned todo = __ballot_sync(0xffffffffu, sl.keep);
     const unsigned bad = __ballot_sync(0xffffffffu, sl.bad);
@@ -284,20 +358,27 @@ __device__ __forceinline__ int fwd_walk(const Run& run, int n, const Patch& c,
       if (saturated(T, p)) {
         n_full = walked;
         todo &= bad;
+        if constexpr (Run::kMasked) exit_at = min(exit_at, k0 + src + 1);
       }
     }
+  }
+  if constexpr (Run::kMasked) {
+    if (run.mask != nullptr) fwd_tail(run, k0, n, c, p, step, walked);
+    if (exit_slot != nullptr) *exit_slot = exit_at;
   }
   return n_full >= 0 ? n_full : walked;
 }
 
 // The forward composite of the patch over the n listed slots of its tile
 // (fwd_walk of fwd_patch_step), (cr, cg, cb, T) carried in registers (T
-// starting at 1 inside the image, 0 on padding). Returns fwd_walk's prefix.
+// starting at 1 inside the image, 0 on padding). Returns fwd_walk's prefix;
+// exit_slot as in fwd_walk.
 template <class Run>
 __device__ __forceinline__ int fwd_patch(
     const Run& run, int n, const Patch& c, const RenderArgs& p,
     float (&cr)[kRows], float (&cg)[kRows], float (&cb)[kRows],
-    float (&T)[kRows], int& survivors, int& walked) {
+    float (&T)[kRows], int& survivors, int& walked,
+    int* exit_slot = nullptr) {
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     cr[r] = cg[r] = cb[r] = 0.0f;
@@ -306,7 +387,7 @@ __device__ __forceinline__ int fwd_patch(
   return fwd_walk(
       run, n, c, p, T,
       [&](const Slot& b) { fwd_patch_step(b, c, p, cr, cg, cb, T); },
-      survivors, walked);
+      survivors, walked, exit_slot);
 }
 
 // The forward of kernels 2 and 6/7: fwd_patch, its (C, T) written to color

@@ -7,7 +7,8 @@
 // [start[t], start[t] + count[t]) of one (M, 16) array, of which the
 // kernels take the first min(count[t], max_chunks * kc).
 //
-// Kernel 10, gs2d_fwd_flat: the forward composite (C, T).
+// Kernel 10, gs2d_fwd_flat: the forward composite (C, T), after a pass
+//   that writes the launch's non-finite mask (nonfinite_mask_kernel).
 //   Replaces gs2d_tpu/ops/render_pallas_flat.py::_fwd_flat_kernel
 //   (pallas_call at :366).
 // Kernel 11, gs2d_bwd_flat: the backward replay from a carry-in prefix
@@ -24,7 +25,12 @@
 // 64-row tiles are walked in 32-row passes. Each warp culls the run 32 rows
 // at a time, walks the survivors in run order and stops at its own
 // saturation exit (then walks only non-finite survivors); no shared memory
-// and no block-wide barrier, so kc bounds nothing here. The replay has no
+// and no block-wide barrier, so kc bounds nothing here. After the exit the
+// forward culls no more: the mask pass, one warp per 32 flat rows, sets a
+// bit for each row with a non-finite field (cull_slot's bad), and the
+// warp reads one mask word per 32 slots of the rest of its run (1,024
+// slots a load), culling and walking only a chunk with a listed bit set
+// (patch_walk.cuh's fwd_tail). The replay has no
 // forward beside it: it loads the cotangent and carry-in planes of its
 // patch and finds its exit on its own replayed T; once a pixel's
 // cotangent, ga or T is not finite it walks every later row (0 * NaN).
@@ -55,7 +61,12 @@
 // What bounds them on the card: about 58 f32 operations per live (pixel,
 // pair) forward and 81 backward (scripts/roofline.py), against 64 bytes of
 // row per pair; the patch partials add M x passes x 16 x 36 bytes written
-// and read once (332 MB at 1080p/100k).
+// and read once (332 MB at 1080p/100k). Opaque populations saturate a
+// patch within the first 3-6% of its run (hd-1m), so the forward is
+// bounded by its cull up to the exit, each warp reading and culling those
+// rows, and by the mask pass's reads: all M rows once, 64 bytes a row (229
+// MB, 0.07 ms at 3.35 TB/s, at hd-1m's M of 3,581,184), and M / 8 bytes of
+// mask written.
 
 #include <cuda_runtime.h>
 
@@ -72,18 +83,46 @@ using patch::kRows;
 using patch::Patch;
 using patch::PatchGrid;
 
+// Bit j of mask word w: whether flat row 32 w + j has a non-finite field
+// among kPx..kOp, on cull_slot's loads and isfinite tests (its bad); rows
+// past m_rows are clear. One warp a word, a lane a row; no atomics.
+__global__ void nonfinite_mask_kernel(const float* __restrict__ rows,
+                                      unsigned* __restrict__ mask,
+                                      int m_rows) {
+  const size_t r = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  bool bad = false;
+  if (r < (size_t)m_rows) {
+    const float* row = rows + r * kFields;
+#pragma unroll
+    for (int f = kPx; f <= kOp; ++f) bad |= !isfinite(row[f]);
+  }
+  const unsigned word = __ballot_sync(0xffffffffu, bad);
+  if ((threadIdx.x & 31) == 0 && r < (size_t)m_rows) mask[r >> 5] = word;
+}
+
+// Kernel 10's patch. With mask set (nonfinite_mask_kernel's words) its walk
+// stops culling at the saturation exit (fwd_tail); without, it culls the
+// whole run, as walked's survivor count needs. exits, when set, gets each
+// patch's exit slot (fwd_walk's exit_slot), patches in (tile, pass, warp)
+// order.
 __global__ void __launch_bounds__(kPatchWarps * 32)
 fwd_flat_kernel(const float* __restrict__ rows, const int* __restrict__ start,
                 const int* __restrict__ count, float* __restrict__ color,
                 float* __restrict__ trans, int* __restrict__ walked,
+                const unsigned* __restrict__ mask, int* __restrict__ exits,
                 RenderArgs p, PatchGrid g, int cap) {
   const Patch c = patch::patch_of(p, g);
   if (!c.active) return;
+  const int s0 = start[c.tile];
+  FlatRun run{rows + (size_t)s0 * kFields};
+  if (mask != nullptr) {
+    run.mask = mask + (s0 >> 5);
+    run.bit0 = s0 & 31;
+  }
   float cr[kRows], cg[kRows], cb[kRows], T[kRows];
-  int survivors, n_walked;
-  patch::fwd_patch(FlatRun{rows + (size_t)start[c.tile] * kFields},
-                   min(count[c.tile], cap), c, p, cr, cg, cb, T, survivors,
-                   n_walked);
+  int survivors, n_walked, exit_slot;
+  patch::fwd_patch(run, min(count[c.tile], cap), c, p, cr, cg, cb, T,
+                   survivors, n_walked, &exit_slot);
   const size_t wp = (size_t)p.n_tiles_x * p.tile_w;
   const size_t plane = (size_t)p.n_tiles_y * p.tile_h * wp;
 #pragma unroll
@@ -95,6 +134,9 @@ fwd_flat_kernel(const float* __restrict__ rows, const int* __restrict__ start,
     trans[i] = T[r];
   }
   patch::record_walk(walked, c, g, survivors, n_walked);
+  if (exits != nullptr && c.lane == 0) {
+    exits[patch::patch_index(c, g)] = exit_slot;
+  }
 }
 
 __global__ void __launch_bounds__(kPatchWarps * 32)
@@ -266,19 +308,41 @@ bool flat_args(int height, int width, int tile_h, int tile_w, int n_tiles_x,
 using gs2d::flat::PatchGrid;
 using gs2d::walk::WalkArgs;
 
+namespace {
+
+int launch_nonfinite_mask(const float* rows, unsigned* mask, int m_rows,
+                          cudaStream_t stream) {
+  if (m_rows <= 0) return (int)cudaSuccess;
+  const size_t threads = (size_t)(m_rows + 31) / 32 * 32;
+  gs2d::flat::nonfinite_mask_kernel<<<(unsigned)((threads + 255) / 256), 256,
+                                      0, stream>>>(rows, mask, m_rows);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" {
 
-// Kernel 10. rows is (M, 16), start/count (n_tiles,); color is
-// (3, Hp, Wp), trans (Hp, Wp); walked is null or (patches, 2), patches in
-// (tile, pass, warp) order. A band of tile rows is n_tiles_y rows from
-// image row row_off, its planes (3, n_tiles_y * tile_h, Wp); 0 for the
+// The non-finite mask of the (m_rows, 16) rows: mask gets (m_rows + 31) /
+// 32 words. Returns cudaGetLastError().
+int gs2d_flat_nonfinite_mask(const float* rows, unsigned* mask, int m_rows,
+                             void* stream) {
+  return launch_nonfinite_mask(rows, mask, m_rows, (cudaStream_t)stream);
+}
+
+// Kernel 10. rows is (m_rows, 16), start/count (n_tiles,); color is
+// (3, Hp, Wp), trans (Hp, Wp); walked is null or (patches, 2), exits null or
+// (patches,), patches in (tile, pass, warp) order. mask is null (the whole
+// run culled) or scratch of (m_rows + 31) / 32 words, which the mask pass
+// writes first on the same stream. A band of tile rows is n_tiles_y rows
+// from image row row_off, its planes (3, n_tiles_y * tile_h, Wp); 0 for the
 // whole image. Returns cudaGetLastError().
 int gs2d_fwd_flat(const float* rows, const int* start, const int* count,
-                  float* color, float* trans, int* walked, int height,
-                  int width, int tile_h, int tile_w, int n_tiles_x,
-                  int n_tiles_y, int row_off, int kc, int max_chunks,
-                  float cutoff_sq, float min_throughput, int use_exp_approx,
-                  void* stream) {
+                  float* color, float* trans, int* walked, unsigned* mask,
+                  int* exits, int m_rows, int height, int width, int tile_h,
+                  int tile_w, int n_tiles_x, int n_tiles_y, int row_off,
+                  int kc, int max_chunks, float cutoff_sq,
+                  float min_throughput, int use_exp_approx, void* stream) {
   WalkArgs a;
   PatchGrid g;
   if (!gs2d::flat::flat_args(height, width, tile_h, tile_w, n_tiles_x,
@@ -286,10 +350,15 @@ int gs2d_fwd_flat(const float* rows, const int* start, const int* count,
                              min_throughput, use_exp_approx, &a, &g)) {
     return (int)cudaErrorInvalidValue;
   }
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mask != nullptr) {
+    const int err = launch_nonfinite_mask(rows, mask, m_rows, s);
+    if (err != cudaSuccess) return err;
+  }
   gs2d::flat::fwd_flat_kernel<<<gs2d::patch::patch_blocks(a, g),
-                                gs2d::patch::kPatchWarps * 32, 0,
-                                (cudaStream_t)stream>>>(
-      rows, start, count, color, trans, walked, a.p, g, max_chunks * kc);
+                                gs2d::patch::kPatchWarps * 32, 0, s>>>(
+      rows, start, count, color, trans, walked, mask, exits, a.p, g,
+      max_chunks * kc);
   return (int)cudaGetLastError();
 }
 

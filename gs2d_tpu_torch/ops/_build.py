@@ -47,7 +47,8 @@ SIGNATURES = {
     "gs2d_rows_per_thread": [],
     "gs2d_max_threads": [],
     "gs2d_max_smem_per_block": [],
-    "gs2d_fwd_flat": [_P] * 6 + [_I] * 9 + [_F, _F, _I, _P],
+    "gs2d_fwd_flat": [_P] * 8 + [_I] * 10 + [_F, _F, _I, _P],
+    "gs2d_flat_nonfinite_mask": [_P, _P, _I, _P],
     "gs2d_bwd_flat": [_P] * 14 + [_I] * 11 + [_F, _F, _F, _I, _P],
     "gs2d_fwd_dense": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _P],
     "gs2d_fwd_chunk": [_P] * 4 + [_I] * 9 + [_F, _F, _I, _P],

@@ -21,8 +21,11 @@ launch the CUDA kernels of ``csrc/render_flat.cu`` for CUDA tensors
 (raising if the launch fails) and run the plain PyTorch twins beside them
 (``_fwd_flat_plain`` / ``_bwd_flat_plain``) for CPU tensors. Each wrapper
 adds one to ``launches[<name>]`` where it launches its kernel, and nowhere
-else. ``l2_step_flat`` is the fused train step's flat branch and
-``render_flat`` the final render.
+else. Kernel 10 runs after a pass that marks the rows with a non-finite
+field (``launches["fwd_flat_mask"]``; ``_nonfinite_mask_plain`` is its
+twin), so a warp past its saturation exit reads the mask instead of culling
+the rest of its run. ``l2_step_flat`` is the fused train step's flat branch
+and ``render_flat`` the final render.
 
 ``production_render`` is gs2d_tpu's differentiable render over the three
 production layouts (resident, flat, dense): a ``torch.autograd.Function``
@@ -47,7 +50,7 @@ from gs2d_tpu_torch.params import FIELDS, GaussianParams
 from gs2d_tpu_torch.utils.profiling import span
 
 # Kernel launch counts since the last reset_launch_counts().
-launches = {"fwd_flat": 0, "bwd_flat": 0}
+launches = {"fwd_flat": 0, "fwd_flat_mask": 0, "bwd_flat": 0}
 
 # Tile shapes the CUDA kernels take: what tiles.tune_tile_height returns.
 CUDA_TILE_W = 128
@@ -130,6 +133,21 @@ def _fwd_flat_plain(rows, start, count, cfg: SplatConfig, kc: int,
             rd.from_tiles(T[None], cfg)[0])
 
 
+def _nonfinite_mask_plain(rows) -> torch.Tensor:
+    """Plain twin of the mask pass before kernel 10: (ceil(M / 32),) int32
+    words whose bit j of word w is set iff row 32 w + j of the (M,
+    N_FIELDS) rows has a non-finite field among FIELD_PX..FIELD_OP (the
+    cull's test, FIELD_H included); bits past M are clear."""
+    m = rows.shape[0]
+    words = -(-m // 32)
+    bad = torch.zeros(words * 32, dtype=torch.int64, device=rows.device)
+    fields = rows[:, tl.FIELD_PX: tl.FIELD_OP + 1]
+    bad[:m] = (~torch.isfinite(fields).all(dim=1)).to(torch.int64)
+    bit = torch.arange(32, dtype=torch.int64, device=rows.device)
+    w = (bad.reshape(words, 32) << bit).sum(dim=1)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
 def _bwd_flat_plain(rows, ids, start, count, fin, gc, cin, tin,
                     n_splats: int, cfg: SplatConfig, kc: int,
                     max_chunks: int, band_row0: int = 0, band_rows=None):
@@ -187,27 +205,68 @@ def _check_inputs(cfg: SplatConfig, rows, start, count, kc: int, gy: int,
     return library()
 
 
+def _mask_words(rows) -> torch.Tensor:
+    """Scratch for the mask pass over ``rows``: one int32 word per 32
+    rows, every word written by the pass."""
+    return torch.empty((-(-rows.shape[0] // 32),), dtype=torch.int32,
+                       device=rows.device)
+
+
+def _nonfinite_mask_cuda(rows) -> torch.Tensor:
+    """The mask pass alone (the one ``_fwd_flat_cuda`` runs before kernel
+    10): _nonfinite_mask_plain's words."""
+    lib = library()
+    if rows.ndim != 2 or rows.shape[1] != tl.N_FIELDS \
+            or rows.dtype != torch.float32 or not rows.is_contiguous():
+        raise ValueError(f"rows: need contiguous float32 (M, "
+                         f"{tl.N_FIELDS}), got {tuple(rows.shape)}")
+    mask = _mask_words(rows)
+    check(lib.gs2d_flat_nonfinite_mask(rows.data_ptr(), mask.data_ptr(),
+                                       rows.shape[0], stream(rows)),
+          "fwd_flat_mask kernel launch")
+    launches["fwd_flat_mask"] += 1
+    return mask
+
+
 def _fwd_flat_cuda(rows, start, count, cfg: SplatConfig, kc: int,
                    max_chunks: int, walked=None, band_row0: int = 0,
-                   band_rows=None):
-    """Kernel 10; ``walked`` (patches, 2) int32 gets each warp patch's
-    survivors and survivors walked (render_resident._walked_ptr). Under
-    band arguments (render.py) the planes are the band's rows."""
+                   band_rows=None, exits=None):
+    """Kernel 10, after the mask pass; ``walked`` (patches, 2) int32 gets
+    each warp patch's survivors and survivors walked
+    (render_resident._walked_ptr), for which the kernel culls every run
+    whole and runs no mask pass. ``exits`` (patches,) int32 gets each
+    patch's exit slot: the slots of its run up to the survivor after which
+    no pixel of it keeps T >= min_throughput (0 where none did from the
+    start, the run's length where it never saturates). Under band
+    arguments (render.py) the planes are the band's rows."""
     gy, row_off = rd.band_grid(cfg, band_row0, band_rows)
     lib = _check_inputs(cfg, rows, start, count, kc, gy)
+    dev = rows.device
     hp, wp = gy * cfg.tile_h, cfg.padded_width
-    color = torch.empty((3, hp, wp), dtype=torch.float32, device=rows.device)
-    trans = torch.empty((hp, wp), dtype=torch.float32, device=rows.device)
-    walked_ptr = rr._walked_ptr(walked, cfg, rows.device, gy)
+    color = torch.empty((3, hp, wp), dtype=torch.float32, device=dev)
+    trans = torch.empty((hp, wp), dtype=torch.float32, device=dev)
+    walked_ptr = rr._walked_ptr(walked, cfg, dev, gy)
+    if exits is not None:
+        shape = (cfg.n_tiles_x * gy
+                 * rr.patches_per_tile(cfg, rr.patch_rows()),)
+        if (tuple(exits.shape) != shape or exits.dtype != torch.int32
+                or not exits.is_contiguous() or exits.device != dev):
+            raise ValueError(f"exits: need contiguous int32 {shape} on "
+                             f"{dev}")
+    mask = _mask_words(rows) if walked is None else None
     with span("gs2d.fwd_flat"):
         err = lib.gs2d_fwd_flat(
             rows.data_ptr(), start.data_ptr(), count.data_ptr(),
-            color.data_ptr(), trans.data_ptr(), walked_ptr, cfg.height,
-            cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, gy, row_off,
-            kc, max_chunks, cfg.cutoff_sq, cfg.min_throughput,
+            color.data_ptr(), trans.data_ptr(), walked_ptr,
+            0 if mask is None else mask.data_ptr(),
+            0 if exits is None else exits.data_ptr(), rows.shape[0],
+            cfg.height, cfg.width, cfg.tile_h, cfg.tile_w, cfg.n_tiles_x, gy,
+            row_off, kc, max_chunks, cfg.cutoff_sq, cfg.min_throughput,
             int(cfg.use_exp_approx), stream(rows))
     check(err, "fwd_flat kernel launch")
     launches["fwd_flat"] += 1
+    if mask is not None:
+        launches["fwd_flat_mask"] += 1
     return color, trans
 
 

@@ -1242,7 +1242,8 @@ def test_captured_fit_equals_eager(dev, binning, margin):
     for a, b in zip(loop.state_leaves(s_g), loop.state_leaves(s_e)):
         assert torch.equal(a, b)
     grown = {k: counts[k] - before[k] for k in counts}
-    want = ({"fwd_flat": 12, "bwd_flat": 12} if binning == "flat"
+    want = ({"fwd_flat": 12, "fwd_flat_mask": 12, "bwd_flat": 12}
+            if binning == "flat"
             else {"l2_resident": 12, "fwd_resident": 0, "bwd_resident": 0})
     assert grown == want
     if margin == 0.25:
@@ -1892,3 +1893,202 @@ def test_captured_two_band_mesh_equals_the_plain_expansions(dev,
         for f in ("mse", "n_dropped"):
             assert same_bits(torch.as_tensor(getattr(a_k[c], f)),
                              torch.as_tensor(getattr(a_p[c], f))), f
+
+
+# ---------------------------------------------------------------------------
+# Kernel 10's tail after the saturation exit: the non-finite mask pass and
+# the walk that reads it, against the full cull (walked given) and the chunk
+# reference, on 1080p/1M populations.
+# ---------------------------------------------------------------------------
+
+TAIL_SEED = 2600
+
+
+def hd_flat(dev, tile_h, seed=TAIL_SEED):
+    """A 1080p/1M population (hd_population) with its flat statics tuned
+    at tile height ``tile_h``, and its flat binning."""
+    p, cfg = hd_population(dev, seed)
+    if cfg.tile_h != tile_h:
+        cfg = rf.tune_flat_config(p, cfg.replace(tile_h=tile_h))
+    b = tlf.bin_splats_flat(p, cfg, cfg.flat_capacity, kc=cfg.flat_chunk,
+                            max_chunks=cfg.flat_max_chunks)
+    assert int(b.n_dropped) == 0
+    return p, cfg, b
+
+
+def patch_count(cfg, gy=None):
+    return cfg.n_tiles_x * (gy or cfg.n_tiles_y) * rr.patches_per_tile(
+        cfg, rr.patch_rows())
+
+
+def kernel_10_both_ways(rows, b, cfg, **band):
+    """Kernel 10 with the mask (walked None; its exits) and with the full
+    cull (walked given): ((colour, T, exits), (colour, T, walked))."""
+    kc, mc = cfg.flat_chunk, cfg.flat_max_chunks
+    gy = band.get("band_rows")
+    exits = torch.full((patch_count(cfg, gy),), -1, dtype=torch.int32,
+                       device=rows.device)
+    walked = torch.full((patch_count(cfg, gy), 2), -1, dtype=torch.int32,
+                        device=rows.device)
+    before = dict(rf.launches)
+    c_m, t_m = rf._fwd_flat_cuda(rows, b.start, b.count, cfg, kc, mc,
+                                 exits=exits, **band)
+    c_f, t_f = rf._fwd_flat_cuda(rows, b.start, b.count, cfg, kc, mc,
+                                 walked=walked, **band)
+    torch.cuda.synchronize()
+    assert rf.launches["fwd_flat"] == before["fwd_flat"] + 2
+    assert rf.launches["fwd_flat_mask"] == before["fwd_flat_mask"] + 1
+    return (c_m, t_m, exits), (c_f, t_f, walked)
+
+
+def run_lengths(b, cfg):
+    """(n_tiles,) listed slots of each run: count capped at max_chunks * kc."""
+    return b.count.clamp(max=cfg.flat_max_chunks * cfg.flat_chunk)
+
+
+@pytest.mark.parametrize("case", ["hd1m", "ragged"])
+def test_nonfinite_mask_kernel_equals_its_twin(dev, case):
+    """The mask pass's words equal _nonfinite_mask_plain's bit for bit: on
+    the rows of a 1080p/1M binning with non-finite values planted in every
+    field, and on 1,000 random rows (M not a multiple of 32, the last word
+    ragged)."""
+    gen = torch.Generator(dev).manual_seed(TAIL_SEED + len(case))
+    if case == "hd1m":
+        rows = hd_flat(dev, 64)[2].rows.clone()
+    else:
+        rows = torch.randn((1000, tl.N_FIELDS), generator=gen, device=dev)
+    m = rows.shape[0]
+    at = torch.randint(0, m, (64,), generator=gen, device=dev)
+    for i in range(64):
+        rows[at[i], i % tl.N_FIELDS] = (float("nan"), float("inf"),
+                                        -float("inf"))[i % 3]
+    rows[m - 1, tl.FIELD_CB] = float("nan")
+    before = rf.launches["fwd_flat_mask"]
+    got = rf._nonfinite_mask_cuda(rows)
+    want = rf._nonfinite_mask_plain(rows)
+    assert rf.launches["fwd_flat_mask"] == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert int((want != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("tile_h", [32, 64])
+def test_kernel_10_tail_equals_full_cull_and_chain(dev, tile_h):
+    """On a seeded 1080p/1M population kernel 10 with the mask (every
+    production call) equals, bit for bit in colour and T, its full cull
+    (walked given, the walk before the mask) and the chunk reference
+    gs2d_fwd_chunk over the same rows; each patch's exit slot lies within
+    its run, and nearly every patch exits before its run's end."""
+    p, cfg, b = hd_flat(dev, tile_h)
+    (c_m, t_m, exits), (c_f, t_f, walked) = kernel_10_both_ways(b.rows, b,
+                                                                cfg)
+    tp = flat_listed_rows(b, dev)
+    c_r, t_r = rdn._fwd_chunk_cuda(tp, run_lengths(b, cfg), cfg)
+    torch.cuda.synchronize()
+    for got, want in ((c_m, c_f), (t_m, t_f), (c_m, c_r), (t_m, t_r)):
+        assert same_bits(got, want)
+    n = run_lengths(b, cfg).repeat_interleave(
+        rr.patches_per_tile(cfg, rr.patch_rows()))
+    assert bool(((exits >= 0) & (exits <= n)).all())
+    assert float((exits < n).float().mean()) > 0.9
+    assert bool((walked[:, 1] <= walked[:, 0]).all())
+
+
+def plant_slots(case, exits, n, start, cfg):
+    """(tile, [slots]) of a planted case, from the unplanted run's exit
+    slots (n_tiles, patches) and run lengths n (n_tiles,)."""
+    first, last = exits.min(dim=1).values, exits.max(dim=1).values
+    if case == "padding-patch":
+        # The bottom tile row's patches below the image start saturated.
+        t = (cfg.n_tiles_y - 1) * cfg.n_tiles_x
+        assert int(first[t]) == 0
+        return t, [int(n[t]) // 2]
+    if case == "before-exit":
+        t = int(torch.argmax(torch.where(first > 0, n, 0)))
+        return t, [int(first[t]) - 1]
+    room = torch.where(last + 100 < n, n, 0)
+    t = int(torch.argmax(room))
+    assert int(room[t]) > 0
+    k = (int(last[t]) + 64) // 32 * 32  # a chunk wholly after every exit
+    if case == "after-exit-mid-chunk":
+        return t, [k + 11, k + 17]
+    if case == "alone-in-word":
+        return t, [k + 5]
+    if case == "word-boundary":
+        s = int(start[t])
+        k += 31 - (s + k) % 32  # flat rows 32 w + 31 and 32 (w + 1)
+        return t, [k, k + 1]
+    assert case == "last-listed-row"
+    return t, [int(n[t]) - 1]
+
+
+PLANT_CASES = ["before-exit", "after-exit-mid-chunk", "last-listed-row",
+               "alone-in-word", "word-boundary", "padding-patch"]
+
+
+@pytest.mark.parametrize("field", ["colour", "opacity"])
+@pytest.mark.parametrize("tile_h", [32, 64])
+@pytest.mark.parametrize("case", PLANT_CASES)
+def test_kernel_10_tail_walks_planted_non_finite_rows(dev, case, tile_h,
+                                                      field):
+    """A 1080p/1M population with non-finite rows planted before every
+    patch's exit, after it (two in one chunk, one alone in its word, two
+    across a word boundary, the run's last listed row) and in a tile whose
+    bottom patches lie below the image (saturated from the start): kernel
+    10 with the mask equals its full cull bit for bit (NaN masks equal). A
+    NaN red channel is walked by every patch of its tile (0 * NaN where the
+    step is not live), so the tile's red plane is NaN throughout; a NaN
+    opacity adds nothing past an exit, so the chunk reference, which stops
+    at its passes' exits, agrees as well."""
+    p, cfg, b = hd_flat(dev, tile_h)
+    n = run_lengths(b, cfg)
+    (_, _, exits), _ = kernel_10_both_ways(b.rows, b, cfg)
+    per_tile = rr.patches_per_tile(cfg, rr.patch_rows())
+    t, slots = plant_slots(case, exits.reshape(-1, per_tile), n, b.start,
+                           cfg)
+    rows = b.rows.clone()
+    f = tl.FIELD_CR if field == "colour" else tl.FIELD_OP
+    for k in slots:
+        assert 0 <= k < int(n[t])
+        rows[int(b.start[t]) + k, f] = float("nan")
+    (c_m, t_m, _), (c_f, t_f, _) = kernel_10_both_ways(rows, b, cfg)
+    assert same_bits(c_m, c_f) and same_bits(t_m, t_f)
+    tiles = rd.to_tiles(c_m, cfg)
+    if field == "colour":
+        assert bool(torch.isnan(tiles[0, t]).all())
+        assert int(torch.isnan(c_m[0]).sum()) == cfg.tile_h * cfg.tile_w
+        assert bool(torch.isfinite(c_m[1:]).all())
+    else:
+        c_r, t_r = rdn._fwd_chunk_cuda(
+            flat_listed_rows(b._replace(rows=rows), dev), n, cfg)
+        assert same_bits(c_m, c_r) and same_bits(t_m, t_r)
+
+
+@pytest.mark.parametrize("band", [(8, 4), (13, 4)])
+def test_kernel_10_tail_in_a_band(dev, band):
+    """A band of tile rows (row_off > 0; the second holds the patches
+    below the image): kernel 10 with the mask equals its full cull and the
+    unbanded frame's rows bit for bit, with a NaN red channel planted
+    after the exits of one of the band's tiles."""
+    p, cfg, b = hd_flat(dev, 64)
+    r0, nr = band
+    assert r0 + nr == cfg.n_tiles_y or band == (8, 4)
+    kw = dict(band_row0=r0, band_rows=nr)
+    bb = tlf.bin_splats_flat(p, cfg, cfg.flat_capacity, kc=cfg.flat_chunk,
+                             max_chunks=cfg.flat_max_chunks, **kw)
+    assert int(bb.n_dropped) == 0
+    (c_m, t_m, exits), (c_f, t_f, _) = kernel_10_both_ways(bb.rows, bb, cfg,
+                                                           **kw)
+    c_u, t_u = rf._fwd_flat_cuda(b.rows, b.start, b.count, cfg,
+                                 cfg.flat_chunk, cfg.flat_max_chunks)
+    rows_px = slice(r0 * cfg.tile_h, (r0 + nr) * cfg.tile_h)
+    assert same_bits(c_m, c_f) and same_bits(t_m, t_f)
+    assert same_bits(c_m, c_u[:, rows_px]) and same_bits(t_m, t_u[rows_px])
+    n = run_lengths(bb, cfg)
+    per_tile = rr.patches_per_tile(cfg, rr.patch_rows())
+    t, slots = plant_slots("alone-in-word", exits.reshape(-1, per_tile), n,
+                           bb.start, cfg)
+    rows = bb.rows.clone()
+    rows[int(bb.start[t]) + slots[0], tl.FIELD_CR] = float("nan")
+    (c_m, t_m, _), (c_f, t_f, _) = kernel_10_both_ways(rows, bb, cfg, **kw)
+    assert same_bits(c_m, c_f) and same_bits(t_m, t_f)
+    assert int(torch.isnan(c_m[0]).sum()) == cfg.tile_h * cfg.tile_w

@@ -450,3 +450,105 @@ def test_emission_schedule_equals_the_plain_twin(rng, case_name):
         assert got[2] == int(want[2])
     if case_name == "overflow":
         assert int(want[2]) > 0
+
+
+# ---- the non-finite mask before kernel 10 (its plain twin) -----------------
+
+FLAT_SOURCE = os.path.join(REPO, "gs2d_tpu_torch", "csrc", "render_flat.cu")
+WALK_SOURCE = os.path.join(REPO, "gs2d_tpu_torch", "csrc", "patch_walk.cuh")
+# The fields the cull tests for finiteness (cull_slot: kPx..kOp, kH among
+# them), and the others.
+CULLED_FIELDS = list(range(ttl.FIELD_PX, ttl.FIELD_OP + 1))
+OTHER_FIELDS = list(range(ttl.FIELD_OP + 1, ttl.N_FIELDS))
+
+
+def mask_bits(words, m):
+    """The first m bits of int32 mask words, row order."""
+    w = [int(x) & 0xFFFFFFFF for x in words.tolist()]
+    return [(w[r // 32] >> (r % 32)) & 1 for r in range(m)]
+
+
+def benign_rows(m):
+    return ttl.pad_row("cpu").repeat(m, 1)
+
+
+def test_nonfinite_mask_words_hold_the_rows_in_order(rng):
+    """Bit j of word w is row 32 w + j's flag, on seeded rows with
+    non-finite values planted at random rows and culled fields."""
+    rows = torch.from_numpy(rng.normal(size=(320, ttl.N_FIELDS))
+                            .astype(np.float32))
+    hit = rng.choice(320, 48, replace=False)
+    for i, r in enumerate(hit):
+        rows[r, CULLED_FIELDS[i % 10]] = (np.nan, np.inf, -np.inf)[i % 3]
+    words = trf._nonfinite_mask_plain(rows)
+    assert words.dtype == torch.int32 and tuple(words.shape) == (10,)
+    assert mask_bits(words, 320) == [int(r in set(hit.tolist()))
+                                     for r in range(320)]
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf],
+                         ids=["nan", "inf", "-inf"])
+@pytest.mark.parametrize("field", CULLED_FIELDS)
+def test_nonfinite_mask_flags_each_culled_field(field, value):
+    """A NaN, +inf or -inf in any field the cull tests flags that row and
+    no other: cull_slot's bad, FIELD_H included (its loop runs kPx..kOp)."""
+    rows = benign_rows(64)
+    rows[37, field] = float(value)
+    assert trf._nonfinite_mask_plain(rows).tolist() == [0, 1 << 5]
+
+
+@pytest.mark.parametrize("field", OTHER_FIELDS)
+def test_nonfinite_mask_ignores_the_other_fields(field):
+    """Non-finite values past FIELD_OP (the scales, rotation and validity
+    fields, which the walk never reads) leave the row unflagged."""
+    rows = benign_rows(64)
+    rows[3, field] = float("nan")
+    rows[40, field] = float("inf")
+    assert trf._nonfinite_mask_plain(rows).tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("m", [1, 16, 31, 32, 33, 70])
+def test_nonfinite_mask_ragged_last_word(m):
+    """ceil(M / 32) words; the bits past M are clear when every row is
+    flagged."""
+    rows = benign_rows(m)
+    rows[:, ttl.FIELD_CR] = float("nan")
+    words = trf._nonfinite_mask_plain(rows)
+    assert tuple(words.shape) == (-(-m // 32),)
+    w = [int(x) & 0xFFFFFFFF for x in words.tolist()]
+    assert w[:-1] == [0xFFFFFFFF] * (len(w) - 1)
+    assert w[-1] == (1 << (m - 32 * (len(w) - 1))) - 1
+
+
+def test_nonfinite_mask_is_the_culls_test_in_the_source():
+    """The mask kernel tests the rows as cull_slot does: the same loop over
+    kPx..kOp with the same isfinite."""
+    loop = "for (int f = kPx; f <= kOp; ++f)"
+    mask_src = open(FLAT_SOURCE).read()
+    body = mask_src[mask_src.index("nonfinite_mask_kernel("):]
+    walk_src = open(WALK_SOURCE).read()
+    cull = walk_src[walk_src.index("Slot cull_slot("):]
+    assert f"{loop} bad |= !isfinite(row[f]);" in body[:body.index("}\n")]
+    assert f"{loop} sl.bad |= !isfinite(row[f]);" in cull[:cull.index("}\n")]
+
+
+@pytest.mark.parametrize("name", ["gs2d_fwd_flat",
+                                  "gs2d_flat_nonfinite_mask"])
+def test_kernel_10_entry_points_are_in_the_source(name):
+    """Kernel 10's and the mask pass's SIGNATURES entries are C entry points
+    of csrc/render_flat.cu with as many parameters as ctypes passes."""
+    from gs2d_tpu_torch.ops import _build
+
+    src = open(FLAT_SOURCE).read()
+    head = src.index(f"int {name}(")
+    params = src[head:src.index(")", head)].split("(", 1)[1]
+    assert len(params.split(",")) == len(_build.SIGNATURES[name])
+
+
+def test_mask_counter_is_a_launch_counter():
+    """The mask pass counts in render_flat.launches, one of
+    train/graphs.launch_counters, so captured replays add it."""
+    from gs2d_tpu_torch.train import graphs
+
+    assert "fwd_flat_mask" in trf.launches
+    assert any(c is trf.launches for c in graphs.launch_counters())

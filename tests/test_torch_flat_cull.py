@@ -247,6 +247,68 @@ def test_patch_walk_is_the_plain_walk_bit_for_bit(kind, tile_h, kc):
         assert int(walked_fwd.sum()) < int(keep.sum())
 
 
+# ---- the tail of kernel 10's walk after its saturation exit ----------------
+
+def tail_slots(words, s, n, k0):
+    """The slots fwd_tail (csrc/patch_walk.cuh) walks in a run of n slots
+    from flat row s, from chunk k0 on: each chunk's word of the int32 mask
+    words as FlatRun::nonfinite forms it (two words where the run starts
+    inside one, its unlisted bits cleared), and for a chunk whose word is
+    not 0 the chunk's slots with a non-finite field, in slot order. The
+    caller's ``bad`` (M,) decides those; the word only picks the chunk."""
+    w32 = [int(x) & 0xFFFFFFFF for x in words.tolist()]
+    base, bit0 = s // 32, s % 32
+    chunks = []
+    for k in range(k0, n, 32):
+        w = base + (bit0 + k) // 32
+        hi = w32[w + 1] if bit0 and n - k > 32 - bit0 else 0
+        bits = ((hi << 32 | w32[w]) >> bit0) & 0xFFFFFFFF
+        if n - k < 32:
+            bits &= (1 << (n - k)) - 1
+        if bits:
+            chunks.append(k)
+    return chunks
+
+
+@pytest.mark.parametrize("kc", [16, 32, 64])
+def test_masked_tail_walks_the_culls_non_finite_survivors(kc):
+    """After a warp's exit the full cull walks the survivors that hold a
+    non-finite field; the tail reads the mask words instead. For every
+    tile and every chunk start, the chunks whose word is set hold every
+    listed non-finite slot from there on, so the tail walks exactly those
+    slots in order; and every such slot is a survivor of every patch, so
+    they are the full cull's after the exit. kc 16 starts runs inside a
+    word."""
+    _, cfg, b = flat("random", 7 + kc, 400, 32, kc)
+    rows = b.rows.clone()
+    rng = np.random.default_rng(kc)
+    listed = torch.nonzero(b.ids >= 0)[:, 0].numpy()
+    for i, r in enumerate(rng.choice(listed, 40, replace=False)):
+        rows[r, i % (tl.FIELD_OP + 1)] = (np.nan, np.inf, -np.inf)[i % 3]
+    for r in rng.choice(listed, 10, replace=False):  # fields never read
+        rows[r, tl.FIELD_SX + int(r) % 6] = np.nan
+    bad = ~torch.isfinite(rows[:, : tl.FIELD_OP + 1]).all(dim=1)
+    words = rf._nonfinite_mask_plain(rows)
+    mc = cfg.flat_max_chunks
+    count = b.count.clamp(max=mc * kc)
+    starts = [int(x) for x in b.start]
+    assert any(s % 32 for s in starts) == (kc % 32 != 0)
+    for t, (s, n) in enumerate(zip(starts, count.tolist())):
+        run_bad = [k for k in range(n) if bool(bad[s + k])]
+        for k0 in range(0, n, 32):
+            walked = [k for c in tail_slots(words, s, n, k0)
+                      for k in range(c, min(c + 32, n)) if bool(bad[s + k])]
+            assert walked == [k for k in run_bad if k >= k0], (t, k0)
+    keep = rr.listed_cover_mask(
+        flat_listed_rows(b._replace(rows=rows, count=count), "cpu"), count,
+        cfg, ROWS)
+    k = torch.arange(keep.shape[-1])
+    row = (b.start[:, None] + k).clamp(max=rows.shape[0] - 1)
+    slot_bad = bad[row] & (k < count[:, None])
+    assert int(slot_bad.sum()) > 0
+    assert bool(keep[slot_bad[:, None, :].expand_as(keep)].all())
+
+
 # ---- the splat sum over each splat's tile box ------------------------------
 
 def box_segment_sum(ids, start, count, moments, p, cfg):
